@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""Smoke-check the ns_tpu_torch port end to end on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repo root, on a machine with a
+                                 # CUDA GPU, PyTorch for CUDA and nvcc
+
+Phases (any failure exits non-zero, and no result line is printed):
+  1. device  — require CUDA; print the card's name and power limit
+  2. build   — compile the hand-written kernels from ns_tpu_torch/csrc
+  3. kernels — each kernel against its plain torch twin on the card at the
+               main path's shapes, float32 and float64, with its time beside
+               the twin's (measured in turns: twin, kernel, kernel, twin)
+  4. main    — the FD cavity pipeline through the port's CLI entry point
+               (direct_fd and chorin_fd at the reference sizes, explicit
+               chorin_fd at 1024^2); launch counters are zeroed just before
+               and read just after, and every kernel must have launched
+  5. fidelity — float64 rollouts on the card against the committed goldens
+The line before the last is {"kernels": [...]} with each kernel's route,
+source, the TPU kernel it replaces, its launches on the main path, its
+largest float64 error against its twin and its time beside the twin's;
+the last is {"ok": true, "device": {...}}.
+
+Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
+FMA, so the kernel is not bitwise equal to its twin); float32 <= 1e-4
+relative to the field's max; runs stopped by a converged gate may stop a
+sweep apart, so they get 1e-4 abs (float64) and 1e-3 relative (float32).
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
+GOLDEN = os.path.join(ROOT, "tests", "golden")
+
+
+def fail(msg: str):
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def require(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+# --- phase 1 -----------------------------------------------------------------
+
+def phase_device() -> str:
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0 and smi.stdout.strip(),
+            f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; device 0: "
+          f"{torch.cuda.get_device_name(0)}; {torch.cuda.device_count()} "
+          "device(s)")
+    return card
+
+
+# --- phase 2 -----------------------------------------------------------------
+
+def phase_build():
+    from ns_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    path = _build.build_library()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> "
+          f"{os.path.relpath(path, ROOT)}")
+
+
+# --- phase 3 -----------------------------------------------------------------
+
+def time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def paired_ms(kernel, twin, reps_k: int, reps_t: int):
+    """(kernel ms, twin ms), measured in turns twin, kernel, kernel, twin."""
+    t1 = time_ms(twin, reps_t)
+    k1 = time_ms(kernel, reps_k)
+    k2 = time_ms(kernel, reps_k)
+    t2 = time_ms(twin, reps_t)
+    return (k1 + k2) / 2, (t1 + t2) / 2
+
+
+class Results:
+    """Comparison errors and times per kernel."""
+
+    def __init__(self):
+        self.err64, self.rel32, self.ms, self.plain_ms = {}, {}, {}, {}
+
+    def compare(self, name, label, got, want, dtype, converged=False):
+        got, want = list(got), list(want)
+        worst_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(1.0, max(float(w.abs().max()) for w in want))
+        ok_finite = all(bool(torch.isfinite(g).all()) for g in got)
+        if dtype == torch.float64:
+            bound = 1e-4 if converged else 1e-10
+            ok = worst_abs <= bound
+            self.err64[name] = max(self.err64.get(name, 0.0), worst_abs)
+            what = f"max_abs {worst_abs:.3e} (bound {bound:g})"
+        else:
+            bound = 1e-3 if converged else 1e-4
+            rel = worst_abs / scale
+            ok = rel <= bound
+            self.rel32[name] = max(self.rel32.get(name, 0.0), rel)
+            what = f"max_rel {rel:.3e} (bound {bound:g})"
+        print(f"  {name:26s} {label:44s} {what} "
+              f"{'ok' if ok and ok_finite else 'MISMATCH'}")
+        require(ok and ok_finite, f"{name} {label} disagrees with its twin")
+
+
+def phase_kernels(res: Results, dev):
+    from ns_tpu_torch.core.bc import apply_bcs, dirichlet, neumann
+    from ns_tpu_torch.ops import kernels, poisson
+
+    gen = torch.Generator().manual_seed(1234)
+
+    def rand(nx, ny, dtype, scale=1.0):
+        return (scale * torch.randn((nx, ny), generator=gen,
+                                    dtype=torch.float64)).to(dev, dtype)
+
+    def cavity_p_bc(dx, dy):
+        return [dirichlet(0, "top"), neumann(0, "bottom", dx, dy),
+                neumann(0, "left", dx, dy), neumann(0, "right", dx, dy)]
+
+    def launched(fn, call):
+        n0 = fn.launches
+        out = call()
+        torch.cuda.synchronize()
+        require(fn.launches > n0, f"{fn.__name__} did not launch")
+        return out
+
+    dtypes = (torch.float32, torch.float64)
+    print("phase 3: kernels against their plain twins")
+
+    # K2: direct_fd pressure, 50^2, nit=50, cavity p BCs
+    nx = 50
+    h = 2.0 / (nx - 1)
+    bcs = cavity_p_bc(h, h)
+    for dt_ in dtypes:
+        p0, b = rand(nx, nx, dt_), rand(nx, nx, dt_, 10.0)
+        k = lambda: kernels.jacobi_fused(p0, b, h, h, 50, bcs)
+        t = lambda: poisson.jacobi(p0, b, h, h, 50,
+                                   bc_fn=lambda q: apply_bcs(q, bcs))
+        res.compare("jacobi_fused", f"50x50 nit=50 {dt_}",
+                    [launched(kernels.jacobi_fused, k)], [t()], dt_)
+
+    # K1: chorin_fd pressure, 51^2, nit=200, tol 5e-6 and 0
+    nx = 51
+    h = 2.0 / (nx - 1)
+    for dt_ in dtypes:
+        for tol in (0.0, 5e-6):
+            p0, c = rand(nx, nx, dt_), rand(nx, nx, dt_, h * h)
+            k = lambda: kernels.sor_redblack_fused(p0, c, h, h, 1.25, tol,
+                                                   200)
+            t = lambda: poisson.sor_redblack(p0, c, h, h, 1.25, tol, 200)
+            res.compare("sor_redblack_fused", f"51x51 nit=200 tol={tol:g} "
+                        f"{dt_}", [launched(kernels.sor_redblack_fused, k)],
+                        [t()], dt_, converged=tol > 0)
+
+    # K5: large-grid SOR, 1024^2 and odd 1025^2, tol=0 and cap 8m+1 so that
+    # kernel and twin stop at the same sweep
+    for nx, m in ((1024, 25), (1025, 3)):
+        h = 2.0 / (nx - 1)
+        for dt_ in dtypes:
+            p0, c = rand(nx, nx, dt_), rand(nx, nx, dt_, h * h)
+            k = lambda: kernels.sor_redblack_multiblock(p0, c, h, h, 1.25,
+                                                        0.0, 8 * m + 1)
+            t = lambda: kernels.sor_redblack_tiled(p0, c, h, h, 1.25, 0.0,
+                                                   8 * m + 1)
+            res.compare("sor_redblack_multiblock", f"{nx}x{nx} cap={8 * m + 1}"
+                        f" {dt_}", [launched(kernels.sor_redblack_multiblock,
+                                             k)], [t()], dt_)
+
+    # K3: explicit predictor, 51^2 and 1024^2, quirk on/off, plus Neumann
+    cav_u = [dirichlet(0, "left"), dirichlet(1, "right"), dirichlet(0, "top"),
+             dirichlet(0, "bottom")]
+    cav_v = [dirichlet(0, s) for s in ("left", "right", "top", "bottom")]
+    for nx in (51, 1024):
+        h = 2.0 / (nx - 1)
+        neu_u = [neumann(0.5, "left", h, h), dirichlet(1, "right"),
+                 neumann(-0.25, "top", h, h), dirichlet(0, "bottom")]
+        neu_v = [neumann(0, "bottom", h, h), dirichlet(0, "top"),
+                 dirichlet(0, "left"), neumann(-1.0, "right", h, h)]
+        for dt_ in dtypes:
+            f = [rand(nx, nx, dt_) for _ in range(4)]
+            for quirk, ub, vb, tag in ((True, cav_u, cav_v, "cavity"),
+                                       (False, cav_u, cav_v, "cavity"),
+                                       (True, neu_u, neu_v, "neumann")):
+                args = (*f, 1e-3, h, h, 0.1, ub, vb, quirk)
+                k = lambda: kernels.momentum_explicit_fused(*args)
+                t = lambda: kernels.momentum_explicit(*args)
+                res.compare("momentum_explicit_fused",
+                            f"{nx}x{nx} quirk={quirk} {tag} {dt_}",
+                            launched(kernels.momentum_explicit_fused, k), t(),
+                            dt_)
+
+    # times at the main path's shapes in float32 (the CLI's default dtype);
+    # the converged-gate SOR cases are compared too, with the looser bound
+    print("  times (kernel vs plain twin, ms per call, float32):")
+    f32 = torch.float32
+    h = 2.0 / 49
+    p0, b = rand(50, 50, f32), rand(50, 50, f32, 10.0)
+    bcs = cavity_p_bc(h, h)
+    timed = [("jacobi_fused", "50x50 nit=50", 200, 10,
+              lambda: kernels.jacobi_fused(p0, b, h, h, 50, bcs),
+              lambda: poisson.jacobi(p0, b, h, h, 50,
+                                     bc_fn=lambda q: apply_bcs(q, bcs)))]
+    h1 = 2.0 / 50
+    q1, c1 = rand(51, 51, f32), rand(51, 51, f32, h1 * h1)
+    timed.append(("sor_redblack_fused", "51x51 nit=200 tol=5e-06", 20, 2,
+                  lambda: kernels.sor_redblack_fused(q1, c1, h1, h1, 1.25,
+                                                     5e-6, 200),
+                  lambda: poisson.sor_redblack(q1, c1, h1, h1, 1.25, 5e-6,
+                                               200)))
+    hk = 2.0 / 1023
+    qk, ck = rand(1024, 1024, f32), rand(1024, 1024, f32, hk * hk)
+    timed.append(("sor_redblack_multiblock", "1024x1024 nit=200 tol=5e-06",
+                  3, 2,
+                  lambda: kernels.sor_redblack_multiblock(qk, ck, hk, hk,
+                                                          1.25, 5e-6, 200),
+                  lambda: kernels.sor_redblack_tiled(qk, ck, hk, hk, 1.25,
+                                                     5e-6, 200)))
+    for nx in (51, 1024):
+        hm = 2.0 / (nx - 1)
+        fm = [rand(nx, nx, f32) for _ in range(4)]
+        margs = (*fm, 1e-5, hm, hm, 0.01, cav_u, cav_v, True)
+        timed.append(("momentum_explicit_fused", f"{nx}x{nx}", 100, 20,
+                      lambda a=margs: kernels.momentum_explicit_fused(*a),
+                      lambda a=margs: kernels.momentum_explicit(*a)))
+    for name, label, reps_k, reps_t, k, t in timed:
+        if "sor" in name:
+            res.compare(name, f"{label} float32", [k()], [t()], f32,
+                        converged=True)
+        ms, plain = paired_ms(k, t, reps_k, reps_t)
+        # the last shape of each kernel is its main-path entry in the report
+        res.ms[name], res.plain_ms[name] = ms, plain
+        print(f"  {name:26s} {label:30s} kernel {ms:.4f} ms  twin "
+              f"{plain:.4f} ms  ({plain / ms:.2f}x)")
+
+
+# --- phase 4 -----------------------------------------------------------------
+
+MAIN_RUNS = [
+    ("direct_fd", ["direct_fd"]),
+    ("chorin_fd semi_implicit", ["chorin_fd"]),
+    ("chorin_fd explicit", ["chorin_fd", "--method", "explicit"]),
+    ("chorin_fd explicit 1024^2", ["chorin_fd", "--method", "explicit",
+                                   "--nx", "1024", "--nt", "50", "--dt",
+                                   "1e-5", "--nu", "0.01"]),
+]
+MAIN_KERNELS = {  # kernels each main-path run must launch
+    "direct_fd": {"jacobi_fused"},
+    "chorin_fd semi_implicit": {"sor_redblack_fused"},
+    "chorin_fd explicit": {"sor_redblack_fused", "momentum_explicit_fused"},
+    "chorin_fd explicit 1024^2": {"sor_redblack_multiblock",
+                                  "momentum_explicit_fused"},
+}
+
+
+def check_rollout(label, path, nt):
+    d = np.load(path)
+    for key in "uvp":
+        require(d[key].shape[0] == nt, f"{label}: {key} has "
+                f"{d[key].shape[0]} frames, expected {nt}")
+        require(np.isfinite(d[key]).all(), f"{label}: {key} not finite")
+    # the lid: u's 'right' Dirichlet edge A[-1, :] is 1 in every frame, bar
+    # the two corners that the later 'top'/'bottom' BCs set to 0
+    require(np.all(d["u"][:, -1, 1:-1] == 1.0), f"{label}: lid edge != 1")
+    require(float(np.abs(d["u"][-1]).max()) > 0, f"{label}: no flow")
+    return d
+
+
+def phase_main(tmp) -> dict:
+    from ns_tpu_torch.cli import run_solver
+    from ns_tpu_torch.ops import kernels
+
+    print("phase 4: main path through ns_tpu_torch.cli.run_solver.main")
+    rates = {}
+    kernels.reset_launch_counts()
+    for label, argv in MAIN_RUNS:
+        before = kernels.launch_counts()
+        out = os.path.join(tmp, label.replace(" ", "_").replace("^", "") +
+                           ".npz")
+        summary = run_solver.main(argv + ["--device", DEVICE, "--out", out])
+        after = kernels.launch_counts()
+        ran = {k for k in after if after[k] > before[k]}
+        missing = MAIN_KERNELS[label] - ran
+        require(not missing, f"{label}: kernels not launched: {missing}")
+        nt = int(argv[argv.index("--nt") + 1]) if "--nt" in argv else 200
+        check_rollout(label, out, nt)
+        rates[label] = summary["steps_per_s"]
+        print(f"  {label:28s} {summary['steps_per_s']:.1f} steps/s "
+              f"({summary['seconds']:.2f} s); launches "
+              f"{ {k: after[k] - before[k] for k in sorted(ran)} }")
+    counts = kernels.launch_counts()
+    idle = [k for k, n in counts.items() if n == 0]
+    require(not idle, f"kernels never launched on the main path: {idle}")
+    return {"launches": counts, "steps_per_s": rates}
+
+
+# --- phase 5 -----------------------------------------------------------------
+
+def phase_fidelity(tmp):
+    from ns_tpu_torch.cli import run_solver
+
+    print("phase 5: float64 fidelity on the card against the goldens")
+    cases = [("direct_fd_nt20.npz", ["direct_fd", "--nt", "20"],
+              {"u": 1e-10, "v": 1e-10, "p": 1e-10}),
+             ("direct_fd_nt200_snapshots.npz", ["direct_fd"],
+              {"u": 1e-10, "v": 1e-10, "p": 1e-10}),
+             ("chorin_fd_semi_implicit_nt12.npz", ["chorin_fd", "--nt", "12"],
+              {"u": 1e-3, "v": 1e-3, "p": 0.2}),
+             ("chorin_fd_explicit_nt12.npz",
+              ["chorin_fd", "--method", "explicit", "--nt", "12"],
+              {"u": 1e-3, "v": 1e-3, "p": 0.2})]
+    for golden, argv, bounds in cases:
+        out = os.path.join(tmp, "f64_" + golden)
+        run_solver.main(argv + ["--dtype", "float64", "--device", DEVICE,
+                                "--out", out])
+        got, want = np.load(out), np.load(os.path.join(GOLDEN, golden))
+        # snapshot goldens hold only the listed frames of the rollout
+        frames = want["frames"] if "frames" in want else slice(None)
+        for key, bound in bounds.items():
+            err = float(np.abs(got[key][frames] - want[key]).max())
+            print(f"  {golden:36s} {key} max_abs {err:.3e} (bound {bound:g})")
+            require(err <= bound, f"{golden} {key}: {err} > {bound}")
+
+
+# --- report ------------------------------------------------------------------
+
+KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
+    ("sor_redblack_fused", "ns_tpu_torch/csrc/poisson_kernels.cu",
+     "ns_tpu/ops/pallas/poisson_kernels.py:115"),
+    ("jacobi_fused", "ns_tpu_torch/csrc/poisson_kernels.cu",
+     "ns_tpu/ops/pallas/poisson_kernels.py:79"),
+    ("momentum_explicit_fused", "ns_tpu_torch/csrc/momentum_kernels.cu",
+     "ns_tpu/ops/pallas/momentum_kernels.py:75"),
+    ("sor_redblack_multiblock", "ns_tpu_torch/csrc/poisson_kernels.cu",
+     "ns_tpu/ops/pallas/poisson_kernels.py:180"),
+]
+
+
+def main():
+    card = phase_device()
+    phase_build()
+    res = Results()
+    phase_kernels(res, torch.device(DEVICE))
+    with tempfile.TemporaryDirectory() as tmp:
+        main_path = phase_main(tmp)
+        phase_fidelity(tmp)
+    require("jax" not in sys.modules, "jax was imported")
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": main_path["launches"][name],
+                "max_abs_err": res.err64[name], "ms": res.ms[name],
+                "plain_ms": res.plain_ms[name]}
+               for name, src, rep in KERNELS]
+    for k in kernels:
+        require(all(math.isfinite(k[x]) for x in ("ms", "plain_ms")),
+                f"{k['name']}: no time")
+    print(json.dumps({"card": card,
+                      "main_path_steps_per_s": main_path["steps_per_s"],
+                      "max_rel_err_f32": res.rel32}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,15 @@
+"""ns_tpu_torch: the PyTorch + CUDA port of ns_tpu for NVIDIA Hopper (H100).
+
+It sits beside the JAX package `ns_tpu`, which stays the reference, and
+mirrors its module names. Plain tensor code is PyTorch; every Pallas TPU
+kernel on a ported path is a hand-written CUDA kernel for sm_90a under
+`csrc/`, built with nvcc at first use (`ops/kernels/_build.py`). A kernel
+wrapper takes its plain torch twin only for a CPU tensor; on a CUDA tensor
+it launches the kernel or raises.
+
+Ported so far: the FD cavity pipeline (core BCs and state, the pressure
+solvers, the direct_fd and chorin_fd solvers and their CLI). This package
+never imports jax.
+"""
+
+__version__ = "0.1.0"

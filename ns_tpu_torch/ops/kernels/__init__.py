@@ -1,0 +1,29 @@
+"""Hand-written Hopper kernels of the port, with their wrappers and twins.
+
+Importing this package builds nothing and needs no GPU: the library is
+compiled (`_build.library`) at the first launch on a CUDA tensor.
+"""
+
+from ns_tpu_torch.ops.kernels.momentum_kernels import (
+    momentum_explicit, momentum_explicit_fused)
+from ns_tpu_torch.ops.kernels.poisson_kernels import (
+    jacobi_fused, smem_fits, sor_redblack_fused, sor_redblack_multiblock,
+    sor_redblack_tiled)
+
+# every kernel wrapper of the port, by the TPU kernel id it replaces
+WRAPPERS = {
+    "K1": sor_redblack_fused,
+    "K2": jacobi_fused,
+    "K3": momentum_explicit_fused,
+    "K5": sor_redblack_multiblock,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, by wrapper name."""
+    return {w.__name__: w.launches for w in WRAPPERS.values()}
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0

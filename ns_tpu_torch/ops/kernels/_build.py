@@ -1,0 +1,173 @@
+"""Build and load the hand-written CUDA kernels of ns_tpu_torch.
+
+The sources under `ns_tpu_torch/csrc/` are compiled at first use with
+`nvcc` for Hopper (`-gencode arch=compute_90a,code=sm_90a`) into one shared
+library with a plain C interface, which is loaded with `ctypes`. The
+library lands in `ns_tpu_torch/_build/` under a name keyed by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads
+the existing file. nvcc's output (ptxas register and shared-memory report)
+is kept beside it in a `.log` file.
+
+There is no fallback: if nvcc is missing or the build fails, `library()`
+raises with nvcc's stderr, and the CUDA path of every wrapper raises with
+it.
+
+The launch helpers below are what every wrapper shares: input validation,
+the BC list in the C layout, the entry point for a dtype, the current
+stream, and the error check after a launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+CUDA_HOME = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# C entry points: name -> argtypes (every one returns a cudaError_t as int)
+_ENTRIES = {
+    "ns_jacobi_fused": [_P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _I, _P, _P],
+    "ns_sor_redblack_fused": [_P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _I, _P],
+    "ns_sor_redblack_tiled_group": [_P, _P, _P, _I, _I, _D, _D, _D, _D, _I,
+                                    _P],
+    "ns_momentum_explicit": [_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D,
+                             _D, _D, _I, _I, _P, _I, _P, _P],
+}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing, or it refused the sources."""
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = CUDA_HOME / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise KernelBuildError(
+        "nvcc not found on PATH or under "
+        f"{CUDA_HOME / 'bin'}: the CUDA kernels of ns_tpu_torch are built "
+        "from source at first use and need the CUDA toolkit (set CUDA_HOME)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile the sources (or find them already compiled) and return the
+    library's path."""
+    lib = BUILD_DIR / f"libns_tpu_torch_{_digest()}.so"
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build to a private name, then rename: a concurrent build never loads a
+    # half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build_library()))
+    for name, argtypes in _ENTRIES.items():
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.ns_error_string.argtypes = [ctypes.c_int]
+    lib.ns_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = library().ns_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+# --- launch helpers shared by the wrappers ----------------------------------
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_KIND = {"dirichlet": 0, "neumann": 1}
+_SIDE = {"left": 0, "right": 1, "bottom": 2, "top": 3}
+MAX_BCS = 8  # ns::kMaxBCs in csrc/common.cuh
+
+
+def entry(name: str, dtype: torch.dtype):
+    """The C entry point `name` for `dtype` (float32 or float64)."""
+    return getattr(library(), f"{name}_{_SUFFIX[dtype]}")
+
+
+def check_inputs(what: str, *tensors: torch.Tensor) -> tuple[int, int]:
+    """Validate the kernel inputs: CUDA, one device, float32/float64 alike,
+    2D of one shape, C-contiguous. Returns the shape."""
+    t0 = tensors[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"{what}: expected CUDA tensors, got {t0.device}")
+    if t0.dtype not in _SUFFIX:
+        raise TypeError(f"{what}: dtype must be float32|float64, got "
+                        f"{t0.dtype}")
+    if t0.dim() != 2:
+        raise ValueError(f"{what}: expected 2D fields, got {tuple(t0.shape)}")
+    for t in tensors:
+        if (t.device != t0.device or t.dtype != t0.dtype
+                or t.shape != t0.shape):
+            raise ValueError(f"{what}: inputs differ in device, dtype or "
+                             f"shape ({t.device}/{t.dtype}/{tuple(t.shape)} "
+                             f"vs {t0.device}/{t0.dtype}/{tuple(t0.shape)})")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
+    nx, ny = t0.shape
+    if nx < 3 or ny < 3:
+        raise ValueError(f"{what}: grid must be at least 3x3, got {nx}x{ny}")
+    return nx, ny
+
+
+def bc_spec(bcs) -> ctypes.Array:
+    """A BC list as the flat [kind, side, edge_term] * n double array the C
+    entry points unpack (csrc/common.cuh::make_bcs)."""
+    if len(bcs) > MAX_BCS:
+        raise ValueError(f"at most {MAX_BCS} BCs per field, got {len(bcs)}")
+    flat = [x for bc in bcs
+            for x in (_KIND[bc.kind], _SIDE[bc.side], bc.edge_term())]
+    return (ctypes.c_double * len(flat))(*flat)
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on `device`, as the C entries take it."""
+    return torch.cuda.current_stream(device).cuda_stream

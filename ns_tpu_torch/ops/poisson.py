@@ -1,0 +1,161 @@
+"""Elliptic pressure solvers in plain torch: Jacobi, red-black SOR, CG.
+
+Port of `ns_tpu/ops/poisson.py`. These functions run on any device; they
+are the plain twins of the hand-written kernels in `ops/kernels/`
+(`sor_redblack` of K1, `jacobi` of K2) and the solvers' path for the modes
+with no kernel (`sor_wavefront`, `cg_poisson`).
+
+The convergence gates are Python loops, so every tolerance check reads one
+scalar back to the host; K1 keeps that gate on the device instead. Gate
+semantics follow the reference: err=1, it=1, loop while err > tol and
+it < max_iter, with the comparison made in the field's dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dtype_float(x: float, dtype: torch.dtype) -> float:
+    """`x` rounded to `dtype`: the JAX gates compare `err > tol` with a
+    weakly typed tol, i.e. in the field's own precision."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def checkerboard(nx: int, ny: int, device=None):
+    """Interior red ((i+j) even) and black ((i+j) odd) cell masks."""
+    ii = torch.arange(nx, device=device)[:, None]
+    jj = torch.arange(ny, device=device)[None, :]
+    interior = (ii > 0) & (ii < nx - 1) & (jj > 0) & (jj < ny - 1)
+    parity = (ii + jj) % 2
+    return (parity == 0) & interior, (parity == 1) & interior
+
+
+def _gs_update(p, rhs_c, dx2, dy2, denom, beta):
+    up = torch.roll(p, -1, 0)     # p[i+1, j]
+    down = torch.roll(p, 1, 0)    # p[i-1, j]
+    right = torch.roll(p, -1, 1)  # p[i, j+1]
+    left = torch.roll(p, 1, 1)    # p[i, j-1]
+    return beta * (dy2 * (up + down) + dx2 * (right + left) - rhs_c) / denom \
+        + (1.0 - beta) * p
+
+
+def redblack_sweep(p, rhs_c, dx, dy, beta, masks):
+    """One red half-sweep then one black half-sweep over the interior."""
+    red, black = masks
+    dx2, dy2 = dx * dx, dy * dy
+    denom = 2.0 * (dx2 + dy2)
+    p = torch.where(red, _gs_update(p, rhs_c, dx2, dy2, denom, beta), p)
+    return torch.where(black, _gs_update(p, rhs_c, dx2, dy2, denom, beta), p)
+
+
+def sor_redblack(p: torch.Tensor, rhs_c: torch.Tensor, dx: float, dy: float,
+                 beta: float, tol: float, max_iter: int) -> torch.Tensor:
+    """Red-black SOR for the chorin_fd pressure system (the plain twin of
+    K1, `ops/kernels/poisson_kernels.py::sor_redblack_fused`).
+
+        p[i,j] = beta * (dy^2 (p[i+1,j]+p[i-1,j]) + dx^2 (p[i,j+1]+p[i,j-1])
+                 - rhs_c[i,j]) / (2 dx^2 + 2 dy^2) + (1-beta) p[i,j]
+
+    with the boundary of `p` held fixed, err = max|p - p_prev_sweep|, and
+    the reference cap semantics (err=1, it=1; loop while err > tol and
+    it < max_iter).
+    """
+    masks = checkerboard(*p.shape, device=p.device)
+    tol = dtype_float(tol, p.dtype)
+    err, it = 1.0, 1
+    while err > tol and it < max_iter:
+        p_new = redblack_sweep(p, rhs_c, dx, dy, beta, masks)
+        err = float((p_new - p).abs().max())
+        p, it = p_new, it + 1
+    return p
+
+
+def sor_wavefront(p: torch.Tensor, rhs_c: torch.Tensor, dx: float, dy: float,
+                  beta: float, tol: float, max_iter: int) -> torch.Tensor:
+    """Exact-parity sequential SOR via anti-diagonal wavefronts.
+
+    The reference's lexicographic Gauss-Seidel sweep updates p[i,j] from the
+    already-updated p[i-1,j], p[i,j-1] and the old p[i+1,j], p[i,j+1]; cells
+    on one anti-diagonal i+j=d are independent, so updating diagonal by
+    diagonal reproduces the reference iterate sequence. Each stage gathers
+    its diagonal's cells and scatters their update back.
+    """
+    nx, ny = p.shape
+    dx2, dy2 = dx * dx, dy * dy
+    denom = 2.0 * (dx2 + dy2)
+    ii = torch.arange(1, nx - 1, device=p.device)[:, None]
+    jj = torch.arange(1, ny - 1, device=p.device)[None, :]
+    flat = (ii * ny + jj).flatten()
+    diag = (ii + jj).flatten()
+    stages = [flat[diag == d] for d in range(2, nx + ny - 3)]
+    c = rhs_c.flatten()
+    tol = dtype_float(tol, p.dtype)
+    err, it = 1.0, 1
+    while err > tol and it < max_iter:
+        q = p.flatten().clone()
+        for idx in stages:
+            up, down = q[idx + ny], q[idx - ny]
+            right, left = q[idx + 1], q[idx - 1]
+            q[idx] = beta * (dy2 * (up + down) + dx2 * (right + left)
+                             - c[idx]) / denom + (1.0 - beta) * q[idx]
+        p_new = q.view(nx, ny)
+        err = float((p_new - p).abs().max())
+        p, it = p_new, it + 1
+    return p
+
+
+def jacobi(p: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
+           n_iter: int, bc_fn=None) -> torch.Tensor:
+    """Plain Jacobi sweeps for laplace(p) = rhs with optional per-sweep BC
+    re-application (the direct_fd pattern; the plain twin of K2,
+    `ops/kernels/poisson_kernels.py::jacobi_fused`)."""
+    dx2, dy2 = dx * dx, dy * dy
+    denom = 2.0 * (dx2 + dy2)
+    for _ in range(n_iter):
+        interior = (
+            ((p[1:-1, 2:] + p[1:-1, :-2]) * dy2
+             + (p[2:, 1:-1] + p[:-2, 1:-1]) * dx2) / denom
+            - dx2 * dy2 / denom * rhs[1:-1, 1:-1]
+        )
+        p = p.clone()
+        p[1:-1, 1:-1] = interior
+        if bc_fn is not None:
+            p = bc_fn(p)
+    return p
+
+
+def laplace_full(x: torch.Tensor, dx2: float, dy2: float) -> torch.Tensor:
+    """5-point Laplacian including boundary wrap cells (callers mask)."""
+    return ((torch.roll(x, -1, 0) - 2 * x + torch.roll(x, 1, 0)) / dx2
+            + (torch.roll(x, -1, 1) - 2 * x + torch.roll(x, 1, 1)) / dy2)
+
+
+def cg_poisson(p0: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
+               tol: float = 1e-8, max_iter: int = 500) -> torch.Tensor:
+    """Conjugate gradient for the interior Dirichlet-frame Poisson problem
+    (boundary of p0 held fixed)."""
+    dx2, dy2 = dx * dx, dy * dy
+    boundary = torch.ones_like(p0, dtype=torch.bool)
+    boundary[1:-1, 1:-1] = False
+    zero = torch.zeros((), dtype=p0.dtype, device=p0.device)
+
+    def laplace(x):
+        return torch.where(boundary, zero, laplace_full(x, dx2, dy2))
+
+    # interior correction e with homogeneous boundary: A e = r0
+    r = torch.where(boundary, zero, rhs - laplace_full(p0, dx2, dy2))
+    d = r
+    rs = torch.sum(r * r)
+    e = torch.zeros_like(p0)
+    tol = dtype_float(tol, p0.dtype)
+    it = 0
+    while float(torch.sqrt(torch.abs(rs))) > tol and it < max_iter:
+        Ad = laplace(d)
+        alpha = rs / torch.sum(d * Ad)
+        e = e + alpha * d
+        r = r - alpha * Ad
+        rs_new = torch.sum(r * r)
+        d = r + (rs_new / rs) * d
+        rs, it = rs_new, it + 1
+    return p0 + e

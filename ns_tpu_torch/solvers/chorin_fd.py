@@ -1,0 +1,301 @@
+"""Chorin projection on a uniform FD grid.
+
+Port of `ns_tpu/solvers/chorin_fd.py` (the reference chorin_fd family):
+
+  - predictor, two modes:
+      'explicit'      — Adams-Bashforth for advection AND diffusion, with
+                        the reference's y-advection axis quirk under
+                        `quirk_compat=True` (default). Kernel K3
+                        (`ops/kernels::momentum_explicit_fused`) on a CUDA
+                        tensor; on a CPU tensor its plain twin
+                        `ops/kernels/momentum_kernels.py::momentum_explicit`,
+                        which is this family's explicit predictor.
+      'semi_implicit' — Adams-Bashforth advection + Crank-Nicolson
+                        diffusion via an ADI two-sweep; the (N-2)x(N-2)
+                        operators are inverted ONCE on the host in float64
+                        and each sweep is one matmul (plain torch on every
+                        device, as the JAX package leaves it to XLA).
+                        Quirk mode keeps the reference's advection sign flip
+                        and square-grid y-sweep.
+  - pressure, by `pressure_mode`:
+      'redblack'     — red-black SOR with the reference's relaxation
+                       formula, tol and cap. On a CUDA tensor: K1
+                       (`sor_redblack_fused`, whole solve in one block)
+                       when two grids fit one block's shared memory, else
+                       K5 (`sor_redblack_multiblock`, gate every 8 sweeps).
+                       On a CPU tensor, the same routing to their twins.
+      'gauss_seidel' — exact reference iterate order (wavefront sweeps).
+      'cg'           — conjugate gradient on the same system.
+      'multigrid', 'dst' and method='helmholtz' wait for the port of
+      ops/fast_poisson.py and ops/multigrid.py (ROADMAP.md, Slice A item 5).
+  - correction: u <- u* - dt/(2dx) * grad(p), central.
+  - step order: predictor -> u/v BCs -> pressure -> p BCs -> correction;
+    ICs get BCs applied once at init; (u^n, u^{n-1}) history threaded
+    through the rollout.
+
+Axis convention preserved from the reference: axis 0 carries
+x-differences, the opposite of direct_fd.
+
+`gemm_precision` in float32 (float64 matmuls are always float64):
+None and 'highest' -> full fp32 (TF32 off); 'high' -> TF32 tensor cores;
+'default' -> bf16 inputs with fp32 accumulation. On the TPU, None meant
+the jnp default (bf16 passes) for the ADI sweeps; here it means fp32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ns_tpu_torch.core.bc import BC, apply_bcs, bcs_from_reference
+from ns_tpu_torch.core.state import FlowState, rollout
+from ns_tpu_torch.ops.kernels import (momentum_explicit_fused, smem_fits,
+                                      sor_redblack_fused,
+                                      sor_redblack_multiblock)
+from ns_tpu_torch.ops.poisson import cg_poisson, sor_wavefront
+
+_NOT_PORTED = ("is not yet ported: it needs ops/fast_poisson.py and "
+               "ops/multigrid.py (see ROADMAP.md, Slice A item 5)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ChorinFDConfig:
+    """Constructor-parameter parity with the reference chorin_fd system."""
+
+    nt: int = 200
+    nit: int = 50
+    nx: int = 50
+    ny: int = 50
+    dt: float = 0.001
+    rho: float = 1.0
+    nu: float = 1.0
+    beta: float = 1.25
+    method: str = "semi_implicit"  # 'explicit' | 'semi_implicit'
+    sor_tol: float = 5e-6
+    quirk_compat: bool = True  # replicate the reference's numerics quirks
+    pressure_mode: str = "redblack"  # 'redblack' | 'gauss_seidel' | 'cg'
+    gemm_precision: str | None = None  # ADI matmuls; see module docstring
+
+    def __post_init__(self):
+        if self.method not in ("semi_implicit", "explicit", "helmholtz"):
+            raise ValueError("method must be semi_implicit|explicit|"
+                             f"helmholtz, got {self.method!r}")
+        if self.pressure_mode not in ("redblack", "gauss_seidel",
+                                      "multigrid", "cg", "dst"):
+            raise ValueError("pressure_mode must be redblack|gauss_seidel|"
+                             f"multigrid|cg|dst, got {self.pressure_mode!r}")
+        if self.gemm_precision not in (None, "default", "high", "highest"):
+            raise ValueError("gemm_precision must be None|default|high|"
+                             f"highest, got {self.gemm_precision!r}")
+        if (self.method == "semi_implicit" and self.quirk_compat
+                and self.nx != self.ny):
+            raise ValueError(
+                "semi_implicit with quirk_compat=True replicates the "
+                "reference's square-grid ADI y-sweep and needs nx == ny; got "
+                f"{self.nx}x{self.ny}. Set quirk_compat=False for the "
+                "corrected rectangular sweep.")
+        if self.method == "helmholtz":
+            raise NotImplementedError(f"method='helmholtz' {_NOT_PORTED}")
+        if self.pressure_mode in ("multigrid", "dst"):
+            raise NotImplementedError(
+                f"pressure_mode={self.pressure_mode!r} {_NOT_PORTED}")
+
+    @property
+    def dx(self) -> float:
+        return 2.0 / (self.nx - 1)
+
+    @property
+    def dy(self) -> float:
+        return 2.0 / (self.ny - 1)
+
+
+@contextlib.contextmanager
+def _tf32(enabled: bool):
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
+    """a @ b at the configured `gemm_precision` (float32 only)."""
+    if a.dtype != torch.float32:
+        return a @ b
+    if precision == "default":
+        return (a.to(torch.bfloat16) @ b.to(torch.bfloat16)).to(a.dtype)
+    with _tf32(precision == "high"):
+        return a @ b
+
+
+def _adi_inverses(cfg: ChorinFDConfig, dtype, device):
+    """Crank-Nicolson ADI operator inverses: the reference's tridiagonal A
+    (x-sweep) and B (y-sweep), inverted once in float64 on the host."""
+    dt, dx, dy, nu = cfg.dt, cfg.dx, cfg.dy, cfg.nu
+    n, m = cfg.nx - 2, cfg.ny - 2
+    A = (np.diag(np.full(n, 2.0 / nu * dx**2 + 2.0 * dt))
+         + np.diag(np.full(n - 1, -dt), -1) + np.diag(np.full(n - 1, -dt), 1))
+    B = (np.diag(np.full(m, 2.0 / nu * dy**2 + 2.0 * dt))
+         + np.diag(np.full(m - 1, -dt), -1) + np.diag(np.full(m - 1, -dt), 1))
+    as_t = lambda M: torch.as_tensor(np.linalg.inv(M), dtype=dtype,
+                                     device=device)
+    return as_t(A), as_t(B)
+
+
+def _semi_implicit_predictor(cfg: ChorinFDConfig, A_inv, B_inv, un, vn, un1,
+                             vn1):
+    """AB advection + Crank-Nicolson ADI diffusion, the per-step dense
+    solves replaced by matmuls against precomputed inverses."""
+    dt, dx, dy, nu = cfg.dt, cfg.dx, cfg.dy, cfg.nu
+    mm = lambda a, b: matmul(a, b, cfg.gemm_precision)
+
+    def advect(f, g, h):
+        # f * dh/dx + g * dh/dy, centered, axis0=x
+        return (f[1:-1, 1:-1] * (h[2:, 1:-1] - h[:-2, 1:-1]) / (2.0 * dx)
+                + g[1:-1, 1:-1] * (h[1:-1, 2:] - h[1:-1, :-2]) / (2.0 * dy))
+
+    def lap(h):
+        return ((h[2:, 1:-1] - 2 * h[1:-1, 1:-1] + h[:-2, 1:-1]) / dx**2
+                + (h[1:-1, 2:] - 2 * h[1:-1, 1:-1] + h[1:-1, :-2]) / dy**2)
+
+    def sweeps(hn, hn1, Hn, Hn1):
+        # x-sweep: A ht = C. Quirk mode keeps the reference's advection
+        # sign flip (it ADDS +dt/2 (3H - H1)); corrected mode subtracts.
+        sgn = 1.0 if cfg.quirk_compat else -1.0
+        C1 = sgn * dt / 2.0 * (3.0 * Hn - Hn1)
+        C2 = dt * nu * lap(hn)
+        C = 2.0 / nu * dx**2 * (C1 + C2)
+        ht = mm(A_inv, C)
+        # y-sweep: B hi = S
+        S = (2.0 / nu * dy**2 * (ht + hn[1:-1, 1:-1])
+             - dt * (hn[1:-1, 2:] - 2 * hn[1:-1, 1:-1] + hn[1:-1, :-2]))
+        if cfg.quirk_compat:
+            # reference quirk: the y operator applied along the x axis
+            # (only meaningful for nx == ny)
+            return mm(B_inv, S)
+        # corrected: lift the wall values onto the y-sweep RHS and apply
+        # the y operator along y
+        S = S.clone()
+        S[:, 0] += dt * hn[1:-1, 0]
+        S[:, -1] += dt * hn[1:-1, -1]
+        return mm(S, B_inv.T)
+
+    uHn, uHn1 = advect(un, vn, un), advect(un1, vn1, un1)
+    vHn, vHn1 = advect(un, vn, vn), advect(un1, vn1, vn1)
+    ui, vi = un.clone(), vn.clone()
+    ui[1:-1, 1:-1] = sweeps(un, un1, uHn, uHn1)
+    vi[1:-1, 1:-1] = sweeps(vn, vn1, vHn, vHn1)
+    return ui, vi
+
+
+def _pressure_rhs(cfg: ChorinFDConfig, ui, vi):
+    """Scaled divergence source of the SOR iteration."""
+    dt, dx, dy, rho = cfg.dt, cfg.dx, cfg.dy, cfg.rho
+    rhs = torch.zeros_like(ui)
+    rhs[1:-1, 1:-1] = (
+        dx * rho * dy**2 / dt * (ui[1:-1, 1:-1] - ui[:-2, 1:-1])
+        + dy * rho * dx**2 / dt * (vi[1:-1, 1:-1] - vi[1:-1, :-2]))
+    return rhs
+
+
+def _correction(cfg: ChorinFDConfig, ui, vi, p):
+    """Projection u <- u* - dt/(2h) grad p, central."""
+    dt, dx, dy = cfg.dt, cfg.dx, cfg.dy
+    u, v = ui.clone(), vi.clone()
+    u[1:-1, 1:-1] = (ui[1:-1, 1:-1]
+                     - dt / (2.0 * dx) * (p[2:, 1:-1] - p[:-2, 1:-1]))
+    v[1:-1, 1:-1] = (vi[1:-1, 1:-1]
+                     - dt / (2.0 * dy) * (p[1:-1, 2:] - p[1:-1, :-2]))
+    return u, v
+
+
+def _pressure(cfg: ChorinFDConfig, p, rhs_c):
+    if cfg.pressure_mode == "gauss_seidel":
+        return sor_wavefront(p, rhs_c, cfg.dx, cfg.dy, cfg.beta, cfg.sor_tol,
+                             cfg.nit)
+    if cfg.pressure_mode == "cg":
+        f = rhs_c / (cfg.dx**2 * cfg.dy**2)
+        return cg_poisson(p, f, cfg.dx, cfg.dy, tol=cfg.sor_tol,
+                          max_iter=cfg.nit)
+    if smem_fits(cfg.nx, cfg.ny, 2, p.element_size()):
+        return sor_redblack_fused(p, rhs_c, cfg.dx, cfg.dy, cfg.beta,
+                                  cfg.sor_tol, cfg.nit)
+    return sor_redblack_multiblock(p, rhs_c, cfg.dx, cfg.dy, cfg.beta,
+                                   cfg.sor_tol, cfg.nit, k=8)
+
+
+def make_step(cfg: ChorinFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
+              p_bc: Sequence[BC], dtype=torch.float32, device=None):
+    """Build the one-timestep function."""
+    if cfg.method == "semi_implicit":
+        A_inv, B_inv = _adi_inverses(cfg, dtype, device)
+
+    def step(state: FlowState) -> FlowState:
+        un, vn, p = state.u, state.v, state.p
+        un1, vn1 = state.u_prev, state.v_prev
+        if cfg.method == "explicit":
+            # stencils + BC edge writes in one kernel call
+            ui, vi = momentum_explicit_fused(
+                un, vn, un1, vn1, cfg.dt, cfg.dx, cfg.dy, cfg.nu, u_bc, v_bc,
+                quirk_compat=cfg.quirk_compat)
+        else:
+            ui, vi = _semi_implicit_predictor(cfg, A_inv, B_inv, un, vn, un1,
+                                              vn1)
+            ui, vi = apply_bcs(ui, u_bc), apply_bcs(vi, v_bc)
+        p = apply_bcs(_pressure(cfg, p, _pressure_rhs(cfg, ui, vi)), p_bc)
+        u_next, v_next = _correction(cfg, ui, vi, p)
+        return FlowState(u=u_next, v=v_next, p=p, u_prev=un, v_prev=vn)
+
+    return step
+
+
+def init_state(cfg: ChorinFDConfig, u_ic, v_ic, p_ic, u_bc, v_bc, p_bc,
+               dtype=torch.float32, device=None) -> FlowState:
+    """Apply BCs to the ICs once and seed the AB history."""
+    as_field = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return FlowState(u=apply_bcs(as_field(u_ic), u_bc),
+                     v=apply_bcs(as_field(v_ic), v_bc),
+                     p=apply_bcs(as_field(p_ic), p_bc)).with_history()
+
+
+def simulate(cfg: ChorinFDConfig, state0: FlowState, u_bc, v_bc, p_bc):
+    """Rollout returning stacked (nt, nx, ny) u, v, p fields, in the dtype
+    and on the device of `state0`."""
+    step = make_step(cfg, u_bc, v_bc, p_bc, dtype=state0.u.dtype,
+                     device=state0.u.device)
+    return rollout(step, state0, cfg.nt)
+
+
+class NavierStokesSystem:
+    """Reference-API wrapper: holds ICs, BC lists (this package's BCs or
+    any with the same fields) and physics constants; the fields live on
+    `device`."""
+
+    def __init__(self, u_ic, v_ic, p_ic, u_bc, v_bc, p_bc,
+                 nt=200, nit=50, nx=50, ny=50, dt=0.001,
+                 rho=1, nu=1, beta=1.25, method="semi_implicit",
+                 dtype=torch.float32, quirk_compat=True,
+                 pressure_mode="redblack", gemm_precision=None, device=None):
+        self.cfg = ChorinFDConfig(nt=nt, nit=nit, nx=nx, ny=ny, dt=dt,
+                                  rho=rho, nu=nu, beta=beta, method=method,
+                                  quirk_compat=quirk_compat,
+                                  pressure_mode=pressure_mode,
+                                  gemm_precision=gemm_precision)
+        self.u_bc, self.v_bc, self.p_bc = (bcs_from_reference(b)
+                                           for b in (u_bc, v_bc, p_bc))
+        self.state0 = init_state(self.cfg, u_ic, v_ic, p_ic, self.u_bc,
+                                 self.v_bc, self.p_bc, dtype=dtype,
+                                 device=device)
+        self._step = make_step(self.cfg, self.u_bc, self.v_bc, self.p_bc,
+                               dtype=dtype, device=device)
+
+    def step(self, state: FlowState) -> FlowState:
+        return self._step(state)
+
+    def simulate(self):
+        return rollout(self._step, self.state0, self.cfg.nt)

@@ -1,0 +1,157 @@
+"""Direct finite-difference discretization of the 2D incompressible NSE.
+
+Port of `ns_tpu/solvers/direct_fd.py` (the reference direct_fd family):
+
+  - source term b from velocity divergence + quadratic terms, central
+    differences
+  - pressure from `nit` fixed Jacobi sweeps, re-applying the pressure BCs
+    after every sweep: kernel K2 (`ops/kernels::jacobi_fused`) on a CUDA
+    tensor, its plain twin on a CPU tensor
+  - momentum update: first-order backward (upwind) advection, central
+    pressure gradient, central diffusion, explicit Euler in time
+  - velocity BCs applied after the momentum update
+
+Axis convention preserved from the reference stencils: axis 1 carries the
+x-differences and axis 0 the y-differences, while the BC edge naming maps
+'left' to A[0,:]. The domain is [-1,1]^2 via dx = 2/(nx-1).
+
+The rollout is a Python loop of `step`s on the state's device, writing each
+frame into preallocated (nt, nx, ny) tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from ns_tpu_torch.core.bc import BC, apply_bcs, bcs_from_reference
+from ns_tpu_torch.core.state import FlowState, rollout
+from ns_tpu_torch.ops.kernels import jacobi_fused
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectFDConfig:
+    """Constructor-parameter parity with the reference direct_fd system."""
+
+    nt: int = 200
+    nit: int = 50
+    nx: int = 50
+    ny: int = 50
+    dt: float = 0.001
+    rho: float = 1.0
+    nu: float = 0.1
+    # 'jacobi': the reference's fixed nit sweeps with per-sweep BC
+    # re-application. 'exact' (the direct mixed-BC eigenbasis solve) waits
+    # for the port of ops/fast_poisson.py (ROADMAP.md, Slice A item 5).
+    pressure_mode: str = "jacobi"
+
+    def __post_init__(self):
+        if self.pressure_mode not in ("jacobi", "exact"):
+            raise ValueError("pressure_mode must be jacobi|exact, got "
+                             f"{self.pressure_mode!r}")
+        if self.pressure_mode == "exact":
+            raise NotImplementedError(
+                "direct_fd pressure_mode='exact' is not yet ported: it needs "
+                "ops/fast_poisson.py (see ROADMAP.md, Slice A item 5)")
+
+    @property
+    def dx(self) -> float:
+        return 2.0 / (self.nx - 1)
+
+    @property
+    def dy(self) -> float:
+        return 2.0 / (self.ny - 1)
+
+
+def build_up_b(cfg: DirectFDConfig, u: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+    """Pressure-Poisson source term."""
+    rho, dt, dx, dy = cfg.rho, cfg.dt, cfg.dx, cfg.dy
+    dudx = (u[1:-1, 2:] - u[1:-1, :-2]) / (2.0 * dx)
+    dvdy = (v[2:, 1:-1] - v[:-2, 1:-1]) / (2.0 * dy)
+    dudy = (u[2:, 1:-1] - u[:-2, 1:-1]) / (2.0 * dy)
+    dvdx = (v[1:-1, 2:] - v[1:-1, :-2]) / (2.0 * dx)
+    b = torch.zeros_like(u)
+    b[1:-1, 1:-1] = (
+        rho * (1.0 / dt) * (dudx + dvdy)
+        - dudx**2
+        - 2.0 * dudy * dvdx
+        - dvdy**2
+    )
+    return b
+
+
+def pressure_poisson(cfg: DirectFDConfig, p: torch.Tensor, b: torch.Tensor,
+                     p_bc: Sequence[BC]) -> torch.Tensor:
+    """`nit` Jacobi sweeps with per-sweep BC re-application (K2 on CUDA;
+    beyond one block's shared memory it raises)."""
+    return jacobi_fused(p, b, cfg.dx, cfg.dy, cfg.nit, p_bc)
+
+
+def make_step(cfg: DirectFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
+              p_bc: Sequence[BC]):
+    """Build the one-timestep function."""
+    dt, dx, dy = cfg.dt, cfg.dx, cfg.dy
+    rho, nu = cfg.rho, cfg.nu
+
+    def step(state: FlowState) -> FlowState:
+        un, vn, p = state.u, state.v, state.p
+        b = build_up_b(cfg, un, vn)
+        p = pressure_poisson(cfg, p, b, p_bc)
+
+        u = un.clone()
+        v = vn.clone()
+        u[1:-1, 1:-1] = (
+            un[1:-1, 1:-1]
+            - un[1:-1, 1:-1] * dt / dx * (un[1:-1, 1:-1] - un[1:-1, :-2])
+            - vn[1:-1, 1:-1] * dt / dy * (un[1:-1, 1:-1] - un[:-2, 1:-1])
+            - dt / (2.0 * rho * dx) * (p[1:-1, 2:] - p[1:-1, :-2])
+            + nu * (dt / dx**2
+                    * (un[1:-1, 2:] - 2.0 * un[1:-1, 1:-1] + un[1:-1, :-2])
+                    + dt / dy**2
+                    * (un[2:, 1:-1] - 2.0 * un[1:-1, 1:-1] + un[:-2, 1:-1]))
+        )
+        v[1:-1, 1:-1] = (
+            vn[1:-1, 1:-1]
+            - un[1:-1, 1:-1] * dt / dx * (vn[1:-1, 1:-1] - vn[1:-1, :-2])
+            - vn[1:-1, 1:-1] * dt / dy * (vn[1:-1, 1:-1] - vn[:-2, 1:-1])
+            - dt / (2.0 * rho * dy) * (p[2:, 1:-1] - p[:-2, 1:-1])
+            + nu * (dt / dx**2
+                    * (vn[1:-1, 2:] - 2.0 * vn[1:-1, 1:-1] + vn[1:-1, :-2])
+                    + dt / dy**2
+                    * (vn[2:, 1:-1] - 2.0 * vn[1:-1, 1:-1] + vn[:-2, 1:-1]))
+        )
+        return FlowState(u=apply_bcs(u, u_bc), v=apply_bcs(v, v_bc), p=p)
+
+    return step
+
+
+def simulate(cfg: DirectFDConfig, state0: FlowState, u_bc, v_bc, p_bc):
+    """Full rollout, returning stacked (nt, nx, ny) fields."""
+    return rollout(make_step(cfg, u_bc, v_bc, p_bc), state0, cfg.nt)
+
+
+class NavierStokesSystem:
+    """Reference-API wrapper: holds ICs, BC lists (this package's BCs or
+    any with the same fields) and physics constants; the fields live on
+    `device`."""
+
+    def __init__(self, u_ic, v_ic, p_ic, u_bc, v_bc, p_bc,
+                 nt=200, nit=50, nx=50, ny=50, dt=0.001, rho=1, nu=0.1,
+                 dtype=torch.float32, device=None, pressure_mode="jacobi"):
+        self.cfg = DirectFDConfig(nt=nt, nit=nit, nx=nx, ny=ny, dt=dt,
+                                  rho=rho, nu=nu, pressure_mode=pressure_mode)
+        self.u_bc, self.v_bc, self.p_bc = (bcs_from_reference(b)
+                                           for b in (u_bc, v_bc, p_bc))
+        as_field = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        self.state0 = FlowState(u=as_field(u_ic), v=as_field(v_ic),
+                                p=as_field(p_ic))
+        self._step = make_step(self.cfg, self.u_bc, self.v_bc, self.p_bc)
+
+    def step(self, state: FlowState) -> FlowState:
+        return self._step(state)
+
+    def simulate(self):
+        return rollout(self._step, self.state0, self.cfg.nt)

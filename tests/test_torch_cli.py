@@ -1,0 +1,88 @@
+"""The whole slice through both CLIs, and the port's no-jax guarantee.
+
+Both packages' run_solver write direct_fd and chorin_fd rollouts (nt=5,
+float64) on the CPU; the npz files agree <= 1e-9 and the port's file loads
+in the JAX trainer. A subprocess (this process has imported jax through the
+conftest) shows the port's CLI runs without importing jax, and that the CPU
+path launches no kernel.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from ns_tpu.cli import run_solver as j_cli
+from ns_tpu.train.trainer import load_obs
+from ns_tpu_torch.cli import run_solver as t_cli
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("argv", [["direct_fd"], ["chorin_fd"],
+                                  ["chorin_fd", "--method", "explicit"]])
+def test_cli_rollouts_match_jax_cli(tmp_path, argv):
+    common = ["--nt", "5", "--dtype", "float64"]
+    j_out, t_out = tmp_path / "jax.npz", tmp_path / "torch.npz"
+    j_cli.main(argv + common + ["--out", str(j_out)])
+    summary = t_cli.main(argv + common + ["--device", "cpu", "--out",
+                                          str(t_out)])
+    assert summary["out"] == str(t_out) and summary["device"] == "cpu"
+    j, t = np.load(j_out), np.load(t_out)
+    for key in "uvp":
+        assert t[key].shape == j[key].shape == (5,) + t[key].shape[1:]
+        np.testing.assert_allclose(t[key], j[key], rtol=0, atol=1e-9)
+    obs = load_obs(str(t_out), None)
+    assert obs.shape == (5, 1, 3) + t["u"].shape[1:]
+
+
+@pytest.mark.parametrize("argv", [
+    ["taylor_green"], ["chorin_spectral"], ["direct_fd", "--guard"],
+    ["chorin_fd", "--stream-dir", "x"], ["chorin_fd", "--progress"],
+    ["chorin_fd", "--dist"], ["chorin_fd", "--pressure-mode", "dst"],
+    ["chorin_fd", "--method", "helmholtz"],
+    ["direct_fd", "--pressure-mode", "exact"],
+    ["direct_fd", "--pressure-mode", "cg"],
+    ["direct_fd", "--pallas-momentum"],
+    ["chorin_fd", "--pallas-momentum"],
+])
+def test_cli_rejects_what_is_not_ported(argv, capsys):
+    with pytest.raises(SystemExit) as e:
+        t_cli.main(argv + ["--device", "cpu", "--nt", "1"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    if "--pallas-momentum" not in argv and "cg" not in argv:
+        assert "not yet ported" in err and "ROADMAP.md" in err
+
+
+_NO_JAX = """
+import json, sys
+import ns_tpu_torch
+from ns_tpu_torch.cli import run_solver
+from ns_tpu_torch.ops import kernels
+run_solver.main(["chorin_fd", "--method", "explicit", "--nt", "2",
+                 "--nx", "17", "--device", "cpu", "--out", sys.argv[1]])
+run_solver.main(["direct_fd", "--nt", "2", "--nx", "17", "--device", "cpu",
+                 "--out", sys.argv[1]])
+print(json.dumps({"jax": sorted(m for m in sys.modules
+                                if m == "jax" or m.startswith("jax.")),
+                  "launches": kernels.launch_counts()}))
+"""
+
+
+def test_port_cli_runs_without_jax_and_launches_nothing_on_cpu(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX, str(tmp_path / "o.npz")],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["jax"] == []
+    assert set(report["launches"]) == {"sor_redblack_fused", "jacobi_fused",
+                                       "momentum_explicit_fused",
+                                       "sor_redblack_multiblock"}
+    assert set(report["launches"].values()) == {0}

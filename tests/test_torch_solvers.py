@@ -1,0 +1,202 @@
+"""Port solvers (ns_tpu_torch.solvers) against the goldens and the JAX
+package's solvers, all in float64 on the CPU.
+
+Tolerances: direct_fd vs its golden <= 1e-12 (same arithmetic, Jacobi
+sweeps); chorin_fd vs the JAX solver <= 1e-9 (same algorithm; the ADI
+matmuls and reductions sum in another order); chorin_fd red-black vs the
+Gauss-Seidel goldens at tests/test_chorin_fd.py's converged-gate bounds; one
+step from a state carried across packages <= 1e-12.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ns_tpu.core.bc import dirichlet as j_dirichlet
+from ns_tpu.core.bc import neumann as j_neumann
+from ns_tpu.solvers import chorin_fd as j_chorin
+from ns_tpu.solvers import direct_fd as j_direct
+from ns_tpu_torch.core import state as tstate
+from ns_tpu_torch.ops import kernels
+from ns_tpu_torch.ops.kernels import poisson_kernels
+from ns_tpu_torch.solvers import chorin_fd, direct_fd
+from tests.conftest import load_golden
+
+
+def cavity_bcs(dx, dy):
+    u_bc = [j_dirichlet(0, "left"), j_dirichlet(1, "right"),
+            j_dirichlet(0, "top"), j_dirichlet(0, "bottom")]
+    v_bc = [j_dirichlet(0, s) for s in ("left", "right", "top", "bottom")]
+    p_bc = [j_dirichlet(0, "top"), j_neumann(0, "bottom", dx, dy),
+            j_neumann(0, "left", dx, dy), j_neumann(0, "right", dx, dy)]
+    return u_bc, v_bc, p_bc
+
+
+def np_all(seqs):
+    return [s.numpy() for s in seqs]
+
+
+def test_direct_fd_matches_golden_nt20():
+    nx = 50
+    bcs = cavity_bcs(2.0 / (nx - 1), 2.0 / (nx - 1))
+    z = np.zeros((nx, nx))
+    sys_ = direct_fd.NavierStokesSystem(z, z, z, *bcs, nt=20, nit=50, nx=nx,
+                                        ny=nx, dt=0.001, rho=1, nu=0.1,
+                                        dtype=torch.float64, device="cpu")
+    u, v, p = np_all(sys_.simulate())
+    g = load_golden("direct_fd_nt20.npz")
+    for got, key in ((u, "u"), (v, "v"), (p, "p")):
+        np.testing.assert_allclose(got, g[key], rtol=0, atol=1e-12)
+
+
+def test_direct_fd_full_horizon_golden_nt200():
+    """The reference's full nt=200 horizon at the snapshot frames, at
+    tests/test_direct_fd.py's bounds (1e-13 velocities, 1e-12 pressure)."""
+    nx = 50
+    bcs = cavity_bcs(2.0 / (nx - 1), 2.0 / (nx - 1))
+    z = np.zeros((nx, nx))
+    sys_ = direct_fd.NavierStokesSystem(z, z, z, *bcs, nt=200, nit=50,
+                                        nx=nx, ny=nx, dt=0.001, rho=1, nu=0.1,
+                                        dtype=torch.float64)
+    u, v, p = np_all(sys_.simulate())
+    g = load_golden("direct_fd_nt200_snapshots.npz")
+    for i, f in enumerate(g["frames"]):
+        np.testing.assert_allclose(u[f], g["u"][i], rtol=0, atol=1e-13)
+        np.testing.assert_allclose(v[f], g["v"][i], rtol=0, atol=1e-13)
+        np.testing.assert_allclose(p[f], g["p"][i], rtol=0, atol=1e-12)
+
+
+def chorin_pair(method, nt=12, nx=51, pressure_mode="redblack", nit=200):
+    bcs = cavity_bcs(2.0 / (nx - 1), 2.0 / (nx - 1))
+    z = np.zeros((nx, nx))
+    kw = dict(nt=nt, nit=nit, nx=nx, ny=nx, dt=0.001, rho=1, nu=0.1,
+              beta=1.25, method=method, pressure_mode=pressure_mode)
+    j = j_chorin.NavierStokesSystem(z, z, z, *bcs, dtype=jnp.float64, **kw)
+    t = chorin_fd.NavierStokesSystem(z, z, z, *bcs, dtype=torch.float64,
+                                     device="cpu", **kw)
+    return [np.asarray(a) for a in j.simulate()], np_all(t.simulate())
+
+
+@pytest.mark.parametrize("method", ["semi_implicit", "explicit"])
+def test_chorin_fd_matches_jax_solver(method):
+    """Red-black pressure, nt=12, 51^2: the port vs the JAX solver,
+    <= 1e-9; and both against the Gauss-Seidel golden at the converged-gate
+    bounds of tests/test_chorin_fd.py (u, v 1e-3; p 0.2)."""
+    want, got = chorin_pair(method)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-9)
+    gold = load_golden(f"chorin_fd_{method}_nt12.npz")
+    for g, key, atol in zip(got, "uvp", (1e-3, 1e-3, 0.2)):
+        np.testing.assert_allclose(g, gold[key], rtol=0, atol=atol)
+
+
+def test_chorin_fd_cg_mode_matches_jax_solver():
+    """CG pressure (plain torch on every device), nt=4, 24^2: <= 1e-9."""
+    want, got = chorin_pair("semi_implicit", nt=4, nx=24, pressure_mode="cg",
+                            nit=60)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-9)
+
+
+def test_chorin_fd_gauss_seidel_mode_matches_jax_solver():
+    """Wavefront Gauss-Seidel pressure, nt=2 on 16^2 (eager wavefront
+    sweeps are slow on the CPU): <= 1e-12."""
+    want, got = chorin_pair("explicit", nt=2, nx=16,
+                            pressure_mode="gauss_seidel", nit=40)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("family", ["direct_fd", "chorin_semi_implicit",
+                                    "chorin_explicit"])
+def test_state_carried_across_packages_steps_alike(family):
+    """A JAX FlowState read back as numpy (state_to_numpy) goes into the
+    port (state_from_numpy); one step in each package agrees <= 1e-12."""
+    nx = 32
+    dx = dy = 2.0 / (nx - 1)
+    bcs = cavity_bcs(dx, dy)
+    rng = np.random.default_rng(11)
+    u, v, p = (0.1 * rng.normal(size=(nx, nx)) for _ in range(3))
+    if family == "direct_fd":
+        j_sys = j_direct.NavierStokesSystem(u, v, p, *bcs, nt=1, nit=20,
+                                            nx=nx, ny=nx, dtype=jnp.float64)
+        t_sys = direct_fd.NavierStokesSystem(u, v, p, *bcs, nt=1, nit=20,
+                                             nx=nx, ny=nx,
+                                             dtype=torch.float64)
+    else:
+        kw = dict(nt=1, nit=50, nx=nx, ny=nx, nu=0.1,
+                  method=family.split("_", 1)[1])
+        j_sys = j_chorin.NavierStokesSystem(u, v, p, *bcs,
+                                            dtype=jnp.float64, **kw)
+        t_sys = chorin_fd.NavierStokesSystem(u, v, p, *bcs,
+                                             dtype=torch.float64, **kw)
+    j_state = j_sys.step(j_sys.state0)
+    carried = tstate.state_from_numpy(tstate.state_to_numpy(j_state),
+                                      device="cpu", dtype=torch.float64)
+    assert (carried.u_prev is None) == (family == "direct_fd")
+    want = tstate.state_to_numpy(j_sys.step(j_state))
+    got = tstate.state_to_numpy(t_sys.step(carried))
+    assert want.keys() == got.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-12)
+
+
+def test_large_grid_routes_to_multiblock_sor(monkeypatch):
+    """A grid past one block's shared memory takes K5's route (its twin
+    sor_redblack_tiled on the CPU), gated every k=8 sweeps."""
+    nx = 20
+    bcs = cavity_bcs(2.0 / (nx - 1), 2.0 / (nx - 1))
+    rng = np.random.default_rng(5)
+    u, v, p = (0.1 * rng.normal(size=(nx, nx)) for _ in range(3))
+    sys_ = chorin_fd.NavierStokesSystem(u, v, p, *bcs, nt=1, nit=30, nx=nx,
+                                        ny=nx, nu=0.1, method="explicit",
+                                        dtype=torch.float64)
+    small = sys_.step(sys_.state0)
+    monkeypatch.setattr(poisson_kernels, "SMEM_BUDGET", 0)
+    calls = []
+    real = kernels.sor_redblack_tiled
+    monkeypatch.setattr(poisson_kernels, "sor_redblack_tiled",
+                        lambda *a: calls.append(a[7]) or real(*a))
+    large = sys_.step(sys_.state0)
+    assert calls == [8]  # one solve, gated every k=8 sweeps
+    assert not torch.equal(small.p, large.p)  # ran whole groups of 8
+
+
+def test_config_validation_and_not_yet_ported_modes():
+    with pytest.raises(ValueError):
+        chorin_fd.ChorinFDConfig(method="bogus")
+    with pytest.raises(ValueError):
+        chorin_fd.ChorinFDConfig(nx=10, ny=12)  # quirk ADI needs square
+    for kw in (dict(method="helmholtz"), dict(pressure_mode="dst"),
+               dict(pressure_mode="multigrid")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            chorin_fd.ChorinFDConfig(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        direct_fd.DirectFDConfig(pressure_mode="exact")
+    with pytest.raises(ValueError):
+        direct_fd.DirectFDConfig(pressure_mode="bogus")
+
+
+def test_gemm_precision_maps_to_torch():
+    """float32: None/'highest' are plain fp32 (equal to a @ b), 'default'
+    rounds the inputs to bf16; float64 ignores the setting."""
+    rng = np.random.default_rng(0)
+    a, b = (torch.as_tensor(rng.normal(size=(40, 40)), dtype=torch.float32)
+            for _ in range(2))
+    exact = a @ b
+    assert torch.equal(chorin_fd.matmul(a, b, None), exact)
+    assert torch.equal(chorin_fd.matmul(a, b, "highest"), exact)
+    bf = chorin_fd.matmul(a, b, "default")
+    err = float((bf - exact).abs().max())
+    assert 1e-4 < err < 0.5
+    a64 = a.double()
+    assert torch.equal(chorin_fd.matmul(a64, a64, "default"), a64 @ a64)
+
+
+def test_state_helpers():
+    st = tstate.zeros_state(4, 5, dtype=torch.float64, history=True)
+    assert st.u_prev is st.u and st.p.shape == (4, 5)
+    assert st.astype(torch.float32).v_prev.dtype == torch.float32
+    d = tstate.state_to_numpy(tstate.zeros_state(3, 3))
+    assert sorted(d) == ["p", "u", "v"]

@@ -8,8 +8,9 @@ wrapper takes its plain torch twin only for a CPU tensor; on a CUDA tensor
 it launches the kernel or raises.
 
 Ported so far: the FD cavity pipeline (core BCs and state, the pressure
-solvers, the direct_fd and chorin_fd solvers and their CLI). This package
-never imports jax.
+solvers, the direct_fd and chorin_fd solvers) and the 3D periodic
+pseudospectral DNS (`solvers/spectral3d.py` with the fused transform
+kernels), with their CLI. This package imports neither jax nor ns_tpu.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,74 @@
+"""Profile the step loop of one port rollout on the card: steps/s, device
+idle share and device time by kernel.
+
+Takes run_solver's command line (same families, flags and defaults) and
+times the rollout without the frame extraction, readback and npz write
+of the CLI: `simulate()` for the FD families, `final_state()` for the 3D
+ones. One warm-up rollout, then the median steps/s of three timed ones,
+then one rollout under `torch.profiler` (CPU and CUDA activity), whose
+idle share is 1 - (summed duration of its device kernels) / (profiled
+wall time). Only the kernel records count (an aten op's own device time
+repeats its kernels'). Needs a CUDA device: there is no CPU mode for
+device metrics.
+
+    python -m ns_tpu_torch.cli.profile_run taylor_green_3d --nx 256 --nt 8 \\
+        --transform matmul --precision default
+    python -m ns_tpu_torch.cli.profile_run direct_fd --nx 1024 --nt 20 \\
+        --dt 1e-5 --nu 0.01
+
+Prints one JSON line, with the top kernels by device time and the top
+host ops by their own CPU time.
+"""
+
+import collections
+import json
+import statistics
+import sys
+import time
+
+import torch
+
+from ns_tpu_torch.cli import run_solver
+
+
+def profile(argv) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_run needs a CUDA device")
+    args, device, sys_ = run_solver.build(list(argv) + ["--device", "cuda"])
+    run = sys_.final_state if args.family in run_solver._3D else sys_.simulate
+
+    def timed() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed()  # warm-up: cuBLAS/cuFFT plans, the kernel library's build
+    rates = [args.nt / timed() for _ in range(3)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall = timed()
+    by_kernel = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name][0] += e.time_range.elapsed_us()
+            by_kernel[e.name][1] += 1
+    busy_us = sum(t for t, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {
+        "argv": list(argv), "device": torch.cuda.get_device_name(0),
+        "steps_per_s_median_of_3": statistics.median(rates),
+        "steps_per_s": rates, "profiled_wall_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
+        "top_device_ms": [[name[:80], t / 1e3, n] for name, (t, n) in top],
+        "top_host_self_ms": [[e.key[:80], e.self_cpu_time_total / 1e3,
+                              e.count] for e in host[:6]],
+    }
+
+
+if __name__ == "__main__":
+    print(json.dumps(profile(sys.argv[1:])))

@@ -1,37 +1,53 @@
-"""Run an FD cavity rollout with the torch port and save the reference-format
+"""Run a solver rollout with the torch port and save the reference-format
 npz.
 
-Port of `ns_tpu/cli/run_solver.py` for its two FD families, with the same
-presets, flags and defaults:
+Port of `ns_tpu/cli/run_solver.py` for its FD and 3D families, with the
+same presets, flags and defaults:
 
-  direct_fd  — nt=200 nit=50 50x50 lid-driven cavity
-  chorin_fd  — nt=200 nit=200 51x51, semi_implicit (--method explicit for
-               the other mode)
+  direct_fd        — nt=200 nit=50 50x50 lid-driven cavity
+  chorin_fd        — nt=200 nit=200 51x51, semi_implicit (--method
+                     explicit for the other mode)
+  taylor_green_3d  — 3D Taylor-Green vortex (nu defaults to 1/1600); the
+                     npz carries u/v/w/p
+  decaying_turbulence_3d — 3D isotropic decaying turbulence (--seed)
 
-The npz goes through `ns_tpu.io.npz.save_rollout` (a numpy-only module,
-reused rather than copied), so the trainer reads it unchanged. The other
-families and the --guard/--progress/--stream-dir/--dist modes are not yet
-ported and exit with an error that says so.
+The FD npz holds u, v, p of shape (nt, nx, ny), the layout the JAX trainer
+reads. The 2D periodic and Chebyshev families and the
+--guard/--progress/--stream-dir/--dist modes are not yet ported and exit
+with an error that says so.
 
 Examples:
   python -m ns_tpu_torch.cli.run_solver direct_fd --out data.npz
   python -m ns_tpu_torch.cli.run_solver chorin_fd --method explicit
   python -m ns_tpu_torch.cli.run_solver chorin_fd --device cpu --nt 5
+  python -m ns_tpu_torch.cli.run_solver taylor_green_3d --nx 256 --nt 8 \
+      --transform matmul --precision default
+  python -m ns_tpu_torch.cli.run_solver taylor_green_3d --device cpu --nx 16
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
-from ns_tpu.io.npz import save_rollout
 from ns_tpu_torch.core.bc import dirichlet, neumann
 
 _FAMILIES = ["direct_fd", "chorin_fd", "chorin_spectral", "taylor_green",
              "decaying_turbulence", "taylor_green_3d",
              "decaying_turbulence_3d"]
 _NOT_PORTED = "is not yet ported to ns_tpu_torch, see ROADMAP.md"
+_PORTED = ("direct_fd", "chorin_fd", "taylor_green_3d",
+           "decaying_turbulence_3d")
+_3D = ("taylor_green_3d", "decaying_turbulence_3d")
+
+
+def save_npz(path: str, **fields) -> str:
+    """np.savez of the fields at `path`, creating its directory."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **fields)
+    return path
 
 
 def cavity_bcs(dx, dy):
@@ -52,7 +68,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--nx", type=int, default=None)
     p.add_argument("--dt", type=float, default=0.001)
     p.add_argument("--rho", type=float, default=1.0)
-    p.add_argument("--nu", type=float, default=0.1)
+    p.add_argument("--nu", type=float, default=None,
+                   help="viscosity (default: 0.1 for the 2D families, "
+                        "1/1600 for the 3D ones)")
     p.add_argument("--beta", type=float, default=1.25)
     p.add_argument("--method", default="semi_implicit",
                    choices=["semi_implicit", "explicit", "helmholtz"])
@@ -66,6 +84,34 @@ def _parser() -> argparse.ArgumentParser:
                    choices=["default", "high", "highest"],
                    help="chorin_fd float32 ADI matmuls: highest (and unset) "
                         "= fp32, high = TF32, default = bf16")
+    p.add_argument("--transform", default="auto",
+                   choices=["auto", "fft", "matmul"],
+                   help="3D families: auto = compact matmul-DFT under the "
+                        "crossover, fft beyond; fft/matmul force an engine")
+    p.add_argument("--precision", default="high",
+                   choices=["default", "high", "highest"],
+                   help="3D matmul-DFT GEMMs: default = bf16, high = TF32, "
+                        "highest = fp32")
+    p.add_argument("--pallas-transform", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="3D families: the fused transform kernels K6-K8 "
+                        "(float32, matmul engine). auto: on for "
+                        "--precision default at >= 256^3 cells where the "
+                        "kernels fit shared memory; on/off force it")
+    p.add_argument("--forcing", default="none",
+                   choices=["none", "kolmogorov"],
+                   help="3D families: constant body forcing")
+    p.add_argument("--forcing-k", type=int, default=4,
+                   help="forcing wavenumber (default 4)")
+    p.add_argument("--forcing-amp", type=float, default=0.1,
+                   help="forcing amplitude (default 0.1)")
+    p.add_argument("--frame-stride", type=int, default=1,
+                   help="3D families: solver steps per SAVED frame (--nt "
+                        "then counts saved frames)")
+    p.add_argument("--spinup", type=int, default=0,
+                   help="3D families: solver steps discarded before the "
+                        "first saved frame")
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--pallas-momentum", action="store_true",
                    help="chorin_fd --method explicit: accepted for "
                         "command-line parity; on CUDA the port always runs "
@@ -84,23 +130,41 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None):
-    """Run one rollout and write its npz. Returns a summary dict (output
-    path, device, seconds and steps/s) for in-process callers."""
+def build(argv=None):
+    """Parse and check a command line as `main` does, and build its solver
+    system (a 3D system computes its initial carry) without running the
+    rollout. Returns (args, device, system)."""
     p = _parser()
     args = p.parse_args(argv)
-    if args.family not in ("direct_fd", "chorin_fd"):
+    periodic_3d = args.family in _3D
+    if args.nu is None:
+        args.nu = 6.25e-4 if periodic_3d else 0.1
+    if args.family not in _PORTED:
         p.error(f"family {args.family!r} {_NOT_PORTED}")
+    # the JAX CLI's flag rules, checked before any compute
+    if args.pallas_momentum and args.family != "chorin_fd":
+        p.error("--pallas-momentum applies to chorin_fd only")
+    if args.forcing != "none" and not periodic_3d:
+        p.error("--forcing applies to the periodic families only")
+    if periodic_3d and (args.dist or args.stream_dir or args.progress
+                        or args.guard):
+        p.error("--dist/--stream-dir/--progress/--guard are not supported "
+                "for the 3D families")
+    if args.frame_stride < 1:
+        p.error(f"--frame-stride must be >= 1, got {args.frame_stride}")
+    if args.spinup < 0:
+        p.error(f"--spinup must be >= 0, got {args.spinup}")
+    if (args.frame_stride > 1 or args.spinup) and not periodic_3d:
+        p.error("--frame-stride/--spinup apply to the periodic families "
+                "only")
     for flag in ("stream_dir", "guard", "progress", "dist"):
         if getattr(args, flag):
             p.error(f"--{flag.replace('_', '-')} {_NOT_PORTED}")
-    if args.pallas_momentum and args.family != "chorin_fd":
-        p.error("--pallas-momentum applies to chorin_fd only")
     device = torch.device(args.device or
                           ("cuda" if torch.cuda.is_available() else "cpu"))
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
-
-    t0 = time.perf_counter()
+    if periodic_3d:
+        return args, device, _system_3d(args, device)
     if args.family == "direct_fd":
         from ns_tpu_torch.solvers.direct_fd import NavierStokesSystem
         if args.pressure_mode not in ("jacobi", "exact", "redblack"):
@@ -118,7 +182,6 @@ def main(argv=None):
                                   nit=nit, nx=nx, ny=nx, dt=args.dt,
                                   rho=args.rho, nu=args.nu, dtype=dtype,
                                   device=device)
-        default_out = "data.npz"
     else:
         from ns_tpu_torch.solvers.chorin_fd import NavierStokesSystem
         if args.pressure_mode in ("jacobi", "exact"):
@@ -143,17 +206,72 @@ def main(argv=None):
                                   pressure_mode=args.pressure_mode,
                                   gemm_precision=args.gemm_precision,
                                   device=device)
-        default_out = f"data_{args.method}.npz"
+    return args, device, sys_
 
+
+def main(argv=None):
+    """Run one rollout and write its npz. Returns a summary dict (output
+    path, device, seconds and steps/s) for in-process callers."""
+    t0 = time.perf_counter()
+    args, device, sys_ = build(argv)
+    if args.family in _3D:
+        return _run_3d(args, device, sys_, t0)
     u, v, pr = (t.cpu().numpy() for t in sys_.simulate())
     elapsed = time.perf_counter() - t0
-    out = args.out or default_out
-    save_rollout(out, u, v, pr)
+    out = args.out or ("data.npz" if args.family == "direct_fd"
+                       else f"data_{args.method}.npz")
+    save_npz(out, u=u, v=v, p=pr)
     rate = args.nt / elapsed
     print(f"{args.family}: nt={args.nt} grid={u.shape[1]}x{u.shape[2]} on "
           f"{device} in {elapsed:.2f}s ({rate:.1f} steps/s) -> {out}")
     return {"out": out, "device": str(device), "seconds": elapsed,
             "steps_per_s": rate}
+
+
+def _system_3d(args, device: torch.device):
+    """The 3D periodic system (ns_tpu_torch.solvers.spectral3d) of a
+    command line, with its initial carry on `device`."""
+    from ns_tpu_torch.solvers import spectral3d as s3
+
+    nx = args.nx or 64
+    kw = dict(nt=args.nt, nx=nx, ny=nx, nz=nx, dt=args.dt, nu=args.nu,
+              rho=args.rho, dtype=args.dtype, transform=args.transform,
+              matmul_precision=args.precision, forcing=args.forcing,
+              forcing_k=args.forcing_k, forcing_amp=args.forcing_amp,
+              use_pallas_transform={"auto": "auto", "on": True,
+                                    "off": False}[args.pallas_transform])
+    cfg = s3.Spectral3DConfig(**kw)
+    if args.family == "taylor_green_3d":
+        u0 = s3.taylor_green_velocity(cfg)
+    else:
+        u0 = s3.random_solenoidal_velocity(cfg, seed=args.seed)
+    return s3.NavierStokesSystem3D(u0, device=device, **kw)
+
+
+def _run_3d(args, device: torch.device, sys_, t0: float) -> dict:
+    """A 3D rollout and its u/v/w/p npz."""
+    cfg, nx = sys_.cfg, sys_.cfg.nx
+    strided = args.frame_stride > 1 or args.spinup > 0
+    if strided:
+        fields = sys_.simulate_strided(args.nt, stride=args.frame_stride,
+                                       spinup=args.spinup)
+        steps = 1 + args.spinup + (args.nt - 1) * args.frame_stride
+    else:
+        fields = sys_.simulate()
+        steps = args.nt
+    u3, v3, w3, p3 = (t.cpu().numpy() for t in fields)
+    elapsed = time.perf_counter() - t0
+    out = args.out or f"{args.family}.npz"
+    save_npz(out, u=u3, v=v3, w=w3, p=p3)
+    print(f"{args.family}: nt={args.nt} (stride {args.frame_stride}, "
+          f"spinup {args.spinup}) grid={nx}^3 on {device} "
+          f"(transform {cfg.transform}, fused "
+          f"{cfg.use_pallas_transform}) in {elapsed:.2f}s "
+          f"({args.nt / elapsed:.1f} frames/s) -> {out}")
+    return {"out": out, "device": str(device), "seconds": elapsed,
+            "steps_per_s": steps / elapsed,
+            "frames_per_s": args.nt / elapsed,
+            "use_pallas_transform": cfg.use_pallas_transform}
 
 
 if __name__ == "__main__":

@@ -2,6 +2,8 @@
 //
 // K2 jacobi_fused        replaces ns_tpu/ops/pallas/poisson_kernels.py
 //                        ::jacobi_fused_pallas (direct_fd's nit sweeps).
+// K2 jacobi_multiblock   its multi-block form, for grids beyond one block's
+//                        shared memory (the JAX package's XLA path there).
 // K1 sor_redblack_fused  replaces ::sor_redblack_fused_pallas (chorin_fd's
 //                        SOR solved to tolerance, one launch).
 // K5 sor_redblack_tiled  replaces ::sor_redblack_tiled_pallas and
@@ -17,7 +19,12 @@
 // larger than shared memory (1024^2) is bandwidth-bound on the L2/HBM
 // traffic of each colour half-sweep; K5 runs every half-sweep as a grid of
 // blocks over the whole field and reads the gate once per k sweeps through
-// an atomic max, so the host syncs once per k sweeps.
+// an atomic max, so the host syncs once per k sweeps. The multi-block
+// Jacobi is bandwidth-bound the same way: each sweep is one grid launch over
+// the field into the other buffer of a ping-pong pair (the interior reads
+// only old values), then one single-block launch writes the BC edges in
+// list order, each edge its own __syncthreads phase (a Neumann edge reads
+// the freshly swept inner row, which other blocks wrote). No host sync.
 
 #include "common.cuh"
 
@@ -151,6 +158,39 @@ sor_color_kernel(T* __restrict__ p, const T* __restrict__ rhs, int nx, int ny,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2, multi-block form: one Jacobi sweep over the whole grid, one thread per
+// cell, cur -> nxt (boundary cells copied). The BC edges follow in
+// bc_edges_kernel.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(256)
+jacobi_sweep_kernel(const T* __restrict__ cur, const T* __restrict__ b,
+                    T* __restrict__ nxt, int nx, int ny, T dx2, T dy2, T denom,
+                    T cb) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= nx || j >= ny) return;
+  const size_t k = static_cast<size_t>(i) * ny + j;
+  if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 2) {
+    nxt[k] = ((cur[k + 1] + cur[k - 1]) * dy2 +
+              (cur[k + ny] + cur[k - ny]) * dx2) / denom - cb * b[k];
+  } else {
+    nxt[k] = cur[k];
+  }
+}
+
+// The BC list's edge writes in list order, one block, each edge a phase.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+bc_edges_kernel(T* __restrict__ a, int nx, int ny, BCList bcs) {
+  for (int q = 0; q < bcs.n; ++q) {
+    apply_bc_edge(a, nx, ny, bcs.kind[q], bcs.side[q], T(bcs.term[q]),
+                  threadIdx.x, blockDim.x);
+    __syncthreads();
+  }
+}
+
 template <typename T>
 int jacobi_fused(const void* p, const void* b, void* out, int nx, int ny,
                  int n_iter, double dx2, double dy2, double denom, double cb,
@@ -164,6 +204,37 @@ int jacobi_fused(const void* p, const void* b, void* out, int nx, int ny,
   jacobi_fused_kernel<T><<<1, 1024, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(p), static_cast<const T*>(b), static_cast<T*>(out),
       nx, ny, n_iter, T(dx2), T(dy2), T(denom), T(cb), bcs);
+  return cudaGetLastError();
+}
+
+// n_iter sweeps alternate between `out` and `scratch`, starting with the
+// one that makes the last sweep land in `out`; `p` is only read.
+template <typename T>
+int jacobi_multiblock(const void* p, const void* b, void* out, void* scratch,
+                      int nx, int ny, int n_iter, double dx2, double dy2,
+                      double denom, double cb, int n_bc, const double* bc_spec,
+                      void* stream) {
+  BCList bcs;
+  cudaError_t e = make_bcs(n_bc, bc_spec, &bcs);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_iter <= 0)
+    return cudaMemcpyAsync(out, p, static_cast<size_t>(nx) * ny * sizeof(T),
+                           cudaMemcpyDeviceToDevice, s);
+  T* bufs[2] = {static_cast<T*>(out), static_cast<T*>(scratch)};
+  int w = n_iter % 2 == 1 ? 0 : 1;
+  const T* cur = static_cast<const T*>(p);
+  const dim3 block(32, 8);
+  const dim3 grid((ny + block.x - 1) / block.x, (nx + block.y - 1) / block.y);
+  for (int it = 0; it < n_iter; ++it) {
+    T* nxt = bufs[w];
+    jacobi_sweep_kernel<T><<<grid, block, 0, s>>>(
+        cur, static_cast<const T*>(b), nxt, nx, ny, T(dx2), T(dy2), T(denom),
+        T(cb));
+    bc_edges_kernel<T><<<1, 1024, 0, s>>>(nxt, nx, ny, bcs);
+    cur = nxt;
+    w ^= 1;
+  }
   return cudaGetLastError();
 }
 
@@ -221,6 +292,17 @@ const char* ns_error_string(int code) {
   }
 NS_JACOBI(f32, float)
 NS_JACOBI(f64, double)
+
+#define NS_JACOBI_MB(SUFFIX, T)                                               \
+  int ns_jacobi_multiblock_##SUFFIX(                                          \
+      const void* p, const void* b, void* out, void* scratch, int nx, int ny, \
+      int n_iter, double dx2, double dy2, double denom, double cb, int n_bc,  \
+      const double* bc_spec, void* stream) {                                  \
+    return ns::jacobi_multiblock<T>(p, b, out, scratch, nx, ny, n_iter, dx2,  \
+                                    dy2, denom, cb, n_bc, bc_spec, stream);   \
+  }
+NS_JACOBI_MB(f32, float)
+NS_JACOBI_MB(f64, double)
 
 #define NS_SOR_FUSED(SUFFIX, T)                                               \
   int ns_sor_redblack_fused_##SUFFIX(const void* p, const void* rhs,         \

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ns_tpu_torch.
 
 The sources under `ns_tpu_torch/csrc/` are compiled at first use with
-`nvcc` for Hopper (`-gencode arch=compute_90a,code=sm_90a`) into one shared
-library with a plain C interface, which is loaded with `ctypes`. The
+`nvcc` for Hopper (`-gencode arch=compute_90a,code=sm_90a`), one nvcc per
+source, all started together, and linked into one shared library with a
+plain C interface, which is loaded with `ctypes`. The
 library lands in `ns_tpu_torch/_build/` under a name keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the existing file. nvcc's output (ptxas register and shared-memory report)
@@ -35,17 +36,29 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 CUDA_HOME = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# C entry points: name -> argtypes (every one returns a cudaError_t as int)
+_BOTH, _F32 = ("f32", "f64"), ("f32",)
+# C entry points: name -> (argtypes, the dtype suffixes it is built for);
+# every one returns a cudaError_t as int
 _ENTRIES = {
-    "ns_jacobi_fused": [_P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _I, _P, _P],
-    "ns_sor_redblack_fused": [_P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _I, _P],
-    "ns_sor_redblack_tiled_group": [_P, _P, _P, _I, _I, _D, _D, _D, _D, _I,
-                                    _P],
-    "ns_momentum_explicit": [_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D,
-                             _D, _D, _I, _I, _P, _I, _P, _P],
+    "ns_jacobi_fused": ([_P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _I, _P, _P],
+                        _BOTH),
+    "ns_jacobi_multiblock": ([_P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _I,
+                              _P, _P], _BOTH),
+    "ns_sor_redblack_fused": ([_P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _I,
+                               _P], _BOTH),
+    "ns_sor_redblack_tiled_group": ([_P, _P, _P, _I, _I, _D, _D, _D, _D, _I,
+                                     _P], _BOTH),
+    "ns_momentum_explicit": ([_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D,
+                              _D, _D, _I, _I, _P, _I, _P, _P], _BOTH),
+    "ns_fused_zy_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                            _F32),
+    "ns_fused_yz_inverse": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                            _F32),
+    "ns_fused_lamb": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                      _F32),
 }
 
 
@@ -82,20 +95,32 @@ def build_library() -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: a concurrent build never loads a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        # build under private names, then rename: a concurrent build never
+        # loads a half-written library
+        tmp = os.path.join(tmpdir, lib.name)
+        objs = {src: os.path.join(tmpdir, src.stem + ".o")
+                for src in sorted(CSRC.glob("*.cu"))}
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                for s, o in objs.items()]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        log = [(c, p.communicate()[0], p.returncode)
+               for c, p in zip(cmds, procs)]
+        if not any(rc for *_, rc in log):
+            link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                    *objs.values()]
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            log.append((link, proc.stdout, proc.returncode))
+        lib.with_suffix(".log").write_text(
+            "".join(" ".join(c) + "\n" + out for c, out, _ in log))
+        for c, out, rc in log:
+            if rc:
+                raise KernelBuildError(
+                    f"nvcc failed (exit {rc}): {' '.join(c)}\n{out}")
+        os.replace(tmp, lib)
     return lib
 
 
@@ -103,8 +128,8 @@ def build_library() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build_library()))
-    for name, argtypes in _ENTRIES.items():
-        for suffix in ("f32", "f64"):
+    for name, (argtypes, suffixes) in _ENTRIES.items():
+        for suffix in suffixes:
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -130,7 +155,10 @@ MAX_BCS = 8  # ns::kMaxBCs in csrc/common.cuh
 
 def entry(name: str, dtype: torch.dtype):
     """The C entry point `name` for `dtype` (float32 or float64)."""
-    return getattr(library(), f"{name}_{_SUFFIX[dtype]}")
+    suffix = _SUFFIX[dtype]
+    if suffix not in _ENTRIES[name][1]:
+        raise TypeError(f"{name} has no {dtype} kernel")
+    return getattr(library(), f"{name}_{suffix}")
 
 
 def check_inputs(what: str, *tensors: torch.Tensor) -> tuple[int, int]:
@@ -156,6 +184,23 @@ def check_inputs(what: str, *tensors: torch.Tensor) -> tuple[int, int]:
     if nx < 3 or ny < 3:
         raise ValueError(f"{what}: grid must be at least 3x3, got {nx}x{ny}")
     return nx, ny
+
+
+def check_fields(what: str, t: torch.Tensor, dtype: torch.dtype,
+                 ndim: tuple[int, ...]) -> None:
+    """Validate one input of the 3D transform kernels: CUDA, `dtype`, a
+    rank in `ndim`, C-contiguous, no empty axis."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: dtype must be {dtype}, got {t.dtype}")
+    if t.dim() not in ndim:
+        raise ValueError(f"{what}: expected rank {ndim}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if t.numel() == 0:
+        raise ValueError(f"{what}: empty input {tuple(t.shape)}")
 
 
 def bc_spec(bcs) -> ctypes.Array:

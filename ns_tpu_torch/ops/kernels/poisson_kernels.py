@@ -4,6 +4,9 @@ Each wrapper replaces a kernel of `ns_tpu/ops/pallas/poisson_kernels.py`
 and keeps a plain twin:
   K2 `jacobi_fused`            <- `jacobi_fused_pallas`;
                                   twin `ops.poisson.jacobi` + `apply_bcs`
+  K2 `jacobi_multiblock`       <- the same, beyond one block (the grids where
+                                  the JAX package runs its XLA Jacobi); same
+                                  twin
   K1 `sor_redblack_fused`      <- `sor_redblack_fused_pallas`;
                                   twin `ops.poisson.sor_redblack`
   K5 `sor_redblack_multiblock` <- `sor_redblack_tiled_pallas` and its
@@ -19,7 +22,8 @@ the CUDA source's header. In short: K1/K2 keep the whole grid in one
 block's shared memory and run every sweep (and K1's convergence gate) in
 one launch, because at the reference sizes a solve is latency-bound; K5
 runs each colour half-sweep over the whole grid with many blocks and reads
-its gate once per k sweeps.
+its gate once per k sweeps; K2's multi-block form runs each sweep as one
+grid launch and the BC edges as one ordered single-block launch.
 """
 
 from __future__ import annotations
@@ -74,6 +78,32 @@ def jacobi_fused(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
 
 
 jacobi_fused.launches = 0
+
+
+def jacobi_multiblock(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
+                      n_iter: int, p_bc) -> torch.Tensor:
+    """`jacobi_fused` for any grid size: each sweep is one grid launch into
+    the other buffer of a device ping-pong pair, followed by one launch
+    that writes the p BC edges in list order (K2, multi-block form). The
+    whole solve is enqueued with no host sync."""
+    if p.device.type == "cpu":
+        return poisson.jacobi(p, b, dx, dy, n_iter,
+                              bc_fn=lambda q: apply_bcs(q, p_bc))
+    nx, ny = _build.check_inputs("jacobi_multiblock", p, b)
+    dx2, dy2, denom = _consts(dx, dy)
+    out, scratch = torch.empty_like(p), torch.empty_like(p)
+    spec = _build.bc_spec(p_bc)
+    fn = _build.entry("ns_jacobi_multiblock", p.dtype)
+    with torch.cuda.device(p.device):
+        code = fn(p.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), nx, ny, int(n_iter), dx2, dy2, denom,
+                  dx2 * dy2 / denom, len(p_bc), spec, _build.stream(p.device))
+    _build.check(code, "jacobi_multiblock")
+    jacobi_multiblock.launches += 1
+    return out
+
+
+jacobi_multiblock.launches = 0
 
 
 def sor_redblack_fused(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,

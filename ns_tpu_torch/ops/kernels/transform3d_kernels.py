@@ -1,0 +1,222 @@
+"""Fused 3D transform kernels: wrappers of K6, K7, K8
+(`csrc/transform3d_kernels.cu`).
+
+Each wrapper replaces a kernel of `ns_tpu/ops/pallas/transform3d_kernels.py`
+with its signature less `interpret`/`block_x`, and keeps a plain twin that
+computes what the Pallas kernel body computes:
+  K6 `fused_zy_forward` <- `fused_zy_forward` (`_fwd_kernel`);
+                           twin `zy_forward`
+  K7 `fused_yz_inverse` <- `fused_yz_inverse` (`_inv_kernel`);
+                           twin `yz_inverse`
+  K8 `fused_lamb`       <- `fused_lamb` (`_lamb_kernel`); twin `lamb`
+
+The twins are also the z and y stages of the plain compact transform
+(`solvers/spectral3d.py::make_compact_transforms`), at the configured
+`precision` (`ops/gemm.py`). The kernels are float32 (as on the TPU, where
+Mosaic had no float64) and compute in full fp32 FMAs whatever `precision`
+says: TF32 or bf16 GEMMs are not part of their design.
+
+The DFT tables (`Fz_t`, `Fy_t`, `Fyi_t`, `Bz`) may be host numpy arrays, as
+the JAX wrappers take them, or complex torch tensors; the solver passes
+tensors already on the device. Dispatch is by the input's device: a CPU
+tensor takes the twin, a CUDA tensor launches the kernel or raises. Each
+wrapper counts its calls that launched in `launches` (K8 is two CUDA
+launches per call and counts one).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ns_tpu_torch.ops.gemm import cmatmul
+from ns_tpu_torch.ops.kernels import _build
+from ns_tpu_torch.ops.kernels.poisson_kernels import SMEM_BUDGET
+
+# tile sizes of csrc/transform3d_kernels.cu (kTY, kBT)
+TILE_Y = 16
+TILE_RY = 16
+
+
+def smem_bytes(nx: int, ny: int, nz: int, ry: int, kzc: int) -> dict:
+    """Shared memory (bytes) each kernel's block needs at this grid, as the
+    CUDA entries request it."""
+    c, f = 8, 4  # complex64, float32
+    return {
+        "fused_zy_forward": (ry * kzc + TILE_Y * kzc) * c + TILE_Y * nz * f,
+        "fused_yz_inverse": TILE_Y * (ry + kzc) * c,
+        "fused_lamb": max(TILE_Y * (ry + 6 * kzc) * c + 3 * TILE_Y * nz * f,
+                          TILE_RY * ny * c),
+    }
+
+
+def fused_fits(nx: int, ny: int, nz: int, ry: int, kzc: int) -> bool:
+    """Whether every fused kernel's block fits one Hopper block's shared
+    memory at this grid (the counterpart of the TPU's `lamb_block_x`
+    VMEM check). K6 keeps a whole (Ry, Kzc) output row on chip, so it is
+    the first to stop fitting (512^3 does not)."""
+    return max(smem_bytes(nx, ny, nz, ry, kzc).values()) <= SMEM_BUDGET
+
+
+def _table(m, like: torch.Tensor) -> torch.Tensor:
+    """A DFT table as a complex tensor on `like`'s device, in the complex
+    type matching `like`."""
+    cdt = (torch.complex128 if like.dtype in (torch.float64, torch.complex128)
+           else torch.complex64)
+    return torch.as_tensor(m, dtype=cdt, device=like.device)
+
+
+# --- plain twins ------------------------------------------------------------
+
+def zy_forward(w: torch.Tensor, Fz_t, Fy_t, precision: str = "high"):
+    """(..., nx, ny, nz) real -> (..., nx, Ry, Kzc) complex:
+    t = w @ Fz_t^T (z-stage), then Fy_t @ t (y-stage)."""
+    t = cmatmul(w, _table(Fz_t, w).transpose(0, 1), precision)
+    return cmatmul(_table(Fy_t, w), t, precision)
+
+
+def yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int, precision: str = "high"):
+    """(..., nx, Ry, Kzc) complex -> (..., nx, ny, nz) real:
+    t = Fyi_t @ a (y-inverse), then Re(t) Bz_re - Im(t) Bz_im (z-unfold)."""
+    t = cmatmul(_table(Fyi_t, a), a, precision)
+    bz = _table(Bz, a)
+    return (cmatmul(t.real, bz.real, precision)
+            - cmatmul(t.imag, bz.imag, precision))
+
+
+def cross(f: torch.Tensor) -> torch.Tensor:
+    """u x omega for f = (u1, u2, u3, w1, w2, w3) stacked on axis 0."""
+    u1, u2, u3, w1, w2, w3 = f
+    return torch.stack([u2 * w3 - u3 * w2, u3 * w1 - u1 * w3,
+                        u1 * w2 - u2 * w1])
+
+
+def lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
+         precision: str = "default"):
+    """(6, nx, Ry, Kzc) (u, omega) after the x-inverse -> (3, nx, Ry, Kzc)
+    Lamb vector u x omega before the x-forward."""
+    return zy_forward(cross(yz_inverse(a6, Fyi_t, Bz, nz, precision)), Fz_t,
+                      Fy_t, precision)
+
+
+# --- wrappers -----------------------------------------------------------------
+
+def _check_fit(what: str, dims: dict) -> None:
+    need = smem_bytes(**dims)[what]
+    if need > SMEM_BUDGET:
+        raise ValueError(f"{what}: a grid of {dims} needs {need} bytes "
+                         f"of shared memory per block, over the "
+                         f"{SMEM_BUDGET} a Hopper block can have")
+
+
+def _real_view(t: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(t.contiguous())
+
+
+def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
+                     precision: str = "high") -> torch.Tensor:
+    """(..., nx, ny, nz) real -> (..., nx, Ry, Kzc) complex: the z and y DFT
+    stages of the compact forward transform in one launch, with the
+    z-to-y intermediate kept on chip (K6). The x-stage is the caller's."""
+    if w.device.type == "cpu":
+        return zy_forward(w, Fz_t, Fy_t, precision)
+    _build.check_fields("fused_zy_forward", w, torch.float32, (3, 4, 5))
+    fz, fy = _table(Fz_t, w), _table(Fy_t, w)
+    lead, (nx, ny, nz) = w.shape[:-3], w.shape[-3:]
+    kzc, ry = fz.shape[0], fy.shape[0]
+    if fz.shape != (kzc, nz) or fy.shape != (ry, ny):
+        raise ValueError(f"fused_zy_forward: tables {tuple(fz.shape)}, "
+                         f"{tuple(fy.shape)} do not match w {tuple(w.shape)}")
+    dims = dict(nx=nx, ny=ny, nz=nz, ry=ry, kzc=kzc)
+    _check_fit("fused_zy_forward", dims)
+    B = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty((*lead, nx, ry, kzc), dtype=torch.complex64,
+                      device=w.device)
+    fzt = _real_view(fz.transpose(0, 1))
+    fyv = _real_view(fy)
+    fn = _build.entry("ns_fused_zy_forward", torch.float32)
+    with torch.cuda.device(w.device):
+        code = fn(w.data_ptr(), fzt.data_ptr(), fyv.data_ptr(),
+                  out.data_ptr(), B, nx, ny, nz, ry, kzc,
+                  _build.stream(w.device))
+    _build.check(code, "fused_zy_forward")
+    fused_zy_forward.launches += 1
+    return out
+
+
+fused_zy_forward.launches = 0
+
+
+def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,
+                     precision: str = "high") -> torch.Tensor:
+    """(..., nx, Ry, Kzc) complex -> (..., nx, ny, nz) real: the y-inverse
+    and the z-unfold (real part only) in one launch (K7). The caller has
+    run the x-inverse."""
+    if a.device.type == "cpu":
+        return yz_inverse(a, Fyi_t, Bz, nz, precision)
+    _build.check_fields("fused_yz_inverse", a, torch.complex64, (3, 4, 5))
+    fyi, bz = _table(Fyi_t, a), _table(Bz, a)
+    lead, (nx, ry, kzc) = a.shape[:-3], a.shape[-3:]
+    ny = fyi.shape[0]
+    if fyi.shape != (ny, ry) or bz.shape != (kzc, nz):
+        raise ValueError(f"fused_yz_inverse: tables {tuple(fyi.shape)}, "
+                         f"{tuple(bz.shape)} do not match a {tuple(a.shape)}"
+                         f" and nz={nz}")
+    dims = dict(nx=nx, ny=ny, nz=nz, ry=ry, kzc=kzc)
+    _check_fit("fused_yz_inverse", dims)
+    B = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty((*lead, nx, ny, nz), dtype=torch.float32,
+                      device=a.device)
+    fn = _build.entry("ns_fused_yz_inverse", torch.float32)
+    fyv, bzv = _real_view(fyi), _real_view(bz)
+    with torch.cuda.device(a.device):
+        code = fn(_real_view(a).data_ptr(), fyv.data_ptr(), bzv.data_ptr(),
+                  out.data_ptr(), B, nx, ny, nz, ry, kzc,
+                  _build.stream(a.device))
+    _build.check(code, "fused_yz_inverse")
+    fused_yz_inverse.launches += 1
+    return out
+
+
+fused_yz_inverse.launches = 0
+
+
+def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
+               precision: str = "default") -> torch.Tensor:
+    """(6, nx, Ry, Kzc) complex (u, omega) after the x-inverse ->
+    (3, nx, Ry, Kzc) complex u x omega before the x-forward: the whole
+    physical leg of the nonlinear term (K8). Its two CUDA launches pass
+    only the z-reduced products (3, nx, ny, Kzc) between them; no physical
+    field is written to device memory."""
+    if a6.device.type == "cpu":
+        return lamb(a6, Fyi_t, Bz, Fz_t, Fy_t, nz, precision)
+    _build.check_fields("fused_lamb", a6, torch.complex64, (4,))
+    if a6.shape[0] != 6:
+        raise ValueError(f"fused_lamb wants (6, nx, Ry, Kzc); got "
+                         f"{tuple(a6.shape)}")
+    fyi, bz = _table(Fyi_t, a6), _table(Bz, a6)
+    fz, fy = _table(Fz_t, a6), _table(Fy_t, a6)
+    _, nx, ry, kzc = a6.shape
+    ny = fyi.shape[0]
+    if (fyi.shape != (ny, ry) or bz.shape != (kzc, nz)
+            or fz.shape != (kzc, nz) or fy.shape != (ry, ny)):
+        raise ValueError("fused_lamb: DFT tables do not match a6 "
+                         f"{tuple(a6.shape)} and nz={nz}")
+    dims = dict(nx=nx, ny=ny, nz=nz, ry=ry, kzc=kzc)
+    _check_fit("fused_lamb", dims)
+    scratch = torch.empty((3, nx, ny, kzc), dtype=torch.complex64,
+                          device=a6.device)
+    out = torch.empty((3, nx, ry, kzc), dtype=torch.complex64,
+                      device=a6.device)
+    views = [_real_view(t) for t in (a6, fyi, bz, fz.transpose(0, 1), fy)]
+    fn = _build.entry("ns_fused_lamb", torch.float32)
+    with torch.cuda.device(a6.device):
+        code = fn(*(v.data_ptr() for v in views), scratch.data_ptr(),
+                  out.data_ptr(), nx, ny, nz, ry, kzc,
+                  _build.stream(a6.device))
+    _build.check(code, "fused_lamb")
+    fused_lamb.launches += 1
+    return out
+
+
+fused_lamb.launches = 0

@@ -44,7 +44,6 @@ the jnp default (bf16 passes) for the ADI sweeps; here it means fp32.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Sequence
 
@@ -53,6 +52,7 @@ import torch
 
 from ns_tpu_torch.core.bc import BC, apply_bcs, bcs_from_reference
 from ns_tpu_torch.core.state import FlowState, rollout
+from ns_tpu_torch.ops.gemm import matmul
 from ns_tpu_torch.ops.kernels import (momentum_explicit_fused, smem_fits,
                                       sor_redblack_fused,
                                       sor_redblack_multiblock)
@@ -111,26 +111,6 @@ class ChorinFDConfig:
     @property
     def dy(self) -> float:
         return 2.0 / (self.ny - 1)
-
-
-@contextlib.contextmanager
-def _tf32(enabled: bool):
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = enabled
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
-def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
-    """a @ b at the configured `gemm_precision` (float32 only)."""
-    if a.dtype != torch.float32:
-        return a @ b
-    if precision == "default":
-        return (a.to(torch.bfloat16) @ b.to(torch.bfloat16)).to(a.dtype)
-    with _tf32(precision == "high"):
-        return a @ b
 
 
 def _adi_inverses(cfg: ChorinFDConfig, dtype, device):

@@ -5,8 +5,9 @@ Port of `ns_tpu/solvers/direct_fd.py` (the reference direct_fd family):
   - source term b from velocity divergence + quadratic terms, central
     differences
   - pressure from `nit` fixed Jacobi sweeps, re-applying the pressure BCs
-    after every sweep: kernel K2 (`ops/kernels::jacobi_fused`) on a CUDA
-    tensor, its plain twin on a CPU tensor
+    after every sweep: kernel K2 on a CUDA tensor (`ops/kernels::
+    jacobi_fused`, one block, where two grids fit its shared memory;
+    `jacobi_multiblock` beyond), its plain twin on a CPU tensor
   - momentum update: first-order backward (upwind) advection, central
     pressure gradient, central diffusion, explicit Euler in time
   - velocity BCs applied after the momentum update
@@ -28,7 +29,8 @@ import torch
 
 from ns_tpu_torch.core.bc import BC, apply_bcs, bcs_from_reference
 from ns_tpu_torch.core.state import FlowState, rollout
-from ns_tpu_torch.ops.kernels import jacobi_fused
+from ns_tpu_torch.ops.kernels import (jacobi_fused, jacobi_multiblock,
+                                      smem_fits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +87,12 @@ def build_up_b(cfg: DirectFDConfig, u: torch.Tensor,
 
 def pressure_poisson(cfg: DirectFDConfig, p: torch.Tensor, b: torch.Tensor,
                      p_bc: Sequence[BC]) -> torch.Tensor:
-    """`nit` Jacobi sweeps with per-sweep BC re-application (K2 on CUDA;
-    beyond one block's shared memory it raises)."""
-    return jacobi_fused(p, b, cfg.dx, cfg.dy, cfg.nit, p_bc)
+    """`nit` Jacobi sweeps with per-sweep BC re-application: K2 in one
+    block while its ping-pong pair fits shared memory, else its multi-block
+    form (the routing chorin_fd uses between K1 and K5)."""
+    if smem_fits(cfg.nx, cfg.ny, 2, p.element_size()):
+        return jacobi_fused(p, b, cfg.dx, cfg.dy, cfg.nit, p_bc)
+    return jacobi_multiblock(p, b, cfg.dx, cfg.dy, cfg.nit, p_bc)
 
 
 def make_step(cfg: DirectFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],

@@ -1,10 +1,11 @@
 """The whole slice through both CLIs, and the port's no-jax guarantee.
 
 Both packages' run_solver write direct_fd and chorin_fd rollouts (nt=5,
-float64) on the CPU; the npz files agree <= 1e-9 and the port's file loads
-in the JAX trainer. A subprocess (this process has imported jax through the
-conftest) shows the port's CLI runs without importing jax, and that the CPU
-path launches no kernel.
+float64) and taylor_green_3d / decaying_turbulence_3d rollouts (16^3, nt=3,
+float64) on the CPU; the npz files agree <= 1e-9 and the port's FD file
+loads in the JAX trainer. A subprocess (this process has imported jax
+through the conftest) shows the port's CLI runs without importing jax or
+the JAX package, and that the CPU path launches no kernel.
 """
 
 import json
@@ -40,6 +41,44 @@ def test_cli_rollouts_match_jax_cli(tmp_path, argv):
 
 
 @pytest.mark.parametrize("argv", [
+    ["taylor_green_3d"],
+    ["decaying_turbulence_3d", "--seed", "3", "--transform", "fft"],
+    ["taylor_green_3d", "--frame-stride", "2", "--spinup", "1",
+     "--forcing", "kolmogorov", "--forcing-k", "2"],
+])
+def test_3d_cli_rollouts_match_jax_cli(tmp_path, argv):
+    common = ["--nx", "16", "--nt", "3", "--dtype", "float64", "--precision",
+              "highest"]
+    j_out, t_out = tmp_path / "jax.npz", tmp_path / "torch.npz"
+    j_cli.main(argv + common + ["--out", str(j_out)])
+    summary = t_cli.main(argv + common + ["--device", "cpu", "--out",
+                                          str(t_out)])
+    assert summary["use_pallas_transform"] is False
+    j, t = np.load(j_out), np.load(t_out)
+    assert sorted(t.files) == sorted(j.files) == ["p", "u", "v", "w"]
+    for key in "uvwp":
+        assert t[key].shape == j[key].shape == (3, 16, 16, 16)
+        np.testing.assert_allclose(t[key], j[key], rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("argv", [
+    ["taylor_green_3d", "--forcing", "fno"],
+    ["taylor_green_3d", "--compact"],
+    ["decaying_turbulence_3d", "--n-traj", "2"],
+    ["taylor_green_3d", "--guard"],
+    ["taylor_green_3d", "--frame-stride", "0"],
+    ["direct_fd", "--forcing", "kolmogorov"],
+    ["chorin_fd", "--spinup", "2"],
+    ["taylor_green_3d", "--pallas-momentum"],
+])
+def test_cli_rejects_what_the_jax_cli_rejects(argv):
+    for main in (j_cli.main, t_cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv + ["--nt", "1", "--nx", "8"])
+        assert e.value.code == 2
+
+
+@pytest.mark.parametrize("argv", [
     ["taylor_green"], ["chorin_spectral"], ["direct_fd", "--guard"],
     ["chorin_fd", "--stream-dir", "x"], ["chorin_fd", "--progress"],
     ["chorin_fd", "--dist"], ["chorin_fd", "--pressure-mode", "dst"],
@@ -67,8 +106,11 @@ run_solver.main(["chorin_fd", "--method", "explicit", "--nt", "2",
                  "--nx", "17", "--device", "cpu", "--out", sys.argv[1]])
 run_solver.main(["direct_fd", "--nt", "2", "--nx", "17", "--device", "cpu",
                  "--out", sys.argv[1]])
+run_solver.main(["taylor_green_3d", "--nt", "2", "--nx", "16", "--device",
+                 "cpu", "--transform", "matmul", "--pallas-transform", "on",
+                 "--out", sys.argv[1]])
 print(json.dumps({"jax": sorted(m for m in sys.modules
-                                if m == "jax" or m.startswith("jax.")),
+                                if m.split(".")[0] in ("jax", "ns_tpu")),
                   "launches": kernels.launch_counts()}))
 """
 
@@ -82,7 +124,8 @@ def test_port_cli_runs_without_jax_and_launches_nothing_on_cpu(tmp_path):
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["jax"] == []
-    assert set(report["launches"]) == {"sor_redblack_fused", "jacobi_fused",
-                                       "momentum_explicit_fused",
-                                       "sor_redblack_multiblock"}
+    assert set(report["launches"]) == {
+        "sor_redblack_fused", "jacobi_fused", "jacobi_multiblock",
+        "momentum_explicit_fused", "sor_redblack_multiblock",
+        "fused_zy_forward", "fused_yz_inverse", "fused_lamb"}
     assert set(report["launches"].values()) == {0}

@@ -8,14 +8,17 @@ it runs without the suite's conftest:
 
 Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so kernel and twin are not bitwise equal); float32 <= 1e-4 relative to
-the field's max.
+the field's max. The 3D transform kernels (float32 only) are held against
+their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from ns_tpu_torch.core.bc import apply_bcs, dirichlet, neumann
 from ns_tpu_torch.ops import kernels, poisson
+from ns_tpu_torch.solvers import spectral3d as s3
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +59,110 @@ def test_jacobi_fused(cuda, dtype, atol):
     want = poisson.jacobi(p0, b, h, h, 50,
                           bc_fn=lambda q: apply_bcs(q, p_bcs(h)))
     close(got, want, dtype, atol)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("n", [257, 1024])
+def test_jacobi_multiblock(cuda, dtype, atol, n):
+    h = 2.0 / (n - 1)
+    p0, b = rand((n, n), dtype, cuda, 0), rand((n, n), dtype, cuda, 1, 10.0)
+    for nit in (50, 7):  # even and odd: the result lands in `out` either way
+        n0 = kernels.jacobi_multiblock.launches
+        got = kernels.jacobi_multiblock(p0, b, h, h, nit, p_bcs(h))
+        assert kernels.jacobi_multiblock.launches == n0 + 1
+        want = poisson.jacobi(p0, b, h, h, nit,
+                              bc_fn=lambda q: apply_bcs(q, p_bcs(h)))
+        close(got, want, dtype, atol)
+
+
+def tables(shape):
+    """The compact DFT tables and kept sizes of a (nx, ny, nz) grid."""
+    nx, ny, nz = shape
+    cfg = s3.Spectral3DConfig(nx=nx, ny=ny, nz=nz, transform="matmul")
+    _, rows_y, kzc = s3._compact_meta(cfg)
+    return s3._dft_constants_np(cfg), len(rows_y), kzc
+
+
+def crand(shape, cuda, seed):
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.randn((*shape, 2), generator=gen, dtype=torch.float64)
+    return torch.view_as_complex(z).to(cuda, torch.complex64)
+
+
+def close_rel(got, want):
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+SHAPES_3D = [(64, 64, 64), (40, 36, 30)]
+
+
+@pytest.mark.parametrize("shape", SHAPES_3D)
+def test_fused_zy_forward(cuda, shape):
+    M, ry, kzc = tables(shape)
+    w = rand((3, *shape), torch.float32, cuda, 10)
+    n0 = kernels.fused_zy_forward.launches
+    got = kernels.fused_zy_forward(w, M["Fz_t"], M["Fy_t"])
+    assert kernels.fused_zy_forward.launches == n0 + 1
+    assert got.shape == (3, shape[0], ry, kzc)
+    close_rel(got, kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], "highest"))
+
+
+@pytest.mark.parametrize("shape", SHAPES_3D)
+def test_fused_yz_inverse(cuda, shape):
+    M, ry, kzc = tables(shape)
+    a = crand((2, shape[0], ry, kzc), cuda, 11)
+    n0 = kernels.fused_yz_inverse.launches
+    got = kernels.fused_yz_inverse(a, M["Fyi_t"], M["Bz"], shape[2])
+    assert kernels.fused_yz_inverse.launches == n0 + 1
+    assert got.shape == (2, *shape) and got.dtype == torch.float32
+    close_rel(got, kernels.yz_inverse(a, M["Fyi_t"], M["Bz"], shape[2],
+                                      "highest"))
+
+
+@pytest.mark.parametrize("shape", SHAPES_3D)
+def test_fused_lamb(cuda, shape):
+    M, ry, kzc = tables(shape)
+    a6 = crand((6, shape[0], ry, kzc), cuda, 12)
+    args = (a6, M["Fyi_t"], M["Bz"], M["Fz_t"], M["Fy_t"], shape[2])
+    n0 = kernels.fused_lamb.launches
+    got = kernels.fused_lamb(*args)
+    assert kernels.fused_lamb.launches == n0 + 1
+    close_rel(got, kernels.lamb(*args, precision="highest"))
+
+
+def test_fused_step_matches_plain_step(cuda):
+    """One IF-AB2 step at 64^3, f32 'highest': the fused route (K6 at carry
+    init, K8 in the step) against the plain GEMM chain."""
+    kw = dict(nx=64, ny=64, nz=64, transform="matmul",
+              matmul_precision="highest")
+    out = {}
+    for fused in (False, True):
+        cfg = s3.Spectral3DConfig(use_pallas_transform=fused, **kw)
+        u0 = s3.random_solenoidal_velocity(cfg, seed=1, k_peak=3.0)
+        n0 = kernels.launch_counts()
+        step, _ = s3.make_step(cfg, cuda)
+        carry, _ = step(s3.init_from_velocity(cfg, u0, cuda))
+        n1 = kernels.launch_counts()
+        ran = {k for k in n1 if n1[k] > n0[k]}
+        assert ran == ({"fused_zy_forward", "fused_lamb"} if fused else set())
+        out[fused] = s3.fields_from_hat(cfg, carry[0])
+    close_rel(out[True], out[False])
+
+
+def test_transform_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    M, ry, kzc = tables((64, 64, 64))
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_zy_forward(torch.zeros((64, 64, 64), device=cuda,
+                                             dtype=torch.float64),
+                                 M["Fz_t"], M["Fy_t"])
+    with pytest.raises(ValueError, match="fused_lamb wants"):
+        kernels.fused_lamb(crand((3, 64, ry, kzc), cuda, 0), M["Fyi_t"],
+                           M["Bz"], M["Fz_t"], M["Fy_t"], 64)
+    M5, _, _ = tables((512, 512, 512))
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_zy_forward(torch.zeros((1, 512, 512, 512), device=cuda),
+                                 M5["Fz_t"], M5["Fy_t"])
 
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)

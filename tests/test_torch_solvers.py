@@ -18,6 +18,7 @@ from ns_tpu.core.bc import neumann as j_neumann
 from ns_tpu.solvers import chorin_fd as j_chorin
 from ns_tpu.solvers import direct_fd as j_direct
 from ns_tpu_torch.core import state as tstate
+from ns_tpu_torch.ops import gemm
 from ns_tpu_torch.ops import kernels
 from ns_tpu_torch.ops.kernels import poisson_kernels
 from ns_tpu_torch.solvers import chorin_fd, direct_fd
@@ -163,6 +164,44 @@ def test_large_grid_routes_to_multiblock_sor(monkeypatch):
     assert not torch.equal(small.p, large.p)  # ran whole groups of 8
 
 
+def direct_pair(nx, nt, nit=50):
+    """The port's and the JAX direct_fd rollouts on one random state."""
+    bcs = cavity_bcs(2.0 / (nx - 1), 2.0 / (nx - 1))
+    rng = np.random.default_rng(7)
+    u, v, p = (0.1 * rng.normal(size=(nx, nx)) for _ in range(3))
+    kw = dict(nt=nt, nit=nit, nx=nx, ny=nx, dt=1e-4, rho=1, nu=0.1)
+    j = j_direct.NavierStokesSystem(u, v, p, *bcs, dtype=jnp.float64, **kw)
+    t = direct_fd.NavierStokesSystem(u, v, p, *bcs, dtype=torch.float64,
+                                     device="cpu", **kw)
+    return j, t
+
+
+def test_direct_fd_beyond_one_block_matches_jax():
+    """130^2 float64 (two grids need 270 KB, past one block's shared
+    memory): 5 steps of the port equal ns_tpu's direct_fd <= 1e-12."""
+    j, t = direct_pair(130, 5)
+    for got, want in zip(np_all(t.simulate()), j.simulate()):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-12)
+
+
+def test_large_grid_routes_to_multiblock_jacobi(monkeypatch):
+    """pressure_poisson takes K2's multi-block form where the ping-pong
+    pair does not fit one block (130^2 float64), and the one-block form
+    where it does (50^2); both take the same twin on the CPU."""
+    calls = []
+    for name in ("jacobi_fused", "jacobi_multiblock"):
+        real = getattr(direct_fd, name)
+        monkeypatch.setattr(direct_fd, name,
+                            lambda *a, _n=name, _f=real:
+                            calls.append((_n, a[0].shape[0])) or _f(*a))
+    for nx in (50, 130):
+        _, t = direct_pair(nx, 1, nit=3)
+        t.step(t.state0)
+    assert calls == [("jacobi_fused", 50), ("jacobi_multiblock", 130)]
+    assert not poisson_kernels.smem_fits(130, 130, 2, 8)
+    assert poisson_kernels.smem_fits(130, 130, 2, 4)
+
+
 def test_config_validation_and_not_yet_ported_modes():
     with pytest.raises(ValueError):
         chorin_fd.ChorinFDConfig(method="bogus")
@@ -180,7 +219,8 @@ def test_config_validation_and_not_yet_ported_modes():
 
 def test_gemm_precision_maps_to_torch():
     """float32: None/'highest' are plain fp32 (equal to a @ b), 'default'
-    rounds the inputs to bf16; float64 ignores the setting."""
+    rounds the inputs to bf16; float64 ignores the setting. The complex
+    form runs the same menu on the parts."""
     rng = np.random.default_rng(0)
     a, b = (torch.as_tensor(rng.normal(size=(40, 40)), dtype=torch.float32)
             for _ in range(2))
@@ -192,6 +232,13 @@ def test_gemm_precision_maps_to_torch():
     assert 1e-4 < err < 0.5
     a64 = a.double()
     assert torch.equal(chorin_fd.matmul(a64, a64, "default"), a64 @ a64)
+    c = torch.complex(a, b)
+    want = (c.to(torch.complex128) @ a64.to(torch.complex128))
+    for prec, tol in (("highest", 1e-4), ("default", 0.5)):
+        got = gemm.cmatmul(c, a, prec).to(torch.complex128)
+        err = float((got - want).abs().max())
+        assert err < tol and (prec == "highest" or err > 1e-4)
+    assert torch.equal(gemm.cmatmul(a, b, None), exact)
 
 
 def test_state_helpers():

@@ -1,0 +1,128 @@
+"""The port's 3D spectral solver (ns_tpu_torch.solvers.spectral3d) against
+ns_tpu's, in float64 on the CPU, on the same numpy inputs.
+
+Tolerance: <= 1e-10 relative to each output's scale (the same scheme and
+DFT sums, taken in another order; after 5 steps the two differ at ~1e-15).
+The initial conditions are the same numpy code and are compared bitwise.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ns_tpu.solvers import spectral3d as j3
+from ns_tpu_torch.solvers import spectral3d as t3
+
+ENGINES = [dict(transform="fft"),
+           dict(transform="matmul", matmul_precision="highest")]
+SHAPES = [(16, 16, 16), (12, 18, 12)]
+
+
+def cfgs(shape=(16, 16, 16), **kw):
+    kw = dict(dict(zip(("nx", "ny", "nz"), shape)), dtype="float64", **kw)
+    return j3.Spectral3DConfig(**kw), t3.Spectral3DConfig(**kw)
+
+
+def close(got, want, rel=1e-10):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-300)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale)
+
+
+def test_initial_conditions_bitwise():
+    jc, tc = cfgs((12, 18, 12), forcing="kolmogorov", forcing_k=2)
+    np.testing.assert_array_equal(t3.taylor_green_velocity(tc, k=2),
+                                  np.asarray(j3.taylor_green_velocity(jc, 2)))
+    np.testing.assert_array_equal(
+        t3.random_solenoidal_velocity(tc, seed=4, k_peak=3.0),
+        np.asarray(j3.random_solenoidal_velocity(jc, seed=4, k_peak=3.0)))
+    np.testing.assert_array_equal(
+        t3.kolmogorov_fixed_point_velocity(tc),
+        np.asarray(j3.kolmogorov_fixed_point_velocity(jc)))
+    f32 = t3.Spectral3DConfig(nx=8, ny=8, nz=8)
+    assert t3.taylor_green_velocity(f32).dtype == np.float32
+
+
+@pytest.mark.parametrize("engine", ENGINES, ids=["fft", "matmul"])
+def test_one_step_from_a_jax_carry(engine):
+    """A JAX carry brought over with carry_from_numpy steps alike."""
+    jc, tc = cfgs(**engine)
+    u0 = t3.random_solenoidal_velocity(tc, seed=2, k_peak=3.0)
+    step_j, _ = j3.make_step(jc)
+    c1 = jax.jit(lambda c: step_j(c)[0])(j3.init_from_velocity(jc, u0))
+    want = t3.carry_to_numpy(jax.jit(lambda c: step_j(c)[0])(c1))
+    carried = t3.carry_from_numpy(tc, t3.carry_to_numpy(c1))
+    assert carried[0].dtype == torch.complex128
+    step_t, _ = t3.make_step(tc)
+    got = t3.carry_to_numpy(step_t(carried)[0])
+    for g, w in zip(got, want):
+        close(g, w)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("engine", ENGINES, ids=["fft", "matmul"])
+def test_rollout_final_and_diagnostics_match_jax(shape, engine):
+    """5 steps of decaying turbulence, then energy, enstrophy,
+    divergence_max and energy_spectrum of the final state."""
+    jc, tc = cfgs(shape, nt=5, dt=2e-3, nu=1e-2, **engine)
+    u0 = t3.random_solenoidal_velocity(tc, seed=1, k_peak=3.0)
+    fin_j = jax.jit(lambda c: j3.rollout_final(jc, c))(
+        j3.init_from_velocity(jc, u0))
+    fin_t = t3.rollout_final(tc, t3.init_from_velocity(tc, u0))
+    for g, w in zip(t3.carry_to_numpy(fin_t), t3.carry_to_numpy(fin_j)):
+        close(g, w)
+    uj, ut = fin_j[0], fin_t[0]
+    for name in ("energy", "enstrophy"):
+        close(getattr(t3, name)(tc, ut), getattr(j3, name)(jc, uj))
+    # ~1e-16 by construction: compare against the velocity's scale
+    div_t = float(t3.divergence_max(tc, ut))
+    div_j = float(j3.divergence_max(jc, uj))
+    assert div_t < 1e-12 and div_j < 1e-12
+    k_t, e_t = t3.energy_spectrum(tc, ut)
+    k_j, e_j = j3.energy_spectrum(jc, uj)
+    np.testing.assert_array_equal(k_t.numpy(), np.asarray(k_j))
+    close(e_t, e_j)
+
+
+def test_fields_pressure_and_simulate_strided_frames_match_jax():
+    """simulate_strided's frame semantics (frame i = state after
+    1 + spinup + i*stride steps) and its u/v/w/p against the JAX one, and
+    NavierStokesSystem3D.simulate against the JAX wrapper."""
+    jc, tc = cfgs((12, 18, 12), nt=3, dt=2e-3, nu=1e-2, transform="matmul",
+                  matmul_precision="highest", forcing="kolmogorov",
+                  forcing_k=2)
+    u0 = t3.random_solenoidal_velocity(tc, seed=5, k_peak=3.0)
+    want = jax.jit(lambda u: j3.simulate_strided(jc, u, 3, stride=2,
+                                                 spinup=1))(jnp.asarray(u0))
+    got = t3.simulate_strided(tc, u0, 3, stride=2, spinup=1)
+    for g, w in zip(got, want):
+        assert g.shape == (3, 12, 18, 12)
+        close(g, w)
+    # frame 2 is the state after 1 + 1 + 2*2 = 6 steps
+    carry = t3.init_from_velocity(tc, u0)
+    step, _ = t3.make_step(tc)
+    for _ in range(6):
+        carry, _ = step(carry)
+    close(got[0][2], t3.fields_from_hat(tc, carry[0])[0], 1e-13)
+    close(got[3][2], t3.pressure_from_hat(tc, carry[0]), 1e-13)
+    kw = dict(nt=3, nx=12, ny=18, nz=12, dt=2e-3, nu=1e-2, dtype="float64",
+              transform="fft")
+    sim_t = t3.NavierStokesSystem3D(u0, device="cpu", **kw).simulate()
+    sim_j = j3.NavierStokesSystem3D(u0, **kw).simulate()
+    for g, w in zip(sim_t, sim_j):
+        close(g, w)
+
+
+def test_shear_flow_exact_viscous_decay():
+    """u = (sin z, 0, 0): the projection annihilates the nonlinearity, so
+    IF-AB2 decays by exactly exp(-nu t) (tests/test_spectral3d.py)."""
+    _, tc = cfgs((8, 8, 12), nt=50, dt=1e-3, nu=0.1, transform="fft")
+    z = 2.0 * np.pi * np.arange(12) / 12
+    u0 = np.zeros((3, 8, 8, 12))
+    u0[0] = np.sin(z)[None, None, :]
+    fin = t3.rollout_final(tc, t3.init_from_velocity(tc, u0))
+    close(t3.fields_from_hat(tc, fin[0]), u0 * np.exp(-0.1 * 50 * 1e-3),
+          1e-12)

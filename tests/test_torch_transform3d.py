@@ -1,0 +1,193 @@
+"""The 3D transforms of the port (ns_tpu_torch.solvers.spectral3d and the
+K6-K8 twins in ops/kernels/transform3d_kernels.py) against ns_tpu, on the
+CPU, on the same numpy inputs.
+
+Tolerances: float64 (fft engine, and the matmul engine at 'highest') <=
+1e-10 relative to the output's scale: the same DFT sums, taken in another
+order (real GEMM pairs here, complex einsums in JAX). The fused route in
+float32 at 'highest' on both sides (the JAX side runs its Pallas kernels in
+interpret mode): rtol 1e-4, atol 1e-5 * max, the bounds of
+tests/test_pallas_transform3d.py; float32 sums in another order differ at
+~1e-7 relative, far inside them.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ns_tpu.ops.pallas import transform3d_kernels as jk
+from ns_tpu.solvers import spectral3d as j3
+from ns_tpu_torch.ops import kernels
+from ns_tpu_torch.ops.kernels import transform3d_kernels as tk
+from ns_tpu_torch.solvers import spectral3d as t3
+
+SHAPES = [(16, 16, 16), (12, 18, 12)]
+
+
+def cfgs(shape, **kw):
+    kw = dict(dict(zip(("nx", "ny", "nz"), shape)), **kw)
+    return j3.Spectral3DConfig(**kw), t3.Spectral3DConfig(**kw)
+
+
+def close(got, want, rel):
+    want = np.asarray(want)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=rel * scale)
+
+
+def rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("transform", ["fft", "matmul"])
+def test_transforms_match_jax_float64(shape, transform):
+    jc, tc = cfgs(shape, dtype="float64", transform=transform,
+                  matmul_precision="highest")
+    w = rand((2, *shape), 0)
+    jf, ji = j3.make_transforms(jc)
+    tf, ti = t3.make_transforms(tc)
+    z_j = np.array(jax.jit(jf)(jnp.asarray(w)))
+    z_t = tf(torch.as_tensor(w)).numpy()
+    close(z_t, z_j, 1e-10)
+    close(ti(torch.as_tensor(z_j)).numpy(), jax.jit(ji)(jnp.asarray(z_j)),
+          1e-10)
+    if transform == "matmul":
+        full_j = j3.expand_compact(jc, jnp.asarray(z_j))
+        full_t = t3.expand_compact(tc, torch.as_tensor(z_j))
+        np.testing.assert_array_equal(full_t.numpy(), np.asarray(full_j))
+        np.testing.assert_array_equal(
+            t3.gather_compact(tc, full_t).numpy(), z_j)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(transform="fft"), dict(transform="fft", dealias=False),
+    dict(transform="matmul"),
+    dict(transform="matmul", forcing="kolmogorov", forcing_k=2,
+         forcing_amp=0.3)])
+def test_make_ops_and_dft_constants_match_jax(kw):
+    jc, tc = cfgs((12, 18, 12), dtype="float64", **kw)
+    j_ops, t_ops = j3.make_ops(jc), t3.make_ops(tc)
+    assert sorted(j_ops) == sorted(t_ops)
+    for k in j_ops:
+        np.testing.assert_array_equal(t_ops[k].numpy(), np.asarray(j_ops[k]))
+    if tc.compact:
+        for k, v in j3._dft_constants_np(jc).items():
+            np.testing.assert_array_equal(t3._dft_constants_np(tc)[k], v)
+        jm, tm = j3._compact_meta(jc), t3._compact_meta(tc)
+        np.testing.assert_array_equal(jm[0], tm[0])
+        np.testing.assert_array_equal(jm[1], tm[1])
+        assert jm[2] == tm[2]
+
+
+def fused_cfgs(n=16):
+    kw = dict(nx=n, ny=n, nz=n, dtype="float32", transform="matmul",
+              matmul_precision="highest")
+    jc = dataclasses.replace(j3.Spectral3DConfig(**kw),
+                             use_pallas_transform=True, pallas_interpret=True)
+    return jc, t3.Spectral3DConfig(use_pallas_transform=True, **kw)
+
+
+def test_fused_forward_and_inverse_match_jax_interpret():
+    """K6 (forward) and K7 (inverse) through the fused engine: the port's
+    twins against the JAX Pallas kernels in interpret mode, 16^3 f32."""
+    jc, tc = fused_cfgs()
+    w = rand((2, 16, 16, 16), 0).astype(np.float32)
+    jf, ji = j3.make_compact_transforms(jc)
+    tf, ti = t3.make_compact_transforms(tc)
+    z_j = np.array(jax.jit(jf)(jnp.asarray(w)))
+    z_t = tf(torch.as_tensor(w)).numpy()
+    np.testing.assert_allclose(z_t, z_j, rtol=1e-4,
+                               atol=1e-5 * np.abs(z_j).max())
+    w_j = np.asarray(jax.jit(ji)(jnp.asarray(z_j)))
+    w_t = ti(torch.as_tensor(z_j)).numpy()
+    np.testing.assert_allclose(w_t, w_j, rtol=1e-4,
+                               atol=1e-5 * np.abs(w_j).max())
+
+
+def test_fused_lamb_matches_jax_interpret_and_einsum_path():
+    """K8's twin on the same (6, nx, Ry, Kzc) input as the JAX fused_lamb
+    in interpret mode, and against the port's plain nonlinear path
+    (inverse all six, cross product, forward)."""
+    jc, tc = fused_cfgs()
+    M = t3._dft_constants_np(tc)
+    _, rows_y, kzc = t3._compact_meta(tc)
+    rng = np.random.default_rng(3)
+    a6 = (rng.standard_normal((6, 16, len(rows_y), kzc))
+          + 1j * rng.standard_normal((6, 16, len(rows_y), kzc))
+          ).astype(np.complex64)
+    want = np.asarray(jk.fused_lamb(jnp.asarray(a6), M["Fyi_t"], M["Bz"],
+                                    M["Fz_t"], M["Fy_t"], 16,
+                                    precision="highest", interpret=True))
+    got = tk.fused_lamb(torch.as_tensor(a6), M["Fyi_t"], M["Bz"], M["Fz_t"],
+                        M["Fy_t"], 16, precision="highest").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())
+    # the same leg by the plain chain's stages, and the launch counters
+    # stay at zero on the CPU
+    phys = tk.yz_inverse(torch.as_tensor(a6), M["Fyi_t"], M["Bz"], 16,
+                         "highest")
+    plain = tk.zy_forward(tk.cross(phys), M["Fz_t"], M["Fy_t"], "highest")
+    np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_fused_step_matches_jax_fused_step(monkeypatch):
+    """One IF-AB2 step of the fused route, 16^3 f32 'highest': the port
+    (twins on the CPU, K8 once per step) against the JAX fused step in
+    interpret mode, from the same IC."""
+    jc, tc = fused_cfgs()
+    u0 = t3.random_solenoidal_velocity(tc, seed=1, k_peak=3.0)
+    step_j, _ = j3.make_step(jc)
+    c1_j = jax.jit(lambda c: step_j(c)[0])(j3.init_from_velocity(jc, u0))
+    calls = []
+    real = tk.fused_lamb
+    monkeypatch.setattr(tk, "fused_lamb",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    step_t, _ = t3.make_step(tc)
+    c1_t, _ = step_t(t3.init_from_velocity(tc, u0))
+    assert len(calls) == 2  # carry init's nonlinear term, then the step
+    for got, want in zip(t3.carry_to_numpy(c1_t), t3.carry_to_numpy(c1_j)):
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_fused_auto_gate_matches_jax_policy():
+    """'auto' resolves as in test_pallas_transform_auto_policy: on at
+    256^3 and 512x256x128 with 'default' precision, off below the volume
+    crossover, at 'high', or on the fft engine; 512^3 resolves off (K6's
+    (Ry, Kzc) row does not fit shared memory) and explicit True there
+    raises; float64 and the fft engine are refused."""
+    for kw, on in ((dict(nx=256, ny=256, nz=256), True),
+                   (dict(nx=512, ny=256, nz=128), True),
+                   (dict(nx=128, ny=128, nz=128), False),
+                   (dict(nx=256, ny=16, nz=16), False),
+                   (dict(nx=256, ny=256, nz=256, matmul_precision="high"),
+                    False),
+                   (dict(nx=256, ny=256, nz=256, transform="fft",
+                         dealias=False), False),
+                   (dict(nx=512, ny=512, nz=512), False)):
+        kw = dict(dict(transform="matmul", matmul_precision="default"), **kw)
+        j = j3.Spectral3DConfig(use_pallas_transform="auto", **kw)
+        t = t3.Spectral3DConfig(use_pallas_transform="auto", **kw)
+        assert t.use_pallas_transform is on is j.use_pallas_transform, kw
+    with pytest.raises(ValueError, match="shared memory"):
+        t3.Spectral3DConfig(nx=512, ny=512, nz=512, transform="matmul",
+                            use_pallas_transform=True)
+    for kw in (dict(transform="fft"), dict(transform="matmul",
+                                           dtype="float64")):
+        with pytest.raises(ValueError, match="use_pallas_transform"):
+            t3.Spectral3DConfig(nx=16, ny=16, nz=16,
+                                use_pallas_transform=True, **kw)
+    with pytest.raises(ValueError, match="use_pallas_transform"):
+        t3.Spectral3DConfig(transform="matmul", use_pallas_transform="yes")
+    # the kernels' own fit: 256^3 needs 145,040 bytes in K6's block
+    assert tk.smem_bytes(256, 256, 256, 171, 86)["fused_zy_forward"] == 145040
+    assert tk.fused_fits(256, 256, 256, 171, 86)
+    assert not tk.fused_fits(512, 512, 512, 341, 171)

@@ -14,14 +14,20 @@ Phases (any failure exits non-zero, and no result line is printed):
                (measured in turns: twin, kernel, kernel, twin)
   4. main    — the port's main paths through its CLI entry point: the FD
                cavity pipeline (direct_fd and chorin_fd at the reference
-               sizes, direct_fd and explicit chorin_fd at 1024^2) and the 3D
-               spectral DNS (Taylor-Green at 256^3, fused kernels by the
-               'auto' gate), then divergence_max on a 256^3 final state;
-               each run's counts are read just before and just after it,
-               every kernel must have launched
+               sizes; direct_fd and explicit chorin_fd at 1024^2, where
+               chorin_fd's SOR takes K4, and at 1025^2, where it takes K5;
+               the direct and multigrid pressure modes and the helmholtz
+               predictor at 1024^2) and the 3D spectral DNS (Taylor-Green
+               at 256^3, fused kernels by the 'auto' gate), then
+               divergence_max on a 256^3 final state; each run's counts are
+               read just before and just after it, every kernel must have
+               launched
   5. fidelity — float64 FD rollouts against the committed goldens; the
-               256^3 Taylor-Green run with the kernels against the same run
-               without them; a float64 3D shear flow against exp(-nu t)
+               dst, multigrid, helmholtz and exact modes on the card against
+               the same rollouts on the CPU, and a float64 dst solve's
+               residual; the 256^3 Taylor-Green run with the kernels against
+               the same run without them; a float64 3D shear flow against
+               exp(-nu t)
 The line before the last is {"kernels": [...]} with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
 largest error against its twin (float64 abs where the kernel has a float64
@@ -32,8 +38,9 @@ Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so the kernel is not bitwise equal to its twin); float32 <= 1e-4
 relative to the field's max; runs stopped by a converged gate may stop a
 sweep apart, so they get 1e-4 abs (float64) and 1e-3 relative (float32).
-The 3D kernels compute in fp32 and are held against their twins at
-'highest' (fp32 GEMMs, TF32 off).
+K4 is also held against K5 on the same input (the same iterate sequence),
+with the same bounds. The 3D kernels compute in fp32 and are held against
+their twins at 'highest' (fp32 GEMMs, TF32 off).
 """
 
 import json
@@ -120,6 +127,7 @@ class Results:
     def __init__(self):
         self.err64, self.abs32, self.rel32 = {}, {}, {}
         self.ms, self.plain_ms = {}, {}
+        self.k4_vs_k5 = None  # (K4 ms, K5 ms) on one input, in turns
 
     def compare(self, name, label, got, want, dtype, converged=False):
         got, want = list(got), list(want)
@@ -219,6 +227,24 @@ def phase_kernels(res: Results, dev):
                         f" {dt_}", [launched(kernels.sor_redblack_multiblock,
                                              k)], [t()], dt_)
 
+    # K4: packed-plane SOR, 1024^2 at nit=200 (tol=0: 25 launches of k=8)
+    # and 1025x1024, off the routing predicate; against its twin and K5
+    for shape, cap in (((1024, 1024), 200), ((1025, 1024), 8 * 3 + 1)):
+        h = 2.0 / (shape[0] - 1)
+        tag = "x".join(map(str, shape))
+        for dt_ in dtypes:
+            p0, c = rand(*shape, dt_), rand(*shape, dt_, h * h)
+            got = launched(kernels.sor_redblack_packed_multiblock,
+                           lambda: kernels.sor_redblack_packed_multiblock(
+                               p0, c, h, h, 1.25, 0.0, cap))
+            twin = kernels.sor_redblack_packed_tiled(p0, c, h, h, 1.25, 0.0,
+                                                     cap)
+            k5 = kernels.sor_redblack_multiblock(p0, c, h, h, 1.25, 0.0, cap)
+            res.compare("sor_redblack_packed_multiblock",
+                        f"{tag} nit={cap} {dt_}", [got], [twin], dt_)
+            res.compare("sor_redblack_packed_multiblock",
+                        f"{tag} nit={cap} vs K5 {dt_}", [got], [k5], dt_)
+
     # K3: explicit predictor, 51^2 and 1024^2, quirk on/off, plus Neumann
     cav_u = [dirichlet(0, "left"), dirichlet(1, "right"), dirichlet(0, "top"),
              dirichlet(0, "bottom")]
@@ -269,6 +295,12 @@ def phase_kernels(res: Results, dev):
                                                200)))
     hk = 2.0 / 1023
     qk, ck = rand(1024, 1024, f32), rand(1024, 1024, f32, hk * hk)
+    timed.append(("sor_redblack_packed_multiblock",
+                  "1024x1024 nit=200 tol=5e-06", 3, 2,
+                  lambda: kernels.sor_redblack_packed_multiblock(
+                      qk, ck, hk, hk, 1.25, 5e-6, 200),
+                  lambda: kernels.sor_redblack_packed_tiled(
+                      qk, ck, hk, hk, 1.25, 5e-6, 200)))
     timed.append(("sor_redblack_multiblock", "1024x1024 nit=200 tol=5e-06",
                   3, 2,
                   lambda: kernels.sor_redblack_multiblock(qk, ck, hk, hk,
@@ -291,6 +323,18 @@ def phase_kernels(res: Results, dev):
         res.ms[name], res.plain_ms[name] = ms, plain
         print(f"  {name:26s} {label:30s} kernel {ms:.4f} ms  twin "
               f"{plain:.4f} ms  ({plain / ms:.2f}x)")
+    # K4 against K5 on the same input, in turns K5, K4, K4, K5
+    k4 = lambda: kernels.sor_redblack_packed_multiblock(qk, ck, hk, hk, 1.25,
+                                                        5e-6, 200)
+    k5 = lambda: kernels.sor_redblack_multiblock(qk, ck, hk, hk, 1.25, 5e-6,
+                                                 200)
+    res.compare("sor_redblack_packed_multiblock", "1024x1024 nit=200 "
+                "tol=5e-06 vs K5 float32", [k4()], [k5()], f32,
+                converged=True)
+    ms4, ms5 = paired_ms(k4, k5, 5, 5)
+    res.k4_vs_k5 = (ms4, ms5)
+    print(f"  {'K4 vs K5':26s} {'1024x1024 nit=200 tol=5e-06':30s} K4 "
+          f"{ms4:.4f} ms  K5 {ms5:.4f} ms  ({ms5 / ms4:.2f}x)")
     phase_kernels_3d(res, dev)
 
 
@@ -373,8 +417,20 @@ MAIN_RUNS = [
     ("chorin_fd explicit 1024^2", ["chorin_fd", "--method", "explicit",
                                    "--nx", "1024", "--nt", "50", "--dt",
                                    "1e-5", "--nu", "0.01"]),
+    ("chorin_fd explicit 1025^2", ["chorin_fd", "--method", "explicit",
+                                   "--nx", "1025", "--nt", "10", "--dt",
+                                   "1e-5", "--nu", "0.01"]),
     ("direct_fd 1024^2", ["direct_fd", "--nx", "1024", "--nt", "20", "--dt",
                           "1e-5", "--nu", "0.01"]),
+    ("chorin_fd dst 1024^2", ["chorin_fd", "--pressure-mode", "dst", "--nx",
+                              "1024", "--nt", "20", "--dt", "1e-5", "--nu",
+                              "0.01"]),
+    ("chorin_fd helmholtz multigrid 1024^2", [
+        "chorin_fd", "--method", "helmholtz", "--pressure-mode", "multigrid",
+        "--nx", "1024", "--nt", "10", "--dt", "1e-5", "--nu", "0.01"]),
+    ("direct_fd exact 1024^2", ["direct_fd", "--pressure-mode", "exact",
+                                "--nx", "1024", "--nt", "20", "--dt", "1e-5",
+                                "--nu", "0.01"]),
     ("taylor_green_3d 256^3", TG3D + ["--precision", "default",
                                       "--pallas-transform", "auto"]),
 ]
@@ -382,9 +438,16 @@ MAIN_KERNELS = {  # kernels each main-path run must launch
     "direct_fd": {"jacobi_fused"},
     "chorin_fd semi_implicit": {"sor_redblack_fused"},
     "chorin_fd explicit": {"sor_redblack_fused", "momentum_explicit_fused"},
-    "chorin_fd explicit 1024^2": {"sor_redblack_multiblock",
+    "chorin_fd explicit 1024^2": {"sor_redblack_packed_multiblock",
+                                  "momentum_explicit_fused"},
+    "chorin_fd explicit 1025^2": {"sor_redblack_multiblock",
                                   "momentum_explicit_fused"},
     "direct_fd 1024^2": {"jacobi_multiblock"},
+    # the direct and multigrid modes run plain torch and cuBLAS GEMMs (no
+    # Pallas kernel in the JAX package either)
+    "chorin_fd dst 1024^2": set(),
+    "chorin_fd helmholtz multigrid 1024^2": set(),
+    "direct_fd exact 1024^2": set(),
     "taylor_green_3d 256^3": {"fused_zy_forward", "fused_lamb"},
     "divergence_max 256^3": {"fused_yz_inverse"},
 }
@@ -452,7 +515,7 @@ def phase_main(tmp) -> dict:
                     f"{label}: the auto gate resolved off")
             out3d[label] = out
         rates[label] = summary["steps_per_s"]
-        print(f"  {label:28s} {summary['steps_per_s']:.1f} steps/s "
+        print(f"  {label:36s} {summary['steps_per_s']:.1f} steps/s "
               f"({summary['seconds']:.2f} s); launches "
               f"{ {k: after[k] - before[k] for k in sorted(ran)} }")
     before = kernels.launch_counts()
@@ -502,6 +565,58 @@ def phase_fidelity(tmp):
             err = float(np.abs(got[key][frames] - want[key]).max())
             print(f"  {golden:36s} {key} max_abs {err:.3e} (bound {bound:g})")
             require(err <= bound, f"{golden} {key}: {err} > {bound}")
+
+
+# the FD modes with no kernel of their own, float64 on the card against the
+# same rollout through the port on the CPU (which the CPU tests hold against
+# ns_tpu): GEMMs sum in another order on cuBLAS, hence 1e-10; MGCG's inner
+# products are reductions whose order differs too, and CG carries that
+# through its step sizes, hence 1e-8 for the multigrid mode
+MODE_RUNS = [
+    ("chorin_fd dst", ["chorin_fd", "--pressure-mode", "dst"], 1e-10),
+    ("chorin_fd multigrid", ["chorin_fd", "--method", "explicit",
+                             "--pressure-mode", "multigrid"], 1e-8),
+    ("chorin_fd helmholtz", ["chorin_fd", "--method", "helmholtz"], 1e-10),
+    ("direct_fd exact", ["direct_fd", "--pressure-mode", "exact"], 1e-10),
+]
+
+
+def phase_fidelity_modes(tmp):
+    from ns_tpu_torch.cli import run_solver
+    from ns_tpu_torch.ops import fast_poisson, poisson
+
+    print("phase 5: float64 direct and multigrid modes, card vs CPU")
+    for label, argv, bound in MODE_RUNS:
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            out = os.path.join(tmp, f"mode_{dev}_" + label.replace(" ", "_")
+                               + ".npz")
+            run_solver.main(argv + ["--nt", "10", "--dtype", "float64",
+                                    "--device", dev, "--out", out])
+            got[dev] = np.load(out)
+        for key in "uvp":
+            a, b = got[DEVICE][key], got["cpu"][key]
+            require(np.isfinite(a).all(), f"{label} {key}: not finite")
+            err = float(np.abs(a - b).max())
+            print(f"  {label + ' 10 steps':36s} {key} max_abs {err:.3e} "
+                  f"(bound {bound:g})")
+            require(err <= bound, f"{label} {key}: {err} > {bound}")
+
+    # a float64 dst solve at 1024^2 leaves a 5-point interior residual at
+    # rounding level: <= 1e-12 of the scale of the terms the residual
+    # cancels (8 max|p| / h^2); a CPU run of this check read 6.7e-15
+    n = 1024
+    h = 2.0 / (n - 1)
+    gen = torch.Generator().manual_seed(3)
+    p0, f = (torch.randn((n, n), generator=gen, dtype=torch.float64)
+             .to(DEVICE) for _ in range(2))
+    p = fast_poisson.make_dst_poisson(n, n, h, h, dtype=torch.float64,
+                                      device=DEVICE)(p0, f)
+    res = (poisson.laplace_full(p, h * h, h * h) - f)[1:-1, 1:-1]
+    rel = float(res.abs().max()) / (8.0 * float(p.abs().max()) / (h * h))
+    print(f"  {'1024^2 f64 dst solve: interior residual':36s} {rel:.3e} of "
+          f"8 max|p|/h^2 (bound 1e-12)")
+    require(rel <= 1e-12, f"dst residual {rel} > 1e-12")
 
 
 # the 'default'-precision main run against its own plain route (bf16 GEMMs
@@ -576,6 +691,8 @@ KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
      "ns_tpu/ops/pallas/poisson_kernels.py:79"),
     ("momentum_explicit_fused", "ns_tpu_torch/csrc/momentum_kernels.cu",
      "ns_tpu/ops/pallas/momentum_kernels.py:75"),
+    ("sor_redblack_packed_multiblock", "ns_tpu_torch/csrc/poisson_kernels.cu",
+     "ns_tpu/ops/pallas/poisson_kernels.py:356"),
     ("sor_redblack_multiblock", "ns_tpu_torch/csrc/poisson_kernels.cu",
      "ns_tpu/ops/pallas/poisson_kernels.py:180"),
     ("fused_zy_forward", "ns_tpu_torch/csrc/transform3d_kernels.cu",
@@ -598,6 +715,9 @@ def report(res: Results, launches: dict) -> list:
                "max_abs_err_dtype": "float64" if f64 else "float32",
                "max_rel_err_f32": res.rel32.get(name),
                "ms": res.ms.get(name), "plain_ms": res.plain_ms.get(name)}
+        if name == "sor_redblack_packed_multiblock":
+            require(res.k4_vs_k5 is not None, "K4 was not timed beside K5")
+            row["k5_ms_same_input"] = res.k4_vs_k5[1]
         for key in ("max_abs_err", "max_rel_err_f32", "ms", "plain_ms"):
             require(row[key] is not None and math.isfinite(row[key]),
                     f"{name}: no {key}")
@@ -614,6 +734,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         main_path = phase_main(tmp)
         phase_fidelity(tmp)
+        phase_fidelity_modes(tmp)
         phase_fidelity_3d(tmp, main_path["tg3d_npz"])
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "ns_tpu" for m in sys.modules),

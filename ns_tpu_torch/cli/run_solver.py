@@ -4,9 +4,11 @@ npz.
 Port of `ns_tpu/cli/run_solver.py` for its FD and 3D families, with the
 same presets, flags and defaults:
 
-  direct_fd        — nt=200 nit=50 50x50 lid-driven cavity
+  direct_fd        — nt=200 nit=50 50x50 lid-driven cavity (--pressure-mode
+                     jacobi|exact)
   chorin_fd        — nt=200 nit=200 51x51, semi_implicit (--method
-                     explicit for the other mode)
+                     explicit|helmholtz for the other modes;
+                     --pressure-mode redblack|gauss_seidel|multigrid|cg|dst)
   taylor_green_3d  — 3D Taylor-Green vortex (nu defaults to 1/1600); the
                      npz carries u/v/w/p
   decaying_turbulence_3d — 3D isotropic decaying turbulence (--seed)
@@ -20,6 +22,8 @@ Examples:
   python -m ns_tpu_torch.cli.run_solver direct_fd --out data.npz
   python -m ns_tpu_torch.cli.run_solver chorin_fd --method explicit
   python -m ns_tpu_torch.cli.run_solver chorin_fd --device cpu --nt 5
+  python -m ns_tpu_torch.cli.run_solver chorin_fd --pressure-mode dst
+  python -m ns_tpu_torch.cli.run_solver direct_fd --pressure-mode exact
   python -m ns_tpu_torch.cli.run_solver taylor_green_3d --nx 256 --nt 8 \
       --transform matmul --precision default
   python -m ns_tpu_torch.cli.run_solver taylor_green_3d --device cpu --nx 16
@@ -77,13 +81,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--pressure-mode", default="redblack",
                    choices=["redblack", "gauss_seidel", "multigrid", "cg",
                             "dst", "jacobi", "exact"],
-                   help="chorin_fd: redblack|gauss_seidel|cg (multigrid and "
-                        "dst not yet ported); direct_fd: jacobi (exact not "
-                        "yet ported)")
+                   help="pressure solver: chorin_fd takes "
+                        "redblack|gauss_seidel|multigrid|cg|dst; direct_fd "
+                        "takes jacobi|exact (exact = direct mixed-BC solve)")
     p.add_argument("--gemm-precision", default=None,
                    choices=["default", "high", "highest"],
-                   help="chorin_fd float32 ADI matmuls: highest (and unset) "
-                        "= fp32, high = TF32, default = bf16")
+                   help="chorin_fd: precision of the float32 ADI/dst/"
+                        "helmholtz GEMMs: highest (and unset) = fp32, high = "
+                        "TF32, default = bf16 inputs")
     p.add_argument("--transform", default="auto",
                    choices=["auto", "fft", "matmul"],
                    help="3D families: auto = compact matmul-DFT under the "
@@ -171,8 +176,6 @@ def build(argv=None):
             # 'redblack' is the flag default, i.e. "not specified"
             p.error("direct_fd supports --pressure-mode jacobi|exact, got "
                     f"{args.pressure_mode!r}")
-        if args.pressure_mode == "exact":
-            p.error(f"direct_fd --pressure-mode exact {_NOT_PORTED}")
         nx = args.nx or 50
         nit = args.nit or 50
         dx = dy = 2.0 / (nx - 1)
@@ -181,17 +184,15 @@ def build(argv=None):
         sys_ = NavierStokesSystem(z, z, z, u_bc, v_bc, p_bc, nt=args.nt,
                                   nit=nit, nx=nx, ny=nx, dt=args.dt,
                                   rho=args.rho, nu=args.nu, dtype=dtype,
-                                  device=device)
+                                  device=device,
+                                  pressure_mode=("exact" if
+                                                 args.pressure_mode == "exact"
+                                                 else "jacobi"))
     else:
         from ns_tpu_torch.solvers.chorin_fd import NavierStokesSystem
         if args.pressure_mode in ("jacobi", "exact"):
             p.error("chorin_fd supports --pressure-mode redblack|gauss_"
                     f"seidel|multigrid|cg|dst, got {args.pressure_mode!r}")
-        if args.pressure_mode in ("multigrid", "dst"):
-            p.error(f"chorin_fd --pressure-mode {args.pressure_mode} "
-                    f"{_NOT_PORTED}")
-        if args.method == "helmholtz":
-            p.error(f"chorin_fd --method helmholtz {_NOT_PORTED}")
         if args.pallas_momentum and args.method != "explicit":
             p.error("--pallas-momentum requires --method explicit")
         nx = args.nx or 51

@@ -1,4 +1,4 @@
-// Pressure-solve kernels for Hopper (sm_90a): K1, K2 and K5 of the port.
+// Pressure-solve kernels for Hopper (sm_90a): K1, K2, K4 and K5 of the port.
 //
 // K2 jacobi_fused        replaces ns_tpu/ops/pallas/poisson_kernels.py
 //                        ::jacobi_fused_pallas (direct_fd's nit sweeps).
@@ -6,6 +6,9 @@
 //                        shared memory (the JAX package's XLA path there).
 // K1 sor_redblack_fused  replaces ::sor_redblack_fused_pallas (chorin_fd's
 //                        SOR solved to tolerance, one launch).
+// K4 sor_redblack_packed replaces ::sor_redblack_packed_tiled_pallas (SOR
+//                        beyond one block on packed colour planes, the
+//                        branch chorin_fd takes for nx%128 == 0, ny%256 == 0).
 // K5 sor_redblack_tiled  replaces ::sor_redblack_tiled_pallas and
 //                        ::sor_redblack_tiled_any (SOR beyond one block).
 //
@@ -19,7 +22,22 @@
 // larger than shared memory (1024^2) is bandwidth-bound on the L2/HBM
 // traffic of each colour half-sweep; K5 runs every half-sweep as a grid of
 // blocks over the whole field and reads the gate once per k sweeps through
-// an atomic max, so the host syncs once per k sweeps. The multi-block
+// an atomic max, so the host syncs once per k sweeps. That costs 2k
+// launches per gate group, and each launch reads every column to update
+// half of them. K4 runs the whole group in ONE launch: each block loads a
+// 2D tile of the packed colour planes (R, B of shape (nx, ny/2), so a
+// colour update touches only its own cells) with the halo that k sweeps'
+// dependency cone needs into shared memory, runs the k sweeps there with
+// __syncthreads between colour half-sweeps, and writes its own cells into
+// the other buffers of a ping-pong pair. The TPU strip (160 x 512 packed
+// cells x 4 planes at 1024^2, 1.3 MB) cannot fit a block, so the tile is
+// 64 x 64 own cells in both directions; rhs stays in global memory,
+// read-only (in shared memory it measured no faster). Halo blocks recompute
+// their neighbours' cells, (96 x 80) / (64 x 64) = 1.9x the useful work at
+// k=8, to trade 2k launches for one. A group is then bound by instructions
+// per cell update (bounds checks, the IEEE division, the halo recompute),
+// not by bytes: 1024 threads a block ran it 1.6x faster than 512.
+// The multi-block
 // Jacobi is bandwidth-bound the same way: each sweep is one grid launch over
 // the field into the other buffer of a ping-pong pair (the interior reads
 // only old values), then one single-block launch writes the BC edges in
@@ -191,6 +209,109 @@ bc_edges_kernel(T* __restrict__ a, int nx, int ny, BCList bcs) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4: one gate group (k full red-black sweeps) on the packed colour planes,
+// one block per tile of tile_rows x tile_cols own packed cells. The block's
+// working tile adds H = 2k rows and k packed columns on each side: a colour
+// half-sweep reads only the four nearest cells, so a cell that could not be
+// updated from in-tile values (the tile's edge) taints at most the cells one
+// unpacked step further in per half-sweep; after 2k half-sweeps the own
+// cells, 2k+1 steps in, are exact. Working cells outside the grid are never
+// loaded or read (interior cells read only cells of the grid). Neighbours:
+// up/down are the other colour at the same packed column; left/right are
+// other[jc] and other[jc + s], where s = +1 for a cell at odd global j
+// (2jc+1: neighbours 2jc and 2jc+2) and -1 at even j. The update is written
+// in the TPU kernel's expression order. Reads the (Rin, Bin) snapshot, writes
+// (Rout, Bout): blocks whose halos overlap never see each other's writes.
+// The last sweep's max |new - old| over own interior cells is max-reduced
+// per warp and folded into *err with one atomicMax on the bit pattern.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(1024)
+sor_packed_group_kernel(const T* __restrict__ Rin, const T* __restrict__ Bin,
+                        const T* __restrict__ cR, const T* __restrict__ cB,
+                        T* __restrict__ Rout, T* __restrict__ Bout, int nx,
+                        int ny, int tile_rows, int tile_cols, int k, T dx2,
+                        T dy2, T denom, T beta,
+                        typename Bits<T>::U* __restrict__ err) {
+  using U = typename Bits<T>::U;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ny2 = ny / 2;
+  const int hr = 2 * k, hc = k;
+  const int wr = tile_rows + 2 * hr, wc = tile_cols + 2 * hc;
+  T* sR = reinterpret_cast<T*>(smem);
+  T* sB = sR + wr * wc;
+  const int r0 = blockIdx.y * tile_rows - hr;  // global row of working row 0
+  const int c0 = blockIdx.x * tile_cols - hc;  // global packed column of col 0
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  for (int r = ty; r < wr; r += nwarps) {
+    const int gi = r0 + r;
+    if (gi < 0 || gi >= nx) continue;
+    for (int c = tx; c < wc; c += 32) {
+      const int gc = c0 + c;
+      if (gc < 0 || gc >= ny2) continue;
+      const size_t g = static_cast<size_t>(gi) * ny2 + gc;
+      sR[r * wc + c] = Rin[g];
+      sB[r * wc + c] = Bin[g];
+    }
+  }
+  __syncthreads();
+
+  const T omb = T(1) - beta;
+  U dmax = 0;
+  for (int sweep = 0; sweep < k; ++sweep) {
+    const bool last = sweep == k - 1;
+    for (int color = 0; color < 2; ++color) {
+      T* self = color == 0 ? sR : sB;
+      const T* other = color == 0 ? sB : sR;
+      const T* rhs = color == 0 ? cR : cB;
+      for (int r = ty; r < wr; r += nwarps) {
+        const int gi = r0 + r;
+        if (r < 1 || r > wr - 2 || gi < 1 || gi > nx - 2) continue;
+        // j parity of this colour's cells in row gi: red (i+j) even, black odd
+        const int jpar = (gi + color) & 1;
+        const int shift = jpar ? 1 : -1;
+        const bool own_row = r >= hr && r < hr + tile_rows;
+        for (int c = tx; c < wc; c += 32) {
+          const int gc = c0 + c;
+          const int j = 2 * gc + jpar;
+          const int cs = c + shift;
+          if (gc < 0 || gc >= ny2 || j < 1 || j > ny - 2 || cs < 0 || cs >= wc)
+            continue;
+          const int q = r * wc + c;
+          const T old = self[q];
+          const T t = dy2 * (other[q + wc] + other[q - wc]) +
+                      dx2 * (other[q] + other[r * wc + cs]) -
+                      rhs[static_cast<size_t>(gi) * ny2 + gc];
+          const T nw = beta * t / denom + omb * old;
+          self[q] = nw;
+          if (last && own_row && c >= hc && c < hc + tile_cols) {
+            const U d = Bits<T>::of_abs(nw - old);
+            dmax = d > dmax ? d : dmax;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int r = hr + ty; r < hr + tile_rows; r += nwarps) {
+    const int gi = r0 + r;
+    if (gi < 0 || gi >= nx) continue;
+    for (int c = hc + tx; c < hc + tile_cols; c += 32) {
+      const int gc = c0 + c;
+      if (gc < 0 || gc >= ny2) continue;
+      const size_t g = static_cast<size_t>(gi) * ny2 + gc;
+      Rout[g] = sR[r * wc + c];
+      Bout[g] = sB[r * wc + c];
+    }
+  }
+  dmax = warp_max(dmax);
+  if (tx == 0 && dmax != U(0)) atomicMax(err, dmax);
+}
+
 template <typename T>
 int jacobi_fused(const void* p, const void* b, void* out, int nx, int ny,
                  int n_iter, double dx2, double dy2, double denom, double cb,
@@ -274,6 +395,34 @@ int sor_redblack_tiled_group(void* p, const void* rhs, void* err, int nx,
   return cudaGetLastError();
 }
 
+// One K4 gate group: k sweeps of the packed planes (R, B) -> (Rout, Bout)
+// in one launch, the last sweep's max|dp| left in *err.
+template <typename T>
+int sor_redblack_packed_group(const void* R, const void* B, const void* cR,
+                              const void* cB, void* Rout, void* Bout,
+                              void* err, int nx, int ny, int tile_rows,
+                              int tile_cols, double dx2, double dy2,
+                              double denom, double beta, int k, void* stream) {
+  using U = typename Bits<T>::U;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || tile_rows < 1 || tile_cols < 1 || ny % 2)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(err, 0, sizeof(U), s);
+  if (e != cudaSuccess) return e;
+  const size_t smem = 2 * static_cast<size_t>(tile_rows + 4 * k) *
+                      (tile_cols + 2 * k) * sizeof(T);
+  e = allow_smem(sor_packed_group_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((ny / 2 + tile_cols - 1) / tile_cols,
+                  (nx + tile_rows - 1) / tile_rows);
+  sor_packed_group_kernel<T><<<grid, 1024, smem, s>>>(
+      static_cast<const T*>(R), static_cast<const T*>(B),
+      static_cast<const T*>(cR), static_cast<const T*>(cB),
+      static_cast<T*>(Rout), static_cast<T*>(Bout), nx, ny, tile_rows,
+      tile_cols, k, T(dx2), T(dy2), T(denom), T(beta), static_cast<U*>(err));
+  return cudaGetLastError();
+}
+
 }  // namespace ns
 
 extern "C" {
@@ -325,5 +474,19 @@ NS_SOR_FUSED(f64, double)
   }
 NS_SOR_TILED(f32, float)
 NS_SOR_TILED(f64, double)
+
+#define NS_SOR_PACKED(SUFFIX, T)                                              \
+  int ns_sor_redblack_packed_group_##SUFFIX(                                 \
+      const void* R, const void* B, const void* cR, const void* cB,          \
+      void* Rout, void* Bout, void* err, int nx, int ny, int tile_rows,      \
+      int tile_cols, double dx2, double dy2, double denom, double beta,      \
+      int k, void* stream) {                                                 \
+    return ns::sor_redblack_packed_group<T>(R, B, cR, cB, Rout, Bout, err,   \
+                                            nx, ny, tile_rows, tile_cols,    \
+                                            dx2, dy2, denom, beta, k,        \
+                                            stream);                         \
+  }
+NS_SOR_PACKED(f32, float)
+NS_SOR_PACKED(f64, double)
 
 }  // extern "C"

@@ -7,8 +7,10 @@ compiled (`_build.library`) at the first launch on a CUDA tensor.
 from ns_tpu_torch.ops.kernels.momentum_kernels import (
     momentum_explicit, momentum_explicit_fused)
 from ns_tpu_torch.ops.kernels.poisson_kernels import (
-    jacobi_fused, jacobi_multiblock, smem_fits, sor_redblack_fused,
-    sor_redblack_multiblock, sor_redblack_tiled)
+    jacobi_fused, jacobi_multiblock, pack_redblack, smem_fits,
+    sor_redblack_fused, sor_redblack_multiblock,
+    sor_redblack_packed_multiblock, sor_redblack_packed_tiled,
+    sor_redblack_tiled, unpack_redblack)
 from ns_tpu_torch.ops.kernels.transform3d_kernels import (
     fused_fits, fused_lamb, fused_yz_inverse, fused_zy_forward, lamb,
     yz_inverse, zy_forward)
@@ -19,6 +21,7 @@ WRAPPERS = {
     "K2": jacobi_fused,
     "K2mb": jacobi_multiblock,  # K2's multi-block form
     "K3": momentum_explicit_fused,
+    "K4": sor_redblack_packed_multiblock,
     "K5": sor_redblack_multiblock,
     "K6": fused_zy_forward,
     "K7": fused_yz_inverse,

@@ -2,7 +2,7 @@
 
 Port of `ns_tpu/solvers/chorin_fd.py` (the reference chorin_fd family):
 
-  - predictor, two modes:
+  - predictor, three modes:
       'explicit'      — Adams-Bashforth for advection AND diffusion, with
                         the reference's y-advection axis quirk under
                         `quirk_compat=True` (default). Kernel K3
@@ -17,17 +17,31 @@ Port of `ns_tpu/solvers/chorin_fd.py` (the reference chorin_fd family):
                         device, as the JAX package leaves it to XLA).
                         Quirk mode keeps the reference's advection sign flip
                         and square-grid y-sweep.
+      'helmholtz'     — the corrected unsplit Crank-Nicolson predictor:
+                        (I - a lap) u* = u^n - dt (3/2 H^n - 1/2 H^{n-1})
+                        + a lap u^n with a = dt nu/2, solved exactly in the
+                        DST eigenbasis (`ops/fast_poisson.py::
+                        make_dst_helmholtz`, built once per `make_step`).
   - pressure, by `pressure_mode`:
       'redblack'     — red-black SOR with the reference's relaxation
                        formula, tol and cap. On a CUDA tensor: K1
                        (`sor_redblack_fused`, whole solve in one block)
-                       when two grids fit one block's shared memory, else
-                       K5 (`sor_redblack_multiblock`, gate every 8 sweeps).
-                       On a CPU tensor, the same routing to their twins.
+                       when two grids fit one block's shared memory; beyond
+                       that, where the JAX package ran its packed kernel
+                       (nx % 128 == 0 and ny % 256 == 0), K4
+                       (`sor_redblack_packed_multiblock`, packed colour
+                       planes, one launch per gate group of 8 sweeps), and
+                       on any other grid K5 (`sor_redblack_multiblock`,
+                       gate every 8 sweeps). On a CPU tensor, the same
+                       routing to their twins.
       'gauss_seidel' — exact reference iterate order (wavefront sweeps).
       'cg'           — conjugate gradient on the same system.
-      'multigrid', 'dst' and method='helmholtz' wait for the port of
-      ops/fast_poisson.py and ops/multigrid.py (ROADMAP.md, Slice A item 5).
+      'multigrid'    — V-cycles (MGCG off 2^k+1 grids) on
+                       laplace(p) = rhs_c / (dx^2 dy^2), `mg_cycles` of
+                       them (`ops/multigrid.py`).
+      'dst'          — the direct DST solve of the same system
+                       (`ops/fast_poisson.py::make_dst_poisson`, built
+                       once per `make_step`).
   - correction: u <- u* - dt/(2dx) * grad(p), central.
   - step order: predictor -> u/v BCs -> pressure -> p BCs -> correction;
     ICs get BCs applied once at init; (u^n, u^{n-1}) history threaded
@@ -38,8 +52,10 @@ x-differences, the opposite of direct_fd.
 
 `gemm_precision` in float32 (float64 matmuls are always float64):
 None and 'highest' -> full fp32 (TF32 off); 'high' -> TF32 tensor cores;
-'default' -> bf16 inputs with fp32 accumulation. On the TPU, None meant
-the jnp default (bf16 passes) for the ADI sweeps; here it means fp32.
+'default' -> bf16 inputs with fp32 accumulation. It sets the ADI, dst and
+helmholtz GEMMs. On the TPU, None meant the jnp default (bf16 passes) for
+the ADI sweeps and HIGHEST for dst and helmholtz; here it means fp32 for
+all three.
 """
 
 from __future__ import annotations
@@ -52,14 +68,15 @@ import torch
 
 from ns_tpu_torch.core.bc import BC, apply_bcs, bcs_from_reference
 from ns_tpu_torch.core.state import FlowState, rollout
+from ns_tpu_torch.ops.fast_poisson import (make_dst_helmholtz,
+                                           make_dst_poisson)
 from ns_tpu_torch.ops.gemm import matmul
 from ns_tpu_torch.ops.kernels import (momentum_explicit_fused, smem_fits,
                                       sor_redblack_fused,
-                                      sor_redblack_multiblock)
+                                      sor_redblack_multiblock,
+                                      sor_redblack_packed_multiblock)
+from ns_tpu_torch.ops.multigrid import poisson_multigrid
 from ns_tpu_torch.ops.poisson import cg_poisson, sor_wavefront
-
-_NOT_PORTED = ("is not yet ported: it needs ops/fast_poisson.py and "
-               "ops/multigrid.py (see ROADMAP.md, Slice A item 5)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,11 +91,14 @@ class ChorinFDConfig:
     rho: float = 1.0
     nu: float = 1.0
     beta: float = 1.25
-    method: str = "semi_implicit"  # 'explicit' | 'semi_implicit'
+    method: str = "semi_implicit"  # 'explicit'|'semi_implicit'|'helmholtz'
     sor_tol: float = 5e-6
     quirk_compat: bool = True  # replicate the reference's numerics quirks
-    pressure_mode: str = "redblack"  # 'redblack' | 'gauss_seidel' | 'cg'
-    gemm_precision: str | None = None  # ADI matmuls; see module docstring
+    # 'redblack' | 'gauss_seidel' | 'multigrid' | 'cg' | 'dst'
+    pressure_mode: str = "redblack"
+    mg_cycles: int = 6  # V-cycles (or MGCG iterations) of 'multigrid'
+    # ADI, dst and helmholtz GEMMs; see module docstring
+    gemm_precision: str | None = None
 
     def __post_init__(self):
         if self.method not in ("semi_implicit", "explicit", "helmholtz"):
@@ -98,11 +118,6 @@ class ChorinFDConfig:
                 "reference's square-grid ADI y-sweep and needs nx == ny; got "
                 f"{self.nx}x{self.ny}. Set quirk_compat=False for the "
                 "corrected rectangular sweep.")
-        if self.method == "helmholtz":
-            raise NotImplementedError(f"method='helmholtz' {_NOT_PORTED}")
-        if self.pressure_mode in ("multigrid", "dst"):
-            raise NotImplementedError(
-                f"pressure_mode={self.pressure_mode!r} {_NOT_PORTED}")
 
     @property
     def dx(self) -> float:
@@ -127,6 +142,20 @@ def _adi_inverses(cfg: ChorinFDConfig, dtype, device):
     return as_t(A), as_t(B)
 
 
+def _advect(cfg: ChorinFDConfig, f, g, h):
+    """f * dh/dx + g * dh/dy on the interior, centred, axis 0 = x."""
+    dx, dy = cfg.dx, cfg.dy
+    return (f[1:-1, 1:-1] * (h[2:, 1:-1] - h[:-2, 1:-1]) / (2.0 * dx)
+            + g[1:-1, 1:-1] * (h[1:-1, 2:] - h[1:-1, :-2]) / (2.0 * dy))
+
+
+def _lap(cfg: ChorinFDConfig, h):
+    """5-point Laplacian of h on the interior."""
+    dx, dy = cfg.dx, cfg.dy
+    return ((h[2:, 1:-1] - 2 * h[1:-1, 1:-1] + h[:-2, 1:-1]) / dx**2
+            + (h[1:-1, 2:] - 2 * h[1:-1, 1:-1] + h[1:-1, :-2]) / dy**2)
+
+
 def _semi_implicit_predictor(cfg: ChorinFDConfig, A_inv, B_inv, un, vn, un1,
                              vn1):
     """AB advection + Crank-Nicolson ADI diffusion, the per-step dense
@@ -134,21 +163,12 @@ def _semi_implicit_predictor(cfg: ChorinFDConfig, A_inv, B_inv, un, vn, un1,
     dt, dx, dy, nu = cfg.dt, cfg.dx, cfg.dy, cfg.nu
     mm = lambda a, b: matmul(a, b, cfg.gemm_precision)
 
-    def advect(f, g, h):
-        # f * dh/dx + g * dh/dy, centered, axis0=x
-        return (f[1:-1, 1:-1] * (h[2:, 1:-1] - h[:-2, 1:-1]) / (2.0 * dx)
-                + g[1:-1, 1:-1] * (h[1:-1, 2:] - h[1:-1, :-2]) / (2.0 * dy))
-
-    def lap(h):
-        return ((h[2:, 1:-1] - 2 * h[1:-1, 1:-1] + h[:-2, 1:-1]) / dx**2
-                + (h[1:-1, 2:] - 2 * h[1:-1, 1:-1] + h[1:-1, :-2]) / dy**2)
-
     def sweeps(hn, hn1, Hn, Hn1):
         # x-sweep: A ht = C. Quirk mode keeps the reference's advection
         # sign flip (it ADDS +dt/2 (3H - H1)); corrected mode subtracts.
         sgn = 1.0 if cfg.quirk_compat else -1.0
         C1 = sgn * dt / 2.0 * (3.0 * Hn - Hn1)
-        C2 = dt * nu * lap(hn)
+        C2 = dt * nu * _lap(cfg, hn)
         C = 2.0 / nu * dx**2 * (C1 + C2)
         ht = mm(A_inv, C)
         # y-sweep: B hi = S
@@ -165,12 +185,28 @@ def _semi_implicit_predictor(cfg: ChorinFDConfig, A_inv, B_inv, un, vn, un1,
         S[:, -1] += dt * hn[1:-1, -1]
         return mm(S, B_inv.T)
 
-    uHn, uHn1 = advect(un, vn, un), advect(un1, vn1, un1)
-    vHn, vHn1 = advect(un, vn, vn), advect(un1, vn1, vn1)
+    uHn, uHn1 = _advect(cfg, un, vn, un), _advect(cfg, un1, vn1, un1)
+    vHn, vHn1 = _advect(cfg, un, vn, vn), _advect(cfg, un1, vn1, vn1)
     ui, vi = un.clone(), vn.clone()
     ui[1:-1, 1:-1] = sweeps(un, un1, uHn, uHn1)
     vi[1:-1, 1:-1] = sweeps(vn, vn1, vHn, vHn1)
     return ui, vi
+
+
+def _helmholtz_predictor(cfg: ChorinFDConfig, hsolve, un, vn, un1, vn1):
+    """Corrected unsplit Crank-Nicolson predictor (method='helmholtz'):
+    (I - a lap) u* = u^n - dt (3/2 H^n - 1/2 H^{n-1}) + a lap u^n with
+    a = dt nu/2 and H = u.grad(u) (physical sign), solved exactly by
+    `hsolve` (`make_dst_helmholtz`) with u^n's boundary ring."""
+    dt = cfg.dt
+    a = dt * cfg.nu / 2.0
+    uHn, uHn1 = _advect(cfg, un, vn, un), _advect(cfg, un1, vn1, un1)
+    vHn, vHn1 = _advect(cfg, un, vn, vn), _advect(cfg, un1, vn1, vn1)
+    rhs_u = (un[1:-1, 1:-1] - dt * (1.5 * uHn - 0.5 * uHn1)
+             + a * _lap(cfg, un))
+    rhs_v = (vn[1:-1, 1:-1] - dt * (1.5 * vHn - 0.5 * vHn1)
+             + a * _lap(cfg, vn))
+    return hsolve(un, rhs_u), hsolve(vn, rhs_v)
 
 
 def _pressure_rhs(cfg: ChorinFDConfig, ui, vi):
@@ -194,7 +230,8 @@ def _correction(cfg: ChorinFDConfig, ui, vi, p):
     return u, v
 
 
-def _pressure(cfg: ChorinFDConfig, p, rhs_c):
+def _pressure(cfg: ChorinFDConfig, p, rhs_c, dst_solve=None):
+    # the SOR fixed point is laplace(p) = rhs_c / (dx^2 dy^2)
     if cfg.pressure_mode == "gauss_seidel":
         return sor_wavefront(p, rhs_c, cfg.dx, cfg.dy, cfg.beta, cfg.sor_tol,
                              cfg.nit)
@@ -202,9 +239,19 @@ def _pressure(cfg: ChorinFDConfig, p, rhs_c):
         f = rhs_c / (cfg.dx**2 * cfg.dy**2)
         return cg_poisson(p, f, cfg.dx, cfg.dy, tol=cfg.sor_tol,
                           max_iter=cfg.nit)
+    if cfg.pressure_mode == "multigrid":
+        f = rhs_c / (cfg.dx**2 * cfg.dy**2)
+        return poisson_multigrid(p, f, cfg.dx, cfg.dy,
+                                 n_cycles=cfg.mg_cycles)
+    if cfg.pressure_mode == "dst":
+        return dst_solve(p, rhs_c / (cfg.dx**2 * cfg.dy**2))
     if smem_fits(cfg.nx, cfg.ny, 2, p.element_size()):
         return sor_redblack_fused(p, rhs_c, cfg.dx, cfg.dy, cfg.beta,
                                   cfg.sor_tol, cfg.nit)
+    if cfg.nx % 128 == 0 and cfg.ny % 256 == 0:
+        return sor_redblack_packed_multiblock(p, rhs_c, cfg.dx, cfg.dy,
+                                              cfg.beta, cfg.sor_tol, cfg.nit,
+                                              k=8)
     return sor_redblack_multiblock(p, rhs_c, cfg.dx, cfg.dy, cfg.beta,
                                    cfg.sor_tol, cfg.nit, k=8)
 
@@ -212,8 +259,18 @@ def _pressure(cfg: ChorinFDConfig, p, rhs_c):
 def make_step(cfg: ChorinFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
               p_bc: Sequence[BC], dtype=torch.float32, device=None):
     """Build the one-timestep function."""
+    prec = cfg.gemm_precision or "highest"
     if cfg.method == "semi_implicit":
         A_inv, B_inv = _adi_inverses(cfg, dtype, device)
+    elif cfg.method == "helmholtz":
+        hsolve = make_dst_helmholtz(cfg.nx, cfg.ny, cfg.dx, cfg.dy,
+                                    cfg.dt * cfg.nu / 2.0, dtype=dtype,
+                                    precision=prec, device=device)
+    dst_solve = None
+    if cfg.pressure_mode == "dst":
+        dst_solve = make_dst_poisson(cfg.nx, cfg.ny, cfg.dx, cfg.dy,
+                                     dtype=dtype, precision=prec,
+                                     device=device)
 
     def step(state: FlowState) -> FlowState:
         un, vn, p = state.u, state.v, state.p
@@ -224,10 +281,14 @@ def make_step(cfg: ChorinFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
                 un, vn, un1, vn1, cfg.dt, cfg.dx, cfg.dy, cfg.nu, u_bc, v_bc,
                 quirk_compat=cfg.quirk_compat)
         else:
-            ui, vi = _semi_implicit_predictor(cfg, A_inv, B_inv, un, vn, un1,
-                                              vn1)
+            if cfg.method == "helmholtz":
+                ui, vi = _helmholtz_predictor(cfg, hsolve, un, vn, un1, vn1)
+            else:
+                ui, vi = _semi_implicit_predictor(cfg, A_inv, B_inv, un, vn,
+                                                  un1, vn1)
             ui, vi = apply_bcs(ui, u_bc), apply_bcs(vi, v_bc)
-        p = apply_bcs(_pressure(cfg, p, _pressure_rhs(cfg, ui, vi)), p_bc)
+        p = apply_bcs(_pressure(cfg, p, _pressure_rhs(cfg, ui, vi),
+                                dst_solve), p_bc)
         u_next, v_next = _correction(cfg, ui, vi, p)
         return FlowState(u=u_next, v=v_next, p=p, u_prev=un, v_prev=vn)
 
@@ -260,11 +321,13 @@ class NavierStokesSystem:
                  nt=200, nit=50, nx=50, ny=50, dt=0.001,
                  rho=1, nu=1, beta=1.25, method="semi_implicit",
                  dtype=torch.float32, quirk_compat=True,
-                 pressure_mode="redblack", gemm_precision=None, device=None):
+                 pressure_mode="redblack", mg_cycles=6, gemm_precision=None,
+                 device=None):
         self.cfg = ChorinFDConfig(nt=nt, nit=nit, nx=nx, ny=ny, dt=dt,
                                   rho=rho, nu=nu, beta=beta, method=method,
                                   quirk_compat=quirk_compat,
                                   pressure_mode=pressure_mode,
+                                  mg_cycles=mg_cycles,
                                   gemm_precision=gemm_precision)
         self.u_bc, self.v_bc, self.p_bc = (bcs_from_reference(b)
                                            for b in (u_bc, v_bc, p_bc))

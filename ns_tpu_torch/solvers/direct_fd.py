@@ -4,10 +4,13 @@ Port of `ns_tpu/solvers/direct_fd.py` (the reference direct_fd family):
 
   - source term b from velocity divergence + quadratic terms, central
     differences
-  - pressure from `nit` fixed Jacobi sweeps, re-applying the pressure BCs
-    after every sweep: kernel K2 on a CUDA tensor (`ops/kernels::
-    jacobi_fused`, one block, where two grids fit its shared memory;
-    `jacobi_multiblock` beyond), its plain twin on a CPU tensor
+  - pressure, by `pressure_mode`: 'jacobi' runs `nit` fixed Jacobi sweeps,
+    re-applying the pressure BCs after every sweep: kernel K2 on a CUDA
+    tensor (`ops/kernels::jacobi_fused`, one block, where two grids fit its
+    shared memory; `jacobi_multiblock` beyond), its plain twin on a CPU
+    tensor. 'exact' solves the converged limit of that iteration directly
+    in the mixed-BC eigenbasis (`ops/fast_poisson.py::make_mixed_poisson`,
+    built once per `make_step`; h0=dy, h1=dx by the axis convention below)
   - momentum update: first-order backward (upwind) advection, central
     pressure gradient, central diffusion, explicit Euler in time
   - velocity BCs applied after the momentum update
@@ -29,6 +32,7 @@ import torch
 
 from ns_tpu_torch.core.bc import BC, apply_bcs, bcs_from_reference
 from ns_tpu_torch.core.state import FlowState, rollout
+from ns_tpu_torch.ops.fast_poisson import make_mixed_poisson
 from ns_tpu_torch.ops.kernels import (jacobi_fused, jacobi_multiblock,
                                       smem_fits)
 
@@ -45,18 +49,14 @@ class DirectFDConfig:
     rho: float = 1.0
     nu: float = 0.1
     # 'jacobi': the reference's fixed nit sweeps with per-sweep BC
-    # re-application. 'exact' (the direct mixed-BC eigenbasis solve) waits
-    # for the port of ops/fast_poisson.py (ROADMAP.md, Slice A item 5).
+    # re-application. 'exact': the direct mixed-BC eigenbasis solve of
+    # their converged limit.
     pressure_mode: str = "jacobi"
 
     def __post_init__(self):
         if self.pressure_mode not in ("jacobi", "exact"):
             raise ValueError("pressure_mode must be jacobi|exact, got "
                              f"{self.pressure_mode!r}")
-        if self.pressure_mode == "exact":
-            raise NotImplementedError(
-                "direct_fd pressure_mode='exact' is not yet ported: it needs "
-                "ops/fast_poisson.py (see ROADMAP.md, Slice A item 5)")
 
     @property
     def dx(self) -> float:
@@ -100,11 +100,17 @@ def make_step(cfg: DirectFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
     """Build the one-timestep function."""
     dt, dx, dy = cfg.dt, cfg.dx, cfg.dy
     rho, nu = cfg.rho, cfg.nu
+    if cfg.pressure_mode == "exact":
+        # axis 0 carries the y-differences here: h0=dy, h1=dx
+        exact_solve = make_mixed_poisson(cfg.nx, cfg.ny, dy, dx, p_bc)
 
     def step(state: FlowState) -> FlowState:
         un, vn, p = state.u, state.v, state.p
         b = build_up_b(cfg, un, vn)
-        p = pressure_poisson(cfg, p, b, p_bc)
+        if cfg.pressure_mode == "exact":
+            p = exact_solve(b)
+        else:
+            p = pressure_poisson(cfg, p, b, p_bc)
 
         u = un.clone()
         v = vn.clone()

@@ -1,8 +1,9 @@
 """The whole slice through both CLIs, and the port's no-jax guarantee.
 
 Both packages' run_solver write direct_fd and chorin_fd rollouts (nt=5,
-float64) and taylor_green_3d / decaying_turbulence_3d rollouts (16^3, nt=3,
-float64) on the CPU; the npz files agree <= 1e-9 and the port's FD file
+float64; the dst, multigrid, helmholtz and exact modes among them) and
+taylor_green_3d / decaying_turbulence_3d rollouts (16^3, nt=3, float64) on
+the CPU; the npz files agree <= 1e-9 and the port's FD file
 loads in the JAX trainer. A subprocess (this process has imported jax
 through the conftest) shows the port's CLI runs without importing jax or
 the JAX package, and that the CPU path launches no kernel.
@@ -23,8 +24,12 @@ from ns_tpu_torch.cli import run_solver as t_cli
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("argv", [["direct_fd"], ["chorin_fd"],
-                                  ["chorin_fd", "--method", "explicit"]])
+@pytest.mark.parametrize("argv", [
+    ["direct_fd"], ["chorin_fd"], ["chorin_fd", "--method", "explicit"],
+    ["chorin_fd", "--pressure-mode", "dst"],
+    ["chorin_fd", "--method", "helmholtz", "--pressure-mode", "multigrid"],
+    ["direct_fd", "--pressure-mode", "exact"],
+])
 def test_cli_rollouts_match_jax_cli(tmp_path, argv):
     common = ["--nt", "5", "--dtype", "float64"]
     j_out, t_out = tmp_path / "jax.npz", tmp_path / "torch.npz"
@@ -81,9 +86,7 @@ def test_cli_rejects_what_the_jax_cli_rejects(argv):
 @pytest.mark.parametrize("argv", [
     ["taylor_green"], ["chorin_spectral"], ["direct_fd", "--guard"],
     ["chorin_fd", "--stream-dir", "x"], ["chorin_fd", "--progress"],
-    ["chorin_fd", "--dist"], ["chorin_fd", "--pressure-mode", "dst"],
-    ["chorin_fd", "--method", "helmholtz"],
-    ["direct_fd", "--pressure-mode", "exact"],
+    ["chorin_fd", "--dist"],
     ["direct_fd", "--pressure-mode", "cg"],
     ["direct_fd", "--pallas-momentum"],
     ["chorin_fd", "--pallas-momentum"],
@@ -126,6 +129,7 @@ def test_port_cli_runs_without_jax_and_launches_nothing_on_cpu(tmp_path):
     assert report["jax"] == []
     assert set(report["launches"]) == {
         "sor_redblack_fused", "jacobi_fused", "jacobi_multiblock",
-        "momentum_explicit_fused", "sor_redblack_multiblock",
+        "momentum_explicit_fused", "sor_redblack_packed_multiblock",
+        "sor_redblack_multiblock",
         "fused_zy_forward", "fused_yz_inverse", "fused_lamb"}
     assert set(report["launches"].values()) == {0}

@@ -9,7 +9,9 @@ it runs without the suite's conftest:
 Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so kernel and twin are not bitwise equal); float32 <= 1e-4 relative to
 the field's max. The 3D transform kernels (float32 only) are held against
-their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative.
+their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative. The
+direct solves (plain torch, cuBLAS on the card) are held against the same
+solve on the CPU: float64 <= 1e-10 and float32 <= 1e-4 of the scale.
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from ns_tpu_torch.core.bc import apply_bcs, dirichlet, neumann
-from ns_tpu_torch.ops import kernels, poisson
+from ns_tpu_torch.ops import fast_poisson, kernels, poisson
 from ns_tpu_torch.solvers import spectral3d as s3
 
 pytestmark = pytest.mark.cuda
@@ -187,6 +189,50 @@ def test_sor_redblack_multiblock(cuda, dtype, atol, shape):
     assert kernels.sor_redblack_multiblock.launches == n0 + 4
     close(got, kernels.sor_redblack_tiled(p0, c, h, h, 1.25, 0.0, 33), dtype,
           atol)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("shape", [(1024, 1024), (257, 190)])
+def test_sor_redblack_packed_multiblock(cuda, dtype, atol, shape):
+    """K4, tol=0 and cap 8*4+1: four launches of k=8 sweeps, against its
+    twin and against K5 (the same iterate sequence); 257x190 is off the
+    routing predicate (odd nx, even ny)."""
+    h = 2.0 / (shape[0] - 1)
+    p0, c = rand(shape, dtype, cuda, 14), rand(shape, dtype, cuda, 15, h * h)
+    n0 = kernels.sor_redblack_packed_multiblock.launches
+    got = kernels.sor_redblack_packed_multiblock(p0, c, h, h, 1.25, 0.0, 33)
+    assert kernels.sor_redblack_packed_multiblock.launches == n0 + 4
+    close(got, kernels.sor_redblack_packed_tiled(p0, c, h, h, 1.25, 0.0, 33),
+          dtype, atol)
+    close(got, kernels.sor_redblack_multiblock(p0, c, h, h, 1.25, 0.0, 33),
+          dtype, atol)
+
+
+def test_packed_wrapper_rejects_odd_ny(cuda):
+    odd = torch.zeros((256, 255), device=cuda)
+    with pytest.raises(ValueError, match="even ny"):
+        kernels.sor_redblack_packed_multiblock(odd, odd, 0.01, 0.01, 1.25,
+                                               0.0, 9)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+def test_direct_solves_on_the_card_match_cpu(cuda, dtype, atol):
+    """A dst Poisson solve (parity-split engine at 258^2) and a mixed-BC
+    solve on the card against the same solves on the CPU."""
+    n = 258
+    h = 2.0 / (n - 1)
+    p0, f = rand((n, n), dtype, cuda, 16), rand((n, n), dtype, cuda, 17)
+    for dev, (pp, ff) in (("cuda", (p0, f)), ("cpu", (p0.cpu(), f.cpu()))):
+        solve = fast_poisson.make_dst_poisson(n, n, h, h, dtype=dtype,
+                                              device=dev)
+        out = solve(pp, ff)
+        if dev == "cuda":
+            got = out.cpu()
+        else:
+            close(got, out, dtype, atol)
+    bcs = p_bcs(h)
+    mixed = fast_poisson.make_mixed_poisson(n, n, h, h, bcs)
+    close(mixed(f).cpu(), mixed(f.cpu()), dtype, atol)
 
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)

@@ -1,5 +1,5 @@
-"""Port pressure solvers (ns_tpu_torch.ops.poisson and the K1/K2/K5 twins)
-against the JAX package.
+"""Port pressure solvers (ns_tpu_torch.ops.poisson and the K1/K2/K4/K5
+twins) against the JAX package.
 
 The JAX side's Pallas kernels run in interpret mode on the CPU, as
 tests/test_pallas_kernels.py runs them. Inputs are numpy arrays from a
@@ -18,11 +18,12 @@ from ns_tpu.core.bc import dirichlet as j_dirichlet
 from ns_tpu.core.bc import neumann as j_neumann
 from ns_tpu.ops import poisson as jpoisson
 from ns_tpu.ops.pallas.poisson_kernels import (
-    jacobi_fused_pallas, sor_redblack_fused_pallas,
-    sor_redblack_packed_tiled_pallas, sor_redblack_tiled_any)
+    jacobi_fused_pallas, pack_redblack, sor_redblack_fused_pallas,
+    sor_redblack_packed_tiled_pallas, sor_redblack_tiled_any,
+    unpack_redblack)
 from ns_tpu_torch.core.bc import apply_bcs, bcs_from_reference
 from ns_tpu_torch.ops import kernels, poisson
-from ns_tpu_torch.ops.kernels import _build
+from ns_tpu_torch.ops.kernels import _build, poisson_kernels
 
 
 def j_p_bcs(dx, dy):
@@ -85,8 +86,8 @@ def test_sor_redblack_tiled_twin_matches_jax_tiled_any():
 
 
 def test_sor_redblack_tiled_twin_matches_jax_packed():
-    """K5's twin vs the packed-plane tiled Pallas kernel (K4, whose solver
-    branch K5 serves on the card) on 128x256, cap 9: <= 1e-9."""
+    """K5's twin vs the packed-plane tiled Pallas kernel (K4) on 128x256,
+    cap 9: the two kernels' iterate sequences are the same, <= 1e-9."""
     nx, ny = 128, 256
     dx, dy = 2.0 / (nx - 1), 2.0 / (ny - 1)
     (rhs,) = fields(4, (nx, ny), n=1, scale=(1.0,))
@@ -97,6 +98,68 @@ def test_sor_redblack_tiled_twin_matches_jax_packed():
     got = kernels.sor_redblack_tiled(torch.as_tensor(p0), torch.as_tensor(rhs),
                                      dx, dy, 1.25, 0.0, 9, k=4).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("shape", [(6, 8), (7, 10), (128, 256)])
+def test_pack_unpack_match_jax_bitwise(shape):
+    (p,) = fields(9, shape, n=1, scale=(1.0,))
+    R, B = kernels.pack_redblack(torch.as_tensor(p))
+    Rj, Bj = pack_redblack(jnp.asarray(p))
+    np.testing.assert_array_equal(R.numpy(), np.asarray(Rj))
+    np.testing.assert_array_equal(B.numpy(), np.asarray(Bj))
+    back = kernels.unpack_redblack(R, B).numpy()
+    np.testing.assert_array_equal(back, np.asarray(unpack_redblack(Rj, Bj)))
+    np.testing.assert_array_equal(back, p)
+
+
+def test_pack_rejects_odd_ny():
+    with pytest.raises(ValueError, match="even ny"):
+        kernels.pack_redblack(torch.zeros((8, 7)))
+    with pytest.raises(ValueError, match="even ny"):
+        kernels.sor_redblack_packed_tiled(torch.zeros((8, 7)),
+                                          torch.zeros((8, 7)), 0.1, 0.1,
+                                          1.25, 0.0, 9)
+
+
+@pytest.mark.parametrize("tol,cap", [(0.0, 9), (0.0, 33), (5e-2, 400)])
+def test_packed_twin_matches_jax_packed_kernel(tol, cap):
+    """K4's twin vs sor_redblack_packed_tiled_pallas(interpret) on 128x256
+    (k=4, tile_rows=64): caps 9 and 33 at tol 0, and a converging tol that
+    stops both at the same gate group. Same expression order: <= 1e-12."""
+    nx, ny = 128, 256
+    dx, dy = 2.0 / (nx - 1), 2.0 / (ny - 1)
+    p0, rhs = fields(10, (nx, ny), scale=(1.0, 1e-4))
+    want = np.asarray(sor_redblack_packed_tiled_pallas(
+        jnp.asarray(p0), jnp.asarray(rhs), dx, dy, 1.25, tol, cap,
+        k_per_launch=4, tile_rows=64, interpret=True))
+    got = kernels.sor_redblack_packed_tiled(
+        torch.as_tensor(p0), torch.as_tensor(rhs), dx, dy, 1.25, tol, cap,
+        k=4).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(67, 90), (40, 64)])
+def test_packed_twin_matches_tiled_twin(shape):
+    """K4's twin and K5's twin run the same iterate sequence and gate, on
+    any grid with an even ny (odd nx included): <= 1e-12."""
+    nx, ny = shape
+    dx, dy = 2.0 / (nx - 1), 2.0 / (ny - 1)
+    p0, c = (torch.as_tensor(a) for a in fields(11, shape))
+    for tol, cap in ((0.0, 17), (1e-4, 300)):
+        got = kernels.sor_redblack_packed_tiled(p0, c, dx, dy, 1.25, tol, cap)
+        want = kernels.sor_redblack_tiled(p0, c, dx, dy, 1.25, tol, cap)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-12)
+
+
+def test_packed_tile_fits_shared_memory():
+    """K4's tile (64x64 own packed cells plus a 2k-row, k-column halo) at
+    k=8 fits one block in float32 (60 KB) and float64 (120 KB)."""
+    pk = poisson_kernels
+    assert pk.PACKED_TILE == (64, 64)
+    assert pk.packed_tile_bytes(8, 4) == 2 * 96 * 80 * 4
+    assert pk.packed_tile_bytes(8, 8) <= pk.SMEM_BUDGET
+    assert pk.packed_tile_bytes(40, 8) > pk.SMEM_BUDGET
 
 
 def test_sor_redblack_tiled_gate_runs_past_single_block_stop():
@@ -167,6 +230,11 @@ def test_wrappers_take_twin_on_cpu_without_launching():
     assert torch.equal(
         kernels.sor_redblack_multiblock(p0, c, dx, dy, 1.25, 0.0, 9, k=4),
         kernels.sor_redblack_tiled(p0, c, dx, dy, 1.25, 0.0, 9, k=4))
+    q0, cq = (torch.as_tensor(a) for a in fields(8, (nx, ny + 1)))
+    assert torch.equal(
+        kernels.sor_redblack_packed_multiblock(q0, cq, dx, dy, 1.25, 0.0, 9,
+                                               k=4),
+        kernels.sor_redblack_packed_tiled(q0, cq, dx, dy, 1.25, 0.0, 9, k=4))
     assert set(kernels.launch_counts().values()) == {0}
 
 

@@ -8,6 +8,8 @@ Gauss-Seidel goldens at tests/test_chorin_fd.py's converged-gate bounds; one
 step from a state carried across packages <= 1e-12.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -203,18 +205,96 @@ def test_large_grid_routes_to_multiblock_jacobi(monkeypatch):
 
 
 def test_config_validation_and_not_yet_ported_modes():
+    """Bad settings raise; the modes that once waited for the port of
+    fast_poisson and multigrid are accepted, as ns_tpu accepts them."""
     with pytest.raises(ValueError):
         chorin_fd.ChorinFDConfig(method="bogus")
     with pytest.raises(ValueError):
         chorin_fd.ChorinFDConfig(nx=10, ny=12)  # quirk ADI needs square
     for kw in (dict(method="helmholtz"), dict(pressure_mode="dst"),
-               dict(pressure_mode="multigrid")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            chorin_fd.ChorinFDConfig(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        direct_fd.DirectFDConfig(pressure_mode="exact")
+               dict(pressure_mode="multigrid", mg_cycles=3)):
+        cfg = chorin_fd.ChorinFDConfig(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+    assert direct_fd.DirectFDConfig(pressure_mode="exact").pressure_mode \
+        == "exact"
     with pytest.raises(ValueError):
         direct_fd.DirectFDConfig(pressure_mode="bogus")
+
+
+def test_chorin_fd_systems_take_the_same_keywords():
+    """Repair: the port's ChorinFDConfig and NavierStokesSystem lacked
+    ns_tpu's `mg_cycles`. Both systems now build from one keyword set,
+    mg_cycles included, with equal config fields and the JAX default 6."""
+    nx = 17
+    bcs = cavity_bcs(2.0 / (nx - 1), 2.0 / (nx - 1))
+    z = np.zeros((nx, nx))
+    kw = dict(nt=2, nit=30, nx=nx, ny=nx, dt=1e-3, rho=1, nu=0.1,
+              beta=1.25, method="explicit", quirk_compat=True,
+              pressure_mode="multigrid", mg_cycles=3, gemm_precision="high")
+    j = j_chorin.NavierStokesSystem(z, z, z, *bcs, dtype=jnp.float64, **kw)
+    t = chorin_fd.NavierStokesSystem(z, z, z, *bcs, dtype=torch.float64,
+                                     **kw)
+    for field in dataclasses.fields(t.cfg):
+        assert getattr(t.cfg, field.name) == getattr(j.cfg, field.name)
+    assert chorin_fd.ChorinFDConfig().mg_cycles == \
+        j_chorin.ChorinFDConfig().mg_cycles == 6
+
+
+@pytest.mark.parametrize("method,mode,nx,mg", [
+    ("semi_implicit", "dst", 51, 6), ("explicit", "dst", 40, 6),
+    ("explicit", "multigrid", 33, 2), ("semi_implicit", "multigrid", 30, 3),
+    ("helmholtz", "redblack", 24, 6), ("helmholtz", "multigrid", 33, 6)])
+def test_chorin_fd_new_modes_match_jax_solver(method, mode, nx, mg):
+    """dst, multigrid (V-cycles at 33^2, MGCG at 30^2) and the helmholtz
+    predictor, nt=5: the port vs ns_tpu <= 1e-9 (GEMMs and MGCG's inner
+    products sum in another order)."""
+    bcs = cavity_bcs(2.0 / (nx - 1), 2.0 / (nx - 1))
+    z = np.zeros((nx, nx))
+    kw = dict(nt=5, nit=100, nx=nx, ny=nx, dt=0.001, rho=1, nu=0.1,
+              beta=1.25, method=method, pressure_mode=mode, mg_cycles=mg)
+    j = j_chorin.NavierStokesSystem(z, z, z, *bcs, dtype=jnp.float64, **kw)
+    t = chorin_fd.NavierStokesSystem(z, z, z, *bcs, dtype=torch.float64,
+                                     device="cpu", **kw)
+    for g, w in zip(np_all(t.simulate()), j.simulate()):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("nx", [50, 31])
+def test_direct_fd_exact_mode_matches_jax(nx):
+    """direct_fd pressure_mode='exact' (the mixed-BC eigenbasis solve), 5
+    steps from a random state: the port vs ns_tpu <= 1e-9."""
+    bcs = cavity_bcs(2.0 / (nx - 1), 2.0 / (nx - 1))
+    rng = np.random.default_rng(3)
+    u, v, p = (0.1 * rng.normal(size=(nx, nx)) for _ in range(3))
+    kw = dict(nt=5, nit=50, nx=nx, ny=nx, dt=1e-4, rho=1, nu=0.1,
+              pressure_mode="exact")
+    j = j_direct.NavierStokesSystem(u, v, p, *bcs, dtype=jnp.float64, **kw)
+    t = direct_fd.NavierStokesSystem(u, v, p, *bcs, dtype=torch.float64,
+                                     device="cpu", **kw)
+    for g, w in zip(np_all(t.simulate()), j.simulate()):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("nx,twin", [(128, "sor_redblack_packed_tiled"),
+                                     (130, "sor_redblack_tiled")])
+def test_large_grid_routes_by_the_packed_predicate(monkeypatch, nx, twin):
+    """Beyond one block, nx % 128 == 0 and ny % 256 == 0 take K4 (its twin
+    on the CPU), where ns_tpu ran its packed kernel; 130x256 takes K5."""
+    ny = 256
+    bcs = cavity_bcs(2.0 / (nx - 1), 2.0 / (ny - 1))
+    rng = np.random.default_rng(9)
+    u, v, p = (0.1 * rng.normal(size=(nx, ny)) for _ in range(3))
+    sys_ = chorin_fd.NavierStokesSystem(u, v, p, *bcs, nt=1, nit=9, nx=nx,
+                                        ny=ny, nu=0.1, method="explicit",
+                                        dtype=torch.float64)
+    calls = []
+    for name in ("sor_redblack_packed_tiled", "sor_redblack_tiled"):
+        real = getattr(poisson_kernels, name)
+        monkeypatch.setattr(poisson_kernels, name,
+                            lambda *a, _n=name, _f=real:
+                            calls.append((_n, a[7])) or _f(*a))
+    sys_.step(sys_.state0)
+    assert calls == [(twin, 8)]
 
 
 def test_gemm_precision_maps_to_torch():

@@ -10,18 +10,21 @@ Phases (any failure exits non-zero, and no result line is printed):
                (one nvcc per source, in parallel)
   3. kernels — each kernel against its plain torch twin on the card at the
                main path's shapes (float32 and float64; the 3D transform
-               kernels float32 only), with its time beside the twin's
-               (measured in turns: twin, kernel, kernel, twin)
+               kernels float32 only; K6 at 'default', its tensor-core
+               kernel, and at 'highest', its fp32 kernel), with its time
+               beside the twin's (measured in turns: twin, kernel, kernel,
+               twin), K6's and K7's beside one cuFFT call of the same
+               function, and the bound each call's bytes and operations set
   4. main    — the port's main paths through its CLI entry point: the FD
                cavity pipeline (direct_fd and chorin_fd at the reference
                sizes; direct_fd and explicit chorin_fd at 1024^2, where
                chorin_fd's SOR takes K4, and at 1025^2, where it takes K5;
                the direct and multigrid pressure modes and the helmholtz
                predictor at 1024^2) and the 3D spectral DNS (Taylor-Green
-               at 256^3, fused kernels by the 'auto' gate), then
-               divergence_max on a 256^3 final state; each run's counts are
-               read just before and just after it, every kernel must have
-               launched
+               at 256^3, fused kernels by the 'auto' gate, K6 by its
+               tensor-core kernel), then divergence_max on a 256^3 final
+               state; each run's counts are read just before and just after
+               it, every kernel must have launched
   5. fidelity — float64 FD rollouts against the committed goldens; the
                dst, multigrid, helmholtz and exact modes on the card against
                the same rollouts on the CPU, and a float64 dst solve's
@@ -31,16 +34,21 @@ Phases (any failure exits non-zero, and no result line is printed):
 The line before the last is {"kernels": [...]} with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
 largest error against its twin (float64 abs where the kernel has a float64
-form, else float32 abs; `max_rel_err_f32` for all) and its time beside
-the twin's; the last is {"ok": true, "device": {...}}.
+form, else float32 abs; `max_rel_err_f32` for all), its time beside the
+twin's, its bound (`bound_ms`, `bound_by`: the larger of the call's bytes
+over 3.35 TB/s and its operations over the peak of their type) and the
+library call's time (`library_ms`, null where no one PyTorch call
+computes the function); K6 adds its 'highest' route and its tensor-core
+launches. The last is {"ok": true, "device": {...}}.
 
 Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so the kernel is not bitwise equal to its twin); float32 <= 1e-4
 relative to the field's max; runs stopped by a converged gate may stop a
 sweep apart, so they get 1e-4 abs (float64) and 1e-3 relative (float32).
 K4 is also held against K5 on the same input (the same iterate sequence),
-with the same bounds. The 3D kernels compute in fp32 and are held against
-their twins at 'highest' (fp32 GEMMs, TF32 off).
+with the same bounds. The 3D kernels are held against their twins at
+'highest' (fp32 GEMMs, TF32 off), K6 also at 'default' (bf16 inputs and
+intermediate, fp32 sums on both sides; 1e-3 relative).
 """
 
 import json
@@ -121,15 +129,37 @@ def paired_ms(kernel, twin, reps_k: int, reps_t: int):
     return (k1 + k2) / 2, (t1 + t2) / 2
 
 
+def turns_ms(fns, reps: int) -> list:
+    """Each fn's ms per call, measured in turns f0 .. fn, fn .. f0 and
+    averaged."""
+    first = [time_ms(f, reps) for f in fns]
+    last = [time_ms(f, reps) for f in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(first, last)]
+
+
+# the card's published peaks (H100 SXM at 700 W): HBM bytes/s, fp32
+# FMA-unit and bf16 tensor-core FLOP/s
+HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+
+
+def bound(nbytes: float, flops: float, peak: float) -> tuple:
+    """(bound ms, 'bytes' | 'operations'): the larger of the bytes over the
+    memory rate and the operations over the peak of their type."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 class Results:
-    """Comparison errors and times per kernel."""
+    """Comparison errors, times and bounds per kernel."""
 
     def __init__(self):
         self.err64, self.abs32, self.rel32 = {}, {}, {}
-        self.ms, self.plain_ms = {}, {}
+        self.ms, self.plain_ms, self.bound, self.library_ms = {}, {}, {}, {}
         self.k4_vs_k5 = None  # (K4 ms, K5 ms) on one input, in turns
+        self.k6 = {}  # K6's 'highest' route: times and bound
 
-    def compare(self, name, label, got, want, dtype, converged=False):
+    def compare(self, name, label, got, want, dtype, converged=False,
+                rel_bound=None):
         got, want = list(got), list(want)
         worst_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
         scale = max(1.0, max(float(w.abs().max()) for w in want))
@@ -140,7 +170,7 @@ class Results:
             self.err64[name] = max(self.err64.get(name, 0.0), worst_abs)
             what = f"max_abs {worst_abs:.3e} (bound {bound:g})"
         else:
-            bound = 1e-3 if converged else 1e-4
+            bound = rel_bound or (1e-3 if converged else 1e-4)
             rel = worst_abs / scale
             ok = rel <= bound
             self.rel32[name] = max(self.rel32.get(name, 0.0), rel)
@@ -149,6 +179,20 @@ class Results:
         print(f"  {name:26s} {label:44s} {what} "
               f"{'ok' if ok and ok_finite else 'MISMATCH'}")
         require(ok and ok_finite, f"{name} {label} disagrees with its twin")
+
+
+def sor_sweeps(p, c, h, beta, tol, max_iter) -> int:
+    """Sweeps that poisson.sor_redblack runs on these inputs (its loop,
+    counted): the work of a gated SOR solve depends on the data."""
+    from ns_tpu_torch.ops import poisson
+    masks = poisson.checkerboard(*p.shape, device=p.device)
+    tol = poisson.dtype_float(tol, p.dtype)
+    err, it = 1.0, 1
+    while err > tol and it < max_iter:
+        q = poisson.redblack_sweep(p, c, h, h, beta, masks)
+        err = float((q - p).abs().max())
+        p, it = q, it + 1
+    return it - 1
 
 
 def phase_kernels(res: Results, dev):
@@ -275,54 +319,72 @@ def phase_kernels(res: Results, dev):
     h = 2.0 / 49
     p0, b = rand(50, 50, f32), rand(50, 50, f32, 10.0)
     bcs = cavity_p_bc(h, h)
+    # each entry: name, label, reps, kernel, twin, (bytes, FLOP) of the call
+    # (inputs read once, outputs written once; Jacobi 8 and SOR 10 FLOP per
+    # interior point and sweep, the explicit predictor ~80 per point for
+    # both fields)
     timed = [("jacobi_fused", "50x50 nit=50", 200, 10,
               lambda: kernels.jacobi_fused(p0, b, h, h, 50, bcs),
               lambda: poisson.jacobi(p0, b, h, h, 50,
-                                     bc_fn=lambda q: apply_bcs(q, bcs)))]
+                                     bc_fn=lambda q: apply_bcs(q, bcs)),
+              (3 * 50 * 50 * 4, 8 * 48 * 48 * 50))]
     hj = 2.0 / 1023
     pj, bj = rand(1024, 1024, f32), rand(1024, 1024, f32, 10.0)
     bcj = cavity_p_bc(hj, hj)
+    n2 = 1024 * 1024
     timed.append(("jacobi_multiblock", "1024x1024 nit=50", 20, 5,
                   lambda: kernels.jacobi_multiblock(pj, bj, hj, hj, 50, bcj),
                   lambda: poisson.jacobi(pj, bj, hj, hj, 50,
-                                         bc_fn=lambda q: apply_bcs(q, bcj))))
+                                         bc_fn=lambda q: apply_bcs(q, bcj)),
+                  (3 * n2 * 4, 8 * 1022 * 1022 * 50)))
     h1 = 2.0 / 50
     q1, c1 = rand(51, 51, f32), rand(51, 51, f32, h1 * h1)
+    sweeps1 = sor_sweeps(q1, c1, h1, 1.25, 5e-6, 200)
     timed.append(("sor_redblack_fused", "51x51 nit=200 tol=5e-06", 20, 2,
                   lambda: kernels.sor_redblack_fused(q1, c1, h1, h1, 1.25,
                                                      5e-6, 200),
                   lambda: poisson.sor_redblack(q1, c1, h1, h1, 1.25, 5e-6,
-                                               200)))
+                                               200),
+                  (3 * 51 * 51 * 4, 10 * 49 * 49 * sweeps1)))
     hk = 2.0 / 1023
     qk, ck = rand(1024, 1024, f32), rand(1024, 1024, f32, hk * hk)
+    # the gated solves run groups of 8 sweeps, one launch a group
+    n0 = kernels.sor_redblack_multiblock.launches
+    kernels.sor_redblack_multiblock(qk, ck, hk, hk, 1.25, 5e-6, 200)
+    sweeps_k = 8 * (kernels.sor_redblack_multiblock.launches - n0)
+    sor_work = (3 * n2 * 4, 10 * 1022 * 1022 * sweeps_k)
     timed.append(("sor_redblack_packed_multiblock",
                   "1024x1024 nit=200 tol=5e-06", 3, 2,
                   lambda: kernels.sor_redblack_packed_multiblock(
                       qk, ck, hk, hk, 1.25, 5e-6, 200),
                   lambda: kernels.sor_redblack_packed_tiled(
-                      qk, ck, hk, hk, 1.25, 5e-6, 200)))
+                      qk, ck, hk, hk, 1.25, 5e-6, 200), sor_work))
     timed.append(("sor_redblack_multiblock", "1024x1024 nit=200 tol=5e-06",
                   3, 2,
                   lambda: kernels.sor_redblack_multiblock(qk, ck, hk, hk,
                                                           1.25, 5e-6, 200),
                   lambda: kernels.sor_redblack_tiled(qk, ck, hk, hk, 1.25,
-                                                     5e-6, 200)))
+                                                     5e-6, 200), sor_work))
     for nx in (51, 1024):
         hm = 2.0 / (nx - 1)
         fm = [rand(nx, nx, f32) for _ in range(4)]
         margs = (*fm, 1e-5, hm, hm, 0.01, cav_u, cav_v, True)
         timed.append(("momentum_explicit_fused", f"{nx}x{nx}", 100, 20,
                       lambda a=margs: kernels.momentum_explicit_fused(*a),
-                      lambda a=margs: kernels.momentum_explicit(*a)))
-    for name, label, reps_k, reps_t, k, t in timed:
+                      lambda a=margs: kernels.momentum_explicit(*a),
+                      (6 * nx * nx * 4, 80 * (nx - 2) ** 2)))
+    print(f"  (sweeps run: 51x51 {sweeps1}, 1024x1024 {sweeps_k})")
+    for name, label, reps_k, reps_t, k, t, (nbytes, flops) in timed:
         if "sor" in name:
             res.compare(name, f"{label} float32", [k()], [t()], f32,
                         converged=True)
         ms, plain = paired_ms(k, t, reps_k, reps_t)
         # the last shape of each kernel is its main-path entry in the report
         res.ms[name], res.plain_ms[name] = ms, plain
+        res.bound[name] = bound(nbytes, flops, FP32_FLOPS)
         print(f"  {name:26s} {label:30s} kernel {ms:.4f} ms  twin "
-              f"{plain:.4f} ms  ({plain / ms:.2f}x)")
+              f"{plain:.4f} ms  ({plain / ms:.2f}x); bound "
+              f"{res.bound[name][0]:.5f} ms ({res.bound[name][1]})")
     # K4 against K5 on the same input, in turns K5, K4, K4, K5
     k4 = lambda: kernels.sor_redblack_packed_multiblock(qk, ck, hk, hk, 1.25,
                                                         5e-6, 200)
@@ -339,19 +401,23 @@ def phase_kernels(res: Results, dev):
 
 
 def phase_kernels_3d(res: Results, dev):
-    """K6, K7, K8 against their twins at 'highest' on the main path's
-    shapes at 256^3 (K6 on the 3-component velocity of carry init, K7 on
-    divergence_max's one field, K8 on the step's six fields) and at a
-    non-cubic, non-power-of-two grid; then each timed beside its twin at
-    the main path's precision ('default', bf16 GEMMs) and at 'highest'.
-    The kernels compute in fp32 whatever precision they are passed; the
-    'highest' passed here only matters on a CPU rehearsal, where the
-    wrappers run their twins."""
+    """K6, K7, K8 against their twins on the main path's shapes at 256^3
+    (K6 on the 3-component velocity of carry init, K7 on divergence_max's
+    one field, K8 on the step's six fields) and at a non-cubic,
+    non-power-of-two grid. K6 at 'default' (its tensor-core kernel, against
+    the twin at 'default', 1e-3 of max|out|: the fp32 sums run in another
+    order, which can flip a rounding of t to bf16 by one ulp) and at
+    'highest' (its fp32 kernel); K7 and K8, fp32 kernels for every
+    precision, at 'highest'. Then each is timed beside its twin at the main
+    path's precision ('default'), and K6 and K7 beside one PyTorch call of
+    the same function (cuFFT): rfft2 over (y, z) and the gather of the kept
+    rows for K6, irfft2 of the zero-filled spectrum for K7."""
     from ns_tpu_torch.ops import kernels
     from ns_tpu_torch.solvers import spectral3d as s3
 
     gen = torch.Generator().manual_seed(99)
     f32 = torch.float32
+    zy = kernels.fused_zy_forward
 
     def crand(shape):
         z = torch.randn((*shape, 2), generator=gen, dtype=torch.float64)
@@ -365,36 +431,103 @@ def phase_kernels_3d(res: Results, dev):
         ry = len(rows_y)
         M = s3._dft_tables(cfg, dev)
         w = torch.randn((3, *shape), generator=gen).to(dev, f32)
-        a1, a6 = crand((1, nx, ry, kzc)), crand((6, nx, ry, kzc))
+        ry_t = torch.as_tensor(rows_y, device=dev)
+        # K7's input: the kept (y, z) spectrum of a real field, which is
+        # Hermitian in its k_z = 0 plane as irfft2 (cuFFT's C2R) assumes
+        a1 = torch.fft.rfft2(torch.randn((1, *shape), generator=gen).to(dev),
+                             dim=(-2, -1))[..., ry_t, :kzc].contiguous()
+        a6 = crand((6, nx, ry, kzc))
         tag = "x".join(map(str, shape))
-        cases = [
-            ("fused_zy_forward", f"{tag} B=3",
-             lambda: kernels.fused_zy_forward(w, M["Fz_t"], M["Fy_t"],
-                                              "highest"),
-             lambda p: kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], p)),
-            ("fused_yz_inverse", f"{tag} B=1",
-             lambda: kernels.fused_yz_inverse(a1, M["Fyi_t"], M["Bz"], nz,
-                                              "highest"),
-             lambda p: kernels.yz_inverse(a1, M["Fyi_t"], M["Bz"], nz, p)),
-            ("fused_lamb", f"{tag} six fields",
-             lambda: kernels.fused_lamb(a6, M["Fyi_t"], M["Bz"], M["Fz_t"],
-                                        M["Fy_t"], nz, "highest"),
-             lambda p: kernels.lamb(a6, M["Fyi_t"], M["Bz"], M["Fz_t"],
-                                    M["Fy_t"], nz, p)),
-        ]
-        for name, label, k, t in cases:
-            fn = getattr(kernels, name)
-            res.compare(name, f"{label} vs twin 'highest'",
-                        [launched_3d(fn, k)], [t("highest")], f32)
-            if shape[0] != N3D:
-                continue
-            # times at the main path's grid, kernel vs plain twin
-            ms, plain = paired_ms(k, lambda: t("default"), 10, 10)
-            _, plain_hi = paired_ms(k, lambda: t("highest"), 3, 10)
-            res.ms[name], res.plain_ms[name] = ms, plain
-            print(f"  {name:26s} {label:22s} kernel {ms:.4f} ms  twin "
-                  f"{plain:.4f} ms 'default' ({plain / ms:.2f}x), "
-                  f"{plain_hi:.4f} ms 'highest' ({plain_hi / ms:.2f}x)")
+        k6 = {p: (lambda p=p: zy(w, M["Fz_t"], M["Fy_t"], p))
+              for p in ("default", "highest")}
+        t6 = {p: (lambda p=p: kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], p))
+              for p in ("default", "highest")}
+        n0 = zy.launches_bf16
+        res.compare("fused_zy_forward", f"{tag} B=3 vs twin 'default'",
+                    [launched_3d(zy, k6["default"])], [t6["default"]()], f32,
+                    rel_bound=1e-3)
+        require(zy.launches_bf16 == n0 + 1, "K6 'default' did not take the "
+                "tensor-core kernel")
+        res.compare("fused_zy_forward", f"{tag} B=3 vs twin 'highest'",
+                    [launched_3d(zy, k6["highest"])], [t6["highest"]()], f32)
+        require(zy.launches_bf16 == n0 + 1, "K6 'highest' took the "
+                "tensor-core kernel")
+        k7 = lambda: kernels.fused_yz_inverse(a1, M["Fyi_t"], M["Bz"], nz,
+                                              "highest")
+        t7 = lambda p: kernels.yz_inverse(a1, M["Fyi_t"], M["Bz"], nz, p)
+        k8 = lambda: kernels.fused_lamb(a6, M["Fyi_t"], M["Bz"], M["Fz_t"],
+                                        M["Fy_t"], nz, "highest")
+        t8 = lambda p: kernels.lamb(a6, M["Fyi_t"], M["Bz"], M["Fz_t"],
+                                    M["Fy_t"], nz, p)
+        res.compare("fused_yz_inverse", f"{tag} B=1 vs twin 'highest'",
+                    [launched_3d(kernels.fused_yz_inverse, k7)],
+                    [t7("highest")], f32)
+        res.compare("fused_lamb", f"{tag} six fields vs twin 'highest'",
+                    [launched_3d(kernels.fused_lamb, k8)], [t8("highest")],
+                    f32)
+        if shape[0] != N3D:
+            continue
+        # one PyTorch call of each function, held against the kernel
+        lib6 = lambda: torch.fft.rfft2(w, dim=(-2, -1))[..., ry_t, :kzc]
+        full = torch.zeros((1, nx, ny, nz // 2 + 1), dtype=torch.complex64,
+                           device=dev)
+        full[..., ry_t, :kzc] = a1
+        lib7 = lambda: torch.fft.irfft2(full, s=(ny, nz), dim=(-2, -1))
+        for name, lib, ker in (("fused_zy_forward", lib6, k6["highest"]),
+                               ("fused_yz_inverse", lib7, k7)):
+            want = ker()
+            rel = float((lib() - want).abs().max() / want.abs().max())
+            print(f"  {name:26s} {tag} library call vs kernel 'highest': "
+                  f"max_rel {rel:.3e} (bound 1e-4)")
+            require(rel <= 1e-4, f"{name}: the library call computes "
+                    "another function")
+        # times at the main path's grid, in turns; bounds from the shapes
+        # (K6 and K7: 52.7 MFLOP of matmul-DFT per (b, x) slab at 256^3;
+        # K8: its y-inverse and z-unfold of six fields, and K6's work on
+        # three; K7 and K8 compute in fp32 whatever the precision)
+        B6, cplx = 3, 8
+        slab = (4 * ny * nz * kzc + 8 * ry * ny * kzc)
+        w_bytes, spec = B6 * nx * ny * nz * 4, nx * ry * kzc * cplx
+        ms_t, ms_k, ms_l = turns_ms([t6["default"], k6["default"], lib6], 10)
+        ms_th, ms_kh = turns_ms([t6["highest"], k6["highest"]], 10)
+        res.ms["fused_zy_forward"] = ms_k
+        res.plain_ms["fused_zy_forward"] = ms_t
+        res.library_ms["fused_zy_forward"] = ms_l
+        res.bound["fused_zy_forward"] = bound(w_bytes + B6 * spec,
+                                              B6 * nx * slab, BF16_FLOPS)
+        res.k6 = {"ms_default": ms_k, "ms_highest": ms_kh,
+                  "plain_ms_highest": ms_th,
+                  "bound_ms_highest": bound(w_bytes + B6 * spec,
+                                            B6 * nx * slab, FP32_FLOPS)[0]}
+        print(f"  {'fused_zy_forward':26s} {tag} B=3 'default': kernel "
+              f"{ms_k:.4f} ms  twin {ms_t:.4f} ms ({ms_t / ms_k:.2f}x)  "
+              f"rfft2+gather {ms_l:.4f} ms; bound "
+              f"{res.bound['fused_zy_forward'][0]:.4f} ms "
+              f"({res.bound['fused_zy_forward'][1]}); 'highest': kernel "
+              f"{ms_kh:.4f} ms  twin {ms_th:.4f} ms ({ms_th / ms_kh:.2f}x), "
+              f"bound {res.k6['bound_ms_highest']:.4f} ms")
+        ms_t, ms_k, ms_l = turns_ms([lambda: t7("default"), k7, lib7], 10)
+        ms_th, = turns_ms([lambda: t7("highest")], 3)
+        res.ms["fused_yz_inverse"], res.plain_ms["fused_yz_inverse"] = (
+            ms_k, ms_t)
+        res.library_ms["fused_yz_inverse"] = ms_l
+        res.bound["fused_yz_inverse"] = bound(spec + nx * ny * nz * 4,
+                                              nx * slab, FP32_FLOPS)
+        print(f"  {'fused_yz_inverse':26s} {tag} B=1: kernel {ms_k:.4f} ms  "
+              f"twin {ms_t:.4f} ms 'default' ({ms_t / ms_k:.2f}x), "
+              f"{ms_th:.4f} ms 'highest'  irfft2 {ms_l:.4f} ms; bound "
+              f"{res.bound['fused_yz_inverse'][0]:.4f} ms "
+              f"({res.bound['fused_yz_inverse'][1]})")
+        ms_t, ms_k = turns_ms([lambda: t8("default"), k8], 5)
+        ms_th, = turns_ms([lambda: t8("highest")], 3)
+        res.ms["fused_lamb"], res.plain_ms["fused_lamb"] = ms_k, ms_t
+        res.bound["fused_lamb"] = bound(9 * spec, (6 + 3) * nx * slab,
+                                        FP32_FLOPS)
+        print(f"  {'fused_lamb':26s} {tag} six fields: kernel {ms_k:.4f} ms"
+              f"  twin {ms_t:.4f} ms 'default' ({ms_t / ms_k:.2f}x), "
+              f"{ms_th:.4f} ms 'highest'; bound "
+              f"{res.bound['fused_lamb'][0]:.4f} ms "
+              f"({res.bound['fused_lamb'][1]})")
 
 
 def launched_3d(fn, call):
@@ -492,6 +625,24 @@ def final_state_3d() -> dict:
             "e8": float(s3.energy(cfg, final[0]))}
 
 
+def initial_energies_3d() -> dict:
+    """E0 of the 256^3 Taylor-Green carry by the plain route at 'default'
+    (the same bf16 rounding points as the main run's K6) and by the fused
+    route at 'highest' (K6's fp32 kernel), which must give 0.125."""
+    from ns_tpu_torch.solvers import spectral3d as s3
+
+    out = {}
+    for key, prec, fused in (("e0_plain_default", "default", False),
+                             ("e0_highest", "highest", True)):
+        kw = dict(nt=1, nx=N3D, ny=N3D, nz=N3D, transform="matmul",
+                  matmul_precision=prec, use_pallas_transform=fused)
+        cfg = s3.Spectral3DConfig(**kw)
+        carry = s3.init_from_velocity(cfg, s3.taylor_green_velocity(cfg),
+                                      DEVICE)
+        out[key] = float(s3.energy(cfg, carry[0]))
+    return out
+
+
 def phase_main(tmp) -> dict:
     from ns_tpu_torch.cli import run_solver
     from ns_tpu_torch.ops import kernels
@@ -499,8 +650,10 @@ def phase_main(tmp) -> dict:
     print("phase 4: main path through ns_tpu_torch.cli.run_solver.main")
     rates, out3d = {}, {}
     kernels.reset_launch_counts()
+    zy = kernels.fused_zy_forward
     for label, argv in MAIN_RUNS:
         before = kernels.launch_counts()
+        bf16_before = zy.launches_bf16
         out = os.path.join(tmp, label.replace(" ", "_").replace("^", "") +
                            ".npz")
         summary = run_solver.main(argv + ["--device", DEVICE, "--out", out])
@@ -508,6 +661,9 @@ def phase_main(tmp) -> dict:
         ran = {k for k in after if after[k] > before[k]}
         missing = MAIN_KERNELS[label] - ran
         require(not missing, f"{label}: kernels not launched: {missing}")
+        if "3d" in label:  # 'default': K6 takes its tensor-core kernel
+            require(zy.launches_bf16 > bf16_before,
+                    f"{label}: K6 did not take its tensor-core kernel")
         nt = int(argv[argv.index("--nt") + 1]) if "--nt" in argv else 200
         check_rollout(label, out, nt)
         if "3d" in label:
@@ -524,19 +680,28 @@ def phase_main(tmp) -> dict:
     ran = {k for k in after if after[k] > before[k]}
     missing = MAIN_KERNELS["divergence_max 256^3"] - ran
     require(not missing, f"divergence_max: kernels not launched: {missing}")
+    counts, launches_bf16 = dict(after), zy.launches_bf16
+    # the carries of the E0 checks, outside the main path's counts
+    st.update(initial_energies_3d())
     rel_div = st["div"] / st["u_max"]
+    d_e0 = abs(st["e0"] - st["e0_plain_default"])
     print(f"  divergence_max 256^3 after 8 steps {st['div']:.3e} "
           f"({rel_div:.3e} of max|u| {st['u_max']:.4f}; bound 1e-4); "
-          f"E0 {st['e0']:.8f} (0.125 +- 1e-5), E8 {st['e8']:.8f} (< E0); "
-          f"launches { {k: after[k] - before[k] for k in sorted(ran)} }")
+          f"E0 {st['e0']:.8f} (the plain 'default' route's "
+          f"{st['e0_plain_default']:.8f} +- 1e-6: {d_e0:.2e}), E8 "
+          f"{st['e8']:.8f} (< E0); E0 at 'highest' {st['e0_highest']:.8f} "
+          f"(0.125 +- 1e-5); launches "
+          f"{ {k: after[k] - before[k] for k in sorted(ran)} }")
     require(rel_div <= 1e-4, f"divergence {rel_div} > 1e-4 of max|u|")
-    require(abs(st["e0"] - 0.125) <= 1e-5, f"E0 = {st['e0']} != 0.125")
+    require(d_e0 <= 1e-6, f"E0 = {st['e0']} differs from the plain "
+            f"'default' route's {st['e0_plain_default']} by {d_e0}")
+    require(abs(st["e0_highest"] - 0.125) <= 1e-5,
+            f"E0 at 'highest' = {st['e0_highest']} != 0.125")
     require(st["e8"] < st["e0"], f"energy grew: {st['e8']} >= {st['e0']}")
-    counts = kernels.launch_counts()
     idle = [k for k, n in counts.items() if n == 0]
     require(not idle, f"kernels never launched on the main path: {idle}")
-    return {"launches": counts, "steps_per_s": rates,
-            "tg3d_npz": out3d["taylor_green_3d 256^3"]}
+    return {"launches": counts, "launches_bf16": launches_bf16,
+            "steps_per_s": rates, "tg3d_npz": out3d["taylor_green_3d 256^3"]}
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -619,12 +784,14 @@ def phase_fidelity_modes(tmp):
     require(rel <= 1e-12, f"dst residual {rel} > 1e-12")
 
 
-# the 'default'-precision main run against its own plain route (bf16 GEMMs
-# throughout on the plain side; fp32 kernels and bf16 x-stage GEMMs on the
-# fused one), as measured on the card (PERF.md): u, v, w 7.8e-3 of the
-# velocity scale (2.6x headroom), p 1.39e-2 of max|p| (1.4x headroom; the
-# reading was the same to four digits in two runs)
-DEFAULT_VS_PLAIN = 2e-2
+# the 'default'-precision main run against its own plain route, after 8
+# steps. Both round alike where both run GEMMs at the TPU's DEFAULT (bf16
+# inputs, fp32 sums and results: the plain route's GEMMs, the x-stage and
+# K6 on the fused one); they differ in the Lamb leg, which K8 computes in
+# fp32 and the plain route in bf16 GEMMs. Measured on the card (PERF.md):
+# u, v 3.9e-3 and w 3.8e-5 of the velocity scale, p 5.0e-3 of max|p|,
+# the same in every run; 2x headroom on p
+DEFAULT_VS_PLAIN = 1e-2
 
 
 def phase_fidelity_3d(tmp, main_npz):
@@ -634,8 +801,12 @@ def phase_fidelity_3d(tmp, main_npz):
     print("phase 5: 3D fidelity on the card")
 
     def last_frames(argv, name):
+        """The state after the main run's 8 steps, saved as the one frame
+        of a strided run (frame 0 is the state after 1 + spinup steps):
+        256 MB to write and read instead of 2 GB."""
         out = os.path.join(tmp, name)
-        run_solver.main(TG3D + argv + ["--device", DEVICE, "--out", out])
+        run_solver.main(TG3D + argv + ["--nt", "1", "--spinup", "7",
+                                       "--device", DEVICE, "--out", out])
         d = np.load(out)
         return {k: d[k][-1] for k in "uvwp"}
 
@@ -704,21 +875,36 @@ KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
 ]
 
 
-def report(res: Results, launches: dict) -> list:
-    """The kernels line: every number measured in this run."""
+def report(res: Results, main_path: dict) -> list:
+    """The kernels line: every number measured or computed in this run.
+    `ms`/`plain_ms` are at the main path's precision; K6 also gives its
+    'highest' route (ms_highest beside its twin and bound) and its
+    tensor-core launches on the main path."""
     rows = []
+    launches = main_path["launches"]
     for name, src, rep in KERNELS:
         f64 = name in res.err64
+        bound_ms, bound_by = res.bound.get(name, (None, None))
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": launches.get(name, 0),
                "max_abs_err": res.err64[name] if f64 else res.abs32.get(name),
                "max_abs_err_dtype": "float64" if f64 else "float32",
                "max_rel_err_f32": res.rel32.get(name),
-               "ms": res.ms.get(name), "plain_ms": res.plain_ms.get(name)}
+               "ms": res.ms.get(name), "plain_ms": res.plain_ms.get(name),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": res.library_ms.get(name)}
+        keys = ["max_abs_err", "max_rel_err_f32", "ms", "plain_ms",
+                "bound_ms"]
         if name == "sor_redblack_packed_multiblock":
             require(res.k4_vs_k5 is not None, "K4 was not timed beside K5")
             row["k5_ms_same_input"] = res.k4_vs_k5[1]
-        for key in ("max_abs_err", "max_rel_err_f32", "ms", "plain_ms"):
+        if name in ("fused_zy_forward", "fused_yz_inverse"):
+            keys.append("library_ms")
+        if name == "fused_zy_forward":
+            row.update(res.k6, launches_bf16=main_path["launches_bf16"])
+            keys += list(res.k6) + ["launches_bf16"]
+            require(row["launches_bf16"] > 0, "K6: no tensor-core launch")
+        for key in keys:
             require(row[key] is not None and math.isfinite(row[key]),
                     f"{name}: no {key}")
         require(row["launches"] > 0, f"{name}: no launch on the main path")
@@ -726,20 +912,28 @@ def report(res: Results, launches: dict) -> list:
     return rows
 
 
+def timed_phase(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
+
+
 def main():
     card = phase_device()
     phase_build()
     res = Results()
-    phase_kernels(res, torch.device(DEVICE))
+    timed_phase("kernels", phase_kernels, res, torch.device(DEVICE))
     with tempfile.TemporaryDirectory() as tmp:
-        main_path = phase_main(tmp)
-        phase_fidelity(tmp)
-        phase_fidelity_modes(tmp)
-        phase_fidelity_3d(tmp, main_path["tg3d_npz"])
+        main_path = timed_phase("main", phase_main, tmp)
+        timed_phase("fidelity", phase_fidelity, tmp)
+        timed_phase("fidelity modes", phase_fidelity_modes, tmp)
+        timed_phase("fidelity 3d", phase_fidelity_3d, tmp,
+                    main_path["tg3d_npz"])
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "ns_tpu" for m in sys.modules),
             "the JAX package was imported")
-    kernels = report(res, main_path["launches"])
+    kernels = report(res, main_path)
     print(json.dumps({"card": card,
                       "main_path_steps_per_s": main_path["steps_per_s"]}))
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,8 @@ same presets, flags and defaults:
 The FD npz holds u, v, p of shape (nt, nx, ny), the layout the JAX trainer
 reads. The 2D periodic and Chebyshev families and the
 --guard/--progress/--stream-dir/--dist modes are not yet ported and exit
-with an error that says so.
+with an error that says so. Rollouts run on the card; a machine without
+one needs --device cpu (without it the command exits with an error).
 
 Examples:
   python -m ns_tpu_torch.cli.run_solver direct_fd --out data.npz
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from ns_tpu_torch.core.bc import dirichlet, neumann
+from ns_tpu_torch.core.device import resolve_device
 
 _FAMILIES = ["direct_fd", "chorin_fd", "chorin_spectral", "taylor_green",
              "decaying_turbulence", "taylor_green_3d",
@@ -128,9 +130,9 @@ def _parser() -> argparse.ArgumentParser:
                        help=f"{_NOT_PORTED} (exits with an error)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else "
-                        "cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; a machine without a "
+                        "card needs --device cpu)")
     p.add_argument("--out", type=str, default=None)
     return p
 
@@ -165,8 +167,10 @@ def build(argv=None):
     for flag in ("stream_dir", "guard", "progress", "dist"):
         if getattr(args, flag):
             p.error(f"--{flag.replace('_', '-')} {_NOT_PORTED}")
-    device = torch.device(args.device or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        p.error(str(e))
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     if periodic_3d:
         return args, device, _system_3d(args, device)

@@ -3,7 +3,18 @@
 //
 // K6 fused_zy_forward replaces ns_tpu/ops/pallas/transform3d_kernels.py
 //                     ::fused_zy_forward (body _fwd_kernel): the z-DFT and
-//                     then the y-DFT of the compact forward transform.
+//                     then the y-DFT of the compact forward transform. Two
+//                     kernels, by the JAX kernel's precision contract
+//                     (_prec): at 'default' (the TPU's DEFAULT: bf16 inputs,
+//                     fp32 accumulation and result) zy_forward_bf16_kernel
+//                     on the tensor cores; at 'high' and 'highest' (both
+//                     HIGHEST there) zy_forward_kernel on fp32 FMAs.
+//                     Bound at 256^3, B=3: 201 MB of w read and 90 MB
+//                     written, 0.087 ms at 3.35 TB/s; 40.4 GFLOP, 0.041 ms
+//                     on bf16 tensor cores but 0.60 ms on fp32 FMAs. So the
+//                     bf16 kernel is bound by bytes and is built to stream
+//                     w once per column chunk with the copies overlapped
+//                     (its own note below); the fp32 one is bound by FMAs.
 // K7 fused_yz_inverse replaces ::fused_yz_inverse (body _inv_kernel): the
 //                     y-inverse and then the z-unfold, real part only.
 // K8 fused_lamb       replaces ::fused_lamb (body _lamb_kernel): the whole
@@ -29,14 +40,15 @@
 // blocked GEMM on CUDA-core FMAs (a work item is one output column and a
 // block of rows whose sums stay in registers, the shared operand broadcast
 // from shared memory; the rows per item are chosen so that the items of a
-// stage fill the block). Tensor cores (wgmma with 3xTF32 split for fp32
-// accuracy), TMA and clusters are later work.
+// stage fill the block). K6 at 'default' runs on the tensor cores
+// (mma.sync bf16); K7 and K8 on tensor cores, and a split-precision
+// tensor-core form for 'high'/'highest', are later work.
 //
-//   K6: one block per (b, x). It loops over the y-tiles: z-stage of the
-//       tile into shared memory, then the tile's share of the y-stage added
-//       into the (Ry, Kzc) output, which stays in shared memory for the
-//       whole row (118 KB at 256^3) and is written once. The z-to-y
-//       intermediate never leaves the chip.
+//   K6 (fp32, 'high'/'highest'): one block per (b, x). It loops over the
+//       y-tiles: z-stage of the tile into shared memory, then the tile's
+//       share of the y-stage added into the (Ry, Kzc) output, which stays
+//       in shared memory for the whole row (118 KB at 256^3) and is
+//       written once. The z-to-y intermediate never leaves the chip.
 //   K7: one block per (b, x, y-tile). The y-inverse of the tile's rows
 //       contracts all Ry, so no sum crosses blocks; then the z-unfold
 //       Re(t) Bz_re - Im(t) Bz_im writes the tile's physical rows.
@@ -48,6 +60,8 @@
 //       GEMM Fy @ S. No physical field (B, nx, ny, nz) is ever written to
 //       global memory, and every sum is taken inside one thread in a fixed
 //       order: no atomics, the result is deterministic.
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -180,6 +194,295 @@ zy_forward_kernel(const float* __restrict__ w, const float2* __restrict__ fzt,
   __syncthreads();
   float2* ox = out + slab * n_out;
   for (int i = threadIdx.x; i < n_out; i += blockDim.x) ox[i] = o_s[i];
+}
+
+// ---------------------------------------------------------------------------
+// K6 at 'default' on the tensor cores: grid (nchunks * rparts, B*nx) of
+// kBThreads, one block per (Kzc chunk, part of the Ry rows, slab).
+//
+// The TPU DEFAULT's rounding points: w and Fz_t rounded to bf16 (RNE), the
+// z-stage accumulated in fp32, t rounded to bf16 once, the y-stage one
+// real GEMM on the complex block form
+//     [out_re; out_im] = [[Fy_re, -Fy_im], [Fy_im, Fy_re]] @ [t_re; t_im]
+// with an fp32 accumulator, the output fp32 complex.
+//
+// A block takes kBKC columns k of the output, so it needs only the z-stage
+// columns (re and im) of those k: the z-stage is split between the chunks,
+// not repeated, and only w is read once per chunk (the chunks of a slab are
+// neighbouring blocks, so the second read mostly hits L2). It walks the
+// slab in y-tiles of kBTY rows: w's fp32 rows arrive by cp.async into one
+// of two buffers while the other is computed; the z-stage (mma.sync
+// m16n8k16 bf16, A built from the fp32 rows with the bf16 rounding, B by
+// ldmatrix from the chunk's Fz rows resident in shared memory) writes the
+// tile's t as bf16; the y-stage reads t by ldmatrix.trans and takes its A
+// straight from global memory in mma fragment order, one coalesced 16-byte
+// load per lane and fragment (the wrapper lays the table out so). Each warp
+// owns one 16-row tile r of Ry, as an out_re and an out_im m-tile of the
+// block matrix: both are made of the same Fy_re and Fy_im fragments (re:
+// Fy_re, -Fy_im; im: Fy_im, Fy_re; -Fy_im by flipping the sign bits), so
+// the warp loads each once and the table holds Fy once, not the block
+// matrix. A is not shared between warps and never goes through shared
+// memory; its loads are issued at the top of the tile, so that their L2
+// latency hides behind the z-stage. The (2 Ry, kBKC) output accumulates
+// in registers over the whole slab (48 fp32 a thread); beyond kBWarps row
+// tiles (Ry > 192) the rows are split over more blocks (rparts), each
+// repeating the z-stage. Every shape is zero-padded inside shared memory
+// and the tables (nz to 16, Ry to 16, y to kBTY, Kzc to kBKC) and the
+// ragged edges are masked at the store.
+// ---------------------------------------------------------------------------
+constexpr int kBTY = 32;              // y-rows per tile
+constexpr int kBKC = 48;              // output columns k per block
+constexpr int kBN1 = 2 * kBKC;        // z-stage columns per block (re | im)
+constexpr int kBWarps = 12;
+constexpr int kBThreads = 32 * kBWarps;
+constexpr int kBTS = kBN1 + 8;        // t tile's row stride (bf16 values)
+
+struct BfDims {
+  int ny, nz, ry, kzc;
+  int nzp;      // nz rounded up to 16 (the MMA depth)
+  int rt;       // 16-row tiles of Ry, ceil(ry / 16)
+  int nchunks;  // ceil(kzc / kBKC)
+  int rparts;   // ceil(rt / kBWarps)
+  int nyt;      // ceil(ny / kBTY)
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `bytes` (0 zero-fills the destination) from global to shared
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += A B for one m16n8k16 tile: bf16 inputs, fp32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0,
+                                         unsigned a1, unsigned a2, unsigned a3,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (RNE), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// w rows y0 .. y0+kBTY-1 of one slab into wbuf [kBTY][nzp + 8] as fp32;
+// rows past ny and columns past nz are zero-filled
+__device__ __forceinline__ void load_w_tile(const float* __restrict__ wx,
+                                            float* wbuf, int y0,
+                                            const BfDims& d, int vec16) {
+  const int nzs = d.nzp + 8;
+  if (vec16) {  // nz % 4 == 0 and w 16-byte aligned: whole 16-byte chunks
+    const int cpr = d.nzp >> 2;
+    for (int i = threadIdx.x; i < kBTY * cpr; i += blockDim.x) {
+      const int r = i / cpr, c = (i - r * cpr) << 2;
+      const int y = y0 + r;
+      const bool ok = y < d.ny && c < d.nz;
+      cp_async16(smem_u32(wbuf + r * nzs + c),
+                 ok ? wx + static_cast<size_t>(y) * d.nz + c : wx,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBTY * d.nzp; i += blockDim.x) {
+      const int r = i / d.nzp, c = i - r * d.nzp;
+      const int y = y0 + r;
+      const bool ok = y < d.ny && c < d.nz;
+      cp_async4(smem_u32(wbuf + r * nzs + c),
+                ok ? wx + static_cast<size_t>(y) * d.nz + c : wx, ok ? 4 : 0);
+    }
+  }
+}
+
+// fzb (nchunks, kBN1, nzp) bf16: row n < kBKC of chunk c is Re Fz_t[c kBKC
+// + n, :], row kBKC + n its Im, zero past Kzc and nz. afrag: Fy_t in mma A
+// fragment order, (nyt, rt, 2, 2, 32) uint4: entry (j, r, h, q, lane) holds
+// the 8 bf16 of lane's fragment of the 16x16 tile of Fy_re (q = 0) or
+// Fy_im (q = 1) at rows 16 r .., columns y = j kBTY + 16 h ...
+// -x for two packed bf16 values
+__device__ __forceinline__ unsigned neg_bf16x2(unsigned x) {
+  return x ^ 0x80008000u;
+}
+
+__global__ void __launch_bounds__(kBThreads, 1)
+zy_forward_bf16_kernel(const float* __restrict__ w,
+                       const uint4* __restrict__ fzb,
+                       const uint4* __restrict__ afrag,
+                       float* __restrict__ out, BfDims d, int vec16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nzs = d.nzp + 8;  // row stride of the w and Fz tiles
+  float* wbuf0 = reinterpret_cast<float*>(smem);           // [kBTY][nzs]
+  float* wbuf1 = wbuf0 + kBTY * nzs;                       // [kBTY][nzs]
+  unsigned short* fz_s =
+      reinterpret_cast<unsigned short*>(wbuf1 + kBTY * nzs);  // [kBN1][nzs]
+  unsigned short* t_s = fz_s + kBN1 * nzs;                    // [kBTY][kBTS]
+  const int chunk = blockIdx.x % d.nchunks, rpart = blockIdx.x / d.nchunks;
+  const size_t slab = blockIdx.y;
+  const float* wx = w + slab * d.ny * d.nz;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;   // mma fragment coordinates
+  const int q = lane >> 3, r8 = lane & 7;   // ldmatrix matrix and row
+
+  {  // the chunk's Fz rows, in the first cp.async group with w's tile 0
+    const int cpr = d.nzp >> 3;
+    const uint4* src = fzb + static_cast<size_t>(chunk) * kBN1 * cpr;
+    for (int i = threadIdx.x; i < kBN1 * cpr; i += blockDim.x) {
+      const int r = i / cpr, c = i - r * cpr;
+      cp_async16(smem_u32(fz_s + r * nzs + c * 8), src + i, 16);
+    }
+  }
+  load_w_tile(wx, wbuf0, 0, d, vec16);
+  cp_async_commit();
+
+  // z-stage work of this warp: m-tile zm of the tile's two, n-tiles
+  // zn .. zn+1 of its 12; its B rows by ldmatrix (matrix q: n-tile q >> 1,
+  // k half q & 1)
+  const int zm = warp & 1, zn = (warp >> 1) * 16;
+  const unsigned zb = smem_u32(fz_s + (zn + (q >> 1) * 8 + r8) * nzs +
+                               (q & 1) * 8);
+  // y-stage work: row tile yr of Ry (its out_re and out_im m-tiles); B by
+  // ldmatrix.trans (matrix q: k half q & 1, n-tile q >> 1 of a pair)
+  const int yr = rpart * kBWarps + warp;
+  const bool act = yr < d.rt;
+  const unsigned yb = smem_u32(t_s + ((q & 1) * 8 + r8) * kBTS + (q >> 1) * 8);
+  float acc[2][kBKC / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < kBKC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+
+  for (int j = 0; j < d.nyt; ++j) {
+    // this tile's Fy fragments F[h][q], in flight over the wait and the
+    // z-stage
+    uint4 F[2][2];
+    if (act) {
+      const uint4* af =
+          afrag + (static_cast<size_t>(j) * d.rt + yr) * 4 * 32 + lane;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) F[i >> 1][i & 1] = __ldg(af + i * 32);
+    }
+    const float* wb = (j & 1) ? wbuf1 : wbuf0;
+    if (j + 1 < d.nyt) {
+      // the other buffer was last read by tile j-1's z-stage, which every
+      // thread finished before the barrier that follows it
+      load_w_tile(wx, (j & 1) ? wbuf0 : wbuf1, (j + 1) * kBTY, d, vec16);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j landed; tile j-1's y-stage is done with t_s
+
+    {  // z-stage: t[y][n] = sum_z bf16(w[y][z]) bf16(Fz[n][z]), n of 96
+      float zc[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) zc[n][e] = 0.f;
+      const float* w0 = wb + (zm * 16 + g) * nzs + 2 * tq;
+      const float* w1 = w0 + 8 * nzs;
+      for (int k0 = 0; k0 < d.nzp; k0 += 16) {
+        const float2 x0 = *reinterpret_cast<const float2*>(w0 + k0);
+        const float2 x1 = *reinterpret_cast<const float2*>(w1 + k0);
+        const float2 x2 = *reinterpret_cast<const float2*>(w0 + k0 + 8);
+        const float2 x3 = *reinterpret_cast<const float2*>(w1 + k0 + 8);
+        const unsigned a0 = pack_bf16(x0.x, x0.y), a1 = pack_bf16(x1.x, x1.y);
+        const unsigned a2 = pack_bf16(x2.x, x2.y), a3 = pack_bf16(x3.x, x3.y);
+        unsigned b[4];
+        ldsm_x4(zb + k0 * 2, b);
+        mma_bf16(zc[0], a0, a1, a2, a3, b[0], b[1]);
+        mma_bf16(zc[1], a0, a1, a2, a3, b[2], b[3]);
+      }
+      // t rounded to bf16 once
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        unsigned short* t0 = t_s + (zm * 16 + g) * kBTS + zn + n * 8 + 2 * tq;
+        *reinterpret_cast<unsigned*>(t0) = pack_bf16(zc[n][0], zc[n][1]);
+        *reinterpret_cast<unsigned*>(t0 + 8 * kBTS) =
+            pack_bf16(zc[n][2], zc[n][3]);
+      }
+    }
+    __syncthreads();  // the tile's t is complete
+
+    if (act) {  // y-stage: acc += A(j) [t_re; t_im]
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        // k-step s: t_re rows (s < 2) or t_im rows, y-half s & 1; the
+        // out_re rows take Fy_re, then -Fy_im; the out_im rows Fy_im, Fy_re
+        const uint4 fr = F[s & 1][0], fi = F[s & 1][1];
+        const uint4 A0 = s < 2 ? fr
+                               : make_uint4(neg_bf16x2(fi.x), neg_bf16x2(fi.y),
+                                            neg_bf16x2(fi.z), neg_bf16x2(fi.w));
+        const uint4 A1 = s < 2 ? fi : fr;
+        const unsigned tb = yb + (((s & 1) * 16) * kBTS + (s >> 1) * kBKC) * 2;
+#pragma unroll
+        for (int p = 0; p < kBKC / 16; ++p) {
+          unsigned b[4];
+          ldsm_x4_trans(tb + p * 16 * 2, b);
+          mma_bf16(acc[0][2 * p], A0.x, A0.y, A0.z, A0.w, b[0], b[1]);
+          mma_bf16(acc[0][2 * p + 1], A0.x, A0.y, A0.z, A0.w, b[2], b[3]);
+          mma_bf16(acc[1][2 * p], A1.x, A1.y, A1.z, A1.w, b[0], b[1]);
+          mma_bf16(acc[1][2 * p + 1], A1.x, A1.y, A1.z, A1.w, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // acc[0] holds out_re rows, acc[1] out_im rows of the warp's row tile;
+  // out is interleaved complex, so the part selects the float of the pair
+  if (!act) return;
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = yr * 16 + g + 8 * h;
+      if (r >= d.ry) continue;
+      float* o = out + ((slab * d.ry + r) * d.kzc) * 2 + part;
+#pragma unroll
+      for (int n = 0; n < kBKC / 8; ++n) {
+        const int col = chunk * kBKC + n * 8 + 2 * tq;
+        if (col < d.kzc) o[col * 2] = acc[part][n][2 * h];
+        if (col + 1 < d.kzc) o[(col + 1) * 2] = acc[part][n][2 * h + 1];
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -327,6 +630,10 @@ inline size_t smem_zy_forward(const Dims& d) {
   return (static_cast<size_t>(d.ry) * d.kzc + kTY * d.kzc) * sizeof(float2) +
          static_cast<size_t>(kTY) * d.nz * sizeof(float);
 }
+inline size_t smem_zy_forward_bf16(const BfDims& d) {
+  const size_t nzs = d.nzp + 8;
+  return 2 * kBTY * nzs * sizeof(float) + kBN1 * nzs * 2 + kBTY * kBTS * 2;
+}
 inline size_t smem_yz_inverse(const Dims& d) {
   return static_cast<size_t>(kTY) * (d.ry + d.kzc) * sizeof(float2);
 }
@@ -360,6 +667,34 @@ int ns_fused_zy_forward_f32(const void* w, const void* fzt, const void* fy,
   zy_forward_kernel<<<B * nx, 512, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), static_cast<const float2*>(fzt),
       static_cast<const float2*>(fy), static_cast<float2*>(out), d);
+  return cudaGetLastError();
+}
+
+int ns_fused_zy_forward_bf16_f32(const void* w, const void* fzb,
+                                 const void* afrag, void* out, int B, int nx,
+                                 int ny, int nz, int ry, int kzc,
+                                 void* stream) {
+  using namespace ns::t3d;
+  BfDims d;
+  d.ny = ny;
+  d.nz = nz;
+  d.ry = ry;
+  d.kzc = kzc;
+  d.nzp = (nz + 15) / 16 * 16;
+  d.rt = (ry + 15) / 16;
+  d.nchunks = (kzc + kBKC - 1) / kBKC;
+  d.rparts = (d.rt + kBWarps - 1) / kBWarps;
+  d.nyt = (ny + kBTY - 1) / kBTY;
+  const int vec16 =
+      nz % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const size_t smem = smem_zy_forward_bf16(d);
+  cudaError_t e = ns::allow_smem(zy_forward_bf16_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(d.nchunks * d.rparts, B * nx);
+  zy_forward_bf16_kernel<<<grid, kBThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), static_cast<const uint4*>(fzb),
+      static_cast<const uint4*>(afrag), static_cast<float*>(out), d, vec16);
   return cudaGetLastError();
 }
 

@@ -2,8 +2,14 @@
 
 The JAX package names a precision per GEMM ('default' | 'high' | 'highest',
 XLA's menu). On the card a float32 product runs as: 'highest' (and None)
-full fp32 with TF32 off; 'high' TF32 tensor cores; 'default' bf16 inputs
-with fp32 accumulation. Float64 products are always float64.
+full fp32 with TF32 off; 'high' TF32 tensor cores; 'default' as the TPU's
+DEFAULT with an fp32 result: the inputs are rounded to bf16 (round to
+nearest even), and the product of the rounded inputs is taken and returned
+in fp32, with no rounding of the output. On the card that is a bf16 GEMM
+with an fp32 output (`torch.mm`/`torch.bmm` with `out_dtype=float32`:
+bf16 tensor cores, fp32 accumulation, no bf16 output); on the CPU, which
+has no such kernel, an fp32 GEMM of the bf16-rounded inputs, the same
+maths summed in another order. Float64 products are always float64.
 
 `cmatmul` carries the same menu to complex operands by running each as
 real GEMMs on the (re, im) parts (torch has no bf16 complex type).
@@ -26,12 +32,28 @@ def _tf32(enabled: bool):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def _bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (torch.matmul broadcasting, both at least 2D) for bf16 a, b on
+    CUDA, accumulated and returned in fp32."""
+    if a.dim() == 2 and b.dim() == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    (m, k), n = a.shape[-2:], b.shape[-1]
+    # a 2D side broadcasts with a zero batch stride (expand, no copy)
+    a3 = a.expand(*batch, m, k).reshape(-1, m, k)
+    b3 = b.expand(*batch, k, n).reshape(-1, k, n)
+    return torch.bmm(a3, b3, out_dtype=torch.float32).reshape(*batch, m, n)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
     """a @ b at `precision` (float32 only; other dtypes run as they are)."""
     if a.dtype != torch.float32:
         return a @ b
     if precision == "default":
-        return (a.to(torch.bfloat16) @ b.to(torch.bfloat16)).to(a.dtype)
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if a.is_cuda:
+            return _bf16_mm_f32(a, b)
+        return a.float() @ b.float()
     with _tf32(precision == "high"):
         return a @ b
 

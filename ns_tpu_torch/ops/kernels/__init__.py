@@ -37,3 +37,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
+    fused_zy_forward.launches_bf16 = 0

@@ -57,6 +57,8 @@ _ENTRIES = {
                               _D, _D, _I, _I, _P, _I, _P, _P], _BOTH),
     "ns_fused_zy_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                             _F32),
+    "ns_fused_zy_forward_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P], _F32),
     "ns_fused_yz_inverse": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                             _F32),
     "ns_fused_lamb": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -13,21 +13,29 @@ computes what the Pallas kernel body computes:
 The twins are also the z and y stages of the plain compact transform
 (`solvers/spectral3d.py::make_compact_transforms`), at the configured
 `precision` (`ops/gemm.py`). The kernels are float32 (as on the TPU, where
-Mosaic had no float64) and compute in full fp32 FMAs whatever `precision`
-says: TF32 or bf16 GEMMs are not part of their design.
+Mosaic had no float64). K6 follows the JAX kernel's precision contract
+(`_prec`): at 'default' it launches its tensor-core kernel, with the TPU
+DEFAULT's rounding points (w, Fz_t, t and Fy_t rounded to bf16, fp32
+accumulation and result), which are also its twin's at 'default'; at
+'high' and 'highest' (both HIGHEST on the TPU) its fp32 kernel. K7 and K8
+compute in full fp32 FMAs whatever `precision` says.
 
 The DFT tables (`Fz_t`, `Fy_t`, `Fyi_t`, `Bz`) may be host numpy arrays, as
 the JAX wrappers take them, or complex torch tensors; the solver passes
 tensors already on the device. Dispatch is by the input's device: a CPU
 tensor takes the twin, a CUDA tensor launches the kernel or raises. Each
 wrapper counts its calls that launched in `launches` (K8 is two CUDA
-launches per call and counts one).
+launches per call and counts one); K6 also counts its tensor-core launches
+in `launches_bf16`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ns_tpu_torch.ops.gemm import cmatmul
 from ns_tpu_torch.ops.kernels import _build
@@ -36,26 +44,46 @@ from ns_tpu_torch.ops.kernels.poisson_kernels import SMEM_BUDGET
 # tile sizes of csrc/transform3d_kernels.cu (kTY, kBT)
 TILE_Y = 16
 TILE_RY = 16
+# K6's tensor-core kernel (kBTY, kBKC): y-rows per tile, output columns
+# per block
+BF16_TY = 32
+BF16_KC = 48
 
 
-def smem_bytes(nx: int, ny: int, nz: int, ry: int, kzc: int) -> dict:
-    """Shared memory (bytes) each kernel's block needs at this grid, as the
-    CUDA entries request it."""
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def smem_bytes(nx: int, ny: int, nz: int, ry: int, kzc: int,
+               precision: str = "high") -> dict:
+    """Shared memory (bytes) each kernel's block needs at this grid and
+    precision, as the CUDA entries request it (K6 at 'default' is its
+    tensor-core kernel)."""
     c, f = 8, 4  # complex64, float32
+    if precision == "default":
+        nzs = _up(nz, 16) + 8  # the w and Fz tiles' row stride
+        k6 = (2 * BF16_TY * nzs * f + 2 * BF16_KC * nzs * 2
+              + BF16_TY * (2 * BF16_KC + 8) * 2)
+    else:
+        k6 = (ry * kzc + TILE_Y * kzc) * c + TILE_Y * nz * f
     return {
-        "fused_zy_forward": (ry * kzc + TILE_Y * kzc) * c + TILE_Y * nz * f,
+        "fused_zy_forward": k6,
         "fused_yz_inverse": TILE_Y * (ry + kzc) * c,
         "fused_lamb": max(TILE_Y * (ry + 6 * kzc) * c + 3 * TILE_Y * nz * f,
                           TILE_RY * ny * c),
     }
 
 
-def fused_fits(nx: int, ny: int, nz: int, ry: int, kzc: int) -> bool:
+def fused_fits(nx: int, ny: int, nz: int, ry: int, kzc: int,
+               precision: str = "high") -> bool:
     """Whether every fused kernel's block fits one Hopper block's shared
-    memory at this grid (the counterpart of the TPU's `lamb_block_x`
-    VMEM check). K6 keeps a whole (Ry, Kzc) output row on chip, so it is
-    the first to stop fitting (512^3 does not)."""
-    return max(smem_bytes(nx, ny, nz, ry, kzc).values()) <= SMEM_BUDGET
+    memory at this grid and precision (the counterpart of the TPU's
+    `lamb_block_x` VMEM check). At 'high'/'highest' K6 keeps a whole
+    (Ry, Kzc) output row on chip and is the first to stop fitting (352^3
+    does not); at 'default' its tensor-core kernel keeps that row in
+    registers, and K8 binds (448^3 does not fit)."""
+    return (max(smem_bytes(nx, ny, nz, ry, kzc, precision).values())
+            <= SMEM_BUDGET)
 
 
 def _table(m, like: torch.Tensor) -> torch.Tensor:
@@ -101,8 +129,8 @@ def lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
 
 # --- wrappers -----------------------------------------------------------------
 
-def _check_fit(what: str, dims: dict) -> None:
-    need = smem_bytes(**dims)[what]
+def _check_fit(what: str, dims: dict, precision: str = "high") -> None:
+    need = smem_bytes(**dims, precision=precision)[what]
     if need > SMEM_BUDGET:
         raise ValueError(f"{what}: a grid of {dims} needs {need} bytes "
                          f"of shared memory per block, over the "
@@ -113,11 +141,63 @@ def _real_view(t: torch.Tensor) -> torch.Tensor:
     return torch.view_as_real(t.contiguous())
 
 
+@functools.cache
+def _frag_index(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(row, col) in a 16x16 A tile of the 8 bf16 that each lane of a warp
+    holds in mma.m16n8k16's A fragment, in register order: (g, 2t + e),
+    (g + 8, 2t + e), (g, 2t + 8 + e), (g + 8, 2t + 8 + e) for e = 0, 1,
+    with g = lane // 4 and t = lane % 4. Both (32, 8), made once per
+    device (a host-to-card copy per call would wait for the stream)."""
+    lane = torch.arange(32, device=device)[:, None]
+    e = torch.arange(8, device=device)[None, :]
+    reg, lo = e // 2, e % 2
+    row = lane // 4 + 8 * (reg % 2)
+    col = 2 * (lane % 4) + lo + 8 * (reg // 2)
+    return row, col
+
+
+def bf16_tables(fz: torch.Tensor, fy: torch.Tensor, ny: int):
+    """K6's tensor-core operands from the complex64 tables Fz_t (Kzc, nz)
+    and Fy_t (Ry, ny), rounded to bf16 on their device (a few small torch
+    ops, timed with the kernel; the layouts of
+    csrc/transform3d_kernels.cu::zy_forward_bf16_kernel):
+
+      fzb (nchunks, 2 BF16_KC, nzp): chunk c's rows n < BF16_KC are
+          Re Fz_t[c BF16_KC + n], the next BF16_KC rows Im, zero-padded
+          past Kzc and nz (nzp = nz rounded up to 16);
+      afrag (nyt, rt, 2, 2, 32, 8): Fy_t's real and imaginary parts
+          (zero-padded to rt = ceil(Ry / 16) row tiles and to whole
+          y-tiles) cut into 16x16 A tiles in mma fragment order: entry
+          (j, r, h, q, lane) is lane's fragment of the tile of Fy_re
+          (q = 0) or Fy_im (q = 1) at rows 16 r .., columns
+          y = j BF16_TY + 16 h ... The kernel builds the y-stage's block
+          matrix [[Fy_re, -Fy_im], [Fy_im, Fy_re]] from them.
+    """
+    kzc, nz = fz.shape
+    ry = fy.shape[0]
+    nzp, ryp, kcp = _up(nz, 16), _up(ry, 16), _up(kzc, BF16_KC)
+    nyt = -(-ny // BF16_TY)
+    # (re, im) planes of each table, zero-padded
+    parts = F.pad(torch.view_as_real(fz).permute(2, 0, 1),
+                  (0, nzp - nz, 0, kcp - kzc))
+    fzb = parts.reshape(2, kcp // BF16_KC, BF16_KC, nzp).transpose(0, 1)
+    f = F.pad(torch.view_as_real(fy).permute(2, 0, 1),
+              (0, nyt * BF16_TY - ny, 0, ryp - ry))
+    # (q, r tile, 16 rows, j, h, 16 y) -> (j, r tile, h, q, 16 rows, 16 y)
+    f = f.reshape(2, ryp // 16, 16, nyt, 2, 16).permute(3, 1, 4, 0, 2, 5)
+    row, col = _frag_index(fz.device)
+    bf16 = dict(dtype=torch.bfloat16, memory_format=torch.contiguous_format)
+    return (fzb.reshape(-1, 2 * BF16_KC, nzp).to(**bf16),
+            f[..., row, col].to(**bf16))
+
+
 def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
                      precision: str = "high") -> torch.Tensor:
     """(..., nx, ny, nz) real -> (..., nx, Ry, Kzc) complex: the z and y DFT
     stages of the compact forward transform in one launch, with the
-    z-to-y intermediate kept on chip (K6). The x-stage is the caller's."""
+    z-to-y intermediate kept on chip (K6). The x-stage is the caller's.
+    At 'default' it runs on the tensor cores (bf16 operands, counted in
+    `launches_bf16` too), at 'high'/'highest' on fp32 FMAs."""
     if w.device.type == "cpu":
         return zy_forward(w, Fz_t, Fy_t, precision)
     _build.check_fields("fused_zy_forward", w, torch.float32, (3, 4, 5))
@@ -128,23 +208,29 @@ def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
         raise ValueError(f"fused_zy_forward: tables {tuple(fz.shape)}, "
                          f"{tuple(fy.shape)} do not match w {tuple(w.shape)}")
     dims = dict(nx=nx, ny=ny, nz=nz, ry=ry, kzc=kzc)
-    _check_fit("fused_zy_forward", dims)
+    _check_fit("fused_zy_forward", dims, precision)
     B = int(np.prod(lead, dtype=np.int64))
     out = torch.empty((*lead, nx, ry, kzc), dtype=torch.complex64,
                       device=w.device)
-    fzt = _real_view(fz.transpose(0, 1))
-    fyv = _real_view(fy)
-    fn = _build.entry("ns_fused_zy_forward", torch.float32)
+    bf16 = precision == "default"
+    if bf16:
+        # converted on every call: K6 runs once per rollout
+        a, b = bf16_tables(fz, fy, ny)
+        fn = _build.entry("ns_fused_zy_forward_bf16", torch.float32)
+    else:
+        a, b = _real_view(fz.transpose(0, 1)), _real_view(fy)
+        fn = _build.entry("ns_fused_zy_forward", torch.float32)
     with torch.cuda.device(w.device):
-        code = fn(w.data_ptr(), fzt.data_ptr(), fyv.data_ptr(),
-                  out.data_ptr(), B, nx, ny, nz, ry, kzc,
-                  _build.stream(w.device))
+        code = fn(w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  B, nx, ny, nz, ry, kzc, _build.stream(w.device))
     _build.check(code, "fused_zy_forward")
     fused_zy_forward.launches += 1
+    fused_zy_forward.launches_bf16 += bf16
     return out
 
 
 fused_zy_forward.launches = 0
+fused_zy_forward.launches_bf16 = 0
 
 
 def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ns_tpu_torch.core.bc import BC, apply_bcs, bcs_from_reference
+from ns_tpu_torch.core.device import resolve_device
 from ns_tpu_torch.core.state import FlowState, rollout
 from ns_tpu_torch.ops.fast_poisson import (make_dst_helmholtz,
                                            make_dst_poisson)
@@ -315,7 +316,7 @@ def simulate(cfg: ChorinFDConfig, state0: FlowState, u_bc, v_bc, p_bc):
 class NavierStokesSystem:
     """Reference-API wrapper: holds ICs, BC lists (this package's BCs or
     any with the same fields) and physics constants; the fields live on
-    `device`."""
+    `device` (default CUDA; core/device.py)."""
 
     def __init__(self, u_ic, v_ic, p_ic, u_bc, v_bc, p_bc,
                  nt=200, nit=50, nx=50, ny=50, dt=0.001,
@@ -323,6 +324,7 @@ class NavierStokesSystem:
                  dtype=torch.float32, quirk_compat=True,
                  pressure_mode="redblack", mg_cycles=6, gemm_precision=None,
                  device=None):
+        device = resolve_device(device)
         self.cfg = ChorinFDConfig(nt=nt, nit=nit, nx=nx, ny=ny, dt=dt,
                                   rho=rho, nu=nu, beta=beta, method=method,
                                   quirk_compat=quirk_compat,

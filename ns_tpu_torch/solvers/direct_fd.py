@@ -31,6 +31,7 @@ from typing import Sequence
 import torch
 
 from ns_tpu_torch.core.bc import BC, apply_bcs, bcs_from_reference
+from ns_tpu_torch.core.device import resolve_device
 from ns_tpu_torch.core.state import FlowState, rollout
 from ns_tpu_torch.ops.fast_poisson import make_mixed_poisson
 from ns_tpu_torch.ops.kernels import (jacobi_fused, jacobi_multiblock,
@@ -147,11 +148,12 @@ def simulate(cfg: DirectFDConfig, state0: FlowState, u_bc, v_bc, p_bc):
 class NavierStokesSystem:
     """Reference-API wrapper: holds ICs, BC lists (this package's BCs or
     any with the same fields) and physics constants; the fields live on
-    `device`."""
+    `device` (default CUDA; core/device.py)."""
 
     def __init__(self, u_ic, v_ic, p_ic, u_bc, v_bc, p_bc,
                  nt=200, nit=50, nx=50, ny=50, dt=0.001, rho=1, nu=0.1,
                  dtype=torch.float32, device=None, pressure_mode="jacobi"):
+        device = resolve_device(device)
         self.cfg = DirectFDConfig(nt=nt, nit=nit, nx=nx, ny=ny, dt=dt,
                                   rho=rho, nu=nu, pressure_mode=pressure_mode)
         self.u_bc, self.v_bc, self.p_bc = (bcs_from_reference(b)

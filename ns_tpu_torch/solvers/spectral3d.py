@@ -21,8 +21,9 @@ Engines:
     matmul engine's z and y stages run as the fused kernels K6
     (`fused_zy_forward`) and K7 (`fused_yz_inverse`), and the nonlinear
     term's whole physical leg as K8 (`fused_lamb`), one call per step
-    (`ops/kernels/transform3d_kernels.py`). The kernels compute in fp32
-    for every `matmul_precision`; only the x-stage GEMMs follow it. On a
+    (`ops/kernels/transform3d_kernels.py`). K6 follows `matmul_precision`
+    as the JAX kernel does (bf16 tensor cores at 'default', fp32 at 'high'
+    and 'highest'); K7 and K8 compute in fp32 for every precision. On a
     CPU tensor the wrappers run their plain twins, so the fused route runs
     there too.
 
@@ -40,6 +41,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ns_tpu_torch.core.device import resolve_device
 from ns_tpu_torch.ops.gemm import cmatmul
 from ns_tpu_torch.ops.kernels import transform3d_kernels as t3k
 
@@ -132,9 +134,11 @@ class Spectral3DConfig:
                 "use the einsum engine (use_pallas_transform=False)")
 
     def _fused_fits_smem(self) -> bool:
-        """Whether the fused kernels' blocks fit shared memory."""
+        """Whether the fused kernels' blocks fit shared memory at this
+        matmul_precision (K6 has a kernel of its own at 'default')."""
         _, rows_y, kzc = _compact_meta(self)
-        return t3k.fused_fits(self.nx, self.ny, self.nz, len(rows_y), kzc)
+        return t3k.fused_fits(self.nx, self.ny, self.nz, len(rows_y), kzc,
+                              self.matmul_precision)
 
     @property
     def real_dtype(self):
@@ -437,10 +441,12 @@ def make_step(cfg: Spectral3DConfig, device=None):
 # ---------------------------------------------------------------------------
 
 def _as_velocity(cfg: Spectral3DConfig, u0, device=None) -> torch.Tensor:
+    """u0 as a real tensor on `device`. With device None a tensor stays on
+    its own device and host data goes to CUDA (core/device.py)."""
     if isinstance(u0, torch.Tensor):
         return u0.to(device=device or u0.device, dtype=cfg.real_dtype)
     return torch.as_tensor(np.asarray(u0), dtype=cfg.real_dtype,
-                           device=device)
+                           device=resolve_device(device))
 
 
 def carry_from_velocity(cfg: Spectral3DConfig, u0: torch.Tensor):
@@ -458,7 +464,7 @@ def carry_from_velocity(cfg: Spectral3DConfig, u0: torch.Tensor):
 
 def init_from_velocity(cfg: Spectral3DConfig, u0, device=None):
     """Carry from a velocity given as numpy or torch, on `device` (default:
-    the tensor's own, or the CPU for numpy)."""
+    the tensor's own, or CUDA for numpy; core/device.py)."""
     return carry_from_velocity(cfg, _as_velocity(cfg, u0, device))
 
 
@@ -542,7 +548,8 @@ def simulate_strided(cfg: Spectral3DConfig, u0, n_frames: int,
                      stride: int = 1, spinup: int = 0, device=None):
     """Strided rollout from a physical (3, nx, ny, nz) velocity: (u, v, w,
     p) stacked (n_frames, nx, ny, nz), materializing only the saved
-    frames. Frame i is the state after 1 + spinup + i*stride steps."""
+    frames. Frame i is the state after 1 + spinup + i*stride steps. The
+    rollout runs on `device` (default: u0's own, or CUDA for numpy)."""
     u0 = _as_velocity(cfg, u0, device)
     step, _ = make_step(cfg, u0.device)
     extract = make_extractor(cfg, u0.device)
@@ -685,7 +692,8 @@ def energy_spectrum(cfg: Spectral3DConfig, u_hat: torch.Tensor):
 
 class NavierStokesSystem3D:
     """API wrapper matching the other families: simulate() -> (u, v, w, p)
-    stacked (nt, nx, ny, nz) rollouts on `device`. For long horizons use
+    stacked (nt, nx, ny, nz) rollouts on `device` (default CUDA, whatever
+    u_ic is; core/device.py). For long horizons use
     simulate_strided (saved frames only). The step and the extraction
     constants are built once, as the JAX wrapper compiles its programs
     once."""
@@ -701,7 +709,7 @@ class NavierStokesSystem3D:
             matmul_precision=matmul_precision, forcing=forcing,
             forcing_k=forcing_k, forcing_amp=forcing_amp,
             use_pallas_transform=use_pallas_transform)
-        self._u_ic = _as_velocity(self.cfg, u_ic, device)
+        self._u_ic = _as_velocity(self.cfg, u_ic, resolve_device(device))
         self.carry0 = carry_from_velocity(self.cfg, self._u_ic)
         self._step, _ = make_step(self.cfg, self._u_ic.device)
         self._extract = make_extractor(self.cfg, self._u_ic.device)

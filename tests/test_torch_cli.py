@@ -133,3 +133,48 @@ def test_port_cli_runs_without_jax_and_launches_nothing_on_cpu(tmp_path):
         "sor_redblack_multiblock",
         "fused_zy_forward", "fused_yz_inverse", "fused_lamb"}
     assert set(report["launches"].values()) == {0}
+
+
+def test_no_card_needs_device_cpu(monkeypatch, capsys):
+    """Repair: with no CUDA device, run_solver used to fall back to the CPU
+    and the systems built on torch's default device. Now the CLI (default
+    --device cuda) exits with an error that names --device cpu, the solver
+    systems and the 3D helpers given host data raise with device=None, and
+    an explicit CPU request runs as before."""
+    import torch
+
+    from ns_tpu_torch.solvers import chorin_fd, direct_fd
+    from ns_tpu_torch.solvers import spectral3d as t3
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["chorin_fd"], ["direct_fd", "--nt", "2"],
+                 ["taylor_green_3d", "--nx", "8"]):
+        with pytest.raises(SystemExit) as e:
+            t_cli.build(argv)
+        assert e.value.code == 2
+        assert "--device cpu" in capsys.readouterr().err
+    args, device, _ = t_cli.build(["chorin_fd", "--nt", "2", "--nx", "9",
+                                   "--device", "cpu"])
+    assert device.type == "cpu"
+    nx = 9
+    bcs = t_cli.cavity_bcs(2.0 / (nx - 1), 2.0 / (nx - 1))
+    z = np.zeros((nx, nx))
+    kw = dict(nt=1, nit=5, nx=nx, ny=nx)
+    cfg = t3.Spectral3DConfig(nx=8, ny=8, nz=8)
+    u0 = t3.taylor_green_velocity(cfg)
+    for build in (lambda d: direct_fd.NavierStokesSystem(z, z, z, *bcs,
+                                                         device=d, **kw),
+                  lambda d: chorin_fd.NavierStokesSystem(z, z, z, *bcs,
+                                                         device=d, **kw),
+                  lambda d: t3.NavierStokesSystem3D(u0, nt=1, nx=8, ny=8,
+                                                    nz=8, device=d),
+                  lambda d: t3.init_from_velocity(cfg, u0, d),
+                  lambda d: t3.simulate_strided(cfg, u0, 1, device=d)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build(None)
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            build("cuda")
+        build("cpu")
+    # a tensor given without a device stays where it is
+    carry = t3.init_from_velocity(cfg, torch.as_tensor(u0))
+    assert carry[0].device.type == "cpu"

@@ -9,8 +9,10 @@ it runs without the suite's conftest:
 Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so kernel and twin are not bitwise equal); float32 <= 1e-4 relative to
 the field's max. The 3D transform kernels (float32 only) are held against
-their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative. The
-direct solves (plain torch, cuBLAS on the card) are held against the same
+their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative; K6's
+tensor-core kernel against its twin at 'default' (bf16 inputs and t, fp32
+sums on both sides), <= 1e-3 of max|out|: the sums run in another order,
+and that can flip a rounding of t to bf16 by one ulp. The direct solves (plain torch, cuBLAS on the card) are held against the same
 solve on the CPU: float64 <= 1e-10 and float32 <= 1e-4 of the scale.
 """
 
@@ -108,6 +110,54 @@ def test_fused_zy_forward(cuda, shape):
     assert kernels.fused_zy_forward.launches == n0 + 1
     assert got.shape == (3, shape[0], ry, kzc)
     close_rel(got, kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], "highest"))
+
+
+@pytest.mark.parametrize("shape", [(256, 256, 256), (40, 36, 30),
+                                   (8, 300, 30)])
+def test_fused_zy_forward_default(cuda, shape):
+    """K6 at 'default' launches its tensor-core kernel and matches its
+    twin at 'default'; at 'highest' the fp32 kernel matches its twin
+    (256^3 B=3 is the main path's shape; 8x300x30 has Ry = 199, so its
+    block-matrix rows take two blocks, and nz % 4 != 0)."""
+    M, ry, kzc = tables(shape)
+    w = rand((3, *shape), torch.float32, cuda, 13)
+    n0 = kernels.fused_zy_forward.launches_bf16
+    got = kernels.fused_zy_forward(w, M["Fz_t"], M["Fy_t"], "default")
+    assert kernels.fused_zy_forward.launches_bf16 == n0 + 1
+    assert got.shape == (3, shape[0], ry, kzc)
+    want = kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], "default")
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    print(f"K6 'default' {shape}: max_rel {rel:.3e}")
+    assert rel <= 1e-3
+    got = kernels.fused_zy_forward(w, M["Fz_t"], M["Fy_t"], "highest")
+    assert kernels.fused_zy_forward.launches_bf16 == n0 + 1
+    close_rel(got, kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], "highest"))
+
+
+def test_gemm_default_on_the_card(cuda):
+    """ops/gemm.py at 'default' on the card (bf16 GEMMs with an fp32
+    output): 2D @ 2D, 2D @ batched, batched @ 2D and complex, within 1e-5
+    of max|out| of the float64 product of the bf16-rounded inputs, and
+    against the CPU form (fp32 GEMM of the rounded inputs)."""
+    from ns_tpu_torch.ops import gemm
+    r = lambda x: x.to(torch.bfloat16).to(torch.float64)
+    a, b = rand((171, 256), torch.float32, cuda, 20), rand((256, 86),
+                                                           torch.float32,
+                                                           cuda, 21)
+    a3 = rand((3, 40, 256), torch.float32, cuda, 22)
+    b3 = rand((2, 256, 300), torch.float32, cuda, 23)
+    for x, y in ((a, b), (a, b3), (a3, b)):
+        got = gemm.matmul(x, y, "default")
+        assert got.dtype == torch.float32
+        want = r(x) @ r(y)
+        scale = float(want.abs().max())
+        assert float((got.double() - want).abs().max()) <= 1e-5 * scale
+        cpu = gemm.matmul(x.cpu(), y.cpu(), "default")
+        assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * scale
+    c = torch.complex(a3, a3.flip(0))
+    got = gemm.cmatmul(c, b, "default").to(torch.complex128)
+    want = torch.complex(r(c.real), r(c.imag)) @ r(b).to(torch.complex128)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("shape", SHAPES_3D)

@@ -61,7 +61,7 @@ def test_direct_fd_full_horizon_golden_nt200():
     z = np.zeros((nx, nx))
     sys_ = direct_fd.NavierStokesSystem(z, z, z, *bcs, nt=200, nit=50,
                                         nx=nx, ny=nx, dt=0.001, rho=1, nu=0.1,
-                                        dtype=torch.float64)
+                                        dtype=torch.float64, device="cpu")
     u, v, p = np_all(sys_.simulate())
     g = load_golden("direct_fd_nt200_snapshots.npz")
     for i, f in enumerate(g["frames"]):
@@ -126,14 +126,16 @@ def test_state_carried_across_packages_steps_alike(family):
                                             nx=nx, ny=nx, dtype=jnp.float64)
         t_sys = direct_fd.NavierStokesSystem(u, v, p, *bcs, nt=1, nit=20,
                                              nx=nx, ny=nx,
-                                             dtype=torch.float64)
+                                             dtype=torch.float64,
+                                             device="cpu")
     else:
         kw = dict(nt=1, nit=50, nx=nx, ny=nx, nu=0.1,
                   method=family.split("_", 1)[1])
         j_sys = j_chorin.NavierStokesSystem(u, v, p, *bcs,
                                             dtype=jnp.float64, **kw)
         t_sys = chorin_fd.NavierStokesSystem(u, v, p, *bcs,
-                                             dtype=torch.float64, **kw)
+                                             dtype=torch.float64,
+                                             device="cpu", **kw)
     j_state = j_sys.step(j_sys.state0)
     carried = tstate.state_from_numpy(tstate.state_to_numpy(j_state),
                                       device="cpu", dtype=torch.float64)
@@ -154,7 +156,7 @@ def test_large_grid_routes_to_multiblock_sor(monkeypatch):
     u, v, p = (0.1 * rng.normal(size=(nx, nx)) for _ in range(3))
     sys_ = chorin_fd.NavierStokesSystem(u, v, p, *bcs, nt=1, nit=30, nx=nx,
                                         ny=nx, nu=0.1, method="explicit",
-                                        dtype=torch.float64)
+                                        dtype=torch.float64, device="cpu")
     small = sys_.step(sys_.state0)
     monkeypatch.setattr(poisson_kernels, "SMEM_BUDGET", 0)
     calls = []
@@ -233,7 +235,7 @@ def test_chorin_fd_systems_take_the_same_keywords():
               pressure_mode="multigrid", mg_cycles=3, gemm_precision="high")
     j = j_chorin.NavierStokesSystem(z, z, z, *bcs, dtype=jnp.float64, **kw)
     t = chorin_fd.NavierStokesSystem(z, z, z, *bcs, dtype=torch.float64,
-                                     **kw)
+                                     device="cpu", **kw)
     for field in dataclasses.fields(t.cfg):
         assert getattr(t.cfg, field.name) == getattr(j.cfg, field.name)
     assert chorin_fd.ChorinFDConfig().mg_cycles == \
@@ -286,7 +288,7 @@ def test_large_grid_routes_by_the_packed_predicate(monkeypatch, nx, twin):
     u, v, p = (0.1 * rng.normal(size=(nx, ny)) for _ in range(3))
     sys_ = chorin_fd.NavierStokesSystem(u, v, p, *bcs, nt=1, nit=9, nx=nx,
                                         ny=ny, nu=0.1, method="explicit",
-                                        dtype=torch.float64)
+                                        dtype=torch.float64, device="cpu")
     calls = []
     for name in ("sor_redblack_packed_tiled", "sor_redblack_tiled"):
         real = getattr(poisson_kernels, name)
@@ -297,10 +299,25 @@ def test_large_grid_routes_by_the_packed_predicate(monkeypatch, nx, twin):
     assert calls == [(twin, 8)]
 
 
+def bf16_emulation(a, b):
+    """The TPU DEFAULT product: inputs rounded to bf16 (RNE), the product
+    of the rounded values taken in float64."""
+    r = lambda x: x.to(torch.bfloat16).to(torch.float64)
+    if a.is_complex() or b.is_complex():
+        c = lambda x: (torch.complex(r(x.real), r(x.imag)) if x.is_complex()
+                       else r(x).to(torch.complex128))
+        return c(a) @ c(b)
+    return r(a) @ r(b)
+
+
 def test_gemm_precision_maps_to_torch():
-    """float32: None/'highest' are plain fp32 (equal to a @ b), 'default'
-    rounds the inputs to bf16; float64 ignores the setting. The complex
-    form runs the same menu on the parts."""
+    """float32: None/'highest' are plain fp32 (equal to a @ b); 'default'
+    rounds the inputs to bf16 and returns the fp32 product without
+    rounding it: within 1e-5 of max|out| of the float64 product of the
+    rounded inputs (an fp32 GEMM of them lands ~2e-7 away; rounding the
+    output to bf16 as well, the fault repaired here, gave ~3e-3). float64
+    ignores the setting. The complex form runs the same menu on the
+    parts."""
     rng = np.random.default_rng(0)
     a, b = (torch.as_tensor(rng.normal(size=(40, 40)), dtype=torch.float32)
             for _ in range(2))
@@ -308,8 +325,12 @@ def test_gemm_precision_maps_to_torch():
     assert torch.equal(chorin_fd.matmul(a, b, None), exact)
     assert torch.equal(chorin_fd.matmul(a, b, "highest"), exact)
     bf = chorin_fd.matmul(a, b, "default")
+    assert bf.dtype == torch.float32
     err = float((bf - exact).abs().max())
-    assert 1e-4 < err < 0.5
+    assert 1e-4 < err < 0.5  # the input rounding shows against fp32
+    want = bf16_emulation(a, b)
+    scale = float(want.abs().max())
+    assert float((bf.double() - want).abs().max()) <= 1e-5 * scale
     a64 = a.double()
     assert torch.equal(chorin_fd.matmul(a64, a64, "default"), a64 @ a64)
     c = torch.complex(a, b)
@@ -319,6 +340,26 @@ def test_gemm_precision_maps_to_torch():
         err = float((got - want).abs().max())
         assert err < tol and (prec == "highest" or err > 1e-4)
     assert torch.equal(gemm.cmatmul(a, b, None), exact)
+
+
+@pytest.mark.parametrize("shape", [(256, 256, 172), (40, 33, 17)])
+def test_gemm_default_is_the_tpu_default(shape):
+    """'default' = fp32 product of bf16-rounded inputs, no output rounding:
+    matmul and cmatmul (real x complex and complex x complex, batched)
+    within 1e-5 of max|out| of the float64 emulation."""
+    m, k, n = shape
+    rng = np.random.default_rng(1)
+    f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+    a, b = f(m, k), f(k, n)
+    ca, cb = torch.complex(f(2, m, k), f(2, m, k)), torch.complex(f(k, n),
+                                                                f(k, n))
+    for got, want in ((gemm.matmul(a, b, "default"), bf16_emulation(a, b)),
+                      (gemm.cmatmul(a, cb, "default"), bf16_emulation(a, cb)),
+                      (gemm.cmatmul(ca, cb, "default"),
+                       bf16_emulation(ca, cb))):
+        assert got.dtype in (torch.float32, torch.complex64)
+        err = float((got.to(want.dtype) - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
 
 
 def test_state_helpers():

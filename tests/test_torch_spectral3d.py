@@ -71,7 +71,7 @@ def test_rollout_final_and_diagnostics_match_jax(shape, engine):
     u0 = t3.random_solenoidal_velocity(tc, seed=1, k_peak=3.0)
     fin_j = jax.jit(lambda c: j3.rollout_final(jc, c))(
         j3.init_from_velocity(jc, u0))
-    fin_t = t3.rollout_final(tc, t3.init_from_velocity(tc, u0))
+    fin_t = t3.rollout_final(tc, t3.init_from_velocity(tc, u0, "cpu"))
     for g, w in zip(t3.carry_to_numpy(fin_t), t3.carry_to_numpy(fin_j)):
         close(g, w)
     uj, ut = fin_j[0], fin_t[0]
@@ -97,12 +97,12 @@ def test_fields_pressure_and_simulate_strided_frames_match_jax():
     u0 = t3.random_solenoidal_velocity(tc, seed=5, k_peak=3.0)
     want = jax.jit(lambda u: j3.simulate_strided(jc, u, 3, stride=2,
                                                  spinup=1))(jnp.asarray(u0))
-    got = t3.simulate_strided(tc, u0, 3, stride=2, spinup=1)
+    got = t3.simulate_strided(tc, u0, 3, stride=2, spinup=1, device="cpu")
     for g, w in zip(got, want):
         assert g.shape == (3, 12, 18, 12)
         close(g, w)
     # frame 2 is the state after 1 + 1 + 2*2 = 6 steps
-    carry = t3.init_from_velocity(tc, u0)
+    carry = t3.init_from_velocity(tc, u0, "cpu")
     step, _ = t3.make_step(tc)
     for _ in range(6):
         carry, _ = step(carry)
@@ -123,6 +123,6 @@ def test_shear_flow_exact_viscous_decay():
     z = 2.0 * np.pi * np.arange(12) / 12
     u0 = np.zeros((3, 8, 8, 12))
     u0[0] = np.sin(z)[None, None, :]
-    fin = t3.rollout_final(tc, t3.init_from_velocity(tc, u0))
+    fin = t3.rollout_final(tc, t3.init_from_velocity(tc, u0, "cpu"))
     close(t3.fields_from_hat(tc, fin[0]), u0 * np.exp(-0.1 * 50 * 1e-3),
           1e-12)

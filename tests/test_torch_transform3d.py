@@ -151,7 +151,7 @@ def test_fused_step_matches_jax_fused_step(monkeypatch):
     monkeypatch.setattr(tk, "fused_lamb",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     step_t, _ = t3.make_step(tc)
-    c1_t, _ = step_t(t3.init_from_velocity(tc, u0))
+    c1_t, _ = step_t(t3.init_from_velocity(tc, u0, "cpu"))
     assert len(calls) == 2  # carry init's nonlinear term, then the step
     for got, want in zip(t3.carry_to_numpy(c1_t), t3.carry_to_numpy(c1_j)):
         np.testing.assert_allclose(got, want, rtol=1e-4,
@@ -160,23 +160,32 @@ def test_fused_step_matches_jax_fused_step(monkeypatch):
 
 def test_fused_auto_gate_matches_jax_policy():
     """'auto' resolves as in test_pallas_transform_auto_policy: on at
-    256^3 and 512x256x128 with 'default' precision, off below the volume
-    crossover, at 'high', or on the fft engine; 512^3 resolves off (K6's
-    (Ry, Kzc) row does not fit shared memory) and explicit True there
-    raises; float64 and the fft engine are refused."""
-    for kw, on in ((dict(nx=256, ny=256, nz=256), True),
-                   (dict(nx=512, ny=256, nz=128), True),
-                   (dict(nx=128, ny=128, nz=128), False),
-                   (dict(nx=256, ny=16, nz=16), False),
-                   (dict(nx=256, ny=256, nz=256, matmul_precision="high"),
-                    False),
-                   (dict(nx=256, ny=256, nz=256, transform="fft",
-                         dealias=False), False),
-                   (dict(nx=512, ny=512, nz=512), False)):
+    256^3, 352^3 and 512x256x128 with 'default' precision, off below the
+    volume crossover, at 'high', or on the fft engine; 512^3 resolves off
+    (K8's block does not fit shared memory) and explicit True there
+    raises; float64 and the fft engine are refused. At 'default' K6's
+    tensor-core kernel fits where its fp32 kernel did not, so the port
+    fuses 352^3 as JAX does, and 384^3 and 416^3, where the TPU's VMEM
+    check says no but every Hopper block fits."""
+    for kw, on, on_jax in (
+            (dict(nx=256, ny=256, nz=256), True, True),
+            (dict(nx=352, ny=352, nz=352), True, True),
+            (dict(nx=384, ny=384, nz=384), True, False),
+            (dict(nx=416, ny=416, nz=416), True, False),
+            (dict(nx=448, ny=448, nz=448), False, False),
+            (dict(nx=512, ny=256, nz=128), True, True),
+            (dict(nx=128, ny=128, nz=128), False, False),
+            (dict(nx=256, ny=16, nz=16), False, False),
+            (dict(nx=256, ny=256, nz=256, matmul_precision="high"), False,
+             False),
+            (dict(nx=256, ny=256, nz=256, transform="fft", dealias=False),
+             False, False),
+            (dict(nx=512, ny=512, nz=512), False, False)):
         kw = dict(dict(transform="matmul", matmul_precision="default"), **kw)
         j = j3.Spectral3DConfig(use_pallas_transform="auto", **kw)
         t = t3.Spectral3DConfig(use_pallas_transform="auto", **kw)
-        assert t.use_pallas_transform is on is j.use_pallas_transform, kw
+        assert t.use_pallas_transform is on, kw
+        assert j.use_pallas_transform is on_jax, kw
     with pytest.raises(ValueError, match="shared memory"):
         t3.Spectral3DConfig(nx=512, ny=512, nz=512, transform="matmul",
                             use_pallas_transform=True)
@@ -187,7 +196,132 @@ def test_fused_auto_gate_matches_jax_policy():
                                 use_pallas_transform=True, **kw)
     with pytest.raises(ValueError, match="use_pallas_transform"):
         t3.Spectral3DConfig(transform="matmul", use_pallas_transform="yes")
-    # the kernels' own fit: 256^3 needs 145,040 bytes in K6's block
+    # the kernels' own fit: 256^3 needs 145,040 bytes in the fp32 K6's
+    # block and 124,928 in the tensor-core K6's; 352^3 fits only at
+    # 'default', where K8 (188,288 bytes) binds
     assert tk.smem_bytes(256, 256, 256, 171, 86)["fused_zy_forward"] == 145040
+    assert tk.smem_bytes(256, 256, 256, 171, 86,
+                         "default")["fused_zy_forward"] == 124928
     assert tk.fused_fits(256, 256, 256, 171, 86)
+    assert not tk.fused_fits(352, 352, 352, 235, 118, "highest")
+    assert tk.fused_fits(352, 352, 352, 235, 118, "default")
     assert not tk.fused_fits(512, 512, 512, 341, 171)
+    assert not tk.fused_fits(512, 512, 512, 341, 171, "default")
+    with pytest.raises(ValueError, match="shared memory"):
+        t3.Spectral3DConfig(nx=352, ny=352, nz=352, transform="matmul",
+                            matmul_precision="highest",
+                            use_pallas_transform=True)
+
+
+# --- K6 at 'default': the tensor-core kernel's spec -------------------------
+
+def bf(x):
+    """x rounded to bf16 (RNE) through float32, as float64."""
+    return (torch.as_tensor(np.asarray(x, dtype=np.float32))
+            .to(torch.bfloat16).to(torch.float64).numpy())
+
+
+def bf_c(z):
+    return bf(z.real) + 1j * bf(z.imag)
+
+
+def k6_default_emulation(w, Fz_t, Fy_t):
+    """The rounding points of K6 at 'default' (the TPU's DEFAULT): w and
+    Fz_t rounded to bf16, t in float64 then rounded to bf16 once, Fy_t
+    rounded to bf16, the y-stage in float64."""
+    t = bf(w) @ bf_c(Fz_t).T
+    return bf_c(Fy_t) @ bf_c(t)
+
+
+def k6_case(shape, seed=0, batch=3):
+    nx, ny, nz = shape
+    cfg = t3.Spectral3DConfig(nx=nx, ny=ny, nz=nz, transform="matmul")
+    M = {k: v.astype(np.complex64) for k, v in
+         t3._dft_constants_np(cfg).items()}
+    w = rand((batch, *shape), seed).astype(np.float32)
+    return w, M
+
+
+def rel_err(got, want):
+    return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (40, 36, 30)])
+def test_k6_default_twin_has_the_tpu_default_rounding_points(shape):
+    """The twin zy_forward at 'default' (the spec of K6's tensor-core
+    kernel) against a numpy emulation of the rounding points, batch 3:
+    <= 5e-4 of max|out|. The gap is rare one-ulp bf16 flips of t from the
+    order of the fp32 sums (<= ~2.5e-4 reckoned); rounding a GEMM output
+    to bf16 as well would give ~3e-3."""
+    w, M = k6_case(shape)
+    want = k6_default_emulation(w, M["Fz_t"], M["Fy_t"])
+    got = tk.zy_forward(torch.as_tensor(w), M["Fz_t"], M["Fy_t"], "default")
+    assert got.dtype == torch.complex64
+    assert rel_err(got.numpy(), want) <= 5e-4
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (40, 36, 30)])
+def test_k6_default_twin_near_jax_highest(shape):
+    """The twin at 'default' against JAX's fused_zy_forward at 'highest'
+    (interpret mode): <= 2e-2 of max|out|, the four bf16 roundings (w,
+    Fz_t, t, Fy_t; ~2.5e-3 each) being the only gap."""
+    w, M = k6_case(shape, seed=1)
+    want = np.asarray(jk.fused_zy_forward(jnp.asarray(w), M["Fz_t"],
+                                          M["Fy_t"], precision="highest",
+                                          interpret=True))
+    got = tk.zy_forward(torch.as_tensor(w), M["Fz_t"], M["Fy_t"], "default")
+    assert rel_err(got.numpy(), want) <= 2e-2
+
+
+def k6_from_tables(w, fzb, afrag, ny, ry, kzc):
+    """K6's tensor-core kernel step by step on the operands it is given
+    (bf16_tables), in float64: per Kzc chunk, the z-stage against the
+    chunk's Fz rows, t rounded to bf16, then per y-tile and k-step the A
+    tile of the block matrix [[Fy_re, -Fy_im], [Fy_im, Fy_re]], built from
+    the Fy_re and Fy_im tiles unpacked from their fragment order as the
+    kernel builds it, times the t rows the kernel reads at that step."""
+    fzb = fzb.to(torch.float64).numpy()
+    afrag = afrag.to(torch.float64).numpy()
+    nch, n1, nzp = fzb.shape
+    nyt, rt = afrag.shape[:2]
+    ryp, kc = rt * 16, n1 // 2
+    row, col = (i.numpy() for i in tk._frag_index(torch.device("cpu")))
+    wp = np.zeros(w.shape[:-2] + (nyt * tk.BF16_TY, nzp))
+    wp[..., :ny, :w.shape[-1]] = bf(w)
+    out = np.zeros(w.shape[:-2] + (ry, kzc), np.complex128)
+    for c in range(nch):
+        t = bf(wp @ fzb[c].T)
+        acc = np.zeros(w.shape[:-2] + (2 * ryp, kc))
+        for j in range(nyt):
+            for s in range(4):
+                f = np.zeros((2, rt, 16, 16))  # Fy_re, Fy_im row tiles
+                for q in range(2):
+                    f[q][:, row, col] = afrag[j, :, s % 2, q]
+                re, im = f.reshape(2, ryp, 16)
+                a = np.concatenate([re, im] if s < 2 else [-im, re])
+                y0 = j * tk.BF16_TY + (s % 2) * 16
+                acc += a @ t[..., y0:y0 + 16, (s // 2) * kc:(s // 2 + 1) * kc]
+        k1 = min(kzc, (c + 1) * kc)
+        n = k1 - c * kc
+        out[..., c * kc:k1] = acc[..., :ry, :n] + 1j * acc[..., ryp:ryp + ry,
+                                                           :n]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (40, 36, 30), (24, 70, 20)])
+def test_k6_bf16_tables_feed_the_kernel_its_spec(shape):
+    """The operands the wrapper lays out for the tensor-core kernel
+    (bf16_tables: Fz rows by chunk, the y-stage block matrix in mma
+    fragment order), read as the kernel reads them, give the emulation of
+    the rounding points: <= 1e-6 of max|out| (the same bf16 values, summed
+    in float64 in another order). 24x70x20 has several y-tiles, a ragged
+    last one, and Kzc = 7."""
+    w, M = k6_case(shape, seed=2)
+    fz = torch.as_tensor(M["Fz_t"])
+    fy = torch.as_tensor(M["Fy_t"])
+    fzb, afrag = tk.bf16_tables(fz, fy, shape[1])
+    assert fzb.dtype == afrag.dtype == torch.bfloat16
+    ry, kzc = fy.shape[0], fz.shape[0]
+    got = k6_from_tables(w, fzb, afrag, shape[1], ry, kzc)
+    want = k6_default_emulation(w, M["Fz_t"], M["Fy_t"])
+    assert rel_err(got, want) <= 1e-6

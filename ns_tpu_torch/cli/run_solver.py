@@ -89,21 +89,21 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--gemm-precision", default=None,
                    choices=["default", "high", "highest"],
                    help="chorin_fd: precision of the float32 ADI/dst/"
-                        "helmholtz GEMMs: highest (and unset) = fp32, high = "
-                        "TF32, default = bf16 inputs")
+                        "helmholtz GEMMs: highest, high (and unset) = "
+                        "fp32, default = bf16 inputs")
     p.add_argument("--transform", default="auto",
                    choices=["auto", "fft", "matmul"],
                    help="3D families: auto = compact matmul-DFT under the "
                         "crossover, fft beyond; fft/matmul force an engine")
     p.add_argument("--precision", default="high",
                    choices=["default", "high", "highest"],
-                   help="3D matmul-DFT GEMMs: default = bf16, high = TF32, "
-                        "highest = fp32")
+                   help="3D matmul-DFT GEMMs: default = bf16 inputs, "
+                        "high and highest = fp32")
     p.add_argument("--pallas-transform", default="auto",
                    choices=["auto", "on", "off"],
                    help="3D families: the fused transform kernels K6-K8 "
                         "(float32, matmul engine). auto: on for "
-                        "--precision default at >= 256^3 cells where the "
+                        "--precision default at >= 128^3 cells where the "
                         "kernels fit shared memory; on/off force it")
     p.add_argument("--forcing", default="none",
                    choices=["none", "kolmogorov"],

@@ -1,14 +1,14 @@
 // Fused 3D compact-transform kernels for Hopper (sm_90a), float32: K6, K7
-// and K8 of the port.
+// and K8 of the port. Each has two kernels, by the JAX kernels' precision
+// contract (_prec): at 'default' (the TPU's DEFAULT: bf16 GEMM operands,
+// fp32 accumulation and result) a tensor-core kernel (mma.sync m16n8k16
+// bf16); at 'high' and 'highest' (both HIGHEST there) an fp32 kernel on
+// CUDA-core FMAs.
 //
 // K6 fused_zy_forward replaces ns_tpu/ops/pallas/transform3d_kernels.py
 //                     ::fused_zy_forward (body _fwd_kernel): the z-DFT and
-//                     then the y-DFT of the compact forward transform. Two
-//                     kernels, by the JAX kernel's precision contract
-//                     (_prec): at 'default' (the TPU's DEFAULT: bf16 inputs,
-//                     fp32 accumulation and result) zy_forward_bf16_kernel
-//                     on the tensor cores; at 'high' and 'highest' (both
-//                     HIGHEST there) zy_forward_kernel on fp32 FMAs.
+//                     then the y-DFT of the compact forward transform
+//                     (zy_forward_bf16_kernel; zy_forward_kernel).
 //                     Bound at 256^3, B=3: 201 MB of w read and 90 MB
 //                     written, 0.087 ms at 3.35 TB/s; 40.4 GFLOP, 0.041 ms
 //                     on bf16 tensor cores but 0.60 ms on fp32 FMAs. So the
@@ -16,45 +16,58 @@
 //                     w once per column chunk with the copies overlapped
 //                     (its own note below); the fp32 one is bound by FMAs.
 // K7 fused_yz_inverse replaces ::fused_yz_inverse (body _inv_kernel): the
-//                     y-inverse and then the z-unfold, real part only.
+//                     y-inverse and then the z-unfold, real part only
+//                     (yz_inverse_bf16_kernel; yz_inverse_kernel). Bound
+//                     at 256^3, B=1: 30 MB of spectrum read and 67 MB
+//                     written, 0.029 ms; 13.5 GFLOP, 0.014 ms on bf16
+//                     tensor cores, 0.20 ms on fp32 FMAs. The bf16 kernel
+//                     reads each slab's spectrum once per 32-row y-tile
+//                     from L2 and writes the physical rows once; both
+//                     GEMMs run on the tensor cores (note further down).
 // K8 fused_lamb       replaces ::fused_lamb (body _lamb_kernel): the whole
 //                     physical leg of the nonlinear term, yz-inverse of six
 //                     fields (u, omega), the cross product u x omega, and
-//                     the zy-forward of the three products.
+//                     the zy-forward of the three products (lamb_phys_bf16
+//                     + lamb_yfwd_bf16; lamb_phys + lamb_yfwd). Bound at
+//                     256^3: 271 MB in and out, 0.081 ms; 121 GFLOP, 0.12
+//                     ms on bf16 tensor cores (so bound by operations),
+//                     1.81 ms on fp32 FMAs. The bf16 pair runs all four
+//                     stages on the tensor cores; no physical field and no
+//                     fp32 intermediate reaches device memory, only the
+//                     z-reduced products in bf16 (68 MB at 256^3).
 //
 // Layouts (row-major, complex as interleaved float2 = torch complex64):
 //   physical w (B, nx, ny, nz) float; spectral a (B, nx, Ry, Kzc) float2;
-//   Fy (Ry, ny), Fyi (ny, Ry), Bz (Kzc, nz), FzT (nz, Kzc) = Fz_t^T.
+//   Fy (Ry, ny), Fyi (ny, Ry), Bz (Kzc, nz), FzT (nz, Kzc) = Fz_t^T. The
+//   tensor-core kernels take their tables in bf16 as the wrappers lay them
+//   out (ops/kernels/transform3d_kernels.py: bf16_tables, inverse_tables,
+//   lamb_tables).
 // The x-stage contracts across x-rows and stays the caller's GEMM.
 //
-// What bounds them on the H100. At 256^3 one (ny, nz) float slab is 256 KB,
-// more than a block's 227 KB of shared memory, and one x-row of K8's input
-// (six Ry x Kzc complex fields) is 706 KB. So every kernel walks an x-row
-// in tiles of kTY = 16 y-rows: a tile's physical rows (16 x nz floats, 16 KB)
-// and its z-stage spectrum (16 x Kzc complex, 11 KB) live in shared memory,
-// and the y-stage either needs only the tile's rows (the inverse: y is an
-// output index) or accumulates over tiles (the forward: y is contracted).
-// Per x-row K8 does ~470 MFLOP against ~1 MB of L2 reads (the six spectral
-// rows per tile, plus the DFT tables, which stay L2-resident), so the
-// kernels are bound by FMA issue, not by bytes: each stage is a register-
-// blocked GEMM on CUDA-core FMAs (a work item is one output column and a
-// block of rows whose sums stay in registers, the shared operand broadcast
-// from shared memory; the rows per item are chosen so that the items of a
-// stage fill the block). K6 at 'default' runs on the tensor cores
-// (mma.sync bf16); K7 and K8 on tensor cores, and a split-precision
-// tensor-core form for 'high'/'highest', are later work.
+// The fp32 kernels. At 256^3 one (ny, nz) float slab is 256 KB, more than
+// a block's 227 KB of shared memory, and one x-row of K8's input (six
+// Ry x Kzc complex fields) is 706 KB. So every fp32 kernel walks an x-row
+// in tiles of kTY = 16 y-rows: a tile's physical rows (16 x nz floats, 16
+// KB) and its z-stage spectrum (16 x Kzc complex, 11 KB) live in shared
+// memory, and the y-stage either needs only the tile's rows (the inverse:
+// y is an output index) or accumulates over tiles (the forward: y is
+// contracted). They are bound by FMA issue, not by bytes: each stage is a
+// register-blocked GEMM on CUDA-core FMAs (a work item is one output
+// column and a block of rows whose sums stay in registers, the shared
+// operand broadcast from shared memory; the rows per item are chosen so
+// that the items of a stage fill the block).
 //
-//   K6 (fp32, 'high'/'highest'): one block per (b, x). It loops over the
-//       y-tiles: z-stage of the tile into shared memory, then the tile's
-//       share of the y-stage added into the (Ry, Kzc) output, which stays
-//       in shared memory for the whole row (118 KB at 256^3) and is
-//       written once. The z-to-y intermediate never leaves the chip.
-//   K7: one block per (b, x, y-tile). The y-inverse of the tile's rows
-//       contracts all Ry, so no sum crosses blocks; then the z-unfold
+//   K6 (fp32): one block per (b, x). It loops over the y-tiles: z-stage of
+//       the tile into shared memory, then the tile's share of the y-stage
+//       added into the (Ry, Kzc) output, which stays in shared memory for
+//       the whole row (118 KB at 256^3) and is written once. The z-to-y
+//       intermediate never leaves the chip.
+//   K7 (fp32): one block per (b, x, y-tile). The y-inverse of the tile's
+//       rows contracts all Ry, so no sum crosses blocks; then the z-unfold
 //       Re(t) Bz_re - Im(t) Bz_im writes the tile's physical rows.
-//   K8: two launches. The first, one block per (x, y-tile), runs the
-//       y-inverse of the six fields, the z-unfold, the cross product and
-//       the z-forward of the three products, all in shared memory, and
+//   K8 (fp32): two launches. The first, one block per (x, y-tile), runs
+//       the y-inverse of the six fields, the z-unfold, the cross product
+//       and the z-forward of the three products, all in shared memory, and
 //       writes only the z-reduced products S (3, nx, ny, Kzc) complex. The
 //       second, one block per (component, x, 16 Ry rows), is the y-forward
 //       GEMM Fy @ S. No physical field (B, nx, ny, nz) is ever written to
@@ -62,6 +75,8 @@
 //       order: no atomics, the result is deterministic.
 
 #include <cuda_bf16.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -329,14 +344,85 @@ __device__ __forceinline__ void load_w_tile(const float* __restrict__ wx,
   }
 }
 
+// -x for two packed bf16 values
+__device__ __forceinline__ unsigned neg_bf16x2(unsigned x) {
+  return x ^ 0x80008000u;
+}
+__device__ __forceinline__ uint4 neg_bf16x8(uint4 v) {
+  return make_uint4(neg_bf16x2(v.x), neg_bf16x2(v.y), neg_bf16x2(v.z),
+                    neg_bf16x2(v.w));
+}
+
 // fzb (nchunks, kBN1, nzp) bf16: row n < kBKC of chunk c is Re Fz_t[c kBKC
 // + n, :], row kBKC + n its Im, zero past Kzc and nz. afrag: Fy_t in mma A
 // fragment order, (nyt, rt, 2, 2, 32) uint4: entry (j, r, h, q, lane) holds
 // the 8 bf16 of lane's fragment of the 16x16 tile of Fy_re (q = 0) or
 // Fy_im (q = 1) at rows 16 r .., columns y = j kBTY + 16 h ...
-// -x for two packed bf16 values
-__device__ __forceinline__ unsigned neg_bf16x2(unsigned x) {
-  return x ^ 0x80008000u;
+
+// The y-stage's A fragments of y-tile j for the warp's row tile yr
+// (F[h][q]: y-half h, Fy_re or Fy_im), issued early so that their L2
+// latency hides behind the work before y_stage_mma.
+__device__ __forceinline__ void y_stage_frags(uint4 (&F)[2][2],
+                                              const uint4* __restrict__ afrag,
+                                              int j, int yr, const BfDims& d) {
+  const uint4* af =
+      afrag + (static_cast<size_t>(j) * d.rt + yr) * 4 * 32 + (threadIdx.x & 31);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) F[i >> 1][i & 1] = __ldg(af + i * 32);
+}
+
+// acc += A(j) [t_re; t_im] for one y-tile: t is [kBTY][kBTS] bf16 in shared
+// memory, columns n < kBKC its re part and kBKC + n its im part; yb is the
+// lane's ldmatrix.trans address of the tile (matrix q: k half q & 1, n-tile
+// q >> 1 of a pair). acc[0] holds the out_re rows, acc[1] the out_im rows
+// of the warp's row tile.
+__device__ __forceinline__ void y_stage_mma(float (&acc)[2][kBKC / 8][4],
+                                            const uint4 (&F)[2][2],
+                                            unsigned yb) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    // k-step s: t_re rows (s < 2) or t_im rows, y-half s & 1; the out_re
+    // rows take Fy_re, then -Fy_im; the out_im rows Fy_im, Fy_re
+    const uint4 fr = F[s & 1][0], fi = F[s & 1][1];
+    const uint4 A0 = s < 2 ? fr : neg_bf16x8(fi);
+    const uint4 A1 = s < 2 ? fi : fr;
+    const unsigned tb = yb + (((s & 1) * 16) * kBTS + (s >> 1) * kBKC) * 2;
+#pragma unroll
+    for (int p = 0; p < kBKC / 16; ++p) {
+      unsigned b[4];
+      ldsm_x4_trans(tb + p * 16 * 2, b);
+      mma_bf16(acc[0][2 * p], A0.x, A0.y, A0.z, A0.w, b[0], b[1]);
+      mma_bf16(acc[0][2 * p + 1], A0.x, A0.y, A0.z, A0.w, b[2], b[3]);
+      mma_bf16(acc[1][2 * p], A1.x, A1.y, A1.z, A1.w, b[0], b[1]);
+      mma_bf16(acc[1][2 * p + 1], A1.x, A1.y, A1.z, A1.w, b[2], b[3]);
+    }
+  }
+}
+
+// The y-stage's (2 Ry, kBKC) sums of row tile yr into out (slab, Ry, Kzc)
+// complex, columns of chunk `chunk`; out is interleaved complex, so the
+// part selects the float of the pair. Rows past Ry, columns past Kzc are
+// not stored.
+__device__ __forceinline__ void y_stage_store(const float (&acc)[2][kBKC / 8][4],
+                                              float* __restrict__ out,
+                                              size_t slab, int yr, int chunk,
+                                              const BfDims& d) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = yr * 16 + g + 8 * h;
+      if (r >= d.ry) continue;
+      float* o = out + ((slab * d.ry + r) * d.kzc) * 2 + part;
+#pragma unroll
+      for (int n = 0; n < kBKC / 8; ++n) {
+        const int col = chunk * kBKC + n * 8 + 2 * tq;
+        if (col < d.kzc) o[col * 2] = acc[part][n][2 * h];
+        if (col + 1 < d.kzc) o[(col + 1) * 2] = acc[part][n][2 * h + 1];
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kBThreads, 1)
@@ -392,12 +478,7 @@ zy_forward_bf16_kernel(const float* __restrict__ w,
     // this tile's Fy fragments F[h][q], in flight over the wait and the
     // z-stage
     uint4 F[2][2];
-    if (act) {
-      const uint4* af =
-          afrag + (static_cast<size_t>(j) * d.rt + yr) * 4 * 32 + lane;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) F[i >> 1][i & 1] = __ldg(af + i * 32);
-    }
+    if (act) y_stage_frags(F, afrag, j, yr, d);
     const float* wb = (j & 1) ? wbuf1 : wbuf0;
     if (j + 1 < d.nyt) {
       // the other buffer was last read by tile j-1's z-stage, which every
@@ -441,48 +522,9 @@ zy_forward_bf16_kernel(const float* __restrict__ w,
     }
     __syncthreads();  // the tile's t is complete
 
-    if (act) {  // y-stage: acc += A(j) [t_re; t_im]
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        // k-step s: t_re rows (s < 2) or t_im rows, y-half s & 1; the
-        // out_re rows take Fy_re, then -Fy_im; the out_im rows Fy_im, Fy_re
-        const uint4 fr = F[s & 1][0], fi = F[s & 1][1];
-        const uint4 A0 = s < 2 ? fr
-                               : make_uint4(neg_bf16x2(fi.x), neg_bf16x2(fi.y),
-                                            neg_bf16x2(fi.z), neg_bf16x2(fi.w));
-        const uint4 A1 = s < 2 ? fi : fr;
-        const unsigned tb = yb + (((s & 1) * 16) * kBTS + (s >> 1) * kBKC) * 2;
-#pragma unroll
-        for (int p = 0; p < kBKC / 16; ++p) {
-          unsigned b[4];
-          ldsm_x4_trans(tb + p * 16 * 2, b);
-          mma_bf16(acc[0][2 * p], A0.x, A0.y, A0.z, A0.w, b[0], b[1]);
-          mma_bf16(acc[0][2 * p + 1], A0.x, A0.y, A0.z, A0.w, b[2], b[3]);
-          mma_bf16(acc[1][2 * p], A1.x, A1.y, A1.z, A1.w, b[0], b[1]);
-          mma_bf16(acc[1][2 * p + 1], A1.x, A1.y, A1.z, A1.w, b[2], b[3]);
-        }
-      }
-    }
+    if (act) y_stage_mma(acc, F, yb);  // acc += A(j) [t_re; t_im]
   }
-
-  // acc[0] holds out_re rows, acc[1] out_im rows of the warp's row tile;
-  // out is interleaved complex, so the part selects the float of the pair
-  if (!act) return;
-#pragma unroll
-  for (int part = 0; part < 2; ++part) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = yr * 16 + g + 8 * h;
-      if (r >= d.ry) continue;
-      float* o = out + ((slab * d.ry + r) * d.kzc) * 2 + part;
-#pragma unroll
-      for (int n = 0; n < kBKC / 8; ++n) {
-        const int col = chunk * kBKC + n * 8 + 2 * tq;
-        if (col < d.kzc) o[col * 2] = acc[part][n][2 * h];
-        if (col + 1 < d.kzc) o[(col + 1) * 2] = acc[part][n][2 * h + 1];
-      }
-    }
-  }
+  if (act) y_stage_store(acc, out, slab, yr, chunk, d);
 }
 
 // ---------------------------------------------------------------------------
@@ -624,6 +666,466 @@ lamb_yfwd_kernel(const float2* __restrict__ s, const float2* __restrict__ fy,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7 and K8 at 'default' on the tensor cores (mma.sync m16n8k16 bf16).
+//
+// The TPU DEFAULT's rounding points, which are also the twins' at
+// 'default': the spectrum a and Fyi_t rounded to bf16 (RNE); the y-inverse
+// with fp32 sums (two real products per part, summed after, as in the JAX
+// kernel); t rounded to bf16 once;
+// the z-unfold [t_re | t_im] [Bz_re; -Bz_im] with Bz in bf16 and an fp32
+// sum. K8 then takes u x omega in fp32, rounds the products to bf16 for the
+// z-forward (Fz in bf16, fp32 sum), rounds its t1 to bf16 once, and runs
+// K6's y-stage on it (Fy in bf16, fp32 sum, fp32 output).
+//
+// A block owns one slab x and one y-tile of kVTY rows, walked by kVWarps
+// warps. It converts the slab's whole (Ry, Kzc) spectrum to bf16 in shared
+// memory (a_s: row b holds the re parts, then the im parts, of its Kzc
+// columns, zero-padded to kp, a multiple of 16), so that every row tile of
+// the y-inverse reads it by ldmatrix.trans; the y-inverse's A fragments
+// (Fyi) come from global memory in fragment order, one 16-byte load per
+// lane, table `afi`. t lands in shared memory as bf16 (t_s, the same
+// re | im column layout), and the z-unfold reads it by ldmatrix as its A
+// operand; its B fragments (Bz) come from global memory in fragment order,
+// table `bzf`, and each warp takes one 16-column z pair for both row tiles
+// of the y-tile, so the block reads the Bz table once. Every shape is
+// zero-padded in shared memory and in the tables (Ry and Kzc to 16, nz to
+// 16, y to kVTY), and the ragged edges are masked at the stores.
+// ---------------------------------------------------------------------------
+constexpr int kVTY = 32;  // y-rows per tile
+constexpr int kVWarps = 12;
+constexpr int kVThreads = 32 * kVWarps;
+
+struct VDims {
+  int nx, ny, nz, ry, kzc;
+  int kp;   // kzc rounded up to 16
+  int ryp;  // ry rounded up to 16
+  int nzp;  // nz rounded up to 16
+  int nyp;  // ny rounded up to kVTY
+  int ks;   // row stride (bf16 values) of a_s, t_s and K8's S tile: 2 kp + 8
+  int ls;   // row stride of K8's product tile: nzp + 8
+};
+
+// One slab's spectrum src (ry, kzc) complex into a_s [ryp][ks] as bf16:
+// re at columns [0, kp), im at [kp, 2 kp), zero past ry and kzc. Each
+// thread issues U items' loads (four complex each) before it converts
+// them, so that their L2 latency overlaps.
+template <int U>
+__device__ __forceinline__ void load_spec_slab(const float2* __restrict__ src,
+                                               unsigned short* a_s,
+                                               const VDims& d) {
+  const int qpr = d.kp >> 2;  // four-column quads per row
+  const int n = d.ryp * qpr;
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * blockDim.x) {
+    float2 v[U][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int b = i / qpr, k0 = (i - b * qpr) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = i < n && b < d.ry && k0 + j < d.kzc;
+        v[u][j] = ok ? __ldg(src + static_cast<size_t>(b) * d.kzc + k0 + j)
+                     : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) {
+        const int b = i / qpr, k0 = (i - b * qpr) * 4;
+        unsigned short* row = a_s + b * d.ks + k0;
+        *reinterpret_cast<uint2*>(row) =
+            make_uint2(pack_bf16(v[u][0].x, v[u][1].x),
+                       pack_bf16(v[u][2].x, v[u][3].x));
+        *reinterpret_cast<uint2*>(row + d.kp) =
+            make_uint2(pack_bf16(v[u][0].y, v[u][1].y),
+                       pack_bf16(v[u][2].y, v[u][3].y));
+      }
+    }
+  }
+}
+
+// y-inverse of one field for y-tile `ytile`: t_s [kVTY][ks] (re | im
+// columns) = bf16(Fyi rows of the tile @ a_s). As in the JAX kernel
+// (_inv_kernel), each part is two real products summed after: t_re =
+// Fyi_re a_re - Fyi_im a_im, t_im = Fyi_re a_im + Fyi_im a_re, four fp32
+// accumulators, so that t rounds to bf16 where the TPU's and the twin's t
+// round. afi: Fyi_t in mma A fragment order, (ryp/16, nyp/16, 2, 32)
+// uint4: entry (s, m, q, lane) holds lane's fragment of the 16x16 tile of
+// Fyi_re (q = 0) or Fyi_im (q = 1) at rows y = 16 m .., columns b = 16 s ...
+// A work item is one 16-row tile and one pair of 8-column n-tiles. The
+// fragments arrive G k-steps at a time, the next G in flight while these
+// are used, so that one L2 latency is paid per G steps, not per step.
+template <int G>
+__device__ __forceinline__ void y_inverse_bf16(const uint4* __restrict__ afi,
+                                               const unsigned short* a_s,
+                                               unsigned short* t_s, int ytile,
+                                               const VDims& d) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3, q = lane >> 3, r8 = lane & 7;
+  const int nsteps = d.ryp >> 4;
+  const size_t sstride = static_cast<size_t>(d.nyp >> 4) * 2 * 32;
+  for (int item = warp; item < 2 * (d.kp >> 4); item += kVWarps) {
+    const int mt = item & 1, np = item >> 1;
+    // Fyi_re a_re, Fyi_im a_im, Fyi_re a_im, Fyi_im a_re
+    float acc[4][2][4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][n][e] = 0.f;
+    const uint4* af = afi + (static_cast<size_t>(2 * ytile + mt) * 2) * 32 + lane;
+    const unsigned base =
+        smem_u32(a_s + ((q & 1) * 8 + r8) * d.ks + np * 16 + (q >> 1) * 8);
+    uint4 cur[G][2], nxt[G][2];  // (Fyi_re, Fyi_im) of G k-steps
+    auto fetch = [&](int s0, uint4(&f)[G][2]) {
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        if (s0 + j < nsteps) {
+          f[j][0] = __ldg(af + (s0 + j) * sstride);
+          f[j][1] = __ldg(af + (s0 + j) * sstride + 32);
+        }
+    };
+    fetch(0, cur);
+    for (int s0 = 0; s0 < nsteps; s0 += G) {
+      const bool more = s0 + G < nsteps;
+      if (more) fetch(s0 + G, nxt);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int s = s0 + j;
+        if (s >= nsteps) break;
+        const uint4 fr = cur[j][0], fi = cur[j][1];
+        unsigned br[4], bi[4];
+        ldsm_x4_trans(base + s * 16 * d.ks * 2, br);
+        ldsm_x4_trans(base + (s * 16 * d.ks + d.kp) * 2, bi);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          mma_bf16(acc[0][n], fr.x, fr.y, fr.z, fr.w, br[2 * n], br[2 * n + 1]);
+          mma_bf16(acc[1][n], fi.x, fi.y, fi.z, fi.w, bi[2 * n], bi[2 * n + 1]);
+          mma_bf16(acc[2][n], fr.x, fr.y, fr.z, fr.w, bi[2 * n], bi[2 * n + 1]);
+          mma_bf16(acc[3][n], fi.x, fi.y, fi.z, fi.w, br[2 * n], br[2 * n + 1]);
+        }
+      }
+      if (more) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          cur[j][0] = nxt[j][0];
+          cur[j][1] = nxt[j][1];
+        }
+      }
+    }
+    // t rounded to bf16 once
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float t[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          t[e] = p ? acc[2][n][e] + acc[3][n][e] : acc[0][n][e] - acc[1][n][e];
+        unsigned short* t0 =
+            t_s + (mt * 16 + g) * d.ks + p * d.kp + np * 16 + n * 8 + 2 * tq;
+        *reinterpret_cast<unsigned*>(t0) = pack_bf16(t[0], t[1]);
+        *reinterpret_cast<unsigned*>(t0 + 8 * d.ks) = pack_bf16(t[2], t[3]);
+      }
+  }
+}
+
+// z-unfold of NF fields for z pair zp (z = 16 zp .. 16 zp + 15) and both
+// row tiles of the y-tile: acc[f][m][n] += [t_re | t_im] of field f (t_s +
+// f kVTY ks) @ [Bz_re; -Bz_im]. bzf: B fragments, (nzp/16, 2 kp/16, 32)
+// uint4: entry (zp, ks, lane) holds the A-fragment order of the 16x16 tile
+// of [Bz_re; -Bz_im]^T at rows z = 16 zp .., columns 16 ks .., whose
+// registers (x, z) are n-tile 0's B fragment and (y, w) n-tile 1's. The
+// fragments arrive G k-steps at a time, as in y_inverse_bf16.
+template <int NF, int G>
+__device__ __forceinline__ void z_unfold_bf16(float (&acc)[NF][2][2][4],
+                                              const uint4* __restrict__ bzf,
+                                              const unsigned short* t_s,
+                                              int zp, const VDims& d) {
+  const int lane = threadIdx.x & 31, q = lane >> 3, r8 = lane & 7;
+  const int nks = d.kp >> 3;  // 2 kp / 16
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[f][m][n][e] = 0.f;
+  const uint4* bf = bzf + static_cast<size_t>(zp) * nks * 32 + lane;
+  const unsigned abase =
+      smem_u32(t_s + ((q & 1) * 8 + r8) * d.ks + (q >> 1) * 8);
+  uint4 cur[G], nxt[G];
+  auto fetch = [&](int k0, uint4(&v)[G]) {
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      if (k0 + j < nks) v[j] = __ldg(bf + (k0 + j) * 32);
+  };
+  fetch(0, cur);
+  for (int k0 = 0; k0 < nks; k0 += G) {
+    const bool more = k0 + G < nks;
+    if (more) fetch(k0 + G, nxt);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int k = k0 + j;
+      if (k >= nks) break;
+      const uint4 v = cur[j];
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          unsigned a[4];
+          ldsm_x4(abase + ((f * kVTY + m * 16) * d.ks + k * 16) * 2, a);
+          mma_bf16(acc[f][m][0], a[0], a[1], a[2], a[3], v.x, v.z);
+          mma_bf16(acc[f][m][1], a[0], a[1], a[2], a[3], v.y, v.w);
+        }
+    }
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) cur[j] = nxt[j];
+    }
+  }
+}
+
+// K7 at 'default': grid (B*nx, nyp/kVTY) of kVThreads.
+__global__ void __launch_bounds__(kVThreads, 2)
+yz_inverse_bf16_kernel(const float2* __restrict__ a,
+                       const uint4* __restrict__ afi,
+                       const uint4* __restrict__ bzf, float* __restrict__ out,
+                       VDims d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned short* a_s = reinterpret_cast<unsigned short*>(smem);  // [ryp][ks]
+  unsigned short* t_s = a_s + d.ryp * d.ks;                        // [kVTY][ks]
+  const size_t slab = blockIdx.x;
+  const int ytile = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  load_spec_slab<2>(a + slab * d.ry * d.kzc, a_s, d);
+  __syncthreads();
+  y_inverse_bf16<2>(afi, a_s, t_s, ytile, d);
+  __syncthreads();
+  for (int zp = warp; zp < (d.nzp >> 4); zp += kVWarps) {
+    float acc[1][2][2][4];
+    z_unfold_bf16<1, 2>(acc, bzf, t_s, zp, d);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int y = ytile * kVTY + m * 16 + g + 8 * h;
+        if (y >= d.ny) continue;
+        float* o = out + (slab * d.ny + y) * d.nz;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int z = zp * 16 + n * 8 + 2 * tq;
+          if (z < d.nz) o[z] = acc[0][m][n][2 * h];
+          if (z + 1 < d.nz) o[z + 1] = acc[0][m][n][2 * h + 1];
+        }
+      }
+  }
+}
+
+// K8 at 'default', first launch: grid (nx, nyp/kVTY) of kVThreads. For
+// each of the six fields in turn, the slab's spectrum into a_s and the
+// y-inverse of the tile into t_s[f]; then the z-unfold of all six fields
+// into accumulators of one fragment layout, so u x omega is taken lane by
+// lane in fp32; the three products rounded to bf16 into l_s (over a_s,
+// which is no longer read); the z-forward t1 = products @ [Fz_re; Fz_im]^T;
+// t1 rounded to bf16 once into the tile's rows of s (3, nx, nyp, 2 kp),
+// staged through shared memory (over t_s) so the stores are whole 16-byte
+// rows. fzf: the z-forward's B fragments, (2 kp/16, nzp/16, 32) uint4:
+// entry (p, zs, lane) is the A-fragment order of the 16x16 tile of
+// [Re Fz_t; Im Fz_t] (rows 2 kp, zero-padded) at rows 16 p .., columns
+// z = 16 zs ...
+__global__ void __launch_bounds__(kVThreads, 1)
+lamb_phys_bf16_kernel(const float2* __restrict__ a6,
+                      const uint4* __restrict__ afi,
+                      const uint4* __restrict__ bzf,
+                      const uint4* __restrict__ fzf,
+                      unsigned short* __restrict__ s, VDims d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned short* u_s = reinterpret_cast<unsigned short*>(smem);
+  // a_s [ryp][ks], then l_s [3][kVTY][ls]
+  const int u_size = max(d.ryp * d.ks, 3 * kVTY * d.ls);
+  unsigned short* t_s = u_s + u_size;  // [6][kVTY][ks], then [3][kVTY][ks]
+  const int x = blockIdx.x, ytile = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3, q = lane >> 3, r8 = lane & 7;
+  const size_t spec = static_cast<size_t>(d.ry) * d.kzc;
+  const int tsz = kVTY * d.ks;
+  for (int f = 0; f < 6; ++f) {
+    if (f) __syncthreads();  // field f-1's y-inverse is done with a_s
+    load_spec_slab<8>(a6 + (static_cast<size_t>(f) * d.nx + x) * spec, u_s, d);
+    __syncthreads();
+    y_inverse_bf16<4>(afi, u_s, t_s + f * tsz, ytile, d);
+  }
+  __syncthreads();
+
+  // z-unfold of the six fields and the cross product, per z pair
+  for (int zp = warp; zp < (d.nzp >> 4); zp += kVWarps) {
+    float acc[6][2][2][4];
+    z_unfold_bf16<6, 4>(acc, bzf, t_s, zp, d);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float l[3][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float u1 = acc[0][m][n][e], u2 = acc[1][m][n][e],
+                      u3 = acc[2][m][n][e];
+          const float w1 = acc[3][m][n][e], w2 = acc[4][m][n][e],
+                      w3 = acc[5][m][n][e];
+          l[0][e] = u2 * w3 - u3 * w2;
+          l[1][e] = u3 * w1 - u1 * w3;
+          l[2][e] = u1 * w2 - u2 * w1;
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          unsigned short* l0 = u_s + (c * kVTY + m * 16 + g) * d.ls + zp * 16 +
+                               n * 8 + 2 * tq;
+          *reinterpret_cast<unsigned*>(l0) = pack_bf16(l[c][0], l[c][1]);
+          *reinterpret_cast<unsigned*>(l0 + 8 * d.ls) =
+              pack_bf16(l[c][2], l[c][3]);
+        }
+      }
+  }
+  __syncthreads();
+
+  // z-forward of the three products, per pair of 8-column tiles of t1's
+  // 2 kp columns (re | im); t1 rounded to bf16 into t_s [3][kVTY][ks]
+  const int nzs = d.nzp >> 4;
+  const unsigned lbase =
+      smem_u32(u_s + ((q & 1) * 8 + r8) * d.ls + (q >> 1) * 8);
+  for (int p = warp; p < (d.kp >> 3); p += kVWarps) {
+    float acc[3][2][2][4];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[c][m][n][e] = 0.f;
+    const uint4* ff = fzf + static_cast<size_t>(p) * nzs * 32 + lane;
+    constexpr int G = 4;  // z-steps of fragments in flight, as in the z-unfold
+    uint4 cur[G], nxt[G];
+    auto fetch = [&](int k0, uint4(&v)[G]) {
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        if (k0 + j < nzs) v[j] = __ldg(ff + (k0 + j) * 32);
+    };
+    fetch(0, cur);
+    for (int k0 = 0; k0 < nzs; k0 += G) {
+      const bool more = k0 + G < nzs;
+      if (more) fetch(k0 + G, nxt);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int k = k0 + j;
+        if (k >= nzs) break;
+        const uint4 v = cur[j];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            unsigned a[4];
+            ldsm_x4(lbase + ((c * kVTY + m * 16) * d.ls + k * 16) * 2, a);
+            mma_bf16(acc[c][m][0], a[0], a[1], a[2], a[3], v.x, v.z);
+            mma_bf16(acc[c][m][1], a[0], a[1], a[2], a[3], v.y, v.w);
+          }
+      }
+      if (more) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) cur[j] = nxt[j];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          unsigned short* t0 = t_s + (c * kVTY + m * 16 + g) * d.ks + p * 16 +
+                               n * 8 + 2 * tq;
+          *reinterpret_cast<unsigned*>(t0) =
+              pack_bf16(acc[c][m][n][0], acc[c][m][n][1]);
+          *reinterpret_cast<unsigned*>(t0 + 8 * d.ks) =
+              pack_bf16(acc[c][m][n][2], acc[c][m][n][3]);
+        }
+  }
+  __syncthreads();
+
+  // the tile's t1 rows to s, 16 bytes a thread
+  const int ppr = d.kp >> 2;  // 16-byte pieces per row of 2 kp bf16
+  for (int i = threadIdx.x; i < 3 * kVTY * ppr; i += blockDim.x) {
+    const int row = i / ppr, piece = i - row * ppr;  // row = c kVTY + r
+    const int c = row / kVTY, r = row - c * kVTY;
+    const size_t srow =
+        (static_cast<size_t>(c) * d.nx + x) * d.nyp + ytile * kVTY + r;
+    *reinterpret_cast<uint4*>(s + srow * 2 * d.kp + piece * 8) =
+        *reinterpret_cast<const uint4*>(t_s + row * d.ks + piece * 8);
+  }
+}
+
+// K8 at 'default', second launch: K6's y-stage on s. Grid (nchunks *
+// rparts, 3*nx) of kBThreads, one block per (Kzc chunk, part of the Ry
+// rows, component and slab). Each y-tile's t1 columns of the chunk (re:
+// kBKC columns from chunk * kBKC, im: the same from kp on; zero past kp)
+// arrive by cp.async into one of two buffers while the other is used.
+__global__ void __launch_bounds__(kBThreads, 1)
+lamb_yfwd_bf16_kernel(const unsigned short* __restrict__ s,
+                      const uint4* __restrict__ afrag,
+                      float* __restrict__ out, BfDims d, int kp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned short* t_s = reinterpret_cast<unsigned short*>(smem);  // [2][kBTY][kBTS]
+  const int chunk = blockIdx.x % d.nchunks, rpart = blockIdx.x / d.nchunks;
+  const size_t slab = blockIdx.y;  // c * nx + x
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 3, r8 = lane & 7;
+  const unsigned short* sx = s + slab * d.nyt * kBTY * 2 * kp;
+  // thread i copies 16 bytes: row i / 12 of the tile, piece i % 12 (six of
+  // the re columns, then six of the im columns)
+  const int crow = threadIdx.x / 12, cp = threadIdx.x - crow * 12;
+  const int ccol = chunk * kBKC + (cp % 6) * 8;
+  const bool cok = ccol < kp;
+  const int csrc = crow * 2 * kp + (cp / 6) * kp + ccol;
+  const int cdst = crow * kBTS + (cp / 6) * kBKC + (cp % 6) * 8;
+  auto load = [&](int j, int buf) {
+    cp_async16(smem_u32(t_s + buf * kBTY * kBTS + cdst),
+               cok ? sx + static_cast<size_t>(j) * kBTY * 2 * kp + csrc : sx,
+               cok ? 16 : 0);
+    cp_async_commit();
+  };
+  const int yr = rpart * kBWarps + warp;
+  const bool act = yr < d.rt;
+  float acc[2][kBKC / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < kBKC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  load(0, 0);
+  for (int j = 0; j < d.nyt; ++j) {
+    uint4 F[2][2];
+    if (act) y_stage_frags(F, afrag, j, yr, d);
+    __syncthreads();  // tile j-1's y-stage is done with the other buffer
+    if (j + 1 < d.nyt) {
+      load(j + 1, (j + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j landed
+    const unsigned yb = smem_u32(t_s + (j & 1) * kBTY * kBTS +
+                                 ((q & 1) * 8 + r8) * kBTS + (q >> 1) * 8);
+    if (act) y_stage_mma(acc, F, yb);
+  }
+  if (act) y_stage_store(acc, out, slab, yr, chunk, d);
+}
+
 // Shared-memory bytes of each kernel; the wrappers' fit check
 // (ops/kernels/transform3d_kernels.py::smem_bytes) mirrors these.
 inline size_t smem_zy_forward(const Dims& d) {
@@ -643,6 +1145,41 @@ inline size_t smem_lamb_phys(const Dims& d) {
 }
 inline size_t smem_lamb_yfwd(const Dims& d) {
   return static_cast<size_t>(kBT) * d.ny * sizeof(float2);
+}
+inline size_t smem_yz_inverse_bf16(const VDims& d) {
+  return static_cast<size_t>(d.ryp + kVTY) * d.ks * 2;
+}
+inline size_t smem_lamb_phys_bf16(const VDims& d) {
+  const size_t u = std::max(d.ryp * d.ks, 3 * kVTY * d.ls);
+  return (u + static_cast<size_t>(6) * kVTY * d.ks) * 2;
+}
+inline size_t smem_lamb_yfwd_bf16() { return 2 * kBTY * kBTS * 2; }
+
+inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+inline VDims make_vdims(int nx, int ny, int nz, int ry, int kzc) {
+  VDims d{nx, ny, nz, ry, kzc};
+  d.kp = round_up(kzc, 16);
+  d.ryp = round_up(ry, 16);
+  d.nzp = round_up(nz, 16);
+  d.nyp = round_up(ny, kVTY);
+  d.ks = 2 * d.kp + 8;
+  d.ls = d.nzp + 8;
+  return d;
+}
+
+inline BfDims make_bfdims(int ny, int nz, int ry, int kzc) {
+  BfDims d;
+  d.ny = ny;
+  d.nz = nz;
+  d.ry = ry;
+  d.kzc = kzc;
+  d.nzp = round_up(nz, 16);
+  d.rt = (ry + 15) / 16;
+  d.nchunks = (kzc + kBKC - 1) / kBKC;
+  d.rparts = (d.rt + kBWarps - 1) / kBWarps;
+  d.nyt = (ny + kBTY - 1) / kBTY;
+  return d;
 }
 
 // the warp multiple covering `items`, within [lo, hi]
@@ -675,16 +1212,7 @@ int ns_fused_zy_forward_bf16_f32(const void* w, const void* fzb,
                                  int ny, int nz, int ry, int kzc,
                                  void* stream) {
   using namespace ns::t3d;
-  BfDims d;
-  d.ny = ny;
-  d.nz = nz;
-  d.ry = ry;
-  d.kzc = kzc;
-  d.nzp = (nz + 15) / 16 * 16;
-  d.rt = (ry + 15) / 16;
-  d.nchunks = (kzc + kBKC - 1) / kBKC;
-  d.rparts = (d.rt + kBWarps - 1) / kBWarps;
-  d.nyt = (ny + kBTY - 1) / kBTY;
+  const BfDims d = make_bfdims(ny, nz, ry, kzc);
   const int vec16 =
       nz % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const size_t smem = smem_zy_forward_bf16(d);
@@ -736,6 +1264,50 @@ int ns_fused_lamb_f32(const void* a6, const void* fyi, const void* bz,
                      block_threads(kzc, 32, 256), smem2, s>>>(
       static_cast<const float2*>(scratch), static_cast<const float2*>(fy),
       static_cast<float2*>(out), d);
+  return cudaGetLastError();
+}
+
+int ns_fused_yz_inverse_bf16_f32(const void* a, const void* afi,
+                                 const void* bzf, void* out, int B, int nx,
+                                 int ny, int nz, int ry, int kzc,
+                                 void* stream) {
+  using namespace ns::t3d;
+  const VDims d = make_vdims(nx, ny, nz, ry, kzc);
+  const size_t smem = smem_yz_inverse_bf16(d);
+  cudaError_t e = ns::allow_smem(yz_inverse_bf16_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * nx, d.nyp / kVTY);
+  yz_inverse_bf16_kernel<<<grid, kVThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(a), static_cast<const uint4*>(afi),
+      static_cast<const uint4*>(bzf), static_cast<float*>(out), d);
+  return cudaGetLastError();
+}
+
+// scratch: s (3, nx, nyp, 2 kp) bf16
+int ns_fused_lamb_bf16_f32(const void* a6, const void* afi, const void* bzf,
+                           const void* fzf, const void* afrag, void* scratch,
+                           void* out, int nx, int ny, int nz, int ry, int kzc,
+                           void* stream) {
+  using namespace ns::t3d;
+  const VDims d = make_vdims(nx, ny, nz, ry, kzc);
+  const BfDims b = make_bfdims(ny, nz, ry, kzc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem1 = smem_lamb_phys_bf16(d), smem2 = smem_lamb_yfwd_bf16();
+  cudaError_t e = ns::allow_smem(lamb_phys_bf16_kernel, smem1);
+  if (e != cudaSuccess) return e;
+  e = ns::allow_smem(lamb_yfwd_bf16_kernel, smem2);
+  if (e != cudaSuccess) return e;
+  lamb_phys_bf16_kernel<<<dim3(nx, d.nyp / kVTY), kVThreads, smem1, st>>>(
+      static_cast<const float2*>(a6), static_cast<const uint4*>(afi),
+      static_cast<const uint4*>(bzf), static_cast<const uint4*>(fzf),
+      static_cast<unsigned short*>(scratch), d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  lamb_yfwd_bf16_kernel<<<dim3(b.nchunks * b.rparts, 3 * nx), kBThreads,
+                          smem2, st>>>(
+      static_cast<const unsigned short*>(scratch),
+      static_cast<const uint4*>(afrag), static_cast<float*>(out), b, d.kp);
   return cudaGetLastError();
 }
 

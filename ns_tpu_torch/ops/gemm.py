@@ -1,15 +1,22 @@
 """Matrix products at a configured precision (plain torch, cuBLAS on CUDA).
 
 The JAX package names a precision per GEMM ('default' | 'high' | 'highest',
-XLA's menu). On the card a float32 product runs as: 'highest' (and None)
-full fp32 with TF32 off; 'high' TF32 tensor cores; 'default' as the TPU's
-DEFAULT with an fp32 result: the inputs are rounded to bf16 (round to
-nearest even), and the product of the rounded inputs is taken and returned
-in fp32, with no rounding of the output. On the card that is a bf16 GEMM
-with an fp32 output (`torch.mm`/`torch.bmm` with `out_dtype=float32`:
-bf16 tensor cores, fp32 accumulation, no bf16 output); on the CPU, which
-has no such kernel, an fp32 GEMM of the bf16-rounded inputs, the same
-maths summed in another order. Float64 products are always float64.
+XLA's menu). On the card a float32 product runs as:
+  'highest', 'high' (and None): full fp32 with TF32 off. The TPU's HIGH is
+      bf16x3 (~5e-6 of max|out|); fp32 is more accurate (~2e-7), as the
+      JAX kernels' `_prec` also promotes 'high' to HIGHEST, and on the H100
+      it ran the plain 256^3 'high' step loop faster than a bf16x3 form of
+      three bf16 GEMMs (82 against 50 steps/s; PERF.md, measured with
+      tools/torch_gemm_high_forms.py). TF32 (10-bit inputs, ~3.5e-4) is
+      looser than the reference's HIGH and is never enabled;
+  'default': the TPU's DEFAULT with an fp32 result: the inputs are rounded
+      to bf16 (round to nearest even), and the product of the rounded
+      inputs is taken and returned in fp32, with no rounding of the output
+      (`torch.mm`/`torch.bmm` with `out_dtype=float32`: bf16 tensor cores,
+      fp32 accumulation, no bf16 output).
+On the CPU, which has no bf16 GEMM with an fp32 output, 'default' is an
+fp32 GEMM of the bf16-rounded inputs, the same maths summed in another
+order. Float64 products are always float64.
 
 `cmatmul` carries the same menu to complex operands by running each as
 real GEMMs on the (re, im) parts (torch has no bf16 complex type).
@@ -23,9 +30,10 @@ import torch
 
 
 @contextlib.contextmanager
-def _tf32(enabled: bool):
+def _no_tf32():
+    """TF32 off for the products inside, whatever the caller set."""
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
@@ -54,7 +62,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
         if a.is_cuda:
             return _bf16_mm_f32(a, b)
         return a.float() @ b.float()
-    with _tf32(precision == "high"):
+    with _no_tf32():
         return a @ b
 
 

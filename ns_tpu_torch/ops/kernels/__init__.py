@@ -37,4 +37,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
-    fused_zy_forward.launches_bf16 = 0
+    for w in (fused_zy_forward, fused_yz_inverse, fused_lamb):
+        w.launches_bf16 = 0

@@ -61,8 +61,12 @@ _ENTRIES = {
                                   _P], _F32),
     "ns_fused_yz_inverse": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                             _F32),
+    "ns_fused_yz_inverse_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P], _F32),
     "ns_fused_lamb": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                       _F32),
+    "ns_fused_lamb_bf16": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P], _F32),
 }
 
 

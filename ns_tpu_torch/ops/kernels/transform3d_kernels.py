@@ -13,20 +13,21 @@ computes what the Pallas kernel body computes:
 The twins are also the z and y stages of the plain compact transform
 (`solvers/spectral3d.py::make_compact_transforms`), at the configured
 `precision` (`ops/gemm.py`). The kernels are float32 (as on the TPU, where
-Mosaic had no float64). K6 follows the JAX kernel's precision contract
-(`_prec`): at 'default' it launches its tensor-core kernel, with the TPU
-DEFAULT's rounding points (w, Fz_t, t and Fy_t rounded to bf16, fp32
-accumulation and result), which are also its twin's at 'default'; at
-'high' and 'highest' (both HIGHEST on the TPU) its fp32 kernel. K7 and K8
-compute in full fp32 FMAs whatever `precision` says.
+Mosaic had no float64). All three follow the JAX kernels' precision
+contract (`_prec`): at 'default' each launches its tensor-core kernel,
+with the TPU DEFAULT's rounding points (every GEMM operand rounded to
+bf16, fp32 accumulation and result; K6: w, Fz_t, t and Fy_t; K7: a,
+Fyi_t, t and Bz; K8: K7's on the six fields, then K6's on the three
+products), which are also the twins' at 'default'; at 'high' and
+'highest' (both HIGHEST on the TPU) their fp32 kernels.
 
 The DFT tables (`Fz_t`, `Fy_t`, `Fyi_t`, `Bz`) may be host numpy arrays, as
 the JAX wrappers take them, or complex torch tensors; the solver passes
 tensors already on the device. Dispatch is by the input's device: a CPU
 tensor takes the twin, a CUDA tensor launches the kernel or raises. Each
 wrapper counts its calls that launched in `launches` (K8 is two CUDA
-launches per call and counts one); K6 also counts its tensor-core launches
-in `launches_bf16`.
+launches per call and counts one), and its tensor-core calls also in
+`launches_bf16`.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ TILE_RY = 16
 # per block
 BF16_TY = 32
 BF16_KC = 48
+# K7's and K8's tensor-core kernels (kVTY): y-rows per block
+INV_TY = 32
 
 
 def _up(n: int, m: int) -> int:
@@ -57,17 +60,24 @@ def _up(n: int, m: int) -> int:
 def smem_bytes(nx: int, ny: int, nz: int, ry: int, kzc: int,
                precision: str = "high") -> dict:
     """Shared memory (bytes) each kernel's block needs at this grid and
-    precision, as the CUDA entries request it (K6 at 'default' is its
-    tensor-core kernel)."""
-    c, f = 8, 4  # complex64, float32
+    precision, as the CUDA entries request it (at 'default' the
+    tensor-core kernels; K8's the larger of its two launches)."""
+    c, f, h = 8, 4, 2  # complex64, float32, bf16
     if precision == "default":
         nzs = _up(nz, 16) + 8  # the w and Fz tiles' row stride
-        k6 = (2 * BF16_TY * nzs * f + 2 * BF16_KC * nzs * 2
-              + BF16_TY * (2 * BF16_KC + 8) * 2)
-    else:
-        k6 = (ry * kzc + TILE_Y * kzc) * c + TILE_Y * nz * f
+        tile = BF16_TY * (2 * BF16_KC + 8) * h  # one t tile of K6's y-stage
+        ks = 2 * _up(kzc, 16) + 8  # the row stride of K7's, K8's tiles
+        a_s = _up(ry, 16) * ks * h  # one slab's spectrum
+        l_s = 3 * INV_TY * nzs * h  # K8's three products
+        return {
+            "fused_zy_forward": (2 * BF16_TY * nzs * f
+                                 + 2 * BF16_KC * nzs * h + tile),
+            "fused_yz_inverse": a_s + INV_TY * ks * h,
+            "fused_lamb": max(max(a_s, l_s) + 6 * INV_TY * ks * h,
+                              2 * tile),
+        }
     return {
-        "fused_zy_forward": k6,
+        "fused_zy_forward": (ry * kzc + TILE_Y * kzc) * c + TILE_Y * nz * f,
         "fused_yz_inverse": TILE_Y * (ry + kzc) * c,
         "fused_lamb": max(TILE_Y * (ry + 6 * kzc) * c + 3 * TILE_Y * nz * f,
                           TILE_RY * ny * c),
@@ -80,8 +90,9 @@ def fused_fits(nx: int, ny: int, nz: int, ry: int, kzc: int,
     memory at this grid and precision (the counterpart of the TPU's
     `lamb_block_x` VMEM check). At 'high'/'highest' K6 keeps a whole
     (Ry, Kzc) output row on chip and is the first to stop fitting (352^3
-    does not); at 'default' its tensor-core kernel keeps that row in
-    registers, and K8 binds (448^3 does not fit)."""
+    does not); at 'default' K8's tensor-core kernel binds: it holds one
+    slab's spectrum and the six fields' y-inverse of its y-tile in bf16
+    (147,200 bytes at 256^3; 352^3 fits, 384^3 does not)."""
     return (max(smem_bytes(nx, ny, nz, ry, kzc, precision).values())
             <= SMEM_BUDGET)
 
@@ -156,10 +167,9 @@ def _frag_index(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return row, col
 
 
-def bf16_tables(fz: torch.Tensor, fy: torch.Tensor, ny: int):
+def bf16_tables(fz: torch.Tensor, fy: torch.Tensor):
     """K6's tensor-core operands from the complex64 tables Fz_t (Kzc, nz)
-    and Fy_t (Ry, ny), rounded to bf16 on their device (a few small torch
-    ops, timed with the kernel; the layouts of
+    and Fy_t (Ry, ny), rounded to bf16 on their device (the layouts of
     csrc/transform3d_kernels.cu::zy_forward_bf16_kernel):
 
       fzb (nchunks, 2 BF16_KC, nzp): chunk c's rows n < BF16_KC are
@@ -174,21 +184,95 @@ def bf16_tables(fz: torch.Tensor, fy: torch.Tensor, ny: int):
           matrix [[Fy_re, -Fy_im], [Fy_im, Fy_re]] from them.
     """
     kzc, nz = fz.shape
-    ry = fy.shape[0]
-    nzp, ryp, kcp = _up(nz, 16), _up(ry, 16), _up(kzc, BF16_KC)
+    ry, ny = fy.shape
     nyt = -(-ny // BF16_TY)
-    # (re, im) planes of each table, zero-padded
-    parts = F.pad(torch.view_as_real(fz).permute(2, 0, 1),
-                  (0, nzp - nz, 0, kcp - kzc))
-    fzb = parts.reshape(2, kcp // BF16_KC, BF16_KC, nzp).transpose(0, 1)
-    f = F.pad(torch.view_as_real(fy).permute(2, 0, 1),
-              (0, nyt * BF16_TY - ny, 0, ryp - ry))
-    # (q, r tile, 16 rows, j, h, 16 y) -> (j, r tile, h, q, 16 rows, 16 y)
-    f = f.reshape(2, ryp // 16, 16, nyt, 2, 16).permute(3, 1, 4, 0, 2, 5)
-    row, col = _frag_index(fz.device)
+    kcp = _up(kzc, BF16_KC)
+    # (re, im) planes of Fz_t, by chunk
+    fzb = _parts(fz, kcp, _up(nz, 16)).unflatten(1, (-1, BF16_KC))
+    # Fy_t's fragments (q, s = 2 j + h, r, ...) -> (j, r, h, q, ...)
+    f = _frag_order(_parts(fy, _up(ry, 16), nyt * BF16_TY))
+    f = f.unflatten(1, (nyt, 2)).permute(1, 3, 2, 0, 4, 5)
     bf16 = dict(dtype=torch.bfloat16, memory_format=torch.contiguous_format)
-    return (fzb.reshape(-1, 2 * BF16_KC, nzp).to(**bf16),
-            f[..., row, col].to(**bf16))
+    return (fzb.transpose(0, 1).reshape(-1, 2 * BF16_KC, fzb.shape[-1])
+            .to(**bf16), f.to(**bf16))
+
+
+def _frag_order(x: torch.Tensor) -> torch.Tensor:
+    """x (..., R, C), R and C multiples of 16, cut into 16x16 tiles in mma
+    A fragment order: (..., C/16, R/16, 32, 8), entry (s, r, lane) the 8
+    values of lane's fragment of the tile at rows 16 r .., columns 16 s ...
+    Read as B fragments of x^T (k = x's columns, n = its rows), a lane's
+    registers (0, 2) are n-tile 0's and (1, 3) n-tile 1's."""
+    *lead, R, C = x.shape
+    t = x.reshape(*lead, R // 16, 16, C // 16, 16).movedim(-2, -4)
+    row, col = _frag_index(x.device)
+    return t[..., row, col]
+
+
+def _parts(m: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """(2, rows, cols) float: the re and im parts of complex m, zero-padded
+    at the end of both axes."""
+    r, c = m.shape
+    return F.pad(torch.view_as_real(m).permute(2, 0, 1),
+                 (0, cols - c, 0, rows - r))
+
+
+def inverse_tables(fyi: torch.Tensor, bz: torch.Tensor):
+    """K7's and K8's y-inverse and z-unfold operands from the complex64
+    tables Fyi_t (ny, Ry) and Bz (Kzc, nz), rounded to bf16 on their device
+    (the layouts of csrc/transform3d_kernels.cu::y_inverse_bf16 and
+    ::z_unfold_bf16; kp, ryp, nzp: Kzc, Ry, nz rounded up to 16; nyp: ny
+    rounded up to INV_TY):
+
+      afi (ryp/16, nyp/16, 2, 32, 8): Fyi_t's real (q = 0) and imaginary
+          (q = 1) parts in mma A fragment order, entry (s, m, q, lane) the
+          tile at rows y = 16 m .., columns 16 s ..;
+      bzf (nzp/16, 2 kp/16, 32, 8): [Bz_re; -Bz_im] (2 kp, nzp) as B
+          fragments, entry (zp, k, lane) the 16 z columns from 16 zp and
+          the 16 rows from 16 k (`_frag_order` of its transpose).
+    """
+    ny, ry = fyi.shape
+    kzc, nz = bz.shape
+    kp, nzp = _up(kzc, 16), _up(nz, 16)
+    afi = _frag_order(_parts(fyi, _up(ny, INV_TY), _up(ry, 16))
+                      ).permute(1, 2, 0, 3, 4)
+    re, im = _parts(bz, kp, nzp)
+    bzf = _frag_order(torch.cat([re, -im]).T).transpose(0, 1)
+    bf16 = dict(dtype=torch.bfloat16, memory_format=torch.contiguous_format)
+    return afi.to(**bf16), bzf.to(**bf16)
+
+
+def lamb_tables(fyi: torch.Tensor, bz: torch.Tensor, fz: torch.Tensor,
+                fy: torch.Tensor):
+    """K8's operands at 'default': `inverse_tables`, then
+
+      fzf (2 kp/16, nzp/16, 32, 8): [Re Fz_t; Im Fz_t] (2 kp, nzp) as the
+          z-forward's B fragments, entry (p, zs, lane) the 16 t1 columns
+          from 16 p and the 16 z rows from 16 zs (`_frag_order`);
+      afrag: K6's y-stage fragments of Fy_t (`bf16_tables`).
+    """
+    afi, bzf = inverse_tables(fyi, bz)
+    kzc, nz = fz.shape
+    re, im = _parts(fz, _up(kzc, 16), _up(nz, 16))
+    fzf = _frag_order(torch.cat([re, im])).transpose(0, 1).to(
+        dtype=torch.bfloat16, memory_format=torch.contiguous_format)
+    return afi, bzf, fzf, bf16_tables(fz, fy)[1]
+
+
+_TABLES: dict = {}
+
+
+def _cached(build, *tables: torch.Tensor):
+    """build(*tables), kept for the same table tensors: the solver passes
+    one set per (config, device) on every call. Holding the tensors keeps
+    their ids from being reused while the entry lives."""
+    key = (build, *map(id, tables))
+    hit = _TABLES.get(key)
+    if hit is None:
+        if len(_TABLES) >= 16:
+            _TABLES.clear()
+        hit = _TABLES[key] = (tables, build(*tables))
+    return hit[1]
 
 
 def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
@@ -214,8 +298,7 @@ def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
                       device=w.device)
     bf16 = precision == "default"
     if bf16:
-        # converted on every call: K6 runs once per rollout
-        a, b = bf16_tables(fz, fy, ny)
+        a, b = _cached(bf16_tables, fz, fy)
         fn = _build.entry("ns_fused_zy_forward_bf16", torch.float32)
     else:
         a, b = _real_view(fz.transpose(0, 1)), _real_view(fy)
@@ -237,7 +320,9 @@ def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,
                      precision: str = "high") -> torch.Tensor:
     """(..., nx, Ry, Kzc) complex -> (..., nx, ny, nz) real: the y-inverse
     and the z-unfold (real part only) in one launch (K7). The caller has
-    run the x-inverse."""
+    run the x-inverse. At 'default' it runs on the tensor cores (bf16
+    operands, counted in `launches_bf16` too), at 'high'/'highest' on fp32
+    FMAs."""
     if a.device.type == "cpu":
         return yz_inverse(a, Fyi_t, Bz, nz, precision)
     _build.check_fields("fused_yz_inverse", a, torch.complex64, (3, 4, 5))
@@ -249,22 +334,29 @@ def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,
                          f"{tuple(bz.shape)} do not match a {tuple(a.shape)}"
                          f" and nz={nz}")
     dims = dict(nx=nx, ny=ny, nz=nz, ry=ry, kzc=kzc)
-    _check_fit("fused_yz_inverse", dims)
+    _check_fit("fused_yz_inverse", dims, precision)
     B = int(np.prod(lead, dtype=np.int64))
     out = torch.empty((*lead, nx, ny, nz), dtype=torch.float32,
                       device=a.device)
-    fn = _build.entry("ns_fused_yz_inverse", torch.float32)
-    fyv, bzv = _real_view(fyi), _real_view(bz)
+    bf16 = precision == "default"
+    if bf16:
+        tables = _cached(inverse_tables, fyi, bz)
+        fn = _build.entry("ns_fused_yz_inverse_bf16", torch.float32)
+    else:
+        tables = (_real_view(fyi), _real_view(bz))
+        fn = _build.entry("ns_fused_yz_inverse", torch.float32)
     with torch.cuda.device(a.device):
-        code = fn(_real_view(a).data_ptr(), fyv.data_ptr(), bzv.data_ptr(),
+        code = fn(_real_view(a).data_ptr(), *(t.data_ptr() for t in tables),
                   out.data_ptr(), B, nx, ny, nz, ry, kzc,
                   _build.stream(a.device))
     _build.check(code, "fused_yz_inverse")
     fused_yz_inverse.launches += 1
+    fused_yz_inverse.launches_bf16 += bf16
     return out
 
 
 fused_yz_inverse.launches = 0
+fused_yz_inverse.launches_bf16 = 0
 
 
 def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
@@ -272,8 +364,10 @@ def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
     """(6, nx, Ry, Kzc) complex (u, omega) after the x-inverse ->
     (3, nx, Ry, Kzc) complex u x omega before the x-forward: the whole
     physical leg of the nonlinear term (K8). Its two CUDA launches pass
-    only the z-reduced products (3, nx, ny, Kzc) between them; no physical
-    field is written to device memory."""
+    only the z-reduced products between them, (3, nx, ny, Kzc) complex at
+    'high'/'highest' (fp32 FMAs) and bf16 at 'default' (tensor cores,
+    counted in `launches_bf16` too); no physical field is written to
+    device memory."""
     if a6.device.type == "cpu":
         return lamb(a6, Fyi_t, Bz, Fz_t, Fy_t, nz, precision)
     _build.check_fields("fused_lamb", a6, torch.complex64, (4,))
@@ -289,20 +383,29 @@ def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
         raise ValueError("fused_lamb: DFT tables do not match a6 "
                          f"{tuple(a6.shape)} and nz={nz}")
     dims = dict(nx=nx, ny=ny, nz=nz, ry=ry, kzc=kzc)
-    _check_fit("fused_lamb", dims)
-    scratch = torch.empty((3, nx, ny, kzc), dtype=torch.complex64,
-                          device=a6.device)
+    _check_fit("fused_lamb", dims, precision)
     out = torch.empty((3, nx, ry, kzc), dtype=torch.complex64,
                       device=a6.device)
-    views = [_real_view(t) for t in (a6, fyi, bz, fz.transpose(0, 1), fy)]
-    fn = _build.entry("ns_fused_lamb", torch.float32)
+    bf16 = precision == "default"
+    if bf16:
+        tables = _cached(lamb_tables, fyi, bz, fz, fy)
+        scratch = torch.empty((3, nx, _up(ny, INV_TY), 2 * _up(kzc, 16)),
+                              dtype=torch.bfloat16, device=a6.device)
+        fn = _build.entry("ns_fused_lamb_bf16", torch.float32)
+    else:
+        tables = [_real_view(t) for t in (fyi, bz, fz.transpose(0, 1), fy)]
+        scratch = torch.empty((3, nx, ny, kzc), dtype=torch.complex64,
+                              device=a6.device)
+        fn = _build.entry("ns_fused_lamb", torch.float32)
     with torch.cuda.device(a6.device):
-        code = fn(*(v.data_ptr() for v in views), scratch.data_ptr(),
-                  out.data_ptr(), nx, ny, nz, ry, kzc,
+        code = fn(_real_view(a6).data_ptr(), *(t.data_ptr() for t in tables),
+                  scratch.data_ptr(), out.data_ptr(), nx, ny, nz, ry, kzc,
                   _build.stream(a6.device))
     _build.check(code, "fused_lamb")
     fused_lamb.launches += 1
+    fused_lamb.launches_bf16 += bf16
     return out
 
 
 fused_lamb.launches = 0
+fused_lamb.launches_bf16 = 0

@@ -51,8 +51,9 @@ Axis convention preserved from the reference: axis 0 carries
 x-differences, the opposite of direct_fd.
 
 `gemm_precision` in float32 (float64 matmuls are always float64):
-None and 'highest' -> full fp32 (TF32 off); 'high' -> TF32 tensor cores;
-'default' -> bf16 inputs with fp32 accumulation. It sets the ADI, dst and
+None, 'highest' and 'high' -> full fp32 (TF32 off; the TPU's HIGH is
+bf16x3, which fp32 meets, `ops/gemm.py`); 'default' -> bf16 inputs with
+fp32 accumulation. It sets the ADI, dst and
 helmholtz GEMMs. On the TPU, None meant the jnp default (bf16 passes) for
 the ADI sweeps and HIGHEST for dst and helmholtz; here it means fp32 for
 all three.

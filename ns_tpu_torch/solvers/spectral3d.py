@@ -15,15 +15,15 @@ Kzc) under the matmul engine.
 Engines:
   - 'fft': `torch.fft.rfftn`/`irfftn` (cuFFT on the card).
   - 'matmul': per-axis DFT GEMMs on the compact spectrum, at
-    `matmul_precision` ('highest' fp32, 'high' TF32, 'default' bf16;
+    `matmul_precision` ('highest' and 'high' fp32, 'default' bf16 inputs;
     `ops/gemm.py`).
   - `use_pallas_transform` (the name kept from the JAX package): the
     matmul engine's z and y stages run as the fused kernels K6
     (`fused_zy_forward`) and K7 (`fused_yz_inverse`), and the nonlinear
     term's whole physical leg as K8 (`fused_lamb`), one call per step
-    (`ops/kernels/transform3d_kernels.py`). K6 follows `matmul_precision`
-    as the JAX kernel does (bf16 tensor cores at 'default', fp32 at 'high'
-    and 'highest'); K7 and K8 compute in fp32 for every precision. On a
+    (`ops/kernels/transform3d_kernels.py`). All three follow
+    `matmul_precision` as the JAX kernels do (bf16 tensor cores at
+    'default', fp32 at 'high' and 'highest'). On a
     CPU tensor the wrappers run their plain twins, so the fused route runs
     there too.
 
@@ -76,19 +76,24 @@ class Spectral3DConfig:
     forcing_amp: float = 0.1
 
     # Fused z+y transform kernels K6-K8 (module docstring): matmul engine
-    # and float32 only. 'auto' keeps the JAX package's policy: fuse iff
-    # matmul engine, float32, matmul_precision == 'default', volume >=
-    # PALLAS_FUSE_CROSSOVER^3, and the kernels' blocks fit shared memory.
+    # and float32 only. 'auto' keeps the JAX package's policy, with the
+    # card's crossover: fuse iff matmul engine, float32, matmul_precision
+    # == 'default', volume >= PALLAS_FUSE_CROSSOVER^3, and the kernels'
+    # blocks fit shared memory.
     # pallas_interpret is accepted for parity with the JAX config and has
     # no meaning here (there is no interpreter mode: a CPU tensor takes the
     # kernels' plain twins).
     use_pallas_transform: bool | str = False
     pallas_interpret: bool = False
 
-    # The JAX package's crossovers, measured on a TPU v5e and kept for
-    # parity; both are to be re-measured on the H100 (ROADMAP.md).
+    # AUTO_FFT_CROSSOVER is the JAX package's, measured on a TPU v5e and
+    # kept for parity; it is to be re-measured on the H100 (ROADMAP.md).
+    # PALLAS_FUSE_CROSSOVER is the H100's (the JAX package has 256): at
+    # 'default' the fused step loop ran 2.9-3.2x the plain one at 128^3 and
+    # 1.8x at 256^3 (tools/torch_fuse_crossover.py; PERF.md); smaller grids
+    # are unmeasured.
     AUTO_FFT_CROSSOVER = 2048
-    PALLAS_FUSE_CROSSOVER = 256
+    PALLAS_FUSE_CROSSOVER = 128
 
     def __post_init__(self):
         if self.forcing not in ("none", "kolmogorov"):

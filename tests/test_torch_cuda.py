@@ -9,10 +9,11 @@ it runs without the suite's conftest:
 Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so kernel and twin are not bitwise equal); float32 <= 1e-4 relative to
 the field's max. The 3D transform kernels (float32 only) are held against
-their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative; K6's
-tensor-core kernel against its twin at 'default' (bf16 inputs and t, fp32
-sums on both sides), <= 1e-3 of max|out|: the sums run in another order,
-and that can flip a rounding of t to bf16 by one ulp. The direct solves (plain torch, cuBLAS on the card) are held against the same
+their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative; the
+tensor-core kernels of K6, K7 and K8 against their twins at 'default'
+(bf16 operands and intermediates, fp32 sums on both sides), <= 1e-3 of
+max|out|: the sums run in another order, and that can flip a rounding of
+an intermediate to bf16 by one ulp. The direct solves (plain torch, cuBLAS on the card) are held against the same
 solve on the CPU: float64 <= 1e-10 and float32 <= 1e-4 of the scale.
 """
 
@@ -178,9 +179,85 @@ def test_fused_lamb(cuda, shape):
     a6 = crand((6, shape[0], ry, kzc), cuda, 12)
     args = (a6, M["Fyi_t"], M["Bz"], M["Fz_t"], M["Fy_t"], shape[2])
     n0 = kernels.fused_lamb.launches
-    got = kernels.fused_lamb(*args)
+    got = kernels.fused_lamb(*args, precision="highest")
     assert kernels.fused_lamb.launches == n0 + 1
     close_rel(got, kernels.lamb(*args, precision="highest"))
+
+
+SHAPES_DEFAULT = [(256, 256, 256), (40, 36, 30), (24, 70, 20)]
+
+
+def rel_to_twin(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", SHAPES_DEFAULT)
+def test_fused_yz_inverse_default(cuda, shape):
+    """K7 at 'default' launches its tensor-core kernel and matches its twin
+    at 'default' within 1e-3 of max|out| (the fp32 sums run in another
+    order, which can flip a rounding of t to bf16 by one ulp); at
+    'highest' the fp32 kernel matches its twin. 256^3 B=1 is the main
+    path's shape (divergence_max); 24x70x20 has ragged row tiles, y-tiles
+    and Kzc = 7."""
+    M, ry, kzc = tables(shape)
+    a = crand((1, shape[0], ry, kzc), cuda, 17)
+    args = (a, M["Fyi_t"], M["Bz"], shape[2])
+    n0 = kernels.fused_yz_inverse.launches_bf16
+    got = kernels.fused_yz_inverse(*args, "default")
+    assert kernels.fused_yz_inverse.launches_bf16 == n0 + 1
+    assert got.shape == (1, *shape) and got.dtype == torch.float32
+    rel = rel_to_twin(got, kernels.yz_inverse(*args, "default"))
+    print(f"K7 'default' {shape}: max_rel {rel:.3e}")
+    assert rel <= 1e-3
+    got = kernels.fused_yz_inverse(*args, "highest")
+    assert kernels.fused_yz_inverse.launches_bf16 == n0 + 1
+    close_rel(got, kernels.yz_inverse(*args, "highest"))
+
+
+@pytest.mark.parametrize("shape", SHAPES_DEFAULT)
+def test_fused_lamb_default(cuda, shape):
+    """K8 at 'default' launches its tensor-core pair and matches its twin
+    at 'default' within 1e-3 of max|out|; at 'highest' the fp32 pair
+    matches its twin."""
+    M, ry, kzc = tables(shape)
+    a6 = crand((6, shape[0], ry, kzc), cuda, 18)
+    args = (a6, M["Fyi_t"], M["Bz"], M["Fz_t"], M["Fy_t"], shape[2])
+    n0 = kernels.fused_lamb.launches_bf16
+    got = kernels.fused_lamb(*args, precision="default")
+    assert kernels.fused_lamb.launches_bf16 == n0 + 1
+    assert got.shape == (3, shape[0], ry, kzc)
+    rel = rel_to_twin(got, kernels.lamb(*args, precision="default"))
+    print(f"K8 'default' {shape}: max_rel {rel:.3e}")
+    assert rel <= 1e-3
+    got = kernels.fused_lamb(*args, precision="highest")
+    assert kernels.fused_lamb.launches_bf16 == n0 + 1
+    close_rel(got, kernels.lamb(*args, precision="highest"))
+
+
+def test_gemm_high_on_the_card(cuda):
+    """ops/gemm.py at 'high' on the card meets the TPU's HIGH: within 1e-5
+    of max|out| of the float64 product of the fp32 inputs (TF32 reads
+    ~3.5e-4 there), even with TF32 enabled globally: 2D @ 2D, batched,
+    and complex."""
+    from ns_tpu_torch.ops import gemm
+    a = rand((256, 256), torch.float32, cuda, 24)
+    b = rand((256, 172), torch.float32, cuda, 25)
+    b3 = rand((2, 256, 300), torch.float32, cuda, 26)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for x, y in ((a, b), (a, b3)):
+            want = x.double() @ y.double()
+            got = gemm.matmul(x, y, "high")
+            assert float((got.double() - want).abs().max()) <= (
+                1e-5 * float(want.abs().max()))
+        c = torch.complex(a, a.flip(0))
+        want = c.to(torch.complex128) @ b.double().to(torch.complex128)
+        got = gemm.cmatmul(c, b, "high").to(torch.complex128)
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def test_fused_step_matches_plain_step(cuda):

@@ -342,6 +342,36 @@ def test_gemm_precision_maps_to_torch():
     assert torch.equal(gemm.cmatmul(a, b, None), exact)
 
 
+def test_gemm_high_never_enables_tf32(monkeypatch):
+    """'high' must meet the TPU's HIGH (bf16x3, ~5e-6 of max|out|); TF32
+    (10-bit inputs, ~3.5e-4) does not, so no float32 product of matmul or
+    cmatmul may run with TF32 enabled, whatever the caller set: the flag
+    is read at every matmul call inside, with the global flag turned on.
+    'high' on the CPU is the fp32 product."""
+    from torch.overrides import TorchFunctionMode
+
+    seen = []
+
+    class Watch(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in ("matmul", "__matmul__",
+                                                 "mm", "bmm"):
+                seen.append(torch.backends.cuda.matmul.allow_tf32)
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.default_rng(0)
+    a, b = (torch.as_tensor(rng.normal(size=(40, 40)), dtype=torch.float32)
+            for _ in range(2))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with Watch():
+        for prec in ("high", "highest", None):
+            got = gemm.matmul(a, b, prec)
+            gemm.cmatmul(torch.complex(a, b), a, prec)
+    assert seen and not any(seen)
+    assert torch.backends.cuda.matmul.allow_tf32
+    assert torch.equal(got, a @ b)
+
+
 @pytest.mark.parametrize("shape", [(256, 256, 172), (40, 33, 17)])
 def test_gemm_default_is_the_tpu_default(shape):
     """'default' = fp32 product of bf16-rounded inputs, no output rounding:

@@ -161,20 +161,27 @@ def test_fused_step_matches_jax_fused_step(monkeypatch):
 def test_fused_auto_gate_matches_jax_policy():
     """'auto' resolves as in test_pallas_transform_auto_policy: on at
     256^3, 352^3 and 512x256x128 with 'default' precision, off below the
-    volume crossover, at 'high', or on the fft engine; 512^3 resolves off
+    volume crossover, at 'high', or on the fft engine. The port's volume
+    crossover is 128^3 where JAX's is 256^3: on the H100 the fused
+    'default' step loop ran 2.9-3.2x the plain one at 128^3 (1.8x at
+    256^3), so 128^3 fuses in the port and not in JAX; 512^3 resolves off
     (K8's block does not fit shared memory) and explicit True there
-    raises; float64 and the fft engine are refused. At 'default' K6's
-    tensor-core kernel fits where its fp32 kernel did not, so the port
-    fuses 352^3 as JAX does, and 384^3 and 416^3, where the TPU's VMEM
-    check says no but every Hopper block fits."""
+    raises; float64 and the fft engine are refused. At 'default' the
+    tensor-core kernels fit where the fp32 ones do not, so the port fuses
+    352^3 as JAX does; K8's tensor-core kernel, which holds a slab's
+    spectrum and six fields' y-inverse in shared memory, binds at 384^3
+    and 416^3, which the port fused while K8 ran its fp32 kernel at
+    'default' and which now resolve off, as the TPU's VMEM check has
+    them."""
     for kw, on, on_jax in (
             (dict(nx=256, ny=256, nz=256), True, True),
             (dict(nx=352, ny=352, nz=352), True, True),
-            (dict(nx=384, ny=384, nz=384), True, False),
-            (dict(nx=416, ny=416, nz=416), True, False),
+            (dict(nx=384, ny=384, nz=384), False, False),
+            (dict(nx=416, ny=416, nz=416), False, False),
             (dict(nx=448, ny=448, nz=448), False, False),
             (dict(nx=512, ny=256, nz=128), True, True),
-            (dict(nx=128, ny=128, nz=128), False, False),
+            (dict(nx=128, ny=128, nz=128), True, False),
+            (dict(nx=96, ny=96, nz=96), False, False),
             (dict(nx=256, ny=16, nz=16), False, False),
             (dict(nx=256, ny=256, nz=256, matmul_precision="high"), False,
              False),
@@ -197,11 +204,17 @@ def test_fused_auto_gate_matches_jax_policy():
     with pytest.raises(ValueError, match="use_pallas_transform"):
         t3.Spectral3DConfig(transform="matmul", use_pallas_transform="yes")
     # the kernels' own fit: 256^3 needs 145,040 bytes in the fp32 K6's
-    # block and 124,928 in the tensor-core K6's; 352^3 fits only at
-    # 'default', where K8 (188,288 bytes) binds
+    # block, 124,928 in the tensor-core K6's, 83,200 in K7's and 147,200
+    # in K8's; 352^3 fits only at 'default' (K8: 228,096 bytes), 384^3
+    # (K8: 236,544) does not
     assert tk.smem_bytes(256, 256, 256, 171, 86)["fused_zy_forward"] == 145040
     assert tk.smem_bytes(256, 256, 256, 171, 86,
                          "default")["fused_zy_forward"] == 124928
+    k = tk.smem_bytes(256, 256, 256, 171, 86, "default")
+    assert (k["fused_yz_inverse"], k["fused_lamb"]) == (83200, 147200)
+    assert tk.smem_bytes(352, 352, 352, 235, 118,
+                         "default")["fused_lamb"] == 228096
+    assert not tk.fused_fits(384, 384, 384, 255, 128, "default")
     assert tk.fused_fits(256, 256, 256, 171, 86)
     assert not tk.fused_fits(352, 352, 352, 235, 118, "highest")
     assert tk.fused_fits(352, 352, 352, 235, 118, "default")
@@ -319,9 +332,195 @@ def test_k6_bf16_tables_feed_the_kernel_its_spec(shape):
     w, M = k6_case(shape, seed=2)
     fz = torch.as_tensor(M["Fz_t"])
     fy = torch.as_tensor(M["Fy_t"])
-    fzb, afrag = tk.bf16_tables(fz, fy, shape[1])
+    fzb, afrag = tk.bf16_tables(fz, fy)
     assert fzb.dtype == afrag.dtype == torch.bfloat16
     ry, kzc = fy.shape[0], fz.shape[0]
     got = k6_from_tables(w, fzb, afrag, shape[1], ry, kzc)
     want = k6_default_emulation(w, M["Fz_t"], M["Fy_t"])
     assert rel_err(got, want) <= 1e-6
+
+
+# --- K7 and K8 at 'default': the tensor-core kernels' spec ------------------
+
+def k7_default_emulation(a, Fyi_t, Bz):
+    """The rounding points of K7 at 'default' (the TPU's DEFAULT): a and
+    Fyi_t rounded to bf16, t in float64 then rounded to bf16 once, Bz
+    rounded to bf16, the z-unfold in float64."""
+    t = bf_c(bf_c(Fyi_t) @ bf_c(a))
+    return t.real @ bf(Bz.real) - t.imag @ bf(Bz.imag)
+
+
+def k8_default_emulation(a6, M):
+    """K8 at 'default': K7's rounding points on each of the six fields,
+    u x omega in float64, then K6's on the three products."""
+    phys = np.stack([k7_default_emulation(f, M["Fyi_t"], M["Bz"])
+                     for f in a6])
+    u1, u2, u3, w1, w2, w3 = phys
+    lam = np.stack([u2 * w3 - u3 * w2, u3 * w1 - u1 * w3, u1 * w2 - u2 * w1])
+    return k6_default_emulation(lam, M["Fz_t"], M["Fy_t"])
+
+
+def spectra(shape, seed, nf):
+    """nf complex64 spectra (nf, nx, Ry, Kzc) of the grid, and its tables."""
+    _, M = k6_case(shape)
+    ry, kzc = M["Fy_t"].shape[0], M["Fz_t"].shape[0]
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal((nf, shape[0], ry, kzc))
+         + 1j * rng.standard_normal((nf, shape[0], ry, kzc)))
+    return a.astype(np.complex64), M
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (40, 36, 30)])
+def test_k7_k8_default_twins_have_the_tpu_default_rounding_points(shape):
+    """The twins yz_inverse and lamb at 'default' (the specs of K7's and
+    K8's tensor-core kernels) against numpy emulations of the rounding
+    points: <= 5e-4 of max|out|. As for K6, the gap is rare one-ulp bf16
+    flips of t (and of K8's products and t1) from the order of the fp32
+    sums."""
+    a6, M = spectra(shape, 4, 6)
+    want = k7_default_emulation(a6[:2], M["Fyi_t"], M["Bz"])
+    got = tk.yz_inverse(torch.as_tensor(a6[:2]), M["Fyi_t"], M["Bz"],
+                        shape[2], "default")
+    assert got.dtype == torch.float32
+    assert rel_err(got.numpy(), want) <= 5e-4
+    want = k8_default_emulation(a6, M)
+    got = tk.lamb(torch.as_tensor(a6), M["Fyi_t"], M["Bz"], M["Fz_t"],
+                  M["Fy_t"], shape[2], "default")
+    assert got.dtype == torch.complex64
+    assert rel_err(got.numpy(), want) <= 5e-4
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (40, 36, 30)])
+def test_k7_k8_default_twins_near_jax_highest(shape):
+    """The twins at 'default' against JAX's fused_yz_inverse and
+    fused_lamb at 'highest' (interpret mode). The bf16 roundings are the
+    only gap, each <= 2^-9 of its operand, ~2^-8 of max|out| with the
+    sums' spread: K7 has four (a, Fyi_t, t, Bz), bound 2e-2 as for K6's
+    four; K8 has K7's four in each factor of u x omega (eight on a
+    product) and K6's four after it, twelve, bound 5e-2."""
+    a6, M = spectra(shape, 5, 6)
+    nz = shape[2]
+    want = np.asarray(jk.fused_yz_inverse(jnp.asarray(a6[:1]), M["Fyi_t"],
+                                          M["Bz"], nz, precision="highest",
+                                          interpret=True))
+    got = tk.yz_inverse(torch.as_tensor(a6[:1]), M["Fyi_t"], M["Bz"], nz,
+                        "default")
+    assert rel_err(got.numpy(), want) <= 2e-2
+    want = np.asarray(jk.fused_lamb(jnp.asarray(a6), M["Fyi_t"], M["Bz"],
+                                    M["Fz_t"], M["Fy_t"], nz,
+                                    precision="highest", interpret=True))
+    got = tk.lamb(torch.as_tensor(a6), M["Fyi_t"], M["Bz"], M["Fz_t"],
+                  M["Fy_t"], nz, "default")
+    assert rel_err(got.numpy(), want) <= 5e-2
+
+
+def a_unpack(frags):
+    """(..., 32, 8) mma A fragments -> (..., 16, 16) tiles: lane's register
+    r holds (g + 8 (r % 2), 2 t + 8 (r // 2) + e), g = lane // 4,
+    t = lane % 4, e the half of the register."""
+    out = np.zeros(frags.shape[:-2] + (16, 16))
+    for lane in range(32):
+        for i in range(8):
+            r, e = divmod(i, 2)
+            out[..., lane // 4 + 8 * (r % 2),
+                2 * (lane % 4) + 8 * (r // 2) + e] = frags[..., lane, i]
+    return out
+
+
+def b_unpack(frags):
+    """(..., 32, 8) registers read as mma B fragments of two n-tiles, as
+    the kernels read them (registers 0, 2: n-tile 0's b0, b1; 1, 3: n-tile
+    1's) -> (..., 16 k, 16 n): b0 holds (k = 2 t + e, n = g), b1
+    (k = 2 t + 8 + e, n = g)."""
+    out = np.zeros(frags.shape[:-2] + (16, 16))
+    for lane in range(32):
+        for i in range(8):
+            r, e = divmod(i, 2)
+            out[..., 2 * (lane % 4) + 8 * (r // 2) + e,
+                8 * (r % 2) + lane // 4] = frags[..., lane, i]
+    return out
+
+
+def tiles(t):
+    """(C, R, 16, 16) tiles, by column tile and row tile -> one (16 R,
+    16 C) matrix."""
+    t = np.swapaxes(t, 0, 1)
+    R, C = t.shape[:2]
+    return t.transpose(0, 2, 1, 3).reshape(R * 16, C * 16)
+
+
+def k7_from_tables(a, afi, bzf, ny, nz):
+    """K7's tensor-core kernel step by step on the operands it is given
+    (inverse_tables), in float64: Fyi_re and Fyi_im from their A fragments
+    (by k-step s and row tile m), the slab's spectrum rounded to bf16 in
+    the kernel's re | im layout, the block-form y-inverse, t rounded to
+    bf16, and the z-unfold against [Bz_re; -Bz_im] read from its B
+    fragments (by z pair and k-step)."""
+    afi = afi.to(torch.float64).numpy()
+    bzf = bzf.to(torch.float64).numpy()
+    fr, fi = (tiles(a_unpack(afi[:, :, q])) for q in range(2))
+    B = tiles(b_unpack(bzf))  # (2 kp, nzp)
+    kp = B.shape[0] // 2
+    ryp = fr.shape[1]
+    ar = np.zeros(a.shape[:-2] + (ryp, kp))
+    ai = np.zeros_like(ar)
+    ar[..., :a.shape[-2], :a.shape[-1]] = bf(a.real)
+    ai[..., :a.shape[-2], :a.shape[-1]] = bf(a.imag)
+    t = np.concatenate([bf(fr @ ar - fi @ ai), bf(fi @ ar + fr @ ai)], -1)
+    return (t @ B)[..., :ny, :nz]
+
+
+def k8_from_tables(a6, tables, ny, nz, ry, kzc):
+    """K8's two tensor-core launches step by step on lamb_tables' operands,
+    in float64: K7's model on the six fields (padded rows and columns
+    kept), u x omega, the products rounded to bf16, the z-forward against
+    [Re Fz_t; Im Fz_t] read from its B fragments (by column pair and
+    z-step), t1 rounded to bf16 (s), then K6's y-stage on s with Fy_t's
+    fragments (k6_from_tables' reading)."""
+    afi, bzf, fzf, afrag = tables
+    nyp = afi.shape[1] * 16
+    phys = np.stack([k7_from_tables(f, afi, bzf, nyp, 10**9) for f in a6])
+    u1, u2, u3, w1, w2, w3 = phys
+    lam = bf(np.stack([u2 * w3 - u3 * w2, u3 * w1 - u1 * w3,
+                       u1 * w2 - u2 * w1]))
+    s = bf(lam @ tiles(b_unpack(fzf.to(torch.float64).numpy())))
+    kp = s.shape[-1] // 2
+    afrag = afrag.to(torch.float64).numpy()
+    nyt, rt = afrag.shape[:2]
+    f = np.zeros((2, rt * 16, nyt * tk.BF16_TY))
+    for j in range(nyt):
+        for h in range(2):
+            for q in range(2):
+                y0 = j * tk.BF16_TY + 16 * h
+                f[q][:, y0:y0 + 16] = a_unpack(afrag[j, :, h, q]).reshape(
+                    rt * 16, 16)
+    sr, si = s[..., :nyp, :kp], s[..., :nyp, kp:]
+    fr, fi = f[0][:, :nyp], f[1][:, :nyp]
+    out = (fr @ sr - fi @ si) + 1j * (fr @ si + fi @ sr)
+    return out[..., :ry, :kzc]
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (40, 36, 30), (24, 70, 20)])
+def test_k7_k8_bf16_tables_feed_the_kernels_their_spec(shape):
+    """The operands the wrappers lay out for K7's and K8's tensor-core
+    kernels (inverse_tables, lamb_tables: Fyi_t as A fragments, Bz and
+    Fz_t as B fragments, Fy_t as K6's), read as the kernels read them, give
+    the emulations of the rounding points: <= 1e-6 of max|out| (the same
+    bf16 values, summed in float64 in another order). 24x70x20 has Ry = 47
+    and ny = 70 (ragged row tiles and y-tiles), Kzc = 7 and nz = 20 (both
+    padded to 16)."""
+    a6, M = spectra(shape, 6, 6)
+    a6 = a6[:, :3]  # three x-slabs are enough for the layouts
+    ny, nz = shape[1:]
+    ry, kzc = M["Fy_t"].shape[0], M["Fz_t"].shape[0]
+    T = {k: torch.as_tensor(M[k]) for k in ("Fyi_t", "Bz", "Fz_t", "Fy_t")}
+    afi, bzf = tk.inverse_tables(T["Fyi_t"], T["Bz"])
+    assert afi.dtype == bzf.dtype == torch.bfloat16
+    assert afi.shape == (-(-ry // 16), -(-ny // 32) * 2, 2, 32, 8)
+    assert bzf.shape == (-(-nz // 16), -(-kzc // 16) * 2, 32, 8)
+    got = k7_from_tables(a6[0], afi, bzf, ny, nz)
+    want = k7_default_emulation(a6[0], M["Fyi_t"], M["Bz"])
+    assert rel_err(got, want) <= 1e-6
+    tables = tk.lamb_tables(T["Fyi_t"], T["Bz"], T["Fz_t"], T["Fy_t"])
+    got = k8_from_tables(a6, tables, ny, nz, ry, kzc)
+    assert rel_err(got, k8_default_emulation(a6, M)) <= 1e-6

@@ -9,14 +9,17 @@ Phases (any failure exits non-zero, and no result line is printed):
   2. build   — compile the hand-written kernels from ns_tpu_torch/csrc
                (one nvcc per source, in parallel)
   3. kernels — each kernel against its plain torch twin on the card at the
-               main path's shapes (float32 and float64; the 3D transform
+               main path's shapes (float32 and float64; K1 also at the
+               largest grids one block holds, K4 also at 4096^2, where it
+               keeps one launch a gate group; the 3D transform
                kernels K6-K8 float32 only, each at 'default', its
                tensor-core kernel, and at 'highest', its fp32 kernel), with
                its time beside the twin's (measured in turns: twin, kernel,
                kernel, twin; K6-K8 at both precisions), K6's and K7's beside
                one cuFFT call of the same function, and the bound each
                call's bytes and operations set (K6-K8: at the bf16
-               tensor-core peak at 'default', the fp32 peak at 'highest')
+               tensor-core peak at 'default', the fp32 peak at 'highest');
+               K1 is timed at 170^2 too
   4. main    — the port's main paths through its CLI entry point: the FD
                cavity pipeline (direct_fd and chorin_fd at the reference
                sizes; direct_fd and explicit chorin_fd at 1024^2, where
@@ -27,7 +30,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                their tensor-core kernels), then divergence_max on a 256^3
                final state (K7 by its tensor-core kernel); each run's counts
                are read just before and just after it, every kernel must
-               have launched
+               have launched, and every K4 solve of the 1024^2 run must
+               have taken its resident route (one launch a solve)
   5. fidelity — float64 FD rollouts against the committed goldens; the
                dst, multigrid, helmholtz and exact modes on the card against
                the same rollouts on the CPU, and a float64 dst solve's
@@ -37,6 +41,7 @@ Phases (any failure exits non-zero, and no result line is printed):
                float64 3D shear flow against exp(-nu t)
 The line before the last is {"kernels": [...]} with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
+calls there and launches per call (K5 launches once per gate group), its
 largest error against its twin (float64 abs where the kernel has a float64
 form, else float32 abs; `max_rel_err_f32` for all), its time beside the
 twin's, its bound (`bound_ms`, `bound_by`: the larger of the call's bytes
@@ -161,6 +166,7 @@ class Results:
         self.err64, self.abs32, self.rel32 = {}, {}, {}
         self.ms, self.plain_ms, self.bound, self.library_ms = {}, {}, {}, {}
         self.k4_vs_k5 = None  # (K4 ms, K5 ms) on one input, in turns
+        self.more = {}  # a kernel's times at another shape (K1 at 170^2)
         # K6-K8: each precision's kernel time, the 'highest' route's twin
         # time and bound
         self.extra = {}
@@ -251,18 +257,22 @@ def phase_kernels(res: Results, dev):
             res.compare("jacobi_multiblock", f"{nx}x{nx} nit=50 {dt_}",
                         [launched(kernels.jacobi_multiblock, k)], [t()], dt_)
 
-    # K1: chorin_fd pressure, 51^2, nit=200, tol 5e-6 and 0
-    nx = 51
-    h = 2.0 / (nx - 1)
-    for dt_ in dtypes:
-        for tol in (0.0, 5e-6):
-            p0, c = rand(nx, nx, dt_), rand(nx, nx, dt_, h * h)
-            k = lambda: kernels.sor_redblack_fused(p0, c, h, h, 1.25, tol,
-                                                   200)
-            t = lambda: poisson.sor_redblack(p0, c, h, h, 1.25, tol, 200)
-            res.compare("sor_redblack_fused", f"51x51 nit=200 tol={tol:g} "
-                        f"{dt_}", [launched(kernels.sor_redblack_fused, k)],
-                        [t()], dt_, converged=tol > 0)
+    # K1: chorin_fd pressure, 51^2, nit=200, tol 5e-6 and 0; and the largest
+    # grids one block holds (170^2 float32, 120^2 float64: rhs_c in shared
+    # memory, 16 and 8 cells a thread a colour)
+    for nx, dts in ((51, dtypes), (170, (torch.float32,)),
+                    (120, (torch.float64,))):
+        h = 2.0 / (nx - 1)
+        for dt_ in dts:
+            for tol in (0.0, 5e-6):
+                p0, c = rand(nx, nx, dt_), rand(nx, nx, dt_, h * h)
+                k = lambda: kernels.sor_redblack_fused(p0, c, h, h, 1.25, tol,
+                                                       200)
+                t = lambda: poisson.sor_redblack(p0, c, h, h, 1.25, tol, 200)
+                res.compare("sor_redblack_fused",
+                            f"{nx}x{nx} nit=200 tol={tol:g} {dt_}",
+                            [launched(kernels.sor_redblack_fused, k)], [t()],
+                            dt_, converged=tol > 0)
 
     # K5: large-grid SOR, 1024^2 and odd 1025^2, tol=0 and cap 8m+1 so that
     # kernel and twin stop at the same sweep
@@ -278,16 +288,27 @@ def phase_kernels(res: Results, dev):
                         f" {dt_}", [launched(kernels.sor_redblack_multiblock,
                                              k)], [t()], dt_)
 
-    # K4: packed-plane SOR, 1024^2 at nit=200 (tol=0: 25 launches of k=8)
-    # and 1025x1024, off the routing predicate; against its twin and K5
-    for shape, cap in (((1024, 1024), 200), ((1025, 1024), 8 * 3 + 1)):
+    # K4: packed-plane SOR, 1024^2 at nit=200 (tol=0: 25 gate groups of
+    # k=8) and 1025x1024, off the routing predicate, both on the resident
+    # route (one launch a solve); 4096^2 float32, beyond the card's shared
+    # memory, on the group route (cap 17: two launches); against its twin
+    # and K5
+    k4w = kernels.sor_redblack_packed_multiblock
+    for shape, cap, dts in (((1024, 1024), 200, dtypes),
+                            ((1025, 1024), 8 * 3 + 1, dtypes),
+                            ((4096, 4096), 8 * 2 + 1, (torch.float32,))):
         h = 2.0 / (shape[0] - 1)
         tag = "x".join(map(str, shape))
-        for dt_ in dtypes:
+        resident = shape[0] < 4096
+        for dt_ in dts:
             p0, c = rand(*shape, dt_), rand(*shape, dt_, h * h)
-            got = launched(kernels.sor_redblack_packed_multiblock,
-                           lambda: kernels.sor_redblack_packed_multiblock(
-                               p0, c, h, h, 1.25, 0.0, cap))
+            n0, r0 = k4w.launches, k4w.launches_resident
+            got = launched(k4w, lambda: k4w(p0, c, h, h, 1.25, 0.0, cap))
+            groups = (cap - 1) // 8
+            require((k4w.launches - n0, k4w.launches_resident - r0)
+                    == ((1, 1) if resident else (groups, 0)),
+                    f"K4 {tag} {dt_}: {k4w.launches - n0} launches "
+                    f"({k4w.launches_resident - r0} resident)")
             twin = kernels.sor_redblack_packed_tiled(p0, c, h, h, 1.25, 0.0,
                                                      cap)
             k5 = kernels.sor_redblack_multiblock(p0, c, h, h, 1.25, 0.0, cap)
@@ -344,6 +365,16 @@ def phase_kernels(res: Results, dev):
                   lambda: poisson.jacobi(pj, bj, hj, hj, 50,
                                          bc_fn=lambda q: apply_bcs(q, bcj)),
                   (3 * n2 * 4, 8 * 1022 * 1022 * 50)))
+    # K1 at 170^2 first: the last entry of a name is its main-path entry
+    hb = 2.0 / 169
+    qb, cb = rand(170, 170, f32), rand(170, 170, f32, hb * hb)
+    sweeps_b = sor_sweeps(qb, cb, hb, 1.25, 5e-6, 200)
+    timed.append(("sor_redblack_fused", "170x170 nit=200 tol=5e-06", 10, 2,
+                  lambda: kernels.sor_redblack_fused(qb, cb, hb, hb, 1.25,
+                                                     5e-6, 200),
+                  lambda: poisson.sor_redblack(qb, cb, hb, hb, 1.25, 5e-6,
+                                               200),
+                  (3 * 170 * 170 * 4, 10 * 168 * 168 * sweeps_b)))
     h1 = 2.0 / 50
     q1, c1 = rand(51, 51, f32), rand(51, 51, f32, h1 * h1)
     sweeps1 = sor_sweeps(q1, c1, h1, 1.25, 5e-6, 200)
@@ -355,7 +386,7 @@ def phase_kernels(res: Results, dev):
                   (3 * 51 * 51 * 4, 10 * 49 * 49 * sweeps1)))
     hk = 2.0 / 1023
     qk, ck = rand(1024, 1024, f32), rand(1024, 1024, f32, hk * hk)
-    # the gated solves run groups of 8 sweeps, one launch a group
+    # the gated solves run groups of 8 sweeps, one K5 launch a group
     n0 = kernels.sor_redblack_multiblock.launches
     kernels.sor_redblack_multiblock(qk, ck, hk, hk, 1.25, 5e-6, 200)
     sweeps_k = 8 * (kernels.sor_redblack_multiblock.launches - n0)
@@ -380,15 +411,24 @@ def phase_kernels(res: Results, dev):
                       lambda a=margs: kernels.momentum_explicit_fused(*a),
                       lambda a=margs: kernels.momentum_explicit(*a),
                       (6 * nx * nx * 4, 80 * (nx - 2) ** 2)))
-    print(f"  (sweeps run: 51x51 {sweeps1}, 1024x1024 {sweeps_k})")
+    print(f"  (sweeps run: 170x170 {sweeps_b}, 51x51 {sweeps1}, 1024x1024 "
+          f"{sweeps_k})")
+    shown = {}  # the label each kernel's res.ms holds
     for name, label, reps_k, reps_t, k, t, (nbytes, flops) in timed:
         if "sor" in name:
             res.compare(name, f"{label} float32", [k()], [t()], f32,
                         converged=True)
         ms, plain = paired_ms(k, t, reps_k, reps_t)
-        # the last shape of each kernel is its main-path entry in the report
+        # the last shape of each kernel is its main-path entry in the report;
+        # an earlier one (K1 at 170^2) is kept beside it
+        if name in res.ms:
+            tag = shown[name].split()[0].split("x")[0]
+            res.more.setdefault(name, {}).update({
+                f"ms_{tag}": res.ms[name], f"plain_ms_{tag}":
+                res.plain_ms[name], f"bound_ms_{tag}": res.bound[name][0]})
         res.ms[name], res.plain_ms[name] = ms, plain
         res.bound[name] = bound(nbytes, flops, FP32_FLOPS)
+        shown[name] = label
         print(f"  {name:26s} {label:30s} kernel {ms:.4f} ms  twin "
               f"{plain:.4f} ms  ({plain / ms:.2f}x); bound "
               f"{res.bound[name][0]:.5f} ms ({res.bound[name][1]})")
@@ -651,9 +691,12 @@ def phase_main(tmp) -> dict:
     def bf16_counts() -> dict:
         return {w.__name__: w.launches_bf16 for w in tc}
 
+    k4 = kernels.sor_redblack_packed_multiblock
     for label, argv in MAIN_RUNS:
         before = kernels.launch_counts()
         bf16_before = bf16_counts()
+        calls_before, resident_before = kernels.call_counts(), \
+            k4.launches_resident
         out = os.path.join(tmp, label.replace(" ", "_").replace("^", "") +
                            ".npz")
         summary = run_solver.main(argv + ["--device", DEVICE, "--out", out])
@@ -661,6 +704,15 @@ def phase_main(tmp) -> dict:
         ran = {k for k in after if after[k] > before[k]}
         missing = MAIN_KERNELS[label] - ran
         require(not missing, f"{label}: kernels not launched: {missing}")
+        if k4.__name__ in MAIN_KERNELS[label]:  # every solve resident
+            solves = kernels.call_counts()[k4.__name__] - \
+                calls_before[k4.__name__]
+            require(k4.launches_resident - resident_before == solves ==
+                    after[k4.__name__] - before[k4.__name__],
+                    f"{label}: K4's solves did not all take the resident "
+                    f"route ({solves} solves, "
+                    f"{after[k4.__name__] - before[k4.__name__]} launches, "
+                    f"{k4.launches_resident - resident_before} resident)")
         if "3d" in label:  # 'default': K6 and K8 take the tensor cores
             bf16 = bf16_counts()
             slow = [k for k in MAIN_KERNELS[label] if bf16[k] == bf16_before[k]]
@@ -684,6 +736,7 @@ def phase_main(tmp) -> dict:
     require(bf16["fused_yz_inverse"] > bf16_before["fused_yz_inverse"],
             "divergence_max: K7 did not take its tensor-core kernel")
     counts, launches_bf16 = dict(after), bf16
+    calls = kernels.call_counts()
     # the carries of the E0 checks, outside the main path's counts
     st.update(initial_energies_3d())
     rel_div = st["div"] / st["u_max"]
@@ -704,6 +757,7 @@ def phase_main(tmp) -> dict:
     idle = [k for k, n in counts.items() if n == 0]
     require(not idle, f"kernels never launched on the main path: {idle}")
     return {"launches": counts, "launches_bf16": launches_bf16,
+            "calls": calls, "launches_resident": k4.launches_resident,
             "steps_per_s": rates, "tg3d_npz": out3d["taylor_green_3d 256^3"]}
 
 
@@ -903,8 +957,10 @@ def report(res: Results, main_path: dict) -> list:
     for name, src, rep in KERNELS:
         f64 = name in res.err64
         bound_ms, bound_by = res.bound.get(name, (None, None))
+        calls = main_path["calls"].get(name, 0)
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-               "launches": launches.get(name, 0),
+               "launches": launches.get(name, 0), "calls": calls,
+               "launches_per_call": launches.get(name, 0) / max(calls, 1),
                "max_abs_err": res.err64[name] if f64 else res.abs32.get(name),
                "max_abs_err_dtype": "float64" if f64 else "float32",
                "max_rel_err_f32": res.rel32.get(name),
@@ -916,6 +972,10 @@ def report(res: Results, main_path: dict) -> list:
         if name == "sor_redblack_packed_multiblock":
             require(res.k4_vs_k5 is not None, "K4 was not timed beside K5")
             row["k5_ms_same_input"] = res.k4_vs_k5[1]
+            row["launches_resident"] = main_path["launches_resident"]
+        if name in res.more:
+            row.update(res.more[name])
+            keys += list(res.more[name])
         if name in ("fused_zy_forward", "fused_yz_inverse"):
             keys.append("library_ms")
         if name in res.extra:
@@ -927,7 +987,8 @@ def report(res: Results, main_path: dict) -> list:
         for key in keys:
             require(row[key] is not None and math.isfinite(row[key]),
                     f"{name}: no {key}")
-        require(row["launches"] > 0, f"{name}: no launch on the main path")
+        require(row["launches"] > 0 and row["calls"] > 0,
+                f"{name}: no launch on the main path")
         rows.append(row)
     return rows
 

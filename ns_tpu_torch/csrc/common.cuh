@@ -65,6 +65,7 @@ struct Bits;
 template <>
 struct Bits<float> {
   using U = unsigned int;
+  static constexpr U kInf = 0x7f800000u;
   static __device__ __forceinline__ U of_abs(float x) {
     return __float_as_uint(fabsf(x));
   }
@@ -75,6 +76,7 @@ struct Bits<float> {
 template <>
 struct Bits<double> {
   using U = unsigned long long;
+  static constexpr U kInf = 0x7ff0000000000000ull;
   static __device__ __forceinline__ U of_abs(double x) {
     return static_cast<U>(__double_as_longlong(fabs(x)));
   }

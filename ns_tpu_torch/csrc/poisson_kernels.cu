@@ -8,41 +8,51 @@
 //                        SOR solved to tolerance, one launch).
 // K4 sor_redblack_packed replaces ::sor_redblack_packed_tiled_pallas (SOR
 //                        beyond one block on packed colour planes, the
-//                        branch chorin_fd takes for nx%128 == 0, ny%256 == 0).
+//                        branch chorin_fd takes for nx%128 == 0, ny%256 == 0;
+//                        one launch a solve where its tiles fit the card).
 // K5 sor_redblack_tiled  replaces ::sor_redblack_tiled_pallas and
 //                        ::sor_redblack_tiled_any (SOR beyond one block).
 //
-// What bounds them on the H100. At the reference sizes (50^2, 51^2) a solve
-// is a few hundred dependent sweeps over a 20-40 KB grid: the cost is
-// latency (one kernel launch and one host-side gate read per sweep would
-// dominate), not bytes or FLOPs. K1 and K2 therefore run the whole solve in
-// ONE block that keeps the grid in shared memory, separate the phases with
-// __syncthreads, and (K1) evaluate the convergence gate with a block
-// max-reduction, so the host sees one launch and no sync per sweep. A grid
-// larger than shared memory (1024^2) is bandwidth-bound on the L2/HBM
-// traffic of each colour half-sweep; K5 runs every half-sweep as a grid of
-// blocks over the whole field and reads the gate once per k sweeps through
-// an atomic max, so the host syncs once per k sweeps. That costs 2k
-// launches per gate group, and each launch reads every column to update
-// half of them. K4 runs the whole group in ONE launch: each block loads a
-// 2D tile of the packed colour planes (R, B of shape (nx, ny/2), so a
-// colour update touches only its own cells) with the halo that k sweeps'
-// dependency cone needs into shared memory, runs the k sweeps there with
-// __syncthreads between colour half-sweeps, and writes its own cells into
-// the other buffers of a ping-pong pair. The TPU strip (160 x 512 packed
-// cells x 4 planes at 1024^2, 1.3 MB) cannot fit a block, so the tile is
-// 64 x 64 own cells in both directions; rhs stays in global memory,
-// read-only (in shared memory it measured no faster). Halo blocks recompute
-// their neighbours' cells, (96 x 80) / (64 x 64) = 1.9x the useful work at
-// k=8, to trade 2k launches for one. A group is then bound by instructions
-// per cell update (bounds checks, the IEEE division, the halo recompute),
-// not by bytes: 1024 threads a block ran it 1.6x faster than 512.
-// The multi-block
-// Jacobi is bandwidth-bound the same way: each sweep is one grid launch over
-// the field into the other buffer of a ping-pong pair (the interior reads
-// only old values), then one single-block launch writes the BC edges in
-// list order, each edge its own __syncthreads phase (a Neumann edge reads
-// the freshly swept inner row, which other blocks wrote). No host sync.
+// What bounds them on the H100.
+//
+// K1 and K2, at the reference sizes (50^2, 51^2): a solve is a few hundred
+// dependent sweeps over a 20-40 KB grid, so one launch and no host read
+// per solve is the first rule (a launch or a gate read per sweep would
+// dominate). Both run the whole solve in ONE block that keeps the grid in
+// shared memory. Inside that block K1 is bound by instruction issue: one
+// SM issues 4 warp-instructions a cycle, and a sweep is ~2400 cell updates
+// of ~40 instructions, a third of them the IEEE division of the TPU
+// kernel's expression. So K1 keeps p as packed colour planes, gives each of
+// its 1024 threads fixed cells of each colour (their offsets and rhs_c
+// found once, before the sweeps), so no lane idles on the other colour and
+// no index is divided in the sweep loop, and publishes the gate through the
+// colour barriers (two barriers a sweep instead of four). 51^2: 43
+// registers, no spill; 1.0 us a sweep.
+//
+// K4 and K5, beyond one block (1024^2): the TPU kernels reload a strip per
+// gate group and their while_loop reads the gate on the device. K5 runs
+// every colour half-sweep as a grid over the whole field (2k launches a
+// group of k sweeps, every column read to update half of them) and its
+// host reads the gate once per group. K4 keeps each block's tile of the
+// packed colour planes (R, B of shape (nx, ny/2): a colour update touches
+// only its own cells) with the halo that k sweeps' dependency cone needs in
+// shared memory. Where the card's shared memory holds every tile at once
+// (one block a SM; 1024^2 in both dtypes), the whole solve is ONE
+// cooperative launch: the tiles stay resident, blocks exchange their own
+// cells through L2 after each group, meet at a grid barrier and read the
+// group's error slot on the device, so no host read and no relaunch. A
+// group is then bound by instruction issue on each SM again: the halo's
+// recomputed cells (cut to the shrinking dependency cone, 1.4x the own
+// cells at k=8 with 64 x 64 tiles) and the division. Grids too large for
+// the card keep one launch per group and the host gate. fp32: 32
+// registers, no spill.
+//
+// The multi-block Jacobi is bandwidth-bound: each sweep is one grid launch
+// over the field into the other buffer of a ping-pong pair (the interior
+// reads only old values), then one single-block launch writes the BC edges
+// in list order, each edge its own __syncthreads phase (a Neumann edge
+// reads the freshly swept inner row, which other blocks wrote). No host
+// sync.
 
 #include "common.cuh"
 
@@ -90,56 +100,145 @@ jacobi_fused_kernel(const T* __restrict__ p_in, const T* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// K1: red-black SOR to tolerance in one block. p and rhs_c live in shared
-// memory; each colour's half-sweep updates in place (a red cell reads only
-// black neighbours and itself, and vice versa). Every interior cell changes
-// exactly once per sweep, so each thread's max |new - old| over its cells,
-// reduced over the block, is the twin's max|p_new - p|. Gate: err=1, it=1,
-// loop while err > tol and it < max_iter.
+// K1: red-black SOR to tolerance in one block. p lives in shared memory as
+// the packed colour planes (plane c holds the cells with (i+j)%2 == c, cell
+// (i, j) at row i, column j>>1, W = (ny+1)/2 columns), packed as it loads
+// and unpacked as it leaves. Each colour's interior cells form a list in
+// row-major order (`k1_cell`); thread t owns entries t, t + 1024, ... of
+// both lists, and finds their plane offsets (and their rhs_c) once, before
+// the sweeps. So a half-sweep has no division and no colour test, and
+// every lane updates a cell of the active colour. A red cell reads only
+// black neighbours and itself, and vice versa, so each half-sweep updates
+// in place. Every interior cell changes exactly once per sweep, so the max
+// |new - old| over the sweep is the twin's max|p_new - p|: each warp
+// reduces it on the bit pattern and lane 0 folds it into a shared slot
+// with one atomicMax; the slot alternates with the sweep's parity, so the
+// barrier that ends the black half-sweep also publishes the error. Two
+// barriers a sweep. Gate: err=1, it=1, loop while err > tol and
+// it < max_iter.
 // ---------------------------------------------------------------------------
-template <typename T>
+
+// The n-th interior cell (row-major) of colour c on an (nx, ny) grid, as
+// its packed plane offset q = i*W + (j>>1) and whether its left/right
+// neighbour pair is other[q], other[q+1] (j odd) or other[q-1], other[q]
+// (j even), encoded (q << 1) | (j & 1). Rows alternate between two counts:
+// `a` cells on odd rows (first j = 1 + c), `b` on even rows (first j =
+// 2 - c). Mirrored by poisson_kernels.py::k1_cells.
+__device__ __forceinline__ unsigned k1_cell(int n, int c, int ny, int W,
+                                            int* flat) {
+  const int a = (ny - 1 - c) / 2, b = (ny - 2 + c) / 2;
+  const int pair = n / (a + b), rem = n - pair * (a + b);
+  const bool odd_row = rem < a;
+  const int i = 2 * pair + (odd_row ? 1 : 2);
+  const int j = (odd_row ? 1 + c : 2 - c) + 2 * (odd_row ? rem : rem - a);
+  *flat = i * ny + j;
+  return (static_cast<unsigned>(i * W + (j >> 1)) << 1) | (j & 1);
+}
+
+// Interior cells of colour c: (nx-1)/2 odd rows of `a`, (nx-2)/2 even rows
+// of `b`.
+__host__ __device__ __forceinline__ int k1_count(int nx, int ny, int c) {
+  return (nx - 1) / 2 * ((ny - 1 - c) / 2) + (nx - 2) / 2 * ((ny - 2 + c) / 2);
+}
+
+// MAXC: list entries a thread owns per colour (at most); RHS_REG: rhs_c in
+// registers, else in shared memory in list order. Each thread's offsets
+// sit in MAXC registers, red in the low 16 bits, black in the high
+// (2 * nx * W < 65536 for every grid that fits).
+template <typename T, int MAXC, bool RHS_REG>
 __global__ void __launch_bounds__(1024)
 sor_redblack_fused_kernel(const T* __restrict__ p_in,
                           const T* __restrict__ rhs, T* __restrict__ p_out,
                           int nx, int ny, T dx2, T dy2, T denom, T beta, T tol,
                           int max_iter) {
   using U = typename Bits<T>::U;
+  constexpr int NT = 1024;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ U scratch[32];
-  __shared__ U result;
-  const int n = nx * ny;
-  T* p = reinterpret_cast<T*>(smem);
-  T* c = p + n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    p[k] = p_in[k];
-    c[k] = rhs[k];
+  __shared__ U slot[2];
+  const int tid = threadIdx.x;
+  const int W = (ny + 1) / 2, plane = nx * W, n = nx * ny;
+  T* planes = reinterpret_cast<T*>(smem);
+  T* crhs = planes + 2 * plane;  // RHS_REG false: both lists, red first
+  for (int k = tid; k < n; k += NT) {
+    const int i = k / ny, j = k - i * ny;
+    planes[((i + j) & 1) * plane + i * W + (j >> 1)] = p_in[k];
   }
+  const int count[2] = {k1_count(nx, ny, 0), k1_count(nx, ny, 1)};
+  unsigned code[MAXC];
+  T creg[2][MAXC];
+#pragma unroll
+  for (int m = 0; m < MAXC; ++m) {
+    code[m] = 0;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int idx = m * NT + tid;
+      creg[c][m] = T(0);
+      if (idx < count[c]) {
+        int flat;
+        code[m] |= k1_cell(idx, c, ny, W, &flat) << (16 * c);
+        if constexpr (RHS_REG) {
+          creg[c][m] = rhs[flat];
+        } else {
+          crhs[c * count[0] + idx] = rhs[flat];
+        }
+      }
+    }
+  }
+  if (tid < 2) slot[tid] = 0;
   __syncthreads();
+
   const T omb = T(1) - beta;
   T err = T(1);
-  int it = 1;
+  int it = 1, par = 0;
   while (err > tol && it < max_iter) {
     U dmax = 0;
-    for (int color = 0; color < 2; ++color) {
-      for (int k = threadIdx.x; k < n; k += blockDim.x) {
-        const int i = k / ny, j = k - i * ny;
-        if (i < 1 || i > nx - 2 || j < 1 || j > ny - 2 ||
-            ((i + j) & 1) != color)
-          continue;
-        const T old = p[k];
-        const T t = dy2 * (p[k + ny] + p[k - ny]) +
-                    dx2 * (p[k + 1] + p[k - 1]) - c[k];
-        const T nw = beta * t / denom + omb * old;
-        p[k] = nw;
-        const U d = Bits<T>::of_abs(nw - old);
-        dmax = d > dmax ? d : dmax;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      T* self = planes + c * plane;
+      const T* other = planes + (1 - c) * plane;
+#pragma unroll
+      for (int m = 0; m < MAXC; ++m) {
+        const int idx = m * NT + tid;
+        if (idx < count[c]) {
+          unsigned e = code[m];
+          // from 8 cells a thread on, decode the offsets here, every
+          // sweep: hoisted out of the sweep loop, they would hold two
+          // registers a cell and spill
+          if constexpr (MAXC >= 8) asm volatile("" : "+r"(e));
+          e = (e >> (16 * c)) & 0xffffu;
+          const int q = static_cast<int>(e >> 1);
+          const int qs = (e & 1u) ? q + 1 : q - 1;
+          T cv;
+          if constexpr (RHS_REG) {
+            cv = creg[c][m];
+          } else {
+            cv = crhs[c * count[0] + idx];
+          }
+          const T old = self[q];
+          const T t = dy2 * (other[q + W] + other[q - W]) +
+                      dx2 * (other[q] + other[qs]) - cv;
+          const T nw = beta * t / denom + omb * old;
+          self[q] = nw;
+          const U d = Bits<T>::of_abs(nw - old);
+          dmax = d > dmax ? d : dmax;
+        }
       }
-      __syncthreads();
+      if (c == 0) __syncthreads();
     }
-    err = Bits<T>::value(block_max(dmax, scratch, &result));
+    dmax = warp_max(dmax);
+    if ((tid & 31) == 0 && dmax != U(0)) atomicMax(&slot[par], dmax);
+    // every thread read the other slot (the last sweep's) before the red
+    // barrier above; the next sweep's atomics come after the one below
+    if (tid == 0) slot[par ^ 1] = 0;
+    __syncthreads();
+    err = Bits<T>::value(slot[par]);
     ++it;
+    par ^= 1;
   }
-  for (int k = threadIdx.x; k < n; k += blockDim.x) p_out[k] = p[k];
+  for (int k = tid; k < n; k += NT) {
+    const int i = k / ny, j = k - i * ny;
+    p_out[k] = planes[((i + j) & 1) * plane + i * W + (j >> 1)];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -210,106 +309,309 @@ bc_edges_kernel(T* __restrict__ a, int nx, int ny, BCList bcs) {
 }
 
 // ---------------------------------------------------------------------------
-// K4: one gate group (k full red-black sweeps) on the packed colour planes,
-// one block per tile of tile_rows x tile_cols own packed cells. The block's
-// working tile adds H = 2k rows and k packed columns on each side: a colour
-// half-sweep reads only the four nearest cells, so a cell that could not be
-// updated from in-tile values (the tile's edge) taints at most the cells one
-// unpacked step further in per half-sweep; after 2k half-sweeps the own
-// cells, 2k+1 steps in, are exact. Working cells outside the grid are never
-// loaded or read (interior cells read only cells of the grid). Neighbours:
-// up/down are the other colour at the same packed column; left/right are
-// other[jc] and other[jc + s], where s = +1 for a cell at odd global j
-// (2jc+1: neighbours 2jc and 2jc+2) and -1 at even j. The update is written
-// in the TPU kernel's expression order. Reads the (Rin, Bin) snapshot, writes
-// (Rout, Bout): blocks whose halos overlap never see each other's writes.
-// The last sweep's max |new - old| over own interior cells is max-reduced
-// per warp and folded into *err with one atomicMax on the bit pattern.
+// K4 on the packed colour planes. A block owns a tile of tile_rows x
+// tile_cols packed cells of both planes; its working tile adds hr = 2k rows
+// and hc = k packed columns on each side: a colour half-sweep reads only
+// the four nearest cells, so a cell that could not be updated from in-tile
+// values (the tile's edge) taints at most the cells one unpacked step
+// further in per half-sweep; after 2k half-sweeps the own cells, 2k+1
+// steps in, are exact. Working cells outside the grid are never loaded or
+// read (interior cells read only cells of the grid). Neighbours: up/down
+// are the other colour at the same packed column; left/right are other[jc]
+// and other[jc + s], where s = +1 for a cell at odd global j (2jc+1:
+// neighbours 2jc and 2jc+2) and -1 at even j. The update is written in the
+// TPU kernel's expression order.
 // ---------------------------------------------------------------------------
+
+// A block's working tile: its shape, its corner's global row and packed
+// column, and the grid's.
+struct PackedTile {
+  int wr, wc, r0, c0, nx, ny, hr, hc, tile_rows, tile_cols;
+};
+
+__device__ __forceinline__ PackedTile packed_tile(int nx, int ny,
+                                                  int tile_rows,
+                                                  int tile_cols, int k) {
+  PackedTile t;
+  t.hr = 2 * k;
+  t.hc = k;
+  t.wr = tile_rows + 2 * t.hr;
+  t.wc = tile_cols + 2 * t.hc;
+  t.r0 = blockIdx.y * tile_rows - t.hr;
+  t.c0 = blockIdx.x * tile_cols - t.hc;
+  t.nx = nx;
+  t.ny = ny;
+  t.tile_rows = tile_rows;
+  t.tile_cols = tile_cols;
+  return t;
+}
+
+// One colour half-sweep of a working tile, in place on `self` (one warp a
+// row, its lanes along the row), over the cells the own cells still depend
+// on: `reach` = the half-sweeps left in the group after this one, so only
+// rows within `reach` of the own rows and packed columns within
+// (reach + 1) / 2 of the own columns (reach unpacked steps) can still reach
+// an own cell; the rest of the halo is left stale, and no cell that matters
+// reads it. A row's valid columns are one range, found once a row: interior
+// j, both left/right neighbours in the tile, and the cone. rhs_c comes from
+// the tile's plane in shared memory (C_SMEM) or from the unpacked global
+// rhs. With `gate`, |new - old| over the own cells is max-reduced into
+// *dmax.
+template <typename T, bool C_SMEM>
+__device__ __forceinline__ void packed_half_sweep(
+    const PackedTile& t, T* __restrict__ self, const T* __restrict__ other,
+    const T* __restrict__ c_tile, const T* __restrict__ rhs, int color,
+    int reach, T dx2, T dy2, T denom, T beta, bool gate,
+    typename Bits<T>::U* dmax) {
+  using U = typename Bits<T>::U;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int ny2 = t.ny / 2;
+  const T omb = T(1) - beta;
+  const int e = (reach + 1) / 2;
+  const int r_lo = max(max(1, 1 - t.r0), t.hr - reach);
+  const int r_hi = min(min(t.wr - 2, t.nx - 2 - t.r0),
+                       t.hr + t.tile_rows - 1 + reach);
+  const int cc_lo = t.hc - e, cc_hi = t.hc + t.tile_cols - 1 + e;
+  for (int r = r_lo + ty; r <= r_hi; r += nwarps) {
+    const int gi = t.r0 + r;
+    // j parity of this colour's cells in row gi: red (i+j) even, black odd
+    const int jpar = (gi + color) & 1;
+    const int shift = jpar ? 1 : -1;
+    // 1 <= j = 2 gc + jpar <= ny - 2, c + shift inside the tile, the cone
+    const int c_lo = max(cc_lo, max(jpar ? 0 : 1, (jpar ? 0 : 1) - t.c0));
+    const int c_hi = min(cc_hi, min(jpar ? t.wc - 2 : t.wc - 1,
+                                    (jpar ? ny2 - 2 : ny2 - 1) - t.c0));
+    const bool own_row = gate && r >= t.hr && r < t.hr + t.tile_rows;
+    const size_t rrow = static_cast<size_t>(gi) * t.ny + jpar;
+    for (int c = c_lo + tx; c <= c_hi; c += 32) {
+      const int q = r * t.wc + c;
+      T cv;
+      if constexpr (C_SMEM) {
+        cv = c_tile[q];
+      } else {  // rhs_c at j = 2 gc + jpar
+        cv = rhs[rrow + 2 * (t.c0 + c)];
+      }
+      const T old = self[q];
+      const T tt = dy2 * (other[q + t.wc] + other[q - t.wc]) +
+                   dx2 * (other[q] + other[q + shift]) - cv;
+      const T nw = beta * tt / denom + omb * old;
+      self[q] = nw;
+      if (own_row && c >= t.hc && c < t.hc + t.tile_cols) {
+        const U d = Bits<T>::of_abs(nw - old);
+        *dmax = d > *dmax ? d : *dmax;
+      }
+    }
+  }
+}
+
+// K4's non-resident route: one gate group (k sweeps) per launch, one block
+// per tile. Reads the (Rin, Bin) snapshot, writes (Rout, Bout): blocks
+// whose halos overlap never see each other's writes. The last sweep's max
+// |new - old| over own interior cells is max-reduced per warp and folded
+// into *err with one atomicMax on the bit pattern; the host reads it.
 template <typename T>
 __global__ void __launch_bounds__(1024)
 sor_packed_group_kernel(const T* __restrict__ Rin, const T* __restrict__ Bin,
-                        const T* __restrict__ cR, const T* __restrict__ cB,
-                        T* __restrict__ Rout, T* __restrict__ Bout, int nx,
-                        int ny, int tile_rows, int tile_cols, int k, T dx2,
-                        T dy2, T denom, T beta,
+                        const T* __restrict__ rhs, T* __restrict__ Rout,
+                        T* __restrict__ Bout, int nx, int ny, int tile_rows,
+                        int tile_cols, int k, T dx2, T dy2, T denom, T beta,
                         typename Bits<T>::U* __restrict__ err) {
   using U = typename Bits<T>::U;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ny2 = ny / 2;
-  const int hr = 2 * k, hc = k;
-  const int wr = tile_rows + 2 * hr, wc = tile_cols + 2 * hc;
+  const PackedTile t = packed_tile(nx, ny, tile_rows, tile_cols, k);
   T* sR = reinterpret_cast<T*>(smem);
-  T* sB = sR + wr * wc;
-  const int r0 = blockIdx.y * tile_rows - hr;  // global row of working row 0
-  const int c0 = blockIdx.x * tile_cols - hc;  // global packed column of col 0
+  T* sB = sR + t.wr * t.wc;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
 
-  for (int r = ty; r < wr; r += nwarps) {
-    const int gi = r0 + r;
+  for (int r = ty; r < t.wr; r += nwarps) {
+    const int gi = t.r0 + r;
     if (gi < 0 || gi >= nx) continue;
-    for (int c = tx; c < wc; c += 32) {
-      const int gc = c0 + c;
+    for (int c = tx; c < t.wc; c += 32) {
+      const int gc = t.c0 + c;
       if (gc < 0 || gc >= ny2) continue;
       const size_t g = static_cast<size_t>(gi) * ny2 + gc;
-      sR[r * wc + c] = Rin[g];
-      sB[r * wc + c] = Bin[g];
+      sR[r * t.wc + c] = Rin[g];
+      sB[r * t.wc + c] = Bin[g];
     }
   }
   __syncthreads();
 
-  const T omb = T(1) - beta;
   U dmax = 0;
   for (int sweep = 0; sweep < k; ++sweep) {
     const bool last = sweep == k - 1;
-    for (int color = 0; color < 2; ++color) {
-      T* self = color == 0 ? sR : sB;
-      const T* other = color == 0 ? sB : sR;
-      const T* rhs = color == 0 ? cR : cB;
-      for (int r = ty; r < wr; r += nwarps) {
-        const int gi = r0 + r;
-        if (r < 1 || r > wr - 2 || gi < 1 || gi > nx - 2) continue;
-        // j parity of this colour's cells in row gi: red (i+j) even, black odd
-        const int jpar = (gi + color) & 1;
-        const int shift = jpar ? 1 : -1;
-        const bool own_row = r >= hr && r < hr + tile_rows;
-        for (int c = tx; c < wc; c += 32) {
-          const int gc = c0 + c;
-          const int j = 2 * gc + jpar;
-          const int cs = c + shift;
-          if (gc < 0 || gc >= ny2 || j < 1 || j > ny - 2 || cs < 0 || cs >= wc)
+    const int left = 2 * (k - 1 - sweep);  // half-sweeps after this sweep
+    packed_half_sweep<T, false>(t, sR, sB, nullptr, rhs, 0, left + 1, dx2,
+                                dy2, denom, beta, last, &dmax);
+    __syncthreads();
+    packed_half_sweep<T, false>(t, sB, sR, nullptr, rhs, 1, left, dx2, dy2,
+                                denom, beta, last, &dmax);
+    __syncthreads();
+  }
+
+  for (int r = t.hr + ty; r < t.hr + tile_rows; r += nwarps) {
+    const int gi = t.r0 + r;
+    if (gi < 0 || gi >= nx) continue;
+    for (int c = t.hc + tx; c < t.hc + tile_cols; c += 32) {
+      const int gc = t.c0 + c;
+      if (gc < 0 || gc >= ny2) continue;
+      const size_t g = static_cast<size_t>(gi) * ny2 + gc;
+      Rout[g] = sR[r * t.wc + c];
+      Bout[g] = sB[r * t.wc + c];
+    }
+  }
+  dmax = warp_max(dmax);
+  if (tx == 0 && dmax != U(0)) atomicMax(err, dmax);
+}
+
+// All blocks of a cooperative launch meet here; `target` is the number of
+// arrivals the counter reaches at this barrier (barrier number x blocks).
+// Thread 0's fences release the block's global writes before it arrives
+// and acquire the other blocks' after (as cooperative_groups' grid sync).
+__device__ __forceinline__ void grid_barrier(unsigned* arrived,
+                                             unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(arrived, 1u);
+    // a watchdog: blocks that never arrive (a fault, never a slow block:
+    // the launch keeps them all resident) end the kernel with an error
+    // after a few seconds instead of hanging the card
+    for (long spins = 0;
+         *reinterpret_cast<volatile unsigned*>(arrived) < target; ++spins) {
+      if (spins > (1l << 22)) __trap();
+      __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// K4's resident route: the whole solve in one cooperative launch, every
+// block resident on its own SM. A block packs its working tile of p (and,
+// with C_SMEM, of rhs_c) into shared memory as it loads them, and keeps
+// them there for the whole solve. Each gate group: k sweeps in shared
+// memory; the block folds its own cells' last-sweep max|dp| into the
+// group's error slot (one atomicMax per warp) and writes its own cells to
+// the exchange planes of the group's parity; grid barrier; every block
+// reads the slot and applies the TPU while_loop's gate (err from +inf,
+// it from 1, it += k), so all take the same decision; a block that goes
+// on reloads only its halo ring from the exchange planes (through L2:
+// another SM wrote them). The exchange planes ping-pong, so a block that
+// writes group g+1's cells never overwrites what a slower block is still
+// reading of group g. At exit the own cells go out unpacked.
+template <typename T, bool C_SMEM>
+__global__ void __launch_bounds__(1024)
+sor_packed_resident_kernel(const T* __restrict__ p_in,
+                           const T* __restrict__ rhs, T* __restrict__ p_out,
+                           T* __restrict__ xch,
+                           typename Bits<T>::U* __restrict__ errs,
+                           unsigned* __restrict__ arrived, int nx, int ny,
+                           int tile_rows, int tile_cols, int k, T dx2, T dy2,
+                           T denom, T beta, T tol, int max_iter) {
+  using U = typename Bits<T>::U;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ny2 = ny / 2;
+  const PackedTile t = packed_tile(nx, ny, tile_rows, tile_cols, k);
+  const int cells = t.wr * t.wc;
+  T* sR = reinterpret_cast<T*>(smem);
+  T* sB = sR + cells;
+  T* sCR = C_SMEM ? sB + cells : nullptr;
+  T* sCB = C_SMEM ? sCR + cells : nullptr;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const size_t plane = static_cast<size_t>(nx) * ny2;
+  const unsigned nblocks = gridDim.x * gridDim.y;
+
+  // load the working tile, packing as it comes: R[i, jc] = p[i, 2jc + i%2]
+  for (int r = ty; r < t.wr; r += nwarps) {
+    const int gi = t.r0 + r;
+    if (gi < 0 || gi >= nx) continue;
+    const bool even_row = (gi & 1) == 0;
+    for (int c = tx; c < t.wc; c += 32) {
+      const int gc = t.c0 + c;
+      if (gc < 0 || gc >= ny2) continue;
+      const size_t g = static_cast<size_t>(gi) * ny + 2 * gc;
+      const T a = p_in[g], b = p_in[g + 1];
+      sR[r * t.wc + c] = even_row ? a : b;
+      sB[r * t.wc + c] = even_row ? b : a;
+      if constexpr (C_SMEM) {
+        const T ca = rhs[g], cb = rhs[g + 1];
+        sCR[r * t.wc + c] = even_row ? ca : cb;
+        sCB[r * t.wc + c] = even_row ? cb : ca;
+      }
+    }
+  }
+  __syncthreads();
+
+  T err = Bits<T>::value(Bits<T>::kInf);
+  int it = 1, g = 0;
+  while (err > tol && it < max_iter) {
+    U dmax = 0;
+    for (int sweep = 0; sweep < k; ++sweep) {
+      const bool last = sweep == k - 1;
+      const int left = 2 * (k - 1 - sweep);  // half-sweeps after this sweep
+      packed_half_sweep<T, C_SMEM>(t, sR, sB, sCR, rhs, 0, left + 1, dx2, dy2,
+                                   denom, beta, last, &dmax);
+      __syncthreads();
+      packed_half_sweep<T, C_SMEM>(t, sB, sR, sCB, rhs, 1, left, dx2, dy2,
+                                   denom, beta, last, &dmax);
+      __syncthreads();
+    }
+    dmax = warp_max(dmax);
+    if (tx == 0 && dmax != U(0)) atomicMax(errs + g, dmax);
+    T* XR = xch + (g & 1) * 2 * plane;
+    T* XB = XR + plane;
+    for (int r = t.hr + ty; r < t.hr + tile_rows; r += nwarps) {
+      const int gi = t.r0 + r;
+      if (gi >= nx) break;
+      for (int c = t.hc + tx; c < t.hc + tile_cols; c += 32) {
+        const int gc = t.c0 + c;
+        if (gc >= ny2) break;
+        const size_t gq = static_cast<size_t>(gi) * ny2 + gc;
+        XR[gq] = sR[r * t.wc + c];
+        XB[gq] = sB[r * t.wc + c];
+      }
+    }
+    grid_barrier(arrived, (g + 1) * nblocks);
+    err = Bits<T>::value(__ldcg(errs + g));
+    it += k;
+    ++g;
+    if (err > tol && it < max_iter) {
+      // the halo ring: every working cell of the grid outside the own tile
+      for (int r = ty; r < t.wr; r += nwarps) {
+        const int gi = t.r0 + r;
+        if (gi < 0 || gi >= nx) continue;
+        const bool own_row = r >= t.hr && r < t.hr + tile_rows;
+        for (int c = tx; c < t.wc; c += 32) {
+          const int gc = t.c0 + c;
+          if (gc < 0 || gc >= ny2 ||
+              (own_row && c >= t.hc && c < t.hc + tile_cols))
             continue;
-          const int q = r * wc + c;
-          const T old = self[q];
-          const T t = dy2 * (other[q + wc] + other[q - wc]) +
-                      dx2 * (other[q] + other[r * wc + cs]) -
-                      rhs[static_cast<size_t>(gi) * ny2 + gc];
-          const T nw = beta * t / denom + omb * old;
-          self[q] = nw;
-          if (last && own_row && c >= hc && c < hc + tile_cols) {
-            const U d = Bits<T>::of_abs(nw - old);
-            dmax = d > dmax ? d : dmax;
-          }
+          const size_t gq = static_cast<size_t>(gi) * ny2 + gc;
+          sR[r * t.wc + c] = __ldcg(XR + gq);
+          sB[r * t.wc + c] = __ldcg(XB + gq);
         }
       }
       __syncthreads();
     }
   }
 
-  for (int r = hr + ty; r < hr + tile_rows; r += nwarps) {
-    const int gi = r0 + r;
-    if (gi < 0 || gi >= nx) continue;
-    for (int c = hc + tx; c < hc + tile_cols; c += 32) {
-      const int gc = c0 + c;
-      if (gc < 0 || gc >= ny2) continue;
-      const size_t g = static_cast<size_t>(gi) * ny2 + gc;
-      Rout[g] = sR[r * wc + c];
-      Bout[g] = sB[r * wc + c];
+  for (int r = t.hr + ty; r < t.hr + tile_rows; r += nwarps) {
+    const int gi = t.r0 + r;
+    if (gi >= nx) break;
+    const bool even_row = (gi & 1) == 0;
+    for (int c = t.hc + tx; c < t.hc + tile_cols; c += 32) {
+      const int gc = t.c0 + c;
+      if (gc >= ny2) break;
+      const size_t gq = static_cast<size_t>(gi) * ny + 2 * gc;
+      const T vr = sR[r * t.wc + c], vb = sB[r * t.wc + c];
+      p_out[gq] = even_row ? vr : vb;
+      p_out[gq + 1] = even_row ? vb : vr;
     }
   }
-  dmax = warp_max(dmax);
-  if (tx == 0 && dmax != U(0)) atomicMax(err, dmax);
 }
 
 template <typename T>
@@ -359,19 +661,49 @@ int jacobi_multiblock(const void* p, const void* b, void* out, void* scratch,
   return cudaGetLastError();
 }
 
+template <typename T, int MAXC>
+cudaError_t launch_sor_fused(const T* p, const T* rhs, T* out, int nx, int ny,
+                             T dx2, T dy2, T denom, T beta, T tol,
+                             int max_iter, cudaStream_t s) {
+  // rhs_c in registers while a thread's share of both colours is at most
+  // 16 words (64 registers a thread at 1024 threads); else in shared memory
+  constexpr bool kRhsReg = 2 * MAXC * sizeof(T) <= 64;
+  auto kernel = sor_redblack_fused_kernel<T, MAXC, kRhsReg>;
+  const int cells = k1_count(nx, ny, 0) + k1_count(nx, ny, 1);
+  const size_t smem = (2 * static_cast<size_t>(nx) * ((ny + 1) / 2) +
+                       (kRhsReg ? 0 : cells)) * sizeof(T);
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<1, 1024, smem, s>>>(p, rhs, out, nx, ny, dx2, dy2, denom, beta,
+                               tol, max_iter);
+  return cudaGetLastError();
+}
+
+// K1's entry: picks the instance whose MAXC covers this grid's cells per
+// thread (poisson_kernels.py::k1_layout mirrors the choice).
 template <typename T>
 int sor_redblack_fused(const void* p, const void* rhs, void* out, int nx,
                        int ny, double dx2, double dy2, double denom,
                        double beta, double tol, int max_iter, void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(nx) * ny * sizeof(T);
-  cudaError_t e = allow_smem(sor_redblack_fused_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  sor_redblack_fused_kernel<T>
-      <<<1, 1024, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(p), static_cast<const T*>(rhs),
-          static_cast<T*>(out), nx, ny, T(dx2), T(dy2), T(denom), T(beta),
-          T(tol), max_iter);
-  return cudaGetLastError();
+  if (nx < 3 || ny < 3 || 2 * nx * ((ny + 1) / 2) > 65535)
+    return cudaErrorInvalidValue;
+  const int most = max(k1_count(nx, ny, 0), k1_count(nx, ny, 1));
+  const int per_thread = (most + 1023) / 1024;
+  const T* pp = static_cast<const T*>(p);
+  const T* cc = static_cast<const T*>(rhs);
+  T* o = static_cast<T*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NS_K1(M)                                                             \
+  if (per_thread <= M)                                                       \
+    return launch_sor_fused<T, M>(pp, cc, o, nx, ny, T(dx2), T(dy2),         \
+                                  T(denom), T(beta), T(tol), max_iter, s);
+  NS_K1(1)
+  NS_K1(2)
+  NS_K1(4)
+  NS_K1(8)
+  NS_K1(16)
+#undef NS_K1
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -398,11 +730,11 @@ int sor_redblack_tiled_group(void* p, const void* rhs, void* err, int nx,
 // One K4 gate group: k sweeps of the packed planes (R, B) -> (Rout, Bout)
 // in one launch, the last sweep's max|dp| left in *err.
 template <typename T>
-int sor_redblack_packed_group(const void* R, const void* B, const void* cR,
-                              const void* cB, void* Rout, void* Bout,
-                              void* err, int nx, int ny, int tile_rows,
-                              int tile_cols, double dx2, double dy2,
-                              double denom, double beta, int k, void* stream) {
+int sor_redblack_packed_group(const void* R, const void* B, const void* rhs,
+                              void* Rout, void* Bout, void* err, int nx,
+                              int ny, int tile_rows, int tile_cols,
+                              double dx2, double dy2, double denom,
+                              double beta, int k, void* stream) {
   using U = typename Bits<T>::U;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || tile_rows < 1 || tile_cols < 1 || ny % 2)
@@ -417,10 +749,78 @@ int sor_redblack_packed_group(const void* R, const void* B, const void* cR,
                   (nx + tile_rows - 1) / tile_rows);
   sor_packed_group_kernel<T><<<grid, 1024, smem, s>>>(
       static_cast<const T*>(R), static_cast<const T*>(B),
-      static_cast<const T*>(cR), static_cast<const T*>(cB),
-      static_cast<T*>(Rout), static_cast<T*>(Bout), nx, ny, tile_rows,
-      tile_cols, k, T(dx2), T(dy2), T(denom), T(beta), static_cast<U*>(err));
+      static_cast<const T*>(rhs), static_cast<T*>(Rout),
+      static_cast<T*>(Bout), nx, ny, tile_rows, tile_cols, k, T(dx2), T(dy2),
+      T(denom), T(beta), static_cast<U*>(err));
   return cudaGetLastError();
+}
+
+template <typename T>
+void* packed_resident_kernel(int c_smem) {
+  return c_smem ? reinterpret_cast<void*>(sor_packed_resident_kernel<T, true>)
+                : reinterpret_cast<void*>(sor_packed_resident_kernel<T, false>);
+}
+
+size_t packed_resident_smem(int tile_rows, int tile_cols, int k, int c_smem,
+                            size_t itemsize) {
+  return (c_smem ? 4 : 2) * static_cast<size_t>(tile_rows + 4 * k) *
+         (tile_cols + 2 * k) * itemsize;
+}
+
+// Blocks of 1024 threads of the resident kernel one SM holds at once, for
+// the wrapper's co-residency check.
+template <typename T>
+int sor_packed_resident_occupancy(int tile_rows, int tile_cols, int k,
+                                  int c_smem, int* blocks_per_sm) {
+  const void* kernel = packed_resident_kernel<T>(c_smem);
+  const size_t smem =
+      packed_resident_smem(tile_rows, tile_cols, k, c_smem, sizeof(T));
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                       1024, smem);
+}
+
+// A whole K4 solve in one cooperative launch (the resident route). xch:
+// 4 (nx, ny/2) planes; errs: n_slots gate slots, one per group; arrived:
+// the grid barrier's counter. The slots and the counter are zeroed here.
+template <typename T>
+int sor_redblack_packed_resident(const void* p, const void* rhs, void* out,
+                                 void* xch, void* errs, void* arrived,
+                                 int n_slots, int nx, int ny, int tile_rows,
+                                 int tile_cols, int c_smem, double dx2,
+                                 double dy2, double denom, double beta,
+                                 double tol, int max_iter, int k,
+                                 void* stream) {
+  using U = typename Bits<T>::U;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int groups = max_iter > 1 ? (max_iter - 1 + k - 1) / k : 0;
+  if (k < 1 || tile_rows < 1 || tile_cols < 1 || ny % 2 ||
+      n_slots < max(groups, 1))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(errs, 0, n_slots * sizeof(U), s);
+  if (e == cudaSuccess) e = cudaMemsetAsync(arrived, 0, sizeof(unsigned), s);
+  if (e != cudaSuccess) return e;
+  const void* kernel = packed_resident_kernel<T>(c_smem);
+  const size_t smem =
+      packed_resident_smem(tile_rows, tile_cols, k, c_smem, sizeof(T));
+  e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((ny / 2 + tile_cols - 1) / tile_cols,
+                  (nx + tile_rows - 1) / tile_rows);
+  const T* a_p = static_cast<const T*>(p);
+  const T* a_rhs = static_cast<const T*>(rhs);
+  T* a_out = static_cast<T*>(out);
+  T* a_xch = static_cast<T*>(xch);
+  U* a_errs = static_cast<U*>(errs);
+  unsigned* a_arrived = static_cast<unsigned*>(arrived);
+  T a_dx2 = T(dx2), a_dy2 = T(dy2), a_denom = T(denom), a_beta = T(beta),
+    a_tol = T(tol);
+  void* args[] = {&a_p,   &a_rhs,     &a_out,     &a_xch,  &a_errs,
+                  &a_arrived, &nx,    &ny,        &tile_rows, &tile_cols,
+                  &k,     &a_dx2,     &a_dy2,     &a_denom, &a_beta,
+                  &a_tol, &max_iter};
+  return cudaLaunchCooperativeKernel(kernel, grid, dim3(1024), args, smem, s);
 }
 
 }  // namespace ns
@@ -477,14 +877,26 @@ NS_SOR_TILED(f64, double)
 
 #define NS_SOR_PACKED(SUFFIX, T)                                              \
   int ns_sor_redblack_packed_group_##SUFFIX(                                 \
-      const void* R, const void* B, const void* cR, const void* cB,          \
-      void* Rout, void* Bout, void* err, int nx, int ny, int tile_rows,      \
-      int tile_cols, double dx2, double dy2, double denom, double beta,      \
-      int k, void* stream) {                                                 \
-    return ns::sor_redblack_packed_group<T>(R, B, cR, cB, Rout, Bout, err,   \
-                                            nx, ny, tile_rows, tile_cols,    \
-                                            dx2, dy2, denom, beta, k,        \
-                                            stream);                         \
+      const void* R, const void* B, const void* rhs, void* Rout, void* Bout, \
+      void* err, int nx, int ny, int tile_rows, int tile_cols, double dx2,   \
+      double dy2, double denom, double beta, int k, void* stream) {          \
+    return ns::sor_redblack_packed_group<T>(R, B, rhs, Rout, Bout, err, nx,  \
+                                            ny, tile_rows, tile_cols, dx2,   \
+                                            dy2, denom, beta, k, stream);    \
+  }                                                                          \
+  int ns_sor_redblack_packed_resident_##SUFFIX(                              \
+      const void* p, const void* rhs, void* out, void* xch, void* errs,      \
+      void* arrived, int n_slots, int nx, int ny, int tile_rows,             \
+      int tile_cols, int c_smem, double dx2, double dy2, double denom,       \
+      double beta, double tol, int max_iter, int k, void* stream) {          \
+    return ns::sor_redblack_packed_resident<T>(                              \
+        p, rhs, out, xch, errs, arrived, n_slots, nx, ny, tile_rows,         \
+        tile_cols, c_smem, dx2, dy2, denom, beta, tol, max_iter, k, stream); \
+  }                                                                          \
+  int ns_sor_packed_resident_occupancy_##SUFFIX(                             \
+      int tile_rows, int tile_cols, int k, int c_smem, int* blocks_per_sm) { \
+    return ns::sor_packed_resident_occupancy<T>(tile_rows, tile_cols, k,     \
+                                                c_smem, blocks_per_sm);      \
   }
 NS_SOR_PACKED(f32, float)
 NS_SOR_PACKED(f64, double)

@@ -34,8 +34,16 @@ def launch_counts() -> dict[str, int]:
     return {w.__name__: w.launches for w in WRAPPERS.values()}
 
 
+def call_counts() -> dict[str, int]:
+    """Wrapper calls that launched since the last reset, by wrapper name
+    (K4's group route and K5 launch once per gate group of a call)."""
+    return {w.__name__: w.calls for w in WRAPPERS.values()}
+
+
 def reset_launch_counts() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
+        w.calls = 0
+    sor_redblack_packed_multiblock.launches_resident = 0
     for w in (fused_zy_forward, fused_yz_inverse, fused_lamb):
         w.launches_bf16 = 0

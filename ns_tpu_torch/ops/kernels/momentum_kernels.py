@@ -86,7 +86,9 @@ def momentum_explicit_fused(un, vn, un1, vn1, dt: float, dx: float,
                   vspec, _build.stream(un.device))
     _build.check(code, "momentum_explicit_fused")
     momentum_explicit_fused.launches += 1
+    momentum_explicit_fused.calls += 1
     return uo, vo
 
 
 momentum_explicit_fused.launches = 0
+momentum_explicit_fused.calls = 0

@@ -21,22 +21,38 @@ and keeps a plain twin:
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel or raises; nothing falls back. Each wrapper
-counts its kernel launches in a `launches` attribute.
+counts its kernel launches in a `launches` attribute and its calls that
+launched in `calls` (K4 and K5 launch once per gate group where the host
+reads the gate; K4's resident route counts its solves in
+`launches_resident` too).
 
 What bounds each kernel on the H100, and how the design answers it, is in
-the CUDA source's header. In short: K1/K2 keep the whole grid in one
-block's shared memory and run every sweep (and K1's convergence gate) in
-one launch, because at the reference sizes a solve is latency-bound; K5
-runs each colour half-sweep over the whole grid with many blocks and reads
-its gate once per k sweeps; K4 runs all k sweeps of a gate group in one
-launch, each block on a 2D tile of the packed colour planes with the halo
-their dependency cone needs; K2's multi-block form runs each sweep as one
-grid launch and the BC edges as one ordered single-block launch.
+the CUDA source's header. In short:
+- K1 and K2 keep the whole grid in one block's shared memory and run every
+  sweep (and K1's convergence gate) in one launch: at the reference sizes
+  a solve is a chain of dependent sweeps, latency-bound. K1 keeps p as
+  packed colour planes, gives each thread fixed cells of each colour
+  (offsets and rhs_c found once, `k1_layout`), and publishes the gate
+  through the colour barriers: two barriers a sweep, no division and no
+  idle lane in the sweep loop.
+- K4 runs a whole solve in one cooperative launch where its tile plan
+  (`resident_plan`) puts one block on each SM with its tile of the packed
+  planes resident in shared memory: k sweeps a group there, an exchange of
+  own cells through L2, a grid barrier and the gate read on the device.
+  Grids too large for the card's shared memory keep one launch per gate
+  group and the host gate.
+- K5 runs each colour half-sweep over the whole grid with many blocks and
+  reads its gate on the host once per k sweeps; K2's multi-block form runs
+  each sweep as one grid launch and the BC edges as one ordered
+  single-block launch.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -82,10 +98,12 @@ def jacobi_fused(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
                   spec, _build.stream(p.device))
     _build.check(code, "jacobi_fused")
     jacobi_fused.launches += 1
+    jacobi_fused.calls += 1
     return out
 
 
 jacobi_fused.launches = 0
+jacobi_fused.calls = 0
 
 
 def jacobi_multiblock(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
@@ -108,17 +126,74 @@ def jacobi_multiblock(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
                   dx2 * dy2 / denom, len(p_bc), spec, _build.stream(p.device))
     _build.check(code, "jacobi_multiblock")
     jacobi_multiblock.launches += 1
+    jacobi_multiblock.calls += 1
     return out
 
 
 jacobi_multiblock.launches = 0
+jacobi_multiblock.calls = 0
+
+
+# --- K1: one block, fixed cells per thread -----------------------------------
+#
+# The kernel lists each colour's interior cells in row-major order and gives
+# thread t the entries t, t + 1024, ... of both lists. `k1_cells` mirrors
+# its index arithmetic (csrc/poisson_kernels.cu::k1_cell).
+
+K1_THREADS = 1024
+# the kernel's instances: list entries a thread owns per colour (at most)
+K1_CELLS_PER_THREAD = (1, 2, 4, 8, 16)
+
+
+def k1_count(nx: int, ny: int, color: int) -> int:
+    """Interior cells of colour `color` (0 red, (i+j) even; 1 black)."""
+    return ((nx - 1) // 2 * ((ny - 1 - color) // 2)
+            + (nx - 2) // 2 * ((ny - 2 + color) // 2))
+
+
+def k1_cells(nx: int, ny: int, color: int, n: torch.Tensor):
+    """(i, j) of the n-th interior cell of `color`, row-major: odd rows hold
+    `a` cells from j = 1 + color, even rows `b` from j = 2 - color."""
+    a, b = (ny - 1 - color) // 2, (ny - 2 + color) // 2
+    pair, rem = n // (a + b), n % (a + b)
+    odd_row = rem < a
+    i = 2 * pair + torch.where(odd_row, 1, 2)
+    j = (torch.where(odd_row, 1 + color, 2 - color)
+         + 2 * torch.where(odd_row, rem, rem - a))
+    return i, j
+
+
+class K1Layout(NamedTuple):
+    width: int               # packed plane columns, (ny + 1) // 2
+    cells_per_thread: int    # the instance: list entries a thread owns
+    rhs_in_registers: bool   # else rhs_c sits in shared memory
+    smem_bytes: int
+
+
+def k1_layout(nx: int, ny: int, itemsize: int) -> K1Layout:
+    """The K1 instance the C entry picks for a grid (`sor_redblack_fused`
+    in the CUDA source): the smallest cells-per-thread count that covers the
+    larger colour, rhs_c in registers while a thread's share of both
+    colours is at most 16 words."""
+    most = max(k1_count(nx, ny, 0), k1_count(nx, ny, 1))
+    per = -(-most // K1_THREADS)
+    maxc = next((m for m in K1_CELLS_PER_THREAD if per <= m), None)
+    if maxc is None:
+        raise ValueError(f"K1: {nx}x{ny} needs {per} cells a thread")
+    width = (ny + 1) // 2
+    in_regs = 2 * maxc * itemsize <= 64
+    cells = k1_count(nx, ny, 0) + k1_count(nx, ny, 1)
+    smem = (2 * nx * width + (0 if in_regs else cells)) * itemsize
+    return K1Layout(width, maxc, in_regs, smem)
 
 
 def sor_redblack_fused(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
                        dy: float, beta: float, tol: float,
                        max_iter: int) -> torch.Tensor:
     """Red-black SOR to tolerance with the gate on the device: the whole
-    chorin_fd pressure solve in one launch of one block (K1)."""
+    chorin_fd pressure solve in one launch of one block (K1), p as packed
+    colour planes in shared memory, each thread on fixed cells of each
+    colour (`k1_layout`)."""
     if p.device.type == "cpu":
         return poisson.sor_redblack(p, rhs_c, dx, dy, beta, tol, max_iter)
     nx, ny = _build.check_inputs("sor_redblack_fused", p, rhs_c)
@@ -135,10 +210,12 @@ def sor_redblack_fused(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
                   _build.stream(p.device))
     _build.check(code, "sor_redblack_fused")
     sor_redblack_fused.launches += 1
+    sor_redblack_fused.calls += 1
     return out
 
 
 sor_redblack_fused.launches = 0
+sor_redblack_fused.calls = 0
 
 
 def sor_redblack_tiled(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
@@ -188,10 +265,12 @@ def sor_redblack_multiblock(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
             # non-negative value reads back as the value itself
             err = float(err_buf.item())
             it += k
+    sor_redblack_multiblock.calls += 1
     return q
 
 
 sor_redblack_multiblock.launches = 0
+sor_redblack_multiblock.calls = 0
 
 
 # --- K4: packed red/black planes ---------------------------------------------
@@ -205,8 +284,8 @@ sor_redblack_multiblock.launches = 0
 # with jc+1, black the opposite. The iterate sequence is the red-black
 # sweeps' (`sor_redblack_tiled`).
 
-# own packed cells (rows, columns) of one K4 block; the halo is added
-# around them (`packed_tile_bytes`)
+# own packed cells (rows, columns) of one block of K4's group route; the
+# halo is added around them (`packed_tile_bytes`)
 PACKED_TILE = (64, 64)
 
 
@@ -292,11 +371,111 @@ def sor_redblack_packed_tiled(p: torch.Tensor, rhs_c: torch.Tensor,
 
 
 def packed_tile_bytes(k: int, itemsize: int) -> int:
-    """Shared memory of one K4 block: the R and B planes of its tile, own
-    cells plus a halo of 2k rows and k packed columns on each side (the
-    reach of k red-black sweeps: one cell per colour half-sweep)."""
+    """Shared memory of one block of K4's group route: the R and B planes
+    of its tile, own cells plus a halo of 2k rows and k packed columns on
+    each side (the reach of k red-black sweeps: one cell per colour
+    half-sweep)."""
     rows, cols = PACKED_TILE
     return 2 * (rows + 4 * k) * (cols + 2 * k) * itemsize
+
+
+# --- K4's resident route: the tile plan ----------------------------------------
+
+# the H100's shared memory per block (opt-in), and its SMs
+H100_SMEM_PER_BLOCK = 232448
+H100_SMS = 132
+# own-tile sides (packed rows, packed columns) the plan chooses among
+PLAN_ROWS = (16, 32, 48, 64, 96, 128, 192, 256)
+PLAN_COLS = (16, 32, 48, 64, 96, 128)
+
+
+class ResidentPlan(NamedTuple):
+    tile_rows: int      # own packed rows of a block's tile
+    tile_cols: int      # own packed columns
+    grid_rows: int      # tiles down the grid (blockIdx.y)
+    grid_cols: int      # tiles across (blockIdx.x)
+    k: int              # sweeps per gate group
+    c_in_smem: bool     # rhs_c's tile planes in shared memory too
+    smem_bytes: int     # shared memory of one block
+
+    @property
+    def blocks(self) -> int:
+        return self.grid_rows * self.grid_cols
+
+    @property
+    def working(self) -> tuple[int, int]:
+        """A block's working tile: own cells plus 2k rows and k packed
+        columns of halo on each side."""
+        return self.tile_rows + 4 * self.k, self.tile_cols + 2 * self.k
+
+
+def resident_plan(nx: int, ny: int, itemsize: int, n_sms: int = H100_SMS,
+                  smem_per_block: int = H100_SMEM_PER_BLOCK,
+                  k: int = 8) -> ResidentPlan | None:
+    """The tile plan of K4's resident route, or None where no plan keeps
+    every tile resident: one block of 1024 threads on each SM (its 64
+    registers a thread fill the SM's register file), so at most `n_sms`
+    tiles, each tile's working R and B planes in one block's shared memory
+    (less 1 KB). Of the plans that fit, the one with the fewest working
+    cells a block (the time of a sweep, since all blocks run at once),
+    then the fewest blocks, then the widest tile. rhs_c's tile planes join
+    p's in shared memory where all four fit. The route's shape predicate
+    is `plan is not None` (ny even)."""
+    if ny % 2:
+        return None
+    ny2 = ny // 2
+    budget = smem_per_block - 1024
+    best = None
+    for tr in PLAN_ROWS:
+        for tc in PLAN_COLS:
+            blocks = -(-nx // tr) * -(-ny2 // tc)
+            wr, wc = tr + 4 * k, tc + 2 * k
+            if blocks > n_sms or 2 * wr * wc * itemsize > budget:
+                continue
+            key = (wr * wc, blocks, -tc)
+            if best is None or key < best[0]:
+                best = (key, tr, tc)
+    if best is None:
+        return None
+    _, tr, tc = best
+    wr, wc = tr + 4 * k, tc + 2 * k
+    c_smem = 4 * wr * wc * itemsize <= budget
+    return ResidentPlan(tr, tc, -(-nx // tr), -(-ny2 // tc), k, c_smem,
+                        (4 if c_smem else 2) * wr * wc * itemsize)
+
+
+def gate_groups(max_iter: int, k: int) -> int:
+    """Gate groups the TPU while_loop runs at most (it from 1, it += k,
+    while it < max_iter): one error slot each."""
+    return max(0, -(-(max_iter - 1) // k))
+
+
+@functools.cache
+def _card_plan(device: torch.device, nx: int, ny: int, dtype: torch.dtype,
+               k: int) -> ResidentPlan | None:
+    """`resident_plan` with this card's SMs and shared memory, checked
+    against the kernel's own occupancy (blocks of 1024 threads an SM
+    holds at the plan's shared memory)."""
+    props = torch.cuda.get_device_properties(device)
+    smem = getattr(props, "shared_memory_per_block_optin",
+                   H100_SMEM_PER_BLOCK)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = resident_plan(nx, ny, itemsize, props.multi_processor_count, smem,
+                         k)
+    if plan is None:
+        return None
+    per_sm = ctypes.c_int(0)
+    fn = _build.entry("ns_sor_packed_resident_occupancy", dtype)
+    with torch.cuda.device(device):
+        code = fn(plan.tile_rows, plan.tile_cols, k, int(plan.c_in_smem),
+                  ctypes.byref(per_sm))
+    _build.check(code, "sor_redblack_packed_multiblock occupancy")
+    if per_sm.value * props.multi_processor_count < plan.blocks:
+        raise RuntimeError(
+            f"sor_redblack_packed_multiblock: the plan {plan} needs "
+            f"{plan.blocks} resident blocks, the card holds "
+            f"{per_sm.value} an SM")
+    return plan
 
 
 def sor_redblack_packed_multiblock(p: torch.Tensor, rhs_c: torch.Tensor,
@@ -304,23 +483,68 @@ def sor_redblack_packed_multiblock(p: torch.Tensor, rhs_c: torch.Tensor,
                                    tol: float, max_iter: int,
                                    k: int = 8) -> torch.Tensor:
     """Red-black SOR on packed colour planes for grids beyond one block
-    (K4). Each launch runs one gate group of k full sweeps: every block
-    loads a tile of R and B with its halo into shared memory, sweeps it k
-    times and writes its own cells into the other buffers of a ping-pong
-    pair, with the last sweep's max|dp| over its own cells folded into a
-    device scalar. The host reads it once per group and applies the same
-    gate as `sor_redblack_packed_tiled`. Any shape with an even ny."""
+    (K4), any shape with an even ny, with `sor_redblack_packed_tiled`'s
+    iterate sequence and gate.
+
+    Resident route, where this card's tile plan exists (`resident_plan`):
+    the whole solve is one cooperative launch with no host read. Each
+    block packs its tile of p (and rhs_c, where it fits) into shared memory
+    as it loads it and keeps it there; per gate group it runs k sweeps,
+    exchanges its own cells through an L2 buffer, meets the other blocks at
+    a grid barrier and reads the group's error slot; the output is written
+    unpacked. Counted in `launches` and `launches_resident`.
+
+    Group route, for grids too large for the card's shared memory: each
+    launch runs one gate group on 64x64 tiles of the packed planes
+    (`pack_redblack` here) into the other buffers of a ping-pong pair, and
+    the host reads the gate once per group."""
     if p.device.type == "cpu":
         return sor_redblack_packed_tiled(p, rhs_c, dx, dy, beta, tol,
                                          max_iter, k)
     nx, ny = _build.check_inputs("sor_redblack_packed_multiblock", p, rhs_c)
+    if ny % 2:
+        raise ValueError(f"packed red-black planes need an even ny, got {ny}")
+    if k < 1:
+        raise ValueError(f"sor_redblack_packed_multiblock: k={k}")
+    plan = _card_plan(p.device, nx, ny, p.dtype, k)
+    if plan is None:
+        out = _packed_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k)
+    else:
+        out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter)
+    sor_redblack_packed_multiblock.calls += 1
+    return out
+
+
+def _packed_resident(plan: ResidentPlan, p, rhs_c, dx, dy, beta, tol,
+                     max_iter) -> torch.Tensor:
+    nx, ny = p.shape
+    dx2, dy2, denom = _consts(dx, dy)
+    out = torch.empty_like(p)
+    xch = torch.empty((4, nx, ny // 2), dtype=p.dtype, device=p.device)
+    n_slots = max(1, gate_groups(max_iter, plan.k))
+    errs = torch.empty(n_slots, dtype=torch.int64, device=p.device)
+    arrived = torch.empty(1, dtype=torch.int32, device=p.device)
+    fn = _build.entry("ns_sor_redblack_packed_resident", p.dtype)
+    with torch.cuda.device(p.device):
+        code = fn(p.data_ptr(), rhs_c.data_ptr(), out.data_ptr(),
+                  xch.data_ptr(), errs.data_ptr(), arrived.data_ptr(),
+                  n_slots, nx, ny, plan.tile_rows, plan.tile_cols,
+                  int(plan.c_in_smem), dx2, dy2, denom, float(beta),
+                  float(tol), int(max_iter), plan.k, _build.stream(p.device))
+    _build.check(code, "sor_redblack_packed_multiblock")
+    sor_redblack_packed_multiblock.launches += 1
+    sor_redblack_packed_multiblock.launches_resident += 1
+    return out
+
+
+def _packed_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k) -> torch.Tensor:
+    nx, ny = p.shape
     smem = packed_tile_bytes(k, p.element_size())
-    if k < 1 or smem > SMEM_BUDGET:
+    if smem > SMEM_BUDGET:
         raise ValueError(f"sor_redblack_packed_multiblock: k={k} needs "
                          f"{smem} bytes of shared memory per block")
     dx2, dy2, denom = _consts(dx, dy)
-    R, B = pack_redblack(p)  # raises on an odd ny
-    cR, cB = pack_redblack(rhs_c)
+    R, B = pack_redblack(p)
     R2, B2 = torch.empty_like(R), torch.empty_like(B)
     err_buf = torch.empty(1, dtype=p.dtype, device=p.device)
     fn = _build.entry("ns_sor_redblack_packed_group", p.dtype)
@@ -330,10 +554,9 @@ def sor_redblack_packed_multiblock(p: torch.Tensor, rhs_c: torch.Tensor,
     with torch.cuda.device(p.device):
         s = _build.stream(p.device)
         while err > tol and it < max_iter:
-            code = fn(R.data_ptr(), B.data_ptr(), cR.data_ptr(),
-                      cB.data_ptr(), R2.data_ptr(), B2.data_ptr(),
-                      err_buf.data_ptr(), nx, ny, rows, cols, dx2, dy2, denom,
-                      float(beta), int(k), s)
+            code = fn(R.data_ptr(), B.data_ptr(), rhs_c.data_ptr(),
+                      R2.data_ptr(), B2.data_ptr(), err_buf.data_ptr(), nx,
+                      ny, rows, cols, dx2, dy2, denom, float(beta), int(k), s)
             _build.check(code, "sor_redblack_packed_multiblock")
             sor_redblack_packed_multiblock.launches += 1
             R, B, R2, B2 = R2, B2, R, B
@@ -344,3 +567,5 @@ def sor_redblack_packed_multiblock(p: torch.Tensor, rhs_c: torch.Tensor,
 
 
 sor_redblack_packed_multiblock.launches = 0
+sor_redblack_packed_multiblock.launches_resident = 0
+sor_redblack_packed_multiblock.calls = 0

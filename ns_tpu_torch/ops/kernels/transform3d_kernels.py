@@ -308,11 +308,13 @@ def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
                   B, nx, ny, nz, ry, kzc, _build.stream(w.device))
     _build.check(code, "fused_zy_forward")
     fused_zy_forward.launches += 1
+    fused_zy_forward.calls += 1
     fused_zy_forward.launches_bf16 += bf16
     return out
 
 
 fused_zy_forward.launches = 0
+fused_zy_forward.calls = 0
 fused_zy_forward.launches_bf16 = 0
 
 
@@ -351,11 +353,13 @@ def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,
                   _build.stream(a.device))
     _build.check(code, "fused_yz_inverse")
     fused_yz_inverse.launches += 1
+    fused_yz_inverse.calls += 1
     fused_yz_inverse.launches_bf16 += bf16
     return out
 
 
 fused_yz_inverse.launches = 0
+fused_yz_inverse.calls = 0
 fused_yz_inverse.launches_bf16 = 0
 
 
@@ -403,9 +407,11 @@ def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
                   _build.stream(a6.device))
     _build.check(code, "fused_lamb")
     fused_lamb.launches += 1
+    fused_lamb.calls += 1
     fused_lamb.launches_bf16 += bf16
     return out
 
 
 fused_lamb.launches = 0
+fused_lamb.calls = 0
 fused_lamb.launches_bf16 = 0

@@ -294,15 +294,29 @@ def test_transform_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                  M5["Fz_t"], M5["Fy_t"])
 
 
-@pytest.mark.parametrize("dtype,atol", DTYPES)
-@pytest.mark.parametrize("shape", [(51, 51), (64, 37)])
+# K1's grids: the reference 51^2, an odd-by-even one, and the largest one
+# block holds (170^2 in float32, 120^2 in float64), where rhs_c leaves the
+# registers for shared memory
+K1_CASES = [(torch.float64, 1e-10, (51, 51)), (torch.float32, 1e-4, (51, 51)),
+            (torch.float64, 1e-10, (64, 37)), (torch.float32, 1e-4, (64, 37)),
+            (torch.float64, 1e-10, (120, 120)),
+            (torch.float32, 1e-4, (170, 170))]
+
+
+@pytest.mark.parametrize("dtype,atol,shape", K1_CASES)
 def test_sor_redblack_fused(cuda, dtype, atol, shape):
+    """K1 at a fixed sweep count (tol 0, cap 200) against its twin, then
+    with a converged gate (tol 5e-6: the runs may stop a sweep apart)."""
     h = 2.0 / (shape[0] - 1)
     p0, c = rand(shape, dtype, cuda, 2), rand(shape, dtype, cuda, 3, h * h)
     n0 = kernels.sor_redblack_fused.launches
     got = kernels.sor_redblack_fused(p0, c, h, h, 1.25, 0.0, 200)
     assert kernels.sor_redblack_fused.launches == n0 + 1
     close(got, poisson.sor_redblack(p0, c, h, h, 1.25, 0.0, 200), dtype, atol)
+    got = kernels.sor_redblack_fused(p0, c, h, h, 1.25, 5e-6, 200)
+    conv = 1e-4 if dtype == torch.float64 else 1e-3
+    close(got, poisson.sor_redblack(p0, c, h, h, 1.25, 5e-6, 200), dtype,
+          conv)
 
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)
@@ -318,21 +332,55 @@ def test_sor_redblack_multiblock(cuda, dtype, atol, shape):
           atol)
 
 
-@pytest.mark.parametrize("dtype,atol", DTYPES)
-@pytest.mark.parametrize("shape", [(1024, 1024), (257, 190)])
-def test_sor_redblack_packed_multiblock(cuda, dtype, atol, shape):
-    """K4, tol=0 and cap 8*4+1: four launches of k=8 sweeps, against its
-    twin and against K5 (the same iterate sequence); 257x190 is off the
-    routing predicate (odd nx, even ny)."""
+# K4's grids: 1024^2 and 257x190 (off the routing predicate) take the
+# resident route; 4096^2 does not fit the card's shared memory and keeps
+# the group route (cap 17: two groups)
+K4_CASES = [(torch.float64, 1e-10, (1024, 1024), 33),
+            (torch.float32, 1e-4, (1024, 1024), 33),
+            (torch.float64, 1e-10, (257, 190), 33),
+            (torch.float32, 1e-4, (257, 190), 33),
+            (torch.float32, 1e-4, (4096, 4096), 17)]
+
+
+@pytest.mark.parametrize("dtype,atol,shape,cap", K4_CASES)
+def test_sor_redblack_packed_multiblock(cuda, dtype, atol, shape, cap):
+    """K4 at tol=0 against its twin and against K5 (the same iterate
+    sequence): one launch a solve on the resident route, one per gate
+    group of k=8 sweeps on the group route."""
     h = 2.0 / (shape[0] - 1)
     p0, c = rand(shape, dtype, cuda, 14), rand(shape, dtype, cuda, 15, h * h)
-    n0 = kernels.sor_redblack_packed_multiblock.launches
-    got = kernels.sor_redblack_packed_multiblock(p0, c, h, h, 1.25, 0.0, 33)
-    assert kernels.sor_redblack_packed_multiblock.launches == n0 + 4
-    close(got, kernels.sor_redblack_packed_tiled(p0, c, h, h, 1.25, 0.0, 33),
+    k4 = kernels.sor_redblack_packed_multiblock
+    resident = shape != (4096, 4096)
+    n0, r0 = k4.launches, k4.launches_resident
+    got = k4(p0, c, h, h, 1.25, 0.0, cap)
+    groups = (cap - 1) // 8
+    assert k4.launches == n0 + (1 if resident else groups)
+    assert k4.launches_resident == r0 + resident
+    close(got, kernels.sor_redblack_packed_tiled(p0, c, h, h, 1.25, 0.0, cap),
           dtype, atol)
-    close(got, kernels.sor_redblack_multiblock(p0, c, h, h, 1.25, 0.0, 33),
+    close(got, kernels.sor_redblack_multiblock(p0, c, h, h, 1.25, 0.0, cap),
           dtype, atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_packed_resident_solve_never_syncs(cuda, dtype):
+    """A gated K4 solve at 1024^2 (nit=200, tol 5e-6) is one launch with
+    no host synchronisation; it stops where its twin stops."""
+    n = 1024
+    h = 2.0 / (n - 1)
+    p0, c = rand((n, n), dtype, cuda, 16), rand((n, n), dtype, cuda, 17, h * h)
+    k4 = kernels.sor_redblack_packed_multiblock
+    k4(p0, c, h, h, 1.25, 5e-6, 200)  # the first call builds the library
+    torch.cuda.synchronize()
+    n0 = k4.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = k4(p0, c, h, h, 1.25, 5e-6, 200)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert k4.launches == n0 + 1
+    close(got, kernels.sor_redblack_packed_tiled(p0, c, h, h, 1.25, 5e-6, 200),
+          dtype, 1e-4 if dtype == torch.float64 else 1e-3)
 
 
 def test_packed_wrapper_rejects_odd_ny(cuda):

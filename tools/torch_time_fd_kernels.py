@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Time the red-black SOR kernels K1 and K4 on the card, beside their plain
+twins and bounds, at the main path's shapes: K1 (`sor_redblack_fused`) at
+51^2 and at 170^2, the largest grid one block holds in float32; K4
+(`sor_redblack_packed_multiblock`) at 1024^2 in float32 and float64, with
+K5 (`sor_redblack_multiblock`) on the same input (and whether the two
+results are bitwise equal). Every solve is nit=200,
+tol=5e-6, as chorin_fd runs it. Needs a CUDA device. Prints the card's
+name and power limit, the registers and spills ptxas reported for the SOR
+kernels, and one JSON line of times.
+
+It uses only the wrappers' public entry points, so a copy of it runs in
+another checkout of the repo too: to compare two versions of the kernels
+in one call, run it in each tree in turns (old, new, new, old).
+
+    python tools/torch_time_fd_kernels.py [--label NAME]
+"""
+
+import argparse
+import json
+import os
+import re
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each SOR kernel instance in nvcc's log."""
+    out, name = {}, None
+    for line in open(log):
+        m = re.search(r"Compiling entry function '_ZN2ns\d+(\w+?)I(\w+?)E", line)
+        if m:
+            name = m.group(1) + "<" + m.group(2) + ">"
+            name = name if "sor" in name else None
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            out.setdefault(name, {})["spill_stores"] = int(spill.group(1))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out.setdefault(name, {})["registers"] = int(regs.group(1))
+            name = None
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    card = chip_smoke.phase_device()
+    chip_smoke.phase_build()
+    from ns_tpu_torch.ops import kernels, poisson
+    from ns_tpu_torch.ops.kernels import _build
+
+    lib = _build.build_library()
+    regs = ptxas_report(str(lib.with_suffix(".log")))
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1234)
+
+    def rand(n, dtype, scale=1.0):
+        return (scale * torch.randn((n, n), generator=gen,
+                                    dtype=torch.float64)).to(dev, dtype)
+
+    rows = {}
+    for n in (51, 170):
+        h = 2.0 / (n - 1)
+        p, c = rand(n, torch.float32), rand(n, torch.float32, h * h)
+        sweeps = chip_smoke.sor_sweeps(p, c, h, 1.25, 5e-6, 200)
+        ms, plain = chip_smoke.paired_ms(
+            lambda: kernels.sor_redblack_fused(p, c, h, h, 1.25, 5e-6, 200),
+            lambda: poisson.sor_redblack(p, c, h, h, 1.25, 5e-6, 200), 20, 2)
+        b = chip_smoke.bound(3 * n * n * 4, 10 * (n - 2) ** 2 * sweeps,
+                             chip_smoke.FP32_FLOPS)
+        rows[f"K1 {n}x{n} float32"] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
+            "sweeps": sweeps, "us_per_sweep": 1e3 * ms / sweeps}
+    n = 1024
+    h = 2.0 / (n - 1)
+    for dtype in (torch.float32, torch.float64):
+        p, c = rand(n, dtype), rand(n, dtype, h * h)
+        n0 = kernels.sor_redblack_multiblock.launches
+        kernels.sor_redblack_multiblock(p, c, h, h, 1.25, 5e-6, 200)
+        sweeps = 8 * (kernels.sor_redblack_multiblock.launches - n0)
+        k4 = lambda: kernels.sor_redblack_packed_multiblock(
+            p, c, h, h, 1.25, 5e-6, 200)
+        k5 = lambda: kernels.sor_redblack_multiblock(p, c, h, h, 1.25, 5e-6,
+                                                     200)
+        twin = lambda: kernels.sor_redblack_packed_tiled(p, c, h, h, 1.25,
+                                                         5e-6, 200)
+        same = bool(torch.equal(k4(), k5()))
+        ms4, ms5, plain = chip_smoke.turns_ms([k4, k5, twin], 3)
+        item = torch.empty((), dtype=dtype).element_size()
+        peak = chip_smoke.FP32_FLOPS if dtype == torch.float32 else 34e12
+        b = chip_smoke.bound(3 * n * n * item, 10 * (n - 2) ** 2 * sweeps,
+                             peak)
+        rows[f"K4 {n}x{n} {str(dtype)[6:]}"] = {
+            "ms": ms4, "plain_ms": plain, "k5_ms": ms5,
+            "bitwise_equal_to_k5": same, "bound_ms": b[0],
+            "bound_by": b[1], "sweeps": sweeps,
+            "us_per_group": 1e3 * ms4 / (sweeps // 8)}
+    print(json.dumps({"label": args.label, "card": card, "ptxas": regs,
+                      "times": rows}))
+
+
+if __name__ == "__main__":
+    main()

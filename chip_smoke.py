@@ -10,8 +10,11 @@ Phases (any failure exits non-zero, and no result line is printed):
                (one nvcc per source, in parallel)
   3. kernels — each kernel against its plain torch twin on the card at the
                main path's shapes (float32 and float64; K1 also at the
-               largest grids one block holds, K4 also at 4096^2, where it
-               keeps one launch a gate group; the 3D transform
+               largest grids one block holds; K2 with the cavity BC list
+               and two others; K4 and K5 on their resident route, one
+               launch a solve, and also against K5's colour-group kernels,
+               K4 also at 4096^2, where it keeps one launch a gate group;
+               the 3D transform
                kernels K6-K8 float32 only, each at 'default', its
                tensor-core kernel, and at 'highest', its fp32 kernel), with
                its time beside the twin's (measured in turns: twin, kernel,
@@ -19,7 +22,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                one cuFFT call of the same function, and the bound each
                call's bytes and operations set (K6-K8: at the bf16
                tensor-core peak at 'default', the fp32 peak at 'highest');
-               K1 is timed at 170^2 too
+               K1 is timed at 170^2 too, K4 (1024^2) and K5 (1025^2)
+               beside the colour-group kernels
   4. main    — the port's main paths through its CLI entry point: the FD
                cavity pipeline (direct_fd and chorin_fd at the reference
                sizes; direct_fd and explicit chorin_fd at 1024^2, where
@@ -30,8 +34,9 @@ Phases (any failure exits non-zero, and no result line is printed):
                their tensor-core kernels), then divergence_max on a 256^3
                final state (K7 by its tensor-core kernel); each run's counts
                are read just before and just after it, every kernel must
-               have launched, and every K4 solve of the 1024^2 run must
-               have taken its resident route (one launch a solve)
+               have launched, and every K4 solve of the 1024^2 run and
+               every K5 solve of the 1025^2 run must have taken the
+               resident route (one launch a solve)
   5. fidelity — float64 FD rollouts against the committed goldens; the
                dst, multigrid, helmholtz and exact modes on the card against
                the same rollouts on the CPU, and a float64 dst solve's
@@ -41,7 +46,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                float64 3D shear flow against exp(-nu t)
 The line before the last is {"kernels": [...]} with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
-calls there and launches per call (K5 launches once per gate group), its
+calls there and launches per call (K4 and K5 also their resident launches
+and the colour-group kernels' time on the same input), its
 largest error against its twin (float64 abs where the kernel has a float64
 form, else float32 abs; `max_rel_err_f32` for all), its time beside the
 twin's, its bound (`bound_ms`, `bound_by`: the larger of the call's bytes
@@ -55,7 +61,8 @@ Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so the kernel is not bitwise equal to its twin); float32 <= 1e-4
 relative to the field's max; runs stopped by a converged gate may stop a
 sweep apart, so they get 1e-4 abs (float64) and 1e-3 relative (float32).
-K4 is also held against K5 on the same input (the same iterate sequence),
+K4 and K5 are also held against K5's colour-group kernels (`_color_groups`:
+the same iterate sequence on an independent kernel) on the same input,
 with the same bounds. The 3D kernels are held against their twins at
 'highest' (fp32 GEMMs, TF32 off) and at 'default' (bf16 operands and
 intermediates, fp32 sums on both sides; 1e-3 relative).
@@ -165,7 +172,9 @@ class Results:
     def __init__(self):
         self.err64, self.abs32, self.rel32 = {}, {}, {}
         self.ms, self.plain_ms, self.bound, self.library_ms = {}, {}, {}, {}
-        self.k4_vs_k5 = None  # (K4 ms, K5 ms) on one input, in turns
+        # K4's and K5's resident route against the colour-group kernels on
+        # one input, in turns: name -> (resident ms, groups ms)
+        self.vs_groups = {}
         self.more = {}  # a kernel's times at another shape (K1 at 170^2)
         # K6-K8: each precision's kernel time, the 'highest' route's twin
         # time and bound
@@ -208,9 +217,21 @@ def sor_sweeps(p, c, h, beta, tol, max_iter) -> int:
     return it - 1
 
 
+def tiled_sweeps(p, c, h, beta, tol, max_iter) -> int:
+    """Sweeps that the tiled gate (K4's and K5's: groups of 8 sweeps, err
+    from +inf, it from 1, it += 8) runs on these inputs: the colour-group
+    kernels launch once a group."""
+    from ns_tpu_torch.ops import kernels
+    from ns_tpu_torch.ops.kernels.poisson_kernels import _color_groups
+    n0 = kernels.sor_redblack_multiblock.launches
+    _color_groups(p, c, h, h, beta, tol, max_iter, 8)
+    return 8 * (kernels.sor_redblack_multiblock.launches - n0)
+
+
 def phase_kernels(res: Results, dev):
     from ns_tpu_torch.core.bc import apply_bcs, dirichlet, neumann
     from ns_tpu_torch.ops import kernels, poisson
+    from ns_tpu_torch.ops.kernels.poisson_kernels import _color_groups
 
     gen = torch.Generator().manual_seed(1234)
 
@@ -232,17 +253,26 @@ def phase_kernels(res: Results, dev):
     dtypes = (torch.float32, torch.float64)
     print("phase 3: kernels against their plain twins")
 
-    # K2: direct_fd pressure, 50^2, nit=50, cavity p BCs
+    # K2: direct_fd pressure, 50^2, nit=50: the cavity p BCs, and two other
+    # lists (every side Neumann but one, a repeated side) that the edge
+    # plan folds otherwise into the sweep
     nx = 50
     h = 2.0 / (nx - 1)
-    bcs = cavity_p_bc(h, h)
-    for dt_ in dtypes:
-        p0, b = rand(nx, nx, dt_), rand(nx, nx, dt_, 10.0)
-        k = lambda: kernels.jacobi_fused(p0, b, h, h, 50, bcs)
-        t = lambda: poisson.jacobi(p0, b, h, h, 50,
-                                   bc_fn=lambda q: apply_bcs(q, bcs))
-        res.compare("jacobi_fused", f"50x50 nit=50 {dt_}",
-                    [launched(kernels.jacobi_fused, k)], [t()], dt_)
+    k2_lists = {
+        "cavity": cavity_p_bc(h, h),
+        "mixed": [neumann(0.5, "left", h, h), dirichlet(1.0, "right"),
+                  neumann(-0.25, "top", h, h), dirichlet(0.0, "bottom")],
+        "repeated": [dirichlet(2.0, "bottom"), neumann(-1.0, "right", h, h),
+                     neumann(0.3, "bottom", h, h), dirichlet(-0.5, "left"),
+                     neumann(0.7, "top", h, h)]}
+    for tag, bcs in k2_lists.items():
+        for dt_ in dtypes:
+            p0, b = rand(nx, nx, dt_), rand(nx, nx, dt_, 10.0)
+            k = lambda: kernels.jacobi_fused(p0, b, h, h, 50, bcs)
+            t = lambda: poisson.jacobi(p0, b, h, h, 50,
+                                       bc_fn=lambda q: apply_bcs(q, bcs))
+            res.compare("jacobi_fused", f"50x50 nit=50 {tag} {dt_}",
+                        [launched(kernels.jacobi_fused, k)], [t()], dt_)
 
     # K2, multi-block form: direct_fd pressure beyond one block, 1024^2
     # and odd 1025^2, nit=50
@@ -274,25 +304,34 @@ def phase_kernels(res: Results, dev):
                             [launched(kernels.sor_redblack_fused, k)], [t()],
                             dt_, converged=tol > 0)
 
-    # K5: large-grid SOR, 1024^2 and odd 1025^2, tol=0 and cap 8m+1 so that
-    # kernel and twin stop at the same sweep
-    for nx, m in ((1024, 25), (1025, 3)):
+    # K5: large-grid SOR at odd 1025^2 (its main-path shape) and 1024^2,
+    # tol=0 and cap 201 (25 gate groups of k=8) so that kernel and twin stop
+    # at the same sweep; both on the resident route (one launch a solve),
+    # held against the twin and against the colour-group kernels
+    # (`_color_groups`, the route beyond the card's shared memory)
+    k5w = kernels.sor_redblack_multiblock
+    for nx in (1025, 1024):
         h = 2.0 / (nx - 1)
         for dt_ in dtypes:
             p0, c = rand(nx, nx, dt_), rand(nx, nx, dt_, h * h)
-            k = lambda: kernels.sor_redblack_multiblock(p0, c, h, h, 1.25,
-                                                        0.0, 8 * m + 1)
-            t = lambda: kernels.sor_redblack_tiled(p0, c, h, h, 1.25, 0.0,
-                                                   8 * m + 1)
-            res.compare("sor_redblack_multiblock", f"{nx}x{nx} cap={8 * m + 1}"
-                        f" {dt_}", [launched(kernels.sor_redblack_multiblock,
-                                             k)], [t()], dt_)
+            n0, r0 = k5w.launches, k5w.launches_resident
+            got = launched(k5w, lambda: k5w(p0, c, h, h, 1.25, 0.0, 201))
+            require((k5w.launches - n0, k5w.launches_resident - r0) == (1, 1),
+                    f"K5 {nx}x{nx} {dt_}: {k5w.launches - n0} launches "
+                    f"({k5w.launches_resident - r0} resident)")
+            twin = kernels.sor_redblack_tiled(p0, c, h, h, 1.25, 0.0, 201)
+            groups = _color_groups(p0, c, h, h, 1.25, 0.0, 201, 8)
+            res.compare("sor_redblack_multiblock", f"{nx}x{nx} cap=201 {dt_}",
+                        [got], [twin], dt_)
+            res.compare("sor_redblack_multiblock",
+                        f"{nx}x{nx} cap=201 vs colour groups {dt_}", [got],
+                        [groups], dt_)
 
     # K4: packed-plane SOR, 1024^2 at nit=200 (tol=0: 25 gate groups of
     # k=8) and 1025x1024, off the routing predicate, both on the resident
     # route (one launch a solve); 4096^2 float32, beyond the card's shared
     # memory, on the group route (cap 17: two launches); against its twin
-    # and K5
+    # and K5's colour-group kernels
     k4w = kernels.sor_redblack_packed_multiblock
     for shape, cap, dts in (((1024, 1024), 200, dtypes),
                             ((1025, 1024), 8 * 3 + 1, dtypes),
@@ -311,11 +350,12 @@ def phase_kernels(res: Results, dev):
                     f"({k4w.launches_resident - r0} resident)")
             twin = kernels.sor_redblack_packed_tiled(p0, c, h, h, 1.25, 0.0,
                                                      cap)
-            k5 = kernels.sor_redblack_multiblock(p0, c, h, h, 1.25, 0.0, cap)
+            groups = _color_groups(p0, c, h, h, 1.25, 0.0, cap, 8)
             res.compare("sor_redblack_packed_multiblock",
                         f"{tag} nit={cap} {dt_}", [got], [twin], dt_)
             res.compare("sor_redblack_packed_multiblock",
-                        f"{tag} nit={cap} vs K5 {dt_}", [got], [k5], dt_)
+                        f"{tag} nit={cap} vs colour groups {dt_}", [got],
+                        [groups], dt_)
 
     # K3: explicit predictor, 51^2 and 1024^2, quirk on/off, plus Neumann
     cav_u = [dirichlet(0, "left"), dirichlet(1, "right"), dirichlet(0, "top"),
@@ -384,25 +424,28 @@ def phase_kernels(res: Results, dev):
                   lambda: poisson.sor_redblack(q1, c1, h1, h1, 1.25, 5e-6,
                                                200),
                   (3 * 51 * 51 * 4, 10 * 49 * 49 * sweeps1)))
+    # K4 at 1024^2 and K5 at 1025^2, their main-path shapes; the gated
+    # solves run groups of 8 sweeps
     hk = 2.0 / 1023
     qk, ck = rand(1024, 1024, f32), rand(1024, 1024, f32, hk * hk)
-    # the gated solves run groups of 8 sweeps, one K5 launch a group
-    n0 = kernels.sor_redblack_multiblock.launches
-    kernels.sor_redblack_multiblock(qk, ck, hk, hk, 1.25, 5e-6, 200)
-    sweeps_k = 8 * (kernels.sor_redblack_multiblock.launches - n0)
-    sor_work = (3 * n2 * 4, 10 * 1022 * 1022 * sweeps_k)
+    sweeps_k = tiled_sweeps(qk, ck, hk, 1.25, 5e-6, 200)
     timed.append(("sor_redblack_packed_multiblock",
                   "1024x1024 nit=200 tol=5e-06", 3, 2,
                   lambda: kernels.sor_redblack_packed_multiblock(
                       qk, ck, hk, hk, 1.25, 5e-6, 200),
                   lambda: kernels.sor_redblack_packed_tiled(
-                      qk, ck, hk, hk, 1.25, 5e-6, 200), sor_work))
-    timed.append(("sor_redblack_multiblock", "1024x1024 nit=200 tol=5e-06",
+                      qk, ck, hk, hk, 1.25, 5e-6, 200),
+                  (3 * n2 * 4, 10 * 1022 * 1022 * sweeps_k)))
+    h5 = 2.0 / 1024
+    q5, c5 = rand(1025, 1025, f32), rand(1025, 1025, f32, h5 * h5)
+    sweeps_5 = tiled_sweeps(q5, c5, h5, 1.25, 5e-6, 200)
+    timed.append(("sor_redblack_multiblock", "1025x1025 nit=200 tol=5e-06",
                   3, 2,
-                  lambda: kernels.sor_redblack_multiblock(qk, ck, hk, hk,
+                  lambda: kernels.sor_redblack_multiblock(q5, c5, h5, h5,
                                                           1.25, 5e-6, 200),
-                  lambda: kernels.sor_redblack_tiled(qk, ck, hk, hk, 1.25,
-                                                     5e-6, 200), sor_work))
+                  lambda: kernels.sor_redblack_tiled(q5, c5, h5, h5, 1.25,
+                                                     5e-6, 200),
+                  (3 * 1025 * 1025 * 4, 10 * 1023 * 1023 * sweeps_5)))
     for nx in (51, 1024):
         hm = 2.0 / (nx - 1)
         fm = [rand(nx, nx, f32) for _ in range(4)]
@@ -412,7 +455,7 @@ def phase_kernels(res: Results, dev):
                       lambda a=margs: kernels.momentum_explicit(*a),
                       (6 * nx * nx * 4, 80 * (nx - 2) ** 2)))
     print(f"  (sweeps run: 170x170 {sweeps_b}, 51x51 {sweeps1}, 1024x1024 "
-          f"{sweeps_k})")
+          f"{sweeps_k}, 1025x1025 {sweeps_5})")
     shown = {}  # the label each kernel's res.ms holds
     for name, label, reps_k, reps_t, k, t, (nbytes, flops) in timed:
         if "sor" in name:
@@ -432,18 +475,24 @@ def phase_kernels(res: Results, dev):
         print(f"  {name:26s} {label:30s} kernel {ms:.4f} ms  twin "
               f"{plain:.4f} ms  ({plain / ms:.2f}x); bound "
               f"{res.bound[name][0]:.5f} ms ({res.bound[name][1]})")
-    # K4 against K5 on the same input, in turns K5, K4, K4, K5
-    k4 = lambda: kernels.sor_redblack_packed_multiblock(qk, ck, hk, hk, 1.25,
-                                                        5e-6, 200)
-    k5 = lambda: kernels.sor_redblack_multiblock(qk, ck, hk, hk, 1.25, 5e-6,
-                                                 200)
-    res.compare("sor_redblack_packed_multiblock", "1024x1024 nit=200 "
-                "tol=5e-06 vs K5 float32", [k4()], [k5()], f32,
-                converged=True)
-    ms4, ms5 = paired_ms(k4, k5, 5, 5)
-    res.k4_vs_k5 = (ms4, ms5)
-    print(f"  {'K4 vs K5':26s} {'1024x1024 nit=200 tol=5e-06':30s} K4 "
-          f"{ms4:.4f} ms  K5 {ms5:.4f} ms  ({ms5 / ms4:.2f}x)")
+    # the resident route of K4 (1024^2) and K5 (1025^2) against the
+    # colour-group kernels on the same input, in turns groups, resident,
+    # resident, groups
+    for name, wrapper, q, c, hq in (
+            ("sor_redblack_packed_multiblock",
+             kernels.sor_redblack_packed_multiblock, qk, ck, hk),
+            ("sor_redblack_multiblock", kernels.sor_redblack_multiblock, q5,
+             c5, h5)):
+        n = q.shape[0]
+        res_fn = lambda: wrapper(q, c, hq, hq, 1.25, 5e-6, 200)
+        grp_fn = lambda: _color_groups(q, c, hq, hq, 1.25, 5e-6, 200, 8)
+        res.compare(name, f"{n}x{n} nit=200 tol=5e-06 vs colour groups "
+                    "float32", [res_fn()], [grp_fn()], f32, converged=True)
+        ms_r, ms_g = paired_ms(res_fn, grp_fn, 5, 5)
+        res.vs_groups[name] = (ms_r, ms_g)
+        print(f"  {name:26s} {f'{n}x{n} nit=200 tol=5e-06':30s} resident "
+              f"{ms_r:.4f} ms  colour groups {ms_g:.4f} ms "
+              f"({ms_g / ms_r:.2f}x)")
     phase_kernels_3d(res, dev)
 
 
@@ -602,6 +651,8 @@ MAIN_RUNS = [
     ("taylor_green_3d 256^3", TG3D + ["--precision", "default",
                                       "--pallas-transform", "auto"]),
 ]
+# the wrappers with a resident route (one cooperative launch a solve)
+RESIDENT = {"sor_redblack_packed_multiblock", "sor_redblack_multiblock"}
 MAIN_KERNELS = {  # kernels each main-path run must launch
     "direct_fd": {"jacobi_fused"},
     "chorin_fd semi_implicit": {"sor_redblack_fused"},
@@ -691,12 +742,16 @@ def phase_main(tmp) -> dict:
     def bf16_counts() -> dict:
         return {w.__name__: w.launches_bf16 for w in tc}
 
-    k4 = kernels.sor_redblack_packed_multiblock
+    resident = [getattr(kernels, name) for name in RESIDENT]
+
+    def resident_counts() -> dict:
+        return {w.__name__: w.launches_resident for w in resident}
+
     for label, argv in MAIN_RUNS:
         before = kernels.launch_counts()
         bf16_before = bf16_counts()
         calls_before, resident_before = kernels.call_counts(), \
-            k4.launches_resident
+            resident_counts()
         out = os.path.join(tmp, label.replace(" ", "_").replace("^", "") +
                            ".npz")
         summary = run_solver.main(argv + ["--device", DEVICE, "--out", out])
@@ -704,15 +759,15 @@ def phase_main(tmp) -> dict:
         ran = {k for k in after if after[k] > before[k]}
         missing = MAIN_KERNELS[label] - ran
         require(not missing, f"{label}: kernels not launched: {missing}")
-        if k4.__name__ in MAIN_KERNELS[label]:  # every solve resident
-            solves = kernels.call_counts()[k4.__name__] - \
-                calls_before[k4.__name__]
-            require(k4.launches_resident - resident_before == solves ==
-                    after[k4.__name__] - before[k4.__name__],
-                    f"{label}: K4's solves did not all take the resident "
-                    f"route ({solves} solves, "
-                    f"{after[k4.__name__] - before[k4.__name__]} launches, "
-                    f"{k4.launches_resident - resident_before} resident)")
+        # the SOR solves of the 1024^2 (K4) and 1025^2 (K5) runs: every one
+        # on the resident route, one launch a solve
+        for name in RESIDENT & MAIN_KERNELS[label]:
+            solves = kernels.call_counts()[name] - calls_before[name]
+            n_res = resident_counts()[name] - resident_before[name]
+            require(n_res == solves == after[name] - before[name],
+                    f"{label}: {name}'s solves did not all take the resident "
+                    f"route ({solves} solves, {after[name] - before[name]} "
+                    f"launches, {n_res} resident)")
         if "3d" in label:  # 'default': K6 and K8 take the tensor cores
             bf16 = bf16_counts()
             slow = [k for k in MAIN_KERNELS[label] if bf16[k] == bf16_before[k]]
@@ -757,7 +812,7 @@ def phase_main(tmp) -> dict:
     idle = [k for k, n in counts.items() if n == 0]
     require(not idle, f"kernels never launched on the main path: {idle}")
     return {"launches": counts, "launches_bf16": launches_bf16,
-            "calls": calls, "launches_resident": k4.launches_resident,
+            "calls": calls, "launches_resident": resident_counts(),
             "steps_per_s": rates, "tg3d_npz": out3d["taylor_green_3d 256^3"]}
 
 
@@ -969,10 +1024,12 @@ def report(res: Results, main_path: dict) -> list:
                "library_ms": res.library_ms.get(name)}
         keys = ["max_abs_err", "max_rel_err_f32", "ms", "plain_ms",
                 "bound_ms"]
-        if name == "sor_redblack_packed_multiblock":
-            require(res.k4_vs_k5 is not None, "K4 was not timed beside K5")
-            row["k5_ms_same_input"] = res.k4_vs_k5[1]
-            row["launches_resident"] = main_path["launches_resident"]
+        if name in RESIDENT:
+            require(name in res.vs_groups,
+                    f"{name} was not timed beside the colour groups")
+            row["color_groups_ms_same_input"] = res.vs_groups[name][1]
+            row["launches_resident"] = main_path["launches_resident"][name]
+            keys.append("color_groups_ms_same_input")
         if name in res.more:
             row.update(res.more[name])
             keys += list(res.more[name])

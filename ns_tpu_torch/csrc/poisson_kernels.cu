@@ -11,7 +11,9 @@
 //                        branch chorin_fd takes for nx%128 == 0, ny%256 == 0;
 //                        one launch a solve where its tiles fit the card).
 // K5 sor_redblack_tiled  replaces ::sor_redblack_tiled_pallas and
-//                        ::sor_redblack_tiled_any (SOR beyond one block).
+//                        ::sor_redblack_tiled_any (SOR beyond one block, any
+//                        shape: K4's resident kernel where its tiles fit the
+//                        card, else colour half-sweep grids).
 //
 // What bounds them on the H100.
 //
@@ -27,24 +29,29 @@
 // found once, before the sweeps), so no lane idles on the other colour and
 // no index is divided in the sweep loop, and publishes the gate through the
 // colour barriers (two barriers a sweep instead of four). 51^2: 43
-// registers, no spill; 1.0 us a sweep.
+// registers, no spill; 1.0 us a sweep. K2 gives its threads fixed
+// interior cells the same way and folds the BC list into the sweep as an
+// edge plan (the thread that sweeps a cell next to an edge writes the edge
+// cell; corners once at the end): one barrier a sweep instead of 1 + the
+// number of BCs.
 //
-// K4 and K5, beyond one block (1024^2): the TPU kernels reload a strip per
-// gate group and their while_loop reads the gate on the device. K5 runs
-// every colour half-sweep as a grid over the whole field (2k launches a
-// group of k sweeps, every column read to update half of them) and its
-// host reads the gate once per group. K4 keeps each block's tile of the
-// packed colour planes (R, B of shape (nx, ny/2): a colour update touches
-// only its own cells) with the halo that k sweeps' dependency cone needs in
-// shared memory. Where the card's shared memory holds every tile at once
-// (one block a SM; 1024^2 in both dtypes), the whole solve is ONE
+// K4 and K5, beyond one block (1024^2, 1025^2): the TPU kernels reload a
+// strip per gate group and their while_loop reads the gate on the device.
+// Both keep each block's tile of the packed colour planes (R, B of shape
+// (nx, (ny+1)/2): a colour update touches only its own cells; at an odd ny
+// one plane's last column in each row lies outside the grid and is never
+// read) with the halo that k sweeps' dependency cone needs in shared
+// memory. Where the card's shared memory holds every tile at once (one
+// block a SM; 1024^2 and 1025^2 in both dtypes), the whole solve is ONE
 // cooperative launch: the tiles stay resident, blocks exchange their own
 // cells through L2 after each group, meet at a grid barrier and read the
 // group's error slot on the device, so no host read and no relaunch. A
 // group is then bound by instruction issue on each SM again: the halo's
 // recomputed cells (cut to the shrinking dependency cone, 1.4x the own
 // cells at k=8 with 64 x 64 tiles) and the division. Grids too large for
-// the card keep one launch per group and the host gate. fp32: 32
+// the card keep one launch per group and the host gate: K4 on packed
+// tiles, K5 as colour half-sweep grids over the whole field (2k launches a
+// group of k sweeps, every column read to update half of them). fp32: 32
 // registers, no spill.
 //
 // The multi-block Jacobi is bandwidth-bound: each sweep is one grid launch
@@ -59,44 +66,132 @@
 namespace ns {
 
 // ---------------------------------------------------------------------------
-// K2: nit Jacobi sweeps, each followed by the p BC edge writes in list order.
-// Ping-pong pair in shared memory (the interior update reads only old
-// values); b is read from global memory (read-only, cached). Each BC is its
-// own phase behind a __syncthreads, so a Neumann edge reads the freshly
-// updated inner row and later BCs overwrite earlier ones at the corners.
+// K2: nit Jacobi sweeps, each followed by the p BC list in list order, in
+// one block. Ping-pong pair in shared memory (the interior update reads
+// only old values), both loaded with p so that boundary cells no BC writes
+// hold their value in either buffer. The BC list becomes an edge plan
+// (poisson_kernels.py::k2_edge_plan builds it on the host): after a sweep,
+// a non-corner cell of a side holds what the side's last BC leaves there,
+// its term (Dirichlet) or the freshly swept interior cell next to it plus
+// its term (Neumann); no other BC touches it. So the thread that sweeps an
+// interior cell next to an edge also writes that edge cell, in the same
+// phase. A corner holds what its last writer among its two sides' BCs
+// leaves there, read from the edge cell next to it as the list left that
+// cell, which is that cell's final value. No update reads a corner, so the
+// corners are written once, after the last sweep. One barrier a sweep.
+// Each of the 1024 threads owns the interior list entries t, t + 1024, ...
+// (row-major), their offsets and edge flags found once before the sweeps,
+// so the sweep loop has no division; cb * b is rounded on its own, as the
+// twin rounds it, into registers (B_REG) or every sweep from global memory.
 // ---------------------------------------------------------------------------
-template <typename T>
+
+// The edge plan: per side (0 left = row 0, 1 right = row nx-1, 2 bottom =
+// col 0, 3 top = col ny-1) the kind of its last BC (-1 none, 0 Dirichlet,
+// 1 Neumann) and that BC's edge term; per corner ((0,0), (0,ny-1),
+// (nx-1,0), (nx-1,ny-1)) the side whose BC writes it last, or -1.
+struct EdgePlan {
+  int kind[4];
+  int corner[4];
+  double term[4];
+};
+
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// MAXC: interior list entries a thread owns (at most). Each entry's code is
+// its flat offset (15 bits: nx * ny < 32768 for every grid that fits) and,
+// above it, a flag per side whose edge cell next to it this thread writes.
+template <typename T, int MAXC, bool B_REG>
 __global__ void __launch_bounds__(1024)
 jacobi_fused_kernel(const T* __restrict__ p_in, const T* __restrict__ b,
                     T* __restrict__ p_out, int nx, int ny, int n_iter, T dx2,
-                    T dy2, T denom, T cb, BCList bcs) {
+                    T dy2, T denom, T cb, EdgePlan plan) {
+  constexpr int NT = 1024;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int n = nx * ny;
+  const int tid = threadIdx.x, n = nx * ny, w = ny - 2;
+  const int count = (nx - 2) * w;
   T* cur = reinterpret_cast<T*>(smem);
   T* nxt = cur + n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) cur[k] = p_in[k];
+  for (int k = tid; k < n; k += NT) {
+    const T v = p_in[k];
+    cur[k] = v;
+    nxt[k] = v;
+  }
+  unsigned code[MAXC];
+  T cbb[MAXC];
+#pragma unroll
+  for (int m = 0; m < MAXC; ++m) {
+    const int idx = m * NT + tid;
+    code[m] = 0;
+    cbb[m] = T(0);
+    if (idx < count) {
+      const int i = 1 + idx / w, j = 1 + idx - (i - 1) * w;
+      const int k = i * ny + j;
+      const unsigned f = (i == 1 && plan.kind[0] >= 0 ? 1u : 0u) |
+                         (i == nx - 2 && plan.kind[1] >= 0 ? 2u : 0u) |
+                         (j == 1 && plan.kind[2] >= 0 ? 4u : 0u) |
+                         (j == ny - 2 && plan.kind[3] >= 0 ? 8u : 0u);
+      code[m] = static_cast<unsigned>(k) | (f << 15);
+      if constexpr (B_REG) cbb[m] = mul_rn(cb, b[k]);
+    }
+  }
+  const T term[4] = {T(plan.term[0]), T(plan.term[1]), T(plan.term[2]),
+                     T(plan.term[3])};
+  const bool neu[4] = {plan.kind[0] == 1, plan.kind[1] == 1,
+                       plan.kind[2] == 1, plan.kind[3] == 1};
   __syncthreads();
+
   for (int s = 0; s < n_iter; ++s) {
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      const int i = k / ny, j = k - i * ny;
-      if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 2) {
-        nxt[k] = ((cur[k + 1] + cur[k - 1]) * dy2 +
-                  (cur[k + ny] + cur[k - ny]) * dx2) / denom - cb * b[k];
-      } else {
-        nxt[k] = cur[k];
+#pragma unroll
+    for (int m = 0; m < MAXC; ++m) {
+      if (m * NT + tid < count) {
+        unsigned e = code[m];
+        // from 16 cells a thread on, keep only the code across sweeps: values
+        // derived from it and hoisted out of the sweep loop would spill
+        if constexpr (MAXC >= 16) asm volatile("" : "+r"(e));
+        const int k = static_cast<int>(e & 0x7fffu);
+        T c;
+        if constexpr (B_REG) {
+          c = cbb[m];
+        } else {
+          c = mul_rn(cb, b[k]);
+        }
+        const T nw = ((cur[k + 1] + cur[k - 1]) * dy2 +
+                      (cur[k + ny] + cur[k - ny]) * dx2) / denom - c;
+        nxt[k] = nw;
+        const unsigned f = e >> 15;
+        if (f) {
+          if (f & 1u) nxt[k - ny] = neu[0] ? nw + term[0] : term[0];
+          if (f & 2u) nxt[k + ny] = neu[1] ? nw + term[1] : term[1];
+          if (f & 4u) nxt[k - 1] = neu[2] ? nw + term[2] : term[2];
+          if (f & 8u) nxt[k + 1] = neu[3] ? nw + term[3] : term[3];
+        }
       }
     }
     __syncthreads();
-    for (int q = 0; q < bcs.n; ++q) {
-      apply_bc_edge(nxt, nx, ny, bcs.kind[q], bcs.side[q], T(bcs.term[q]),
-                    threadIdx.x, blockDim.x);
-      __syncthreads();
-    }
     T* t = cur;
     cur = nxt;
     nxt = t;
   }
-  for (int k = threadIdx.x; k < n; k += blockDim.x) p_out[k] = cur[k];
+  if (n_iter > 0 && tid < 4) {
+    const int q = ((tid >> 1) ? (nx - 1) * ny : 0) + ((tid & 1) ? ny - 1 : 0);
+    // the edge cell next to the corner that a Neumann BC of side s reads
+    const int inner[4] = {ny, -ny, 1, -1};
+    // constant indices only: a runtime index would put the plan on the stack
+    int side = -1;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) side = tid == c ? plan.corner[c] : side;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (side == s) cur[q] = neu[s] ? cur[q + inner[s]] + term[s] : term[s];
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < n; k += NT) p_out[k] = cur[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -242,8 +337,8 @@ sor_redblack_fused_kernel(const T* __restrict__ p_in,
 }
 
 // ---------------------------------------------------------------------------
-// K5: one colour half-sweep of red-black SOR over the whole grid, one
-// thread per cell of that colour (column j = 2*jc + ((i + color) & 1)).
+// K5 beyond the card's shared memory: one colour half-sweep of red-black SOR
+// over the whole grid, one thread per cell of that colour (column j = 2*jc + ((i + color) & 1)).
 // Cells of one colour read only the other colour, so the in-place update is
 // race-free. Bounds checks on the logical grid stand in for the TPU
 // kernel's pad-and-mask, so any shape works (odd 1025^2 included). When
@@ -366,9 +461,10 @@ __device__ __forceinline__ void packed_half_sweep(
   using U = typename Bits<T>::U;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int ny2 = t.ny / 2;
   const T omb = T(1) - beta;
   const int e = (reach + 1) / 2;
+  // the last packed column with j = 2 gc + jpar <= ny - 2, for jpar 0 and 1
+  const int last0 = (t.ny - 2) >> 1, last1 = (t.ny - 3) >> 1;
   const int r_lo = max(max(1, 1 - t.r0), t.hr - reach);
   const int r_hi = min(min(t.wr - 2, t.nx - 2 - t.r0),
                        t.hr + t.tile_rows - 1 + reach);
@@ -381,7 +477,7 @@ __device__ __forceinline__ void packed_half_sweep(
     // 1 <= j = 2 gc + jpar <= ny - 2, c + shift inside the tile, the cone
     const int c_lo = max(cc_lo, max(jpar ? 0 : 1, (jpar ? 0 : 1) - t.c0));
     const int c_hi = min(cc_hi, min(jpar ? t.wc - 2 : t.wc - 1,
-                                    (jpar ? ny2 - 2 : ny2 - 1) - t.c0));
+                                    (jpar ? last1 : last0) - t.c0));
     const bool own_row = gate && r >= t.hr && r < t.hr + t.tile_rows;
     const size_t rrow = static_cast<size_t>(gi) * t.ny + jpar;
     for (int c = c_lo + tx; c <= c_hi; c += 32) {
@@ -489,8 +585,8 @@ __device__ __forceinline__ void grid_barrier(unsigned* arrived,
   __syncthreads();
 }
 
-// K4's resident route: the whole solve in one cooperative launch, every
-// block resident on its own SM. A block packs its working tile of p (and,
+// The resident route of K4 and K5: the whole solve in one cooperative
+// launch, every block resident on its own SM. A block packs its working tile of p (and,
 // with C_SMEM, of rhs_c) into shared memory as it loads them, and keeps
 // them there for the whole solve. Each gate group: k sweeps in shared
 // memory; the block folds its own cells' last-sweep max|dp| into the
@@ -501,8 +597,10 @@ __device__ __forceinline__ void grid_barrier(unsigned* arrived,
 // on reloads only its halo ring from the exchange planes (through L2:
 // another SM wrote them). The exchange planes ping-pong, so a block that
 // writes group g+1's cells never overwrites what a slower block is still
-// reading of group g. At exit the own cells go out unpacked.
-template <typename T, bool C_SMEM>
+// reading of group g. At exit the own cells go out unpacked. ODD: an odd
+// ny, whose loads and stores skip j = ny (an instance of its own, so that
+// K4's even grids run the code without those guards).
+template <typename T, bool C_SMEM, bool ODD>
 __global__ void __launch_bounds__(1024)
 sor_packed_resident_kernel(const T* __restrict__ p_in,
                            const T* __restrict__ rhs, T* __restrict__ p_out,
@@ -513,7 +611,7 @@ sor_packed_resident_kernel(const T* __restrict__ p_in,
                            T denom, T beta, T tol, int max_iter) {
   using U = typename Bits<T>::U;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ny2 = ny / 2;
+  const int W = ODD ? (ny + 1) / 2 : ny / 2;  // packed columns
   const PackedTile t = packed_tile(nx, ny, tile_rows, tile_cols, k);
   const int cells = t.wr * t.wc;
   T* sR = reinterpret_cast<T*>(smem);
@@ -522,23 +620,26 @@ sor_packed_resident_kernel(const T* __restrict__ p_in,
   T* sCB = C_SMEM ? sCR + cells : nullptr;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const size_t plane = static_cast<size_t>(nx) * ny2;
+  const size_t plane = static_cast<size_t>(nx) * W;
   const unsigned nblocks = gridDim.x * gridDim.y;
 
-  // load the working tile, packing as it comes: R[i, jc] = p[i, 2jc + i%2]
+  // load the working tile, packing as it comes: R[i, jc] = p[i, 2jc + i%2];
+  // at an odd ny the last packed column of one plane in each row (j = ny)
+  // lies outside the grid, is loaded as 0 and is never read by an update
   for (int r = ty; r < t.wr; r += nwarps) {
     const int gi = t.r0 + r;
     if (gi < 0 || gi >= nx) continue;
     const bool even_row = (gi & 1) == 0;
     for (int c = tx; c < t.wc; c += 32) {
       const int gc = t.c0 + c;
-      if (gc < 0 || gc >= ny2) continue;
+      if (gc < 0 || gc >= W) continue;
       const size_t g = static_cast<size_t>(gi) * ny + 2 * gc;
-      const T a = p_in[g], b = p_in[g + 1];
+      const bool pair = !ODD || 2 * gc + 1 < ny;
+      const T a = p_in[g], b = pair ? p_in[g + 1] : T(0);
       sR[r * t.wc + c] = even_row ? a : b;
       sB[r * t.wc + c] = even_row ? b : a;
       if constexpr (C_SMEM) {
-        const T ca = rhs[g], cb = rhs[g + 1];
+        const T ca = rhs[g], cb = pair ? rhs[g + 1] : T(0);
         sCR[r * t.wc + c] = even_row ? ca : cb;
         sCB[r * t.wc + c] = even_row ? cb : ca;
       }
@@ -569,8 +670,8 @@ sor_packed_resident_kernel(const T* __restrict__ p_in,
       if (gi >= nx) break;
       for (int c = t.hc + tx; c < t.hc + tile_cols; c += 32) {
         const int gc = t.c0 + c;
-        if (gc >= ny2) break;
-        const size_t gq = static_cast<size_t>(gi) * ny2 + gc;
+        if (gc >= W) break;
+        const size_t gq = static_cast<size_t>(gi) * W + gc;
         XR[gq] = sR[r * t.wc + c];
         XB[gq] = sB[r * t.wc + c];
       }
@@ -587,10 +688,10 @@ sor_packed_resident_kernel(const T* __restrict__ p_in,
         const bool own_row = r >= t.hr && r < t.hr + tile_rows;
         for (int c = tx; c < t.wc; c += 32) {
           const int gc = t.c0 + c;
-          if (gc < 0 || gc >= ny2 ||
+          if (gc < 0 || gc >= W ||
               (own_row && c >= t.hc && c < t.hc + tile_cols))
             continue;
-          const size_t gq = static_cast<size_t>(gi) * ny2 + gc;
+          const size_t gq = static_cast<size_t>(gi) * W + gc;
           sR[r * t.wc + c] = __ldcg(XR + gq);
           sB[r * t.wc + c] = __ldcg(XB + gq);
         }
@@ -605,29 +706,65 @@ sor_packed_resident_kernel(const T* __restrict__ p_in,
     const bool even_row = (gi & 1) == 0;
     for (int c = t.hc + tx; c < t.hc + tile_cols; c += 32) {
       const int gc = t.c0 + c;
-      if (gc >= ny2) break;
+      if (gc >= W) break;
       const size_t gq = static_cast<size_t>(gi) * ny + 2 * gc;
       const T vr = sR[r * t.wc + c], vb = sB[r * t.wc + c];
       p_out[gq] = even_row ? vr : vb;
-      p_out[gq + 1] = even_row ? vb : vr;
+      if (!ODD || 2 * gc + 1 < ny) p_out[gq + 1] = even_row ? vb : vr;
     }
   }
 }
 
+template <typename T, int MAXC>
+cudaError_t launch_jacobi_fused(const T* p, const T* b, T* out, int nx,
+                                int ny, int n_iter, T dx2, T dy2, T denom,
+                                T cb, const EdgePlan& plan, cudaStream_t s) {
+  // cb * b in registers while a thread's share is at most 16 words
+  constexpr bool kBReg = MAXC * sizeof(T) <= 64;
+  auto kernel = jacobi_fused_kernel<T, MAXC, kBReg>;
+  const size_t smem = 2 * static_cast<size_t>(nx) * ny * sizeof(T);
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<1, 1024, smem, s>>>(p, b, out, nx, ny, n_iter, dx2, dy2, denom, cb,
+                               plan);
+  return cudaGetLastError();
+}
+
+// K2's entry. plan_spec: the edge plan as 12 doubles, kind[4], corner[4],
+// term[4] (poisson_kernels.py::k2_edge_plan). Picks the instance whose MAXC
+// covers this grid's interior cells per thread.
 template <typename T>
 int jacobi_fused(const void* p, const void* b, void* out, int nx, int ny,
                  int n_iter, double dx2, double dy2, double denom, double cb,
-                 int n_bc, const double* bc_spec, void* stream) {
-  BCList bcs;
-  cudaError_t e = make_bcs(n_bc, bc_spec, &bcs);
-  if (e != cudaSuccess) return e;
-  const size_t smem = 2 * static_cast<size_t>(nx) * ny * sizeof(T);
-  e = allow_smem(jacobi_fused_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  jacobi_fused_kernel<T><<<1, 1024, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(p), static_cast<const T*>(b), static_cast<T*>(out),
-      nx, ny, n_iter, T(dx2), T(dy2), T(denom), T(cb), bcs);
-  return cudaGetLastError();
+                 const double* plan_spec, void* stream) {
+  if (nx < 3 || ny < 3 || nx * ny >= (1 << 15) || n_iter < 0)
+    return cudaErrorInvalidValue;
+  EdgePlan plan;
+  for (int s = 0; s < 4; ++s) {
+    plan.kind[s] = static_cast<int>(plan_spec[s]);
+    plan.corner[s] = static_cast<int>(plan_spec[4 + s]);
+    plan.term[s] = plan_spec[8 + s];
+    if (plan.kind[s] < -1 || plan.kind[s] > 1 || plan.corner[s] < -1 ||
+        plan.corner[s] > 3)
+      return cudaErrorInvalidValue;
+  }
+  const int per_thread = ((nx - 2) * (ny - 2) + 1023) / 1024;
+  const T* pp = static_cast<const T*>(p);
+  const T* bb = static_cast<const T*>(b);
+  T* o = static_cast<T*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NS_K2(M)                                                             \
+  if (per_thread <= M)                                                       \
+    return launch_jacobi_fused<T, M>(pp, bb, o, nx, ny, n_iter, T(dx2),      \
+                                     T(dy2), T(denom), T(cb), plan, s);
+  NS_K2(1)
+  NS_K2(2)
+  NS_K2(4)
+  NS_K2(8)
+  NS_K2(16)
+  NS_K2(32)
+#undef NS_K2
+  return cudaErrorInvalidValue;
 }
 
 // n_iter sweeps alternate between `out` and `scratch`, starting with the
@@ -756,9 +893,15 @@ int sor_redblack_packed_group(const void* R, const void* B, const void* rhs,
 }
 
 template <typename T>
-void* packed_resident_kernel(int c_smem) {
-  return c_smem ? reinterpret_cast<void*>(sor_packed_resident_kernel<T, true>)
-                : reinterpret_cast<void*>(sor_packed_resident_kernel<T, false>);
+void* packed_resident_kernel(int c_smem, int odd) {
+  if (odd)
+    return c_smem
+               ? reinterpret_cast<void*>(sor_packed_resident_kernel<T, true, true>)
+               : reinterpret_cast<void*>(
+                     sor_packed_resident_kernel<T, false, true>);
+  return c_smem
+             ? reinterpret_cast<void*>(sor_packed_resident_kernel<T, true, false>)
+             : reinterpret_cast<void*>(sor_packed_resident_kernel<T, false, false>);
 }
 
 size_t packed_resident_smem(int tile_rows, int tile_cols, int k, int c_smem,
@@ -771,8 +914,8 @@ size_t packed_resident_smem(int tile_rows, int tile_cols, int k, int c_smem,
 // the wrapper's co-residency check.
 template <typename T>
 int sor_packed_resident_occupancy(int tile_rows, int tile_cols, int k,
-                                  int c_smem, int* blocks_per_sm) {
-  const void* kernel = packed_resident_kernel<T>(c_smem);
+                                  int c_smem, int odd, int* blocks_per_sm) {
+  const void* kernel = packed_resident_kernel<T>(c_smem, odd);
   const size_t smem =
       packed_resident_smem(tile_rows, tile_cols, k, c_smem, sizeof(T));
   cudaError_t e = allow_smem(kernel, smem);
@@ -781,8 +924,8 @@ int sor_packed_resident_occupancy(int tile_rows, int tile_cols, int k,
                                                        1024, smem);
 }
 
-// A whole K4 solve in one cooperative launch (the resident route). xch:
-// 4 (nx, ny/2) planes; errs: n_slots gate slots, one per group; arrived:
+// A whole K4 or K5 solve in one cooperative launch (the resident route).
+// xch: 4 (nx, (ny+1)/2) planes; errs: n_slots gate slots, one per group; arrived:
 // the grid barrier's counter. The slots and the counter are zeroed here.
 template <typename T>
 int sor_redblack_packed_resident(const void* p, const void* rhs, void* out,
@@ -795,18 +938,18 @@ int sor_redblack_packed_resident(const void* p, const void* rhs, void* out,
   using U = typename Bits<T>::U;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int groups = max_iter > 1 ? (max_iter - 1 + k - 1) / k : 0;
-  if (k < 1 || tile_rows < 1 || tile_cols < 1 || ny % 2 ||
+  if (k < 1 || tile_rows < 1 || tile_cols < 1 || nx < 3 || ny < 3 ||
       n_slots < max(groups, 1))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaMemsetAsync(errs, 0, n_slots * sizeof(U), s);
   if (e == cudaSuccess) e = cudaMemsetAsync(arrived, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return e;
-  const void* kernel = packed_resident_kernel<T>(c_smem);
+  const void* kernel = packed_resident_kernel<T>(c_smem, ny % 2);
   const size_t smem =
       packed_resident_smem(tile_rows, tile_cols, k, c_smem, sizeof(T));
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((ny / 2 + tile_cols - 1) / tile_cols,
+  const dim3 grid(((ny + 1) / 2 + tile_cols - 1) / tile_cols,
                   (nx + tile_rows - 1) / tile_rows);
   const T* a_p = static_cast<const T*>(p);
   const T* a_rhs = static_cast<const T*>(rhs);
@@ -834,10 +977,10 @@ const char* ns_error_string(int code) {
 #define NS_JACOBI(SUFFIX, T)                                                  \
   int ns_jacobi_fused_##SUFFIX(const void* p, const void* b, void* out,      \
                                int nx, int ny, int n_iter, double dx2,       \
-                               double dy2, double denom, double cb, int n_bc, \
-                               const double* bc_spec, void* stream) {        \
+                               double dy2, double denom, double cb,          \
+                               const double* plan_spec, void* stream) {      \
     return ns::jacobi_fused<T>(p, b, out, nx, ny, n_iter, dx2, dy2, denom,   \
-                               cb, n_bc, bc_spec, stream);                   \
+                               cb, plan_spec, stream);                       \
   }
 NS_JACOBI(f32, float)
 NS_JACOBI(f64, double)
@@ -894,9 +1037,10 @@ NS_SOR_TILED(f64, double)
         tile_cols, c_smem, dx2, dy2, denom, beta, tol, max_iter, k, stream); \
   }                                                                          \
   int ns_sor_packed_resident_occupancy_##SUFFIX(                             \
-      int tile_rows, int tile_cols, int k, int c_smem, int* blocks_per_sm) { \
+      int tile_rows, int tile_cols, int k, int c_smem, int odd,              \
+      int* blocks_per_sm) {                                                  \
     return ns::sor_packed_resident_occupancy<T>(tile_rows, tile_cols, k,     \
-                                                c_smem, blocks_per_sm);      \
+                                                c_smem, odd, blocks_per_sm); \
   }
 NS_SOR_PACKED(f32, float)
 NS_SOR_PACKED(f64, double)

@@ -44,6 +44,7 @@ def reset_launch_counts() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
         w.calls = 0
-    sor_redblack_packed_multiblock.launches_resident = 0
+    for w in (sor_redblack_packed_multiblock, sor_redblack_multiblock):
+        w.launches_resident = 0
     for w in (fused_zy_forward, fused_yz_inverse, fused_lamb):
         w.launches_bf16 = 0

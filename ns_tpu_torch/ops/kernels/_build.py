@@ -43,7 +43,7 @@ _BOTH, _F32 = ("f32", "f64"), ("f32",)
 # C entry points: name -> (argtypes, the dtype suffixes it is built for);
 # every one returns a cudaError_t as int
 _ENTRIES = {
-    "ns_jacobi_fused": ([_P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _I, _P, _P],
+    "ns_jacobi_fused": ([_P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _P, _P],
                         _BOTH),
     "ns_jacobi_multiblock": ([_P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _I,
                               _P, _P], _BOTH),
@@ -56,7 +56,7 @@ _ENTRIES = {
     "ns_sor_redblack_packed_resident": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _I, _D, _D, _D, _D, _D, _I,
                                          _I, _P], _BOTH),
-    "ns_sor_packed_resident_occupancy": ([_I, _I, _I, _I,
+    "ns_sor_packed_resident_occupancy": ([_I, _I, _I, _I, _I,
                                           ctypes.POINTER(_I)], _BOTH),
     "ns_momentum_explicit": ([_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D,
                               _D, _D, _I, _I, _P, _I, _P, _P], _BOTH),
@@ -161,8 +161,10 @@ def check(code: int, what: str) -> None:
 # --- launch helpers shared by the wrappers ----------------------------------
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_KIND = {"dirichlet": 0, "neumann": 1}
-_SIDE = {"left": 0, "right": 1, "bottom": 2, "top": 3}
+KIND = {"dirichlet": 0, "neumann": 1}
+# the sides by their C number (common.cuh::BCList, K2's edge plan)
+SIDES = ("left", "right", "bottom", "top")
+_SIDE = {s: i for i, s in enumerate(SIDES)}
 MAX_BCS = 8  # ns::kMaxBCs in csrc/common.cuh
 
 
@@ -222,7 +224,7 @@ def bc_spec(bcs) -> ctypes.Array:
     if len(bcs) > MAX_BCS:
         raise ValueError(f"at most {MAX_BCS} BCs per field, got {len(bcs)}")
     flat = [x for bc in bcs
-            for x in (_KIND[bc.kind], _SIDE[bc.side], bc.edge_term())]
+            for x in (KIND[bc.kind], _SIDE[bc.side], bc.edge_term())]
     return (ctypes.c_double * len(flat))(*flat)
 
 

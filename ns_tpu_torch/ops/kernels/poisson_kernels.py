@@ -23,27 +23,27 @@ Dispatch is by the tensor's device: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel or raises; nothing falls back. Each wrapper
 counts its kernel launches in a `launches` attribute and its calls that
 launched in `calls` (K4 and K5 launch once per gate group where the host
-reads the gate; K4's resident route counts its solves in
+reads the gate; their resident route counts its solves in
 `launches_resident` too).
 
 What bounds each kernel on the H100, and how the design answers it, is in
 the CUDA source's header. In short:
 - K1 and K2 keep the whole grid in one block's shared memory and run every
   sweep (and K1's convergence gate) in one launch: at the reference sizes
-  a solve is a chain of dependent sweeps, latency-bound. K1 keeps p as
-  packed colour planes, gives each thread fixed cells of each colour
-  (offsets and rhs_c found once, `k1_layout`), and publishes the gate
-  through the colour barriers: two barriers a sweep, no division and no
-  idle lane in the sweep loop.
-- K4 runs a whole solve in one cooperative launch where its tile plan
-  (`resident_plan`) puts one block on each SM with its tile of the packed
-  planes resident in shared memory: k sweeps a group there, an exchange of
-  own cells through L2, a grid barrier and the gate read on the device.
-  Grids too large for the card's shared memory keep one launch per gate
-  group and the host gate.
-- K5 runs each colour half-sweep over the whole grid with many blocks and
-  reads its gate on the host once per k sweeps; K2's multi-block form runs
-  each sweep as one grid launch and the BC edges as one ordered
+  a solve is a chain of dependent sweeps, latency-bound. Both give each
+  thread fixed cells (offsets found once: `k1_layout`; K2's interior list),
+  so the sweep loop has no division. K1 keeps p as packed colour planes and
+  publishes the gate through the colour barriers: two barriers a sweep. K2
+  applies its BC list as an edge plan (`k2_edge_plan`) inside the sweep:
+  one barrier a sweep.
+- K4 and K5 run a whole solve in one cooperative launch where the tile
+  plan (`resident_plan`, any ny) puts one block on each SM with its tile
+  of the packed planes resident in shared memory: k sweeps a group there,
+  an exchange of own cells through L2, a grid barrier and the gate read on
+  the device. Grids too large for the card's shared memory keep one launch
+  per gate group and the host gate (K4 on packed tiles, K5 as colour
+  half-sweeps over the whole grid, `_color_groups`); K2's multi-block form
+  runs each sweep as one grid launch and the BC edges as one ordered
   single-block launch.
 """
 
@@ -77,10 +77,62 @@ def _consts(dx: float, dy: float):
     return dx2, dy2, 2.0 * (dx2 + dy2)
 
 
+# --- K2: the edge plan ---------------------------------------------------------
+#
+# After a Jacobi sweep the BC list, applied in order, leaves on each side's
+# non-corner cells what the side's last BC writes (its term, or the swept
+# interior cell next to it plus its term: no other BC touches them), and on
+# each corner what the last BC of its two sides writes, read from the edge
+# cell next to it as the list left it. K2 applies this plan instead of the
+# list (csrc/poisson_kernels.cu::jacobi_fused_kernel).
+
+SIDES = _build.SIDES
+# the corners (0,0), (0,ny-1), (nx-1,0), (nx-1,ny-1) and their two sides
+CORNERS = (("left", "bottom"), ("left", "top"), ("right", "bottom"),
+           ("right", "top"))
+
+
+class K2EdgePlan(NamedTuple):
+    kind: tuple[int, ...]      # per side: its last BC's kind (-1 none, 0
+    #                            Dirichlet, 1 Neumann)
+    term: tuple[float, ...]    # per side: that BC's edge term
+    corner: tuple[int, ...]    # per corner: the side (index in SIDES) whose
+    #                            BC writes it last, or -1
+
+    def spec(self) -> ctypes.Array:
+        """The 12 doubles K2's C entry unpacks: kind, corner, term."""
+        flat = [*self.kind, *self.corner, *self.term]
+        return (ctypes.c_double * len(flat))(*flat)
+
+
+def k2_edge_plan(bcs) -> K2EdgePlan:
+    """The edge plan of a BC list (see above)."""
+    last = {bc.side: q for q, bc in enumerate(bcs)}
+    kind = tuple(_build.KIND[bcs[last[s]].kind] if s in last else -1
+                 for s in SIDES)
+    term = tuple(bcs[last[s]].edge_term() if s in last else 0.0
+                 for s in SIDES)
+    corner = tuple(
+        max((SIDES.index(s) for s in pair if s in last),
+            key=lambda i: last[SIDES[i]], default=-1)
+        for pair in CORNERS)
+    return K2EdgePlan(kind, term, corner)
+
+
+@functools.lru_cache(maxsize=64)
+def _k2_spec(bcs: tuple) -> ctypes.Array:
+    """The edge plan in the C entry's layout, built once per BC list: the
+    solvers pass the same list every step, and a 50^2 step is host-bound,
+    so the plan is not rebuilt on every call. The C entry only reads the
+    array."""
+    return k2_edge_plan(bcs).spec()
+
+
 def jacobi_fused(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
                  n_iter: int, p_bc) -> torch.Tensor:
-    """All `n_iter` Jacobi sweeps, each followed by the p BC edge writes in
-    list order (direct_fd's pressure), in one launch of one block (K2)."""
+    """All `n_iter` Jacobi sweeps, each followed by the p BC list in list
+    order (direct_fd's pressure), in one launch of one block (K2), which
+    applies the list as its edge plan (`k2_edge_plan`)."""
     if p.device.type == "cpu":
         return poisson.jacobi(p, b, dx, dy, n_iter,
                               bc_fn=lambda q: apply_bcs(q, p_bc))
@@ -90,12 +142,12 @@ def jacobi_fused(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
                          "fit one block's shared memory")
     dx2, dy2, denom = _consts(dx, dy)
     out = torch.empty_like(p)
-    spec = _build.bc_spec(p_bc)
+    spec = _k2_spec(tuple(p_bc))
     fn = _build.entry("ns_jacobi_fused", p.dtype)
     with torch.cuda.device(p.device):
         code = fn(p.data_ptr(), b.data_ptr(), out.data_ptr(), nx, ny,
-                  int(n_iter), dx2, dy2, denom, dx2 * dy2 / denom, len(p_bc),
-                  spec, _build.stream(p.device))
+                  int(n_iter), dx2, dy2, denom, dx2 * dy2 / denom, spec,
+                  _build.stream(p.device))
     _build.check(code, "jacobi_fused")
     jacobi_fused.launches += 1
     jacobi_fused.calls += 1
@@ -240,13 +292,38 @@ def sor_redblack_tiled(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
 def sor_redblack_multiblock(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
                             dy: float, beta: float, tol: float, max_iter: int,
                             k: int = 8) -> torch.Tensor:
-    """Red-black SOR for grids beyond one block (K5), any shape. Each
-    launch of the C entry runs one group of k sweeps (2k colour
-    half-sweep grids) and leaves the last sweep's max|dp| in a device
-    scalar; the host reads it once per group and applies the same gate as
-    `sor_redblack_tiled`."""
+    """Red-black SOR for grids beyond one block (K5), any shape, with
+    `sor_redblack_tiled`'s iterate sequence and gate.
+
+    Resident route, where this card's tile plan exists (`resident_plan`,
+    odd ny included): K4's resident kernel on the packed colour planes,
+    the whole solve one cooperative launch with the gate read on the
+    device. Counted in `launches` and `launches_resident`.
+
+    Beyond the card's shared memory: `_color_groups`, one launch per gate
+    group and the gate read on the host."""
     if p.device.type == "cpu":
         return sor_redblack_tiled(p, rhs_c, dx, dy, beta, tol, max_iter, k)
+    nx, ny = _build.check_inputs("sor_redblack_multiblock", p, rhs_c)
+    if k < 1:
+        raise ValueError(f"sor_redblack_multiblock: k={k}")
+    plan = _card_plan(p.device, nx, ny, p.dtype, k)
+    if plan is None:
+        out = _color_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k)
+    else:
+        out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter)
+        sor_redblack_multiblock.launches += 1
+        sor_redblack_multiblock.launches_resident += 1
+    sor_redblack_multiblock.calls += 1
+    return out
+
+
+def _color_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k) -> torch.Tensor:
+    """K5's route for any grid on a CUDA tensor: each launch of the C entry
+    runs one group of k sweeps (2k colour half-sweep grids over the whole
+    field) and leaves the last sweep's max|dp| in a device scalar; the host
+    reads it once per group and applies `sor_redblack_tiled`'s gate. Each
+    group counts in `sor_redblack_multiblock.launches`."""
     nx, ny = _build.check_inputs("sor_redblack_multiblock", p, rhs_c)
     dx2, dy2, denom = _consts(dx, dy)
     q = p.clone()  # updated in place by the kernel
@@ -265,11 +342,11 @@ def sor_redblack_multiblock(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
             # non-negative value reads back as the value itself
             err = float(err_buf.item())
             it += k
-    sor_redblack_multiblock.calls += 1
     return q
 
 
 sor_redblack_multiblock.launches = 0
+sor_redblack_multiblock.launches_resident = 0
 sor_redblack_multiblock.calls = 0
 
 
@@ -379,7 +456,7 @@ def packed_tile_bytes(k: int, itemsize: int) -> int:
     return 2 * (rows + 4 * k) * (cols + 2 * k) * itemsize
 
 
-# --- K4's resident route: the tile plan ----------------------------------------
+# --- the resident route of K4 and K5: the tile plan ---------------------------
 
 # the H100's shared memory per block (opt-in), and its SMs
 H100_SMEM_PER_BLOCK = 232448
@@ -412,18 +489,18 @@ class ResidentPlan(NamedTuple):
 def resident_plan(nx: int, ny: int, itemsize: int, n_sms: int = H100_SMS,
                   smem_per_block: int = H100_SMEM_PER_BLOCK,
                   k: int = 8) -> ResidentPlan | None:
-    """The tile plan of K4's resident route, or None where no plan keeps
-    every tile resident: one block of 1024 threads on each SM (its 64
-    registers a thread fill the SM's register file), so at most `n_sms`
-    tiles, each tile's working R and B planes in one block's shared memory
-    (less 1 KB). Of the plans that fit, the one with the fewest working
-    cells a block (the time of a sweep, since all blocks run at once),
-    then the fewest blocks, then the widest tile. rhs_c's tile planes join
-    p's in shared memory where all four fit. The route's shape predicate
-    is `plan is not None` (ny even)."""
-    if ny % 2:
-        return None
-    ny2 = ny // 2
+    """The tile plan of the resident route of K4 and K5, or None where no
+    plan keeps every tile resident: one block of 1024 threads on each SM
+    (its 64 registers a thread fill the SM's register file), so at most
+    `n_sms` tiles of the packed colour planes ((ny + 1) // 2 columns: at an
+    odd ny one plane's last column in each row lies outside the grid), each
+    tile's working R and B planes in one block's shared memory (less 1 KB).
+    Of the plans that fit, the one with the fewest working cells a block
+    (the time of a sweep, since all blocks run at once), then the fewest
+    blocks, then the widest tile. rhs_c's tile planes join p's in shared
+    memory where all four fit. The route's shape predicate is `plan is not
+    None`."""
+    ny2 = -(-ny // 2)
     budget = smem_per_block - 1024
     best = None
     for tr in PLAN_ROWS:
@@ -468,11 +545,11 @@ def _card_plan(device: torch.device, nx: int, ny: int, dtype: torch.dtype,
     fn = _build.entry("ns_sor_packed_resident_occupancy", dtype)
     with torch.cuda.device(device):
         code = fn(plan.tile_rows, plan.tile_cols, k, int(plan.c_in_smem),
-                  ctypes.byref(per_sm))
-    _build.check(code, "sor_redblack_packed_multiblock occupancy")
+                  ny % 2, ctypes.byref(per_sm))
+    _build.check(code, "resident SOR occupancy")
     if per_sm.value * props.multi_processor_count < plan.blocks:
         raise RuntimeError(
-            f"sor_redblack_packed_multiblock: the plan {plan} needs "
+            f"resident SOR: the plan {plan} needs "
             f"{plan.blocks} resident blocks, the card holds "
             f"{per_sm.value} an SM")
     return plan
@@ -511,16 +588,20 @@ def sor_redblack_packed_multiblock(p: torch.Tensor, rhs_c: torch.Tensor,
         out = _packed_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k)
     else:
         out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter)
+        sor_redblack_packed_multiblock.launches += 1
+        sor_redblack_packed_multiblock.launches_resident += 1
     sor_redblack_packed_multiblock.calls += 1
     return out
 
 
 def _packed_resident(plan: ResidentPlan, p, rhs_c, dx, dy, beta, tol,
                      max_iter) -> torch.Tensor:
+    """One launch of the resident kernel (K4's, and K5's where its plan
+    exists); the caller counts it."""
     nx, ny = p.shape
     dx2, dy2, denom = _consts(dx, dy)
     out = torch.empty_like(p)
-    xch = torch.empty((4, nx, ny // 2), dtype=p.dtype, device=p.device)
+    xch = torch.empty((4, nx, -(-ny // 2)), dtype=p.dtype, device=p.device)
     n_slots = max(1, gate_groups(max_iter, plan.k))
     errs = torch.empty(n_slots, dtype=torch.int64, device=p.device)
     arrived = torch.empty(1, dtype=torch.int32, device=p.device)
@@ -531,9 +612,7 @@ def _packed_resident(plan: ResidentPlan, p, rhs_c, dx, dy, beta, tol,
                   n_slots, nx, ny, plan.tile_rows, plan.tile_cols,
                   int(plan.c_in_smem), dx2, dy2, denom, float(beta),
                   float(tol), int(max_iter), plan.k, _build.stream(p.device))
-    _build.check(code, "sor_redblack_packed_multiblock")
-    sor_redblack_packed_multiblock.launches += 1
-    sor_redblack_packed_multiblock.launches_resident += 1
+    _build.check(code, "resident SOR")
     return out
 
 

@@ -29,11 +29,12 @@ Port of `ns_tpu/solvers/chorin_fd.py` (the reference chorin_fd family):
                        when two grids fit one block's shared memory; beyond
                        that, where the JAX package ran its packed kernel
                        (nx % 128 == 0 and ny % 256 == 0), K4
-                       (`sor_redblack_packed_multiblock`, packed colour
-                       planes, one launch per gate group of 8 sweeps), and
-                       on any other grid K5 (`sor_redblack_multiblock`,
-                       gate every 8 sweeps). On a CPU tensor, the same
-                       routing to their twins.
+                       (`sor_redblack_packed_multiblock`), and on any
+                       other grid K5 (`sor_redblack_multiblock`): gate
+                       every 8 sweeps, a whole solve one launch with the
+                       gate on the device where the card holds their tiles,
+                       else one launch per gate group. On a CPU tensor,
+                       the same routing to their twins.
       'gauss_seidel' — exact reference iterate order (wavefront sweeps).
       'cg'           — conjugate gradient on the same system.
       'multigrid'    — V-cycles (MGCG off 2^k+1 grids) on

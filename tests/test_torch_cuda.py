@@ -23,6 +23,7 @@ import torch
 
 from ns_tpu_torch.core.bc import apply_bcs, dirichlet, neumann
 from ns_tpu_torch.ops import fast_poisson, kernels, poisson
+from ns_tpu_torch.ops.kernels.poisson_kernels import _color_groups
 from ns_tpu_torch.solvers import spectral3d as s3
 
 pytestmark = pytest.mark.cuda
@@ -53,17 +54,44 @@ def p_bcs(h):
             neumann(0.5, "left", h, h), neumann(0, "right", h, h)]
 
 
-@pytest.mark.parametrize("dtype,atol", DTYPES)
-def test_jacobi_fused(cuda, dtype, atol):
-    nx, ny = 50, 43
+def k2_bc_lists(h):
+    """The BC lists K2 is held to: the cavity-like `p_bcs`, two sides only
+    (two corners keep their values), a repeated side, and every side
+    Dirichlet in reverse order."""
+    return [p_bcs(h),
+            [neumann(0.5, "left", h, h), dirichlet(1.0, "top")],
+            [dirichlet(2.0, "bottom"), neumann(-1.0, "right", h, h),
+             neumann(0.3, "bottom", h, h), dirichlet(-0.5, "left"),
+             neumann(0.7, "top", h, h)],
+            [dirichlet(v, s) for v, s in ((1.0, "top"), (2.0, "bottom"),
+                                          (3.0, "right"), (4.0, "left"))]]
+
+
+# K2's grids: the reference-like 50x43, 3xN edge grids (every interior cell
+# next to two edges), and the largest grids one block holds (170^2 in
+# float32, 120^2 in float64: 28 and 14 interior cells a thread)
+K2_CASES = [(torch.float64, 1e-10, (50, 43)), (torch.float32, 1e-4, (50, 43)),
+            (torch.float64, 1e-10, (3, 3)), (torch.float32, 1e-4, (3, 70)),
+            (torch.float64, 1e-10, (70, 3)),
+            (torch.float64, 1e-10, (120, 120)),
+            (torch.float32, 1e-4, (170, 170))]
+
+
+@pytest.mark.parametrize("dtype,atol,shape", K2_CASES)
+def test_jacobi_fused(cuda, dtype, atol, shape):
+    """K2 against its twin for each BC list, one launch a call, at nit 50
+    and 0 (nothing changes, not even the corners)."""
+    nx, ny = shape
     h = 2.0 / (nx - 1)
     p0, b = rand((nx, ny), dtype, cuda, 0), rand((nx, ny), dtype, cuda, 1, 10.0)
-    n0 = kernels.jacobi_fused.launches
-    got = kernels.jacobi_fused(p0, b, h, h, 50, p_bcs(h))
-    assert kernels.jacobi_fused.launches == n0 + 1
-    want = poisson.jacobi(p0, b, h, h, 50,
-                          bc_fn=lambda q: apply_bcs(q, p_bcs(h)))
-    close(got, want, dtype, atol)
+    for bcs in k2_bc_lists(h):
+        n0 = kernels.jacobi_fused.launches
+        got = kernels.jacobi_fused(p0, b, h, h, 50, bcs)
+        assert kernels.jacobi_fused.launches == n0 + 1
+        want = poisson.jacobi(p0, b, h, h, 50,
+                              bc_fn=lambda q: apply_bcs(q, bcs))
+        close(got, want, dtype, atol)
+        assert torch.equal(kernels.jacobi_fused(p0, b, h, h, 0, bcs), p0)
 
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)
@@ -320,16 +348,38 @@ def test_sor_redblack_fused(cuda, dtype, atol, shape):
 
 
 @pytest.mark.parametrize("dtype,atol", DTYPES)
-@pytest.mark.parametrize("shape", [(256, 256), (257, 190)])
+@pytest.mark.parametrize("shape", [(256, 256), (257, 190), (257, 191),
+                                   (1025, 1025)])
 def test_sor_redblack_multiblock(cuda, dtype, atol, shape):
-    """tol=0 and cap 8*4+1: four gated groups of k=8 sweeps on both sides."""
+    """tol=0 and cap 8*4+1: four gated groups of k=8 sweeps, on the
+    resident route (one launch a solve, odd ny included), against the twin
+    and the colour-group kernels on the same input."""
     h = 2.0 / (shape[0] - 1)
     p0, c = rand(shape, dtype, cuda, 4), rand(shape, dtype, cuda, 5, h * h)
-    n0 = kernels.sor_redblack_multiblock.launches
-    got = kernels.sor_redblack_multiblock(p0, c, h, h, 1.25, 0.0, 33)
-    assert kernels.sor_redblack_multiblock.launches == n0 + 4
+    k5 = kernels.sor_redblack_multiblock
+    n0, r0 = k5.launches, k5.launches_resident
+    got = k5(p0, c, h, h, 1.25, 0.0, 33)
+    assert (k5.launches, k5.launches_resident) == (n0 + 1, r0 + 1)
     close(got, kernels.sor_redblack_tiled(p0, c, h, h, 1.25, 0.0, 33), dtype,
           atol)
+    n0 = k5.launches
+    close(got, _color_groups(p0, c, h, h, 1.25, 0.0, 33, 8), dtype, atol)
+    assert k5.launches == n0 + 4
+
+
+def test_sor_redblack_multiblock_beyond_shared_memory(cuda):
+    """4097^2 float32 has no resident plan on the card: one launch of the
+    colour-group kernels per gate group and the host gate (cap 17: two)."""
+    n = 4097
+    h = 2.0 / (n - 1)
+    p0 = rand((n, n), torch.float32, cuda, 6)
+    c = rand((n, n), torch.float32, cuda, 7, h * h)
+    k5 = kernels.sor_redblack_multiblock
+    n0, r0 = k5.launches, k5.launches_resident
+    got = k5(p0, c, h, h, 1.25, 0.0, 17)
+    assert (k5.launches, k5.launches_resident) == (n0 + 2, r0)
+    close(got, kernels.sor_redblack_tiled(p0, c, h, h, 1.25, 0.0, 17),
+          torch.float32, 1e-4)
 
 
 # K4's grids: 1024^2 and 257x190 (off the routing predicate) take the
@@ -344,9 +394,9 @@ K4_CASES = [(torch.float64, 1e-10, (1024, 1024), 33),
 
 @pytest.mark.parametrize("dtype,atol,shape,cap", K4_CASES)
 def test_sor_redblack_packed_multiblock(cuda, dtype, atol, shape, cap):
-    """K4 at tol=0 against its twin and against K5 (the same iterate
-    sequence): one launch a solve on the resident route, one per gate
-    group of k=8 sweeps on the group route."""
+    """K4 at tol=0 against its twin and against K5's colour-group kernels
+    (the same iterate sequence): one launch a solve on the resident route,
+    one per gate group of k=8 sweeps on the group route."""
     h = 2.0 / (shape[0] - 1)
     p0, c = rand(shape, dtype, cuda, 14), rand(shape, dtype, cuda, 15, h * h)
     k4 = kernels.sor_redblack_packed_multiblock
@@ -358,8 +408,22 @@ def test_sor_redblack_packed_multiblock(cuda, dtype, atol, shape, cap):
     assert k4.launches_resident == r0 + resident
     close(got, kernels.sor_redblack_packed_tiled(p0, c, h, h, 1.25, 0.0, cap),
           dtype, atol)
-    close(got, kernels.sor_redblack_multiblock(p0, c, h, h, 1.25, 0.0, cap),
-          dtype, atol)
+    close(got, _color_groups(p0, c, h, h, 1.25, 0.0, cap, 8), dtype, atol)
+
+
+def solve_without_sync(wrapper, p0, c, h):
+    """A gated solve (nit=200, tol 5e-6) under sync debug mode "error": it
+    raises if the solve synchronises with the host. Returns the result and
+    the launches it made."""
+    wrapper(p0, c, h, h, 1.25, 5e-6, 200)  # the first call builds the library
+    torch.cuda.synchronize()
+    n0 = wrapper.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = wrapper(p0, c, h, h, 1.25, 5e-6, 200)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return got, wrapper.launches - n0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -369,17 +433,24 @@ def test_packed_resident_solve_never_syncs(cuda, dtype):
     n = 1024
     h = 2.0 / (n - 1)
     p0, c = rand((n, n), dtype, cuda, 16), rand((n, n), dtype, cuda, 17, h * h)
-    k4 = kernels.sor_redblack_packed_multiblock
-    k4(p0, c, h, h, 1.25, 5e-6, 200)  # the first call builds the library
-    torch.cuda.synchronize()
-    n0 = k4.launches
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        got = k4(p0, c, h, h, 1.25, 5e-6, 200)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert k4.launches == n0 + 1
+    got, launches = solve_without_sync(kernels.sor_redblack_packed_multiblock,
+                                       p0, c, h)
+    assert launches == 1
     close(got, kernels.sor_redblack_packed_tiled(p0, c, h, h, 1.25, 5e-6, 200),
+          dtype, 1e-4 if dtype == torch.float64 else 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resident_k5_solve_never_syncs(cuda, dtype):
+    """A gated K5 solve at 1025^2, chorin_fd's odd grid, is one launch with
+    no host synchronisation; it stops where its twin stops."""
+    n = 1025
+    h = 2.0 / (n - 1)
+    p0, c = rand((n, n), dtype, cuda, 18), rand((n, n), dtype, cuda, 19, h * h)
+    got, launches = solve_without_sync(kernels.sor_redblack_multiblock, p0, c,
+                                       h)
+    assert launches == 1
+    close(got, kernels.sor_redblack_tiled(p0, c, h, h, 1.25, 5e-6, 200),
           dtype, 1e-4 if dtype == torch.float64 else 1e-3)
 
 

@@ -1,17 +1,19 @@
-"""The index arithmetic of the redesigned K1 and K4 (csrc/poisson_kernels.cu)
-modelled in plain torch on the CPU.
+"""The index arithmetic of the redesigned K1, K4 and K5
+(csrc/poisson_kernels.cu) modelled in plain torch on the CPU.
 
 K1 gives each thread fixed interior cells of each colour; the model of its
 cell list (`k1_cells`, the kernel's `k1_cell`) must cover every interior
-cell of each colour exactly once. K4's resident route runs a whole solve
-in one launch from a tile plan (`resident_plan`); the model below runs the
-kernel's schedule on every tile of the plan at once (pack on load, k
-sweeps on each working tile over the cells the own cells still depend on,
-the per-group error slot and gate, the
-exchange of own cells and the halo reload, the unpacked write) and must
-reproduce the plain twin `sor_redblack_packed_tiled` bitwise, and the JAX
-packed kernel where its shape predicate holds. Inputs are seeded numpy
-arrays in float64.
+cell of each colour exactly once. The resident route of K4 and K5 runs a
+whole solve in one launch from a tile plan (`resident_plan`); the model
+below runs the kernel's schedule on every tile of the plan at once (pack
+on load, k sweeps on each working tile over the cells the own cells still
+depend on, the per-group error slot and gate, the exchange of own cells
+and the halo reload, the unpacked write) and must reproduce the plain
+twins bitwise: `sor_redblack_packed_tiled` (K4, even ny) and
+`sor_redblack_tiled` (K5, any ny: at an odd ny the packed planes have
+(ny + 1) // 2 columns and one plane's last column in each row lies outside
+the grid); and the JAX kernels where their shape predicates hold. Inputs
+are seeded numpy arrays in float64.
 """
 
 import jax.numpy as jnp
@@ -19,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from ns_tpu.ops.pallas.poisson_kernels import sor_redblack_packed_tiled_pallas
+from ns_tpu.ops.pallas.poisson_kernels import (
+    sor_redblack_packed_tiled_pallas, sor_redblack_tiled_any)
 from ns_tpu_torch.ops import kernels, poisson
 from ns_tpu_torch.ops.kernels import poisson_kernels as pk
 
@@ -80,14 +83,14 @@ def test_k1_layout_fits_the_grids_smem_fits_admits(shape, itemsize):
         assert layout.cells_per_thread == 16
 
 
-# --- K4's resident route --------------------------------------------------------
+# --- the resident route of K4 and K5 ------------------------------------------
 
 def resident_model(p, rhs, dx, dy, beta, tol, max_iter, plan):
-    """K4's resident kernel on every tile of `plan` at once: (tiles, wr,
+    """The resident kernel on every tile of `plan` at once: (tiles, wr,
     wc) working planes. Returns the unpacked result and the per-group
     error slots that the gate read."""
     nx, ny = p.shape
-    ny2, k = ny // 2, plan.k
+    ny2, k = -(-ny // 2), plan.k
     hr, hc = 2 * k, k
     wr, wc = plan.working
     dx2, dy2 = dx * dx, dy * dy
@@ -106,10 +109,14 @@ def resident_model(p, rhs, dx, dy, beta, tol, max_iter, plan):
     ri, ci = rows.clamp(0, nx - 1), cols.clamp(0, ny2 - 1)
     even_row = rows % 2 == 0
 
+    pair = 2 * ci + 1 < ny  # the odd column j = 2jc + 1 lies in the grid
+
     def load_packed(f):
-        """Pack on load: R = p[i, 2jc + i%2], B the other of the pair."""
-        a, b = f[ri, 2 * ci], f[ri, 2 * ci + 1]
+        """Pack on load: R = p[i, 2jc + i%2], B the other of the pair (0
+        where j = ny, outside an odd-width grid)."""
         zero = torch.zeros((), dtype=f.dtype)
+        a = f[ri, 2 * ci]
+        b = torch.where(pair, f[ri, (2 * ci + 1).clamp(max=ny - 1)], zero)
         return (torch.where(in_grid, torch.where(even_row, a, b), zero),
                 torch.where(in_grid, torch.where(even_row, b, a), zero))
 
@@ -163,11 +170,12 @@ def resident_model(p, rhs, dx, dy, beta, tol, max_iter, plan):
             ring = in_grid & ~own
             R = torch.where(ring, XR[ri, ci], R)
             B = torch.where(ring, XB[ri, ci], B)
-    out = torch.empty_like(p)
+    out = torch.full_like(p, float("nan"))
     oi, oc = rows.expand_as(own)[own], cols.expand_as(own)[own]
     er = even_row.expand_as(own)[own]
     out[oi, 2 * oc] = torch.where(er, R[own], B[own])
-    out[oi, 2 * oc + 1] = torch.where(er, B[own], R[own])
+    op = pair.expand_as(own)[own]  # the unpacked write skips j = ny
+    out[oi[op], 2 * oc[op] + 1] = torch.where(er, B[own], R[own])[op]
     return out, errs
 
 
@@ -210,6 +218,63 @@ def test_resident_schedule_at_1024_matches_packed_twin():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape,tol,cap", [
+    ((67, 91), 0.0, 9), ((67, 91), 0.0, 33), ((67, 91), 1.2e-2, 400),
+    ((257, 191), 0.0, 9), ((257, 191), 0.0, 33), ((257, 191), 0.15, 400)])
+def test_resident_schedule_at_odd_widths_matches_tiled_twin(shape, tol, cap):
+    """K5's resident route at odd ny (ragged edge tiles, W = (ny + 1) // 2
+    packed columns, guarded loads and stores) equals K5's twin
+    `sor_redblack_tiled` bitwise and runs its gate groups (all at tol 0;
+    a tol that stops mid-way stops both at the same group)."""
+    nx, ny = shape
+    dx, dy = 2.0 / (nx - 1), 2.0 / (ny - 1)
+    p0, rhs = fields(23, shape)
+    plan = pk.resident_plan(nx, ny, 8)
+    assert plan is not None
+    assert plan.grid_rows * plan.tile_rows >= nx
+    assert plan.grid_cols * plan.tile_cols >= (ny + 1) // 2
+    got, errs = resident_model(p0, rhs, dx, dy, 1.25, tol, cap, plan)
+    want = kernels.sor_redblack_tiled(p0, rhs, dx, dy, 1.25, tol, cap)
+    assert torch.equal(got, want)
+    groups = pk.gate_groups(cap, plan.k)
+    if tol == 0.0:
+        assert len(errs) == groups
+    else:
+        assert 1 < len(errs) < groups
+        assert errs[-1] <= tol < errs[-2]
+
+
+def test_resident_schedule_at_1025_matches_tiled_twin():
+    """The 1025^2 plan (11 x 11 tiles of 96 x 48 packed cells, the last
+    row and column of tiles ragged) at cap 17: two gate groups, one halo
+    exchange, bitwise equal to K5's twin."""
+    n = 1025
+    h = 2.0 / (n - 1)
+    p0, rhs = fields(24, (n, n), scale=(1.0, h * h))
+    plan = pk.resident_plan(n, n, 8)
+    assert (plan.tile_rows, plan.tile_cols, plan.blocks) == (96, 48, 121)
+    got, errs = resident_model(p0, rhs, h, h, 1.25, 0.0, 17, plan)
+    assert len(errs) == 2
+    want = kernels.sor_redblack_tiled(p0, rhs, h, h, 1.25, 0.0, 17)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tol,cap", [(0.0, 17), (2e-2, 400)])
+def test_resident_schedule_matches_jax_tiled_any(tol, cap):
+    """On an odd 67x91 grid, against the JAX pad-and-mask tiled kernel
+    (k=8, tile_rows=32, interpret mode): the same expression order and
+    gate, <= 1e-12."""
+    nx, ny = 67, 91
+    dx, dy = 2.0 / (nx - 1), 2.0 / (ny - 1)
+    p0, rhs = fields(25, (nx, ny))
+    want = np.asarray(sor_redblack_tiled_any(
+        jnp.asarray(p0.numpy()), jnp.asarray(rhs.numpy()), dx, dy, 1.25, tol,
+        cap, k_per_launch=8, tile_rows=32, interpret=True))
+    got, _ = resident_model(p0, rhs, dx, dy, 1.25, tol, cap,
+                            pk.resident_plan(nx, ny, 8))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+
+
 @pytest.mark.parametrize("tol,cap", [(0.0, 17), (5e-2, 400)])
 def test_resident_schedule_matches_jax_packed_kernel(tol, cap):
     """On 256x256, where the JAX packed kernel's predicate holds (k=8,
@@ -241,8 +306,17 @@ def test_resident_plan_holds_1024_on_the_h100(itemsize):
 
 def test_resident_plan_refuses_what_the_card_cannot_hold():
     """4096^2 float32 (64 MB of planes against 30 MB of shared memory on
-    132 SMs) and any odd ny keep the group route."""
+    132 SMs) keeps the group route; odd widths have plans where they fit:
+    1025^2 in both dtypes (rhs_c's tiles in shared memory only in
+    float32), 4097^2 not."""
     assert pk.resident_plan(4096, 4096, 4) is None
-    assert pk.resident_plan(1024, 1023, 4) is None
+    assert pk.resident_plan(4097, 4097, 4) is None
+    for itemsize in (4, 8):
+        plan = pk.resident_plan(1025, 1025, itemsize, n_sms=132,
+                                smem_per_block=232448)
+        assert plan is not None and plan.blocks <= 132
+        assert plan.c_in_smem == (itemsize == 4)
+        assert plan.smem_bytes <= 232448 - 1024
+    assert pk.resident_plan(1024, 1023, 4) is not None
     assert pk.gate_groups(200, 8) == 25 and pk.gate_groups(17, 8) == 2
     assert pk.gate_groups(1, 8) == 0

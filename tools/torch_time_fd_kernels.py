@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Time the red-black SOR kernels K1 and K4 on the card, beside their plain
-twins and bounds, at the main path's shapes: K1 (`sor_redblack_fused`) at
-51^2 and at 170^2, the largest grid one block holds in float32; K4
-(`sor_redblack_packed_multiblock`) at 1024^2 in float32 and float64, with
-K5 (`sor_redblack_multiblock`) on the same input (and whether the two
-results are bitwise equal). Every solve is nit=200,
-tol=5e-6, as chorin_fd runs it. Needs a CUDA device. Prints the card's
-name and power limit, the registers and spills ptxas reported for the SOR
-kernels, and one JSON line of times.
+"""Time the one-block and resident pressure kernels on the card, beside
+their plain twins and bounds, at the main path's shapes: K1
+(`sor_redblack_fused`) at 51^2 and at 170^2, the largest grid one block
+holds in float32; K2 (`jacobi_fused`) at 50^2, nit=50, with the cavity p
+BCs; K4 (`sor_redblack_packed_multiblock`) at 1024^2 and K5
+(`sor_redblack_multiblock`) at 1025^2, each in float32 and float64, beside
+K5's colour-group kernels on the same input (and whether the results are
+bitwise equal). Every SOR solve is nit=200, tol=5e-6, as chorin_fd runs it.
+Needs a CUDA device. Prints the card's name and power limit, the registers
+and spills ptxas reported for the SOR and Jacobi kernels, and one JSON line
+of times.
 
-It uses only the wrappers' public entry points, so a copy of it runs in
-another checkout of the repo too: to compare two versions of the kernels
-in one call, run it in each tree in turns (old, new, new, old).
+It uses only the wrappers' public entry points (and the colour-group route
+where the tree has it as `_color_groups`; before that, K5's wrapper was
+that route), so a copy of it runs in another checkout of the repo too: to
+compare two versions of the kernels in one call, run it in each tree in
+turns (old, new, new, old).
 
     python tools/torch_time_fd_kernels.py [--label NAME]
 """
@@ -36,7 +40,7 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '_ZN2ns\d+(\w+?)I(\w+?)E", line)
         if m:
             name = m.group(1) + "<" + m.group(2) + ">"
-            name = name if "sor" in name else None
+            name = name if "sor" in name or "jacobi" in name else None
             continue
         if name is None:
             continue
@@ -56,8 +60,16 @@ def main():
     args = ap.parse_args()
     card = chip_smoke.phase_device()
     chip_smoke.phase_build()
+    from ns_tpu_torch.core.bc import apply_bcs, dirichlet, neumann
     from ns_tpu_torch.ops import kernels, poisson
     from ns_tpu_torch.ops.kernels import _build
+    from ns_tpu_torch.ops.kernels import poisson_kernels as pk
+
+    groups = getattr(pk, "_color_groups", None)
+    if groups is None:
+        def groups(p, c, dx, dy, beta, tol, max_iter, k):
+            return kernels.sor_redblack_multiblock(p, c, dx, dy, beta, tol,
+                                                   max_iter, k)
 
     lib = _build.build_library()
     regs = ptxas_report(str(lib.with_suffix(".log")))
@@ -81,30 +93,47 @@ def main():
         rows[f"K1 {n}x{n} float32"] = {
             "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
             "sweeps": sweeps, "us_per_sweep": 1e3 * ms / sweeps}
-    n = 1024
+    n = 50
     h = 2.0 / (n - 1)
-    for dtype in (torch.float32, torch.float64):
-        p, c = rand(n, dtype), rand(n, dtype, h * h)
-        n0 = kernels.sor_redblack_multiblock.launches
-        kernels.sor_redblack_multiblock(p, c, h, h, 1.25, 5e-6, 200)
-        sweeps = 8 * (kernels.sor_redblack_multiblock.launches - n0)
-        k4 = lambda: kernels.sor_redblack_packed_multiblock(
-            p, c, h, h, 1.25, 5e-6, 200)
-        k5 = lambda: kernels.sor_redblack_multiblock(p, c, h, h, 1.25, 5e-6,
-                                                     200)
-        twin = lambda: kernels.sor_redblack_packed_tiled(p, c, h, h, 1.25,
-                                                         5e-6, 200)
-        same = bool(torch.equal(k4(), k5()))
-        ms4, ms5, plain = chip_smoke.turns_ms([k4, k5, twin], 3)
-        item = torch.empty((), dtype=dtype).element_size()
-        peak = chip_smoke.FP32_FLOPS if dtype == torch.float32 else 34e12
-        b = chip_smoke.bound(3 * n * n * item, 10 * (n - 2) ** 2 * sweeps,
-                             peak)
-        rows[f"K4 {n}x{n} {str(dtype)[6:]}"] = {
-            "ms": ms4, "plain_ms": plain, "k5_ms": ms5,
-            "bitwise_equal_to_k5": same, "bound_ms": b[0],
-            "bound_by": b[1], "sweeps": sweeps,
-            "us_per_group": 1e3 * ms4 / (sweeps // 8)}
+    bcs = [dirichlet(0, "top"), neumann(0, "bottom", h, h),
+           neumann(0, "left", h, h), neumann(0, "right", h, h)]
+    p, b = rand(n, torch.float32), rand(n, torch.float32, 10.0)
+    ms, plain = chip_smoke.paired_ms(
+        lambda: kernels.jacobi_fused(p, b, h, h, 50, bcs),
+        lambda: poisson.jacobi(p, b, h, h, 50,
+                               bc_fn=lambda q: apply_bcs(q, bcs)), 200, 10)
+    bd = chip_smoke.bound(3 * n * n * 4, 8 * (n - 2) ** 2 * 50,
+                          chip_smoke.FP32_FLOPS)
+    rows[f"K2 {n}x{n} float32"] = {
+        "ms": ms, "plain_ms": plain, "bound_ms": bd[0], "bound_by": bd[1],
+        "sweeps": 50, "us_per_sweep": 1e3 * ms / 50}
+    for tag, n, wrapper, twin_fn in (
+            ("K4", 1024, kernels.sor_redblack_packed_multiblock,
+             kernels.sor_redblack_packed_tiled),
+            ("K5", 1025, kernels.sor_redblack_multiblock,
+             kernels.sor_redblack_tiled)):
+        h = 2.0 / (n - 1)
+        for dtype in (torch.float32, torch.float64):
+            p, c = rand(n, dtype), rand(n, dtype, h * h)
+            ker = lambda: wrapper(p, c, h, h, 1.25, 5e-6, 200)
+            grp = lambda: groups(p, c, h, h, 1.25, 5e-6, 200, 8)
+            # the gate's sweeps on this data: the colour groups launch
+            # once a group of 8 (in either tree)
+            n0 = kernels.sor_redblack_multiblock.launches
+            grp()
+            sweeps = 8 * (kernels.sor_redblack_multiblock.launches - n0)
+            twin = lambda: twin_fn(p, c, h, h, 1.25, 5e-6, 200)
+            same = bool(torch.equal(ker(), grp()))
+            ms, ms_g, plain = chip_smoke.turns_ms([ker, grp, twin], 3)
+            item = torch.empty((), dtype=dtype).element_size()
+            peak = chip_smoke.FP32_FLOPS if dtype == torch.float32 else 34e12
+            bd = chip_smoke.bound(3 * n * n * item,
+                                  10 * (n - 2) ** 2 * sweeps, peak)
+            rows[f"{tag} {n}x{n} {str(dtype)[6:]}"] = {
+                "ms": ms, "plain_ms": plain, "color_groups_ms": ms_g,
+                "bitwise_equal_to_color_groups": same, "bound_ms": bd[0],
+                "bound_by": bd[1], "sweeps": sweeps,
+                "us_per_group": 1e3 * ms / (sweeps // 8)}
     print(json.dumps({"label": args.label, "card": card, "ptxas": regs,
                       "times": rows}))
 

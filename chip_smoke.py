@@ -11,19 +11,23 @@ Phases (any failure exits non-zero, and no result line is printed):
   3. kernels — each kernel against its plain torch twin on the card at the
                main path's shapes (float32 and float64; K1 also at the
                largest grids one block holds; K2 with the cavity BC list
-               and two others; K4 and K5 on their resident route, one
-               launch a solve, and also against K5's colour-group kernels,
-               K4 also at 4096^2, where it keeps one launch a gate group;
-               the 3D transform
+               and two others; K2's multi-block form bitwise against K2 on
+               the grids one block holds, then on its resident route (one
+               launch a solve) at 1024^2 and 1025^2 and on its group route
+               at 4096^2; K3 one launch a call; K4 and K5 on their resident
+               route, one launch a solve, and also against K5's colour-group
+               kernels, K4 also at 4096^2, where it keeps one launch a gate
+               group; the 3D transform
                kernels K6-K8 float32 only, each at 'default', its
                tensor-core kernel, and at 'highest', its fp32 kernel), with
                its time beside the twin's (measured in turns: twin, kernel,
-               kernel, twin; K6-K8 at both precisions), K6's and K7's beside
+               kernel, twin; K6-K8 at both precisions), the FD kernels'
+               profiler device time too, K6's and K7's beside
                one cuFFT call of the same function, and the bound each
                call's bytes and operations set (K6-K8: at the bf16
                tensor-core peak at 'default', the fp32 peak at 'highest');
-               K1 is timed at 170^2 too, K4 (1024^2) and K5 (1025^2)
-               beside the colour-group kernels
+               K1 is timed at 170^2 too, K3 at 51^2 too, K4 (1024^2) and K5
+               (1025^2) beside the colour-group kernels
   4. main    — the port's main paths through its CLI entry point: the FD
                cavity pipeline (direct_fd and chorin_fd at the reference
                sizes; direct_fd and explicit chorin_fd at 1024^2, where
@@ -34,9 +38,10 @@ Phases (any failure exits non-zero, and no result line is printed):
                their tensor-core kernels), then divergence_max on a 256^3
                final state (K7 by its tensor-core kernel); each run's counts
                are read just before and just after it, every kernel must
-               have launched, and every K4 solve of the 1024^2 run and
-               every K5 solve of the 1025^2 run must have taken the
-               resident route (one launch a solve)
+               have launched, and every K2mb solve of the direct_fd 1024^2
+               run, every K4 solve of the 1024^2 run and every K5 solve of
+               the 1025^2 run must have taken the resident route (one
+               launch a solve); K2mb and K3 must show one launch a call
   5. fidelity — float64 FD rollouts against the committed goldens; the
                dst, multigrid, helmholtz and exact modes on the card against
                the same rollouts on the CPU, and a float64 dst solve's
@@ -46,11 +51,12 @@ Phases (any failure exits non-zero, and no result line is printed):
                float64 3D shear flow against exp(-nu t)
 The line before the last is {"kernels": [...]} with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
-calls there and launches per call (K4 and K5 also their resident launches
-and the colour-group kernels' time on the same input), its
+calls there and launches per call (K2mb, K4 and K5 also their resident
+launches; K4 and K5 the colour-group kernels' time on the same input), its
 largest error against its twin (float64 abs where the kernel has a float64
 form, else float32 abs; `max_rel_err_f32` for all), its time beside the
-twin's, its bound (`bound_ms`, `bound_by`: the larger of the call's bytes
+twin's (the FD kernels also the profiler's device time a call,
+`device_ms`), its bound (`bound_ms`, `bound_by`: the larger of the call's bytes
 over 3.35 TB/s and its operations over the peak of their type) and the
 library call's time (`library_ms`, null where no one PyTorch call
 computes the function); K6, K7 and K8 add both precisions' times
@@ -63,7 +69,7 @@ relative to the field's max; runs stopped by a converged gate may stop a
 sweep apart, so they get 1e-4 abs (float64) and 1e-3 relative (float32).
 K4 and K5 are also held against K5's colour-group kernels (`_color_groups`:
 the same iterate sequence on an independent kernel) on the same input,
-with the same bounds. The 3D kernels are held against their twins at
+with the same bounds; K2's multi-block form against K2, bitwise. The 3D kernels are held against their twins at
 'highest' (fp32 GEMMs, TF32 off) and at 'default' (bf16 operands and
 intermediates, fp32 sums on both sides; 1e-3 relative).
 """
@@ -146,6 +152,24 @@ def paired_ms(kernel, twin, reps_k: int, reps_t: int):
     return (k1 + k2) / 2, (t1 + t2) / 2
 
 
+def device_ms(fn, reps: int) -> float:
+    """One call's device time by the profiler: the summed duration of the
+    CUDA records (kernels and memsets) of `reps` calls, over reps. Unlike
+    CUDA events around back-to-back calls, it leaves out the host's time
+    between launches."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
 def turns_ms(fns, reps: int) -> list:
     """Each fn's ms per call, measured in turns f0 .. fn, fn .. f0 and
     averaged."""
@@ -172,6 +196,7 @@ class Results:
     def __init__(self):
         self.err64, self.abs32, self.rel32 = {}, {}, {}
         self.ms, self.plain_ms, self.bound, self.library_ms = {}, {}, {}, {}
+        self.device_ms = {}  # the profiler's device time of a call
         # K4's and K5's resident route against the colour-group kernels on
         # one input, in turns: name -> (resident ms, groups ms)
         self.vs_groups = {}
@@ -274,18 +299,43 @@ def phase_kernels(res: Results, dev):
             res.compare("jacobi_fused", f"50x50 nit=50 {tag} {dt_}",
                         [launched(kernels.jacobi_fused, k)], [t()], dt_)
 
-    # K2, multi-block form: direct_fd pressure beyond one block, 1024^2
-    # and odd 1025^2, nit=50
-    for nx in (1024, 1025):
+    # K2, multi-block form: bitwise equal to K2 on the grids one block holds
+    # (50^2 with the three lists, the largest grids: 170^2 float32, 120^2
+    # float64), then direct_fd's pressure beyond one block, 1024^2 and odd
+    # 1025^2, nit=50, on the resident route (one launch a solve), and
+    # 4096^2 float32 on the group route (one launch a group of 8 sweeps)
+    mbw = kernels.jacobi_multiblock
+    for nx, dts, lists in ((50, dtypes, k2_lists), (120, dtypes, None),
+                           (170, (torch.float32,), None)):
+        h = 2.0 / (nx - 1)
+        for tag, bcs in (lists or {"cavity": cavity_p_bc(h, h)}).items():
+            for dt_ in dts:
+                p0, b = rand(nx, nx, dt_), rand(nx, nx, dt_, 10.0)
+                got = launched(mbw, lambda: mbw(p0, b, h, h, 50, bcs))
+                same = torch.equal(got, kernels.jacobi_fused(p0, b, h, h, 50,
+                                                             bcs))
+                print(f"  {'jacobi_multiblock':26s} "
+                      f"{f'{nx}x{nx} nit=50 {tag} {dt_}':44s} vs jacobi_fused "
+                      f"{'bitwise equal' if same else 'DIFFERS'}")
+                require(same, f"jacobi_multiblock {nx}x{nx} {tag} {dt_}: "
+                        "not bitwise equal to jacobi_fused")
+    for nx, dts in ((1024, dtypes), (1025, dtypes),
+                    (4096, (torch.float32,))):
         h = 2.0 / (nx - 1)
         bcs = cavity_p_bc(h, h)
-        for dt_ in dtypes:
+        resident = nx < 4096
+        for dt_ in dts:
             p0, b = rand(nx, nx, dt_), rand(nx, nx, dt_, 10.0)
-            k = lambda: kernels.jacobi_multiblock(p0, b, h, h, 50, bcs)
+            n0, r0 = mbw.launches, mbw.launches_resident
+            got = launched(mbw, lambda: mbw(p0, b, h, h, 50, bcs))
+            require((mbw.launches - n0, mbw.launches_resident - r0)
+                    == ((1, 1) if resident else (7, 0)),
+                    f"K2mb {nx}x{nx} {dt_}: {mbw.launches - n0} launches "
+                    f"({mbw.launches_resident - r0} resident)")
             t = lambda: poisson.jacobi(p0, b, h, h, 50,
                                        bc_fn=lambda q: apply_bcs(q, bcs))
             res.compare("jacobi_multiblock", f"{nx}x{nx} nit=50 {dt_}",
-                        [launched(kernels.jacobi_multiblock, k)], [t()], dt_)
+                        [got], [t()], dt_)
 
     # K1: chorin_fd pressure, 51^2, nit=200, tol 5e-6 and 0; and the largest
     # grids one block holds (170^2 float32, 120^2 float64: rhs_c in shared
@@ -357,7 +407,8 @@ def phase_kernels(res: Results, dev):
                         f"{tag} nit={cap} vs colour groups {dt_}", [got],
                         [groups], dt_)
 
-    # K3: explicit predictor, 51^2 and 1024^2, quirk on/off, plus Neumann
+    # K3: explicit predictor, 51^2 and 1024^2, quirk on/off, plus Neumann;
+    # one launch a call
     cav_u = [dirichlet(0, "left"), dirichlet(1, "right"), dirichlet(0, "top"),
              dirichlet(0, "bottom")]
     cav_v = [dirichlet(0, s) for s in ("left", "right", "top", "bottom")]
@@ -377,8 +428,8 @@ def phase_kernels(res: Results, dev):
                 t = lambda: kernels.momentum_explicit(*args)
                 res.compare("momentum_explicit_fused",
                             f"{nx}x{nx} quirk={quirk} {tag} {dt_}",
-                            launched(kernels.momentum_explicit_fused, k), t(),
-                            dt_)
+                            launched_once(kernels.momentum_explicit_fused, k),
+                            t(), dt_)
 
     # times at the main path's shapes in float32 (the CLI's default dtype);
     # the converged-gate SOR cases are compared too, with the looser bound
@@ -463,18 +514,21 @@ def phase_kernels(res: Results, dev):
                         converged=True)
         ms, plain = paired_ms(k, t, reps_k, reps_t)
         # the last shape of each kernel is its main-path entry in the report;
-        # an earlier one (K1 at 170^2) is kept beside it
+        # an earlier one (K1 at 170^2, K3 at 51^2) is kept beside it
         if name in res.ms:
             tag = shown[name].split()[0].split("x")[0]
             res.more.setdefault(name, {}).update({
                 f"ms_{tag}": res.ms[name], f"plain_ms_{tag}":
-                res.plain_ms[name], f"bound_ms_{tag}": res.bound[name][0]})
+                res.plain_ms[name], f"bound_ms_{tag}": res.bound[name][0],
+                f"device_ms_{tag}": res.device_ms[name]})
         res.ms[name], res.plain_ms[name] = ms, plain
+        res.device_ms[name] = device_ms(k, min(reps_k, 20))
         res.bound[name] = bound(nbytes, flops, FP32_FLOPS)
         shown[name] = label
-        print(f"  {name:26s} {label:30s} kernel {ms:.4f} ms  twin "
-              f"{plain:.4f} ms  ({plain / ms:.2f}x); bound "
-              f"{res.bound[name][0]:.5f} ms ({res.bound[name][1]})")
+        print(f"  {name:26s} {label:30s} kernel {ms:.4f} ms (device "
+              f"{res.device_ms[name]:.4f})  twin {plain:.4f} ms  "
+              f"({plain / ms:.2f}x); bound {res.bound[name][0]:.5f} ms "
+              f"({res.bound[name][1]})")
     # the resident route of K4 (1024^2) and K5 (1025^2) against the
     # colour-group kernels on the same input, in turns groups, resident,
     # resident, groups
@@ -554,7 +608,7 @@ def phase_kernels_3d(res: Results, dev):
             for p in precs:
                 n0 = fn.launches_bf16
                 res.compare(name, f"{tag} {label} vs twin '{p}'",
-                            [launched_3d(fn, lambda: ker(p))], [twin(p)],
+                            [launched_once(fn, lambda: ker(p))], [twin(p)],
                             f32, rel_bound=1e-3 if p == "default" else None)
                 require(fn.launches_bf16 == n0 + (p == "default"),
                         f"{name} '{p}': the tensor-core kernel ran "
@@ -614,7 +668,7 @@ def phase_kernels_3d(res: Results, dev):
                   f"{res.extra[name]['bound_ms_highest']:.4f} ms")
 
 
-def launched_3d(fn, call):
+def launched_once(fn, call):
     n0 = fn.launches
     out = call()
     torch.cuda.synchronize()
@@ -652,7 +706,12 @@ MAIN_RUNS = [
                                       "--pallas-transform", "auto"]),
 ]
 # the wrappers with a resident route (one cooperative launch a solve)
-RESIDENT = {"sor_redblack_packed_multiblock", "sor_redblack_multiblock"}
+RESIDENT = {"jacobi_multiblock", "sor_redblack_packed_multiblock",
+            "sor_redblack_multiblock"}
+# the SOR solves timed beside K5's colour-group kernels on one input
+COLOR_GROUPS = {"sor_redblack_packed_multiblock", "sor_redblack_multiblock"}
+# one CUDA launch a call on every main-path run (K2mb: its resident route)
+ONE_LAUNCH = {"jacobi_multiblock", "momentum_explicit_fused"}
 MAIN_KERNELS = {  # kernels each main-path run must launch
     "direct_fd": {"jacobi_fused"},
     "chorin_fd semi_implicit": {"sor_redblack_fused"},
@@ -759,8 +818,9 @@ def phase_main(tmp) -> dict:
         ran = {k for k in after if after[k] > before[k]}
         missing = MAIN_KERNELS[label] - ran
         require(not missing, f"{label}: kernels not launched: {missing}")
-        # the SOR solves of the 1024^2 (K4) and 1025^2 (K5) runs: every one
-        # on the resident route, one launch a solve
+        # the K2mb solves of the direct_fd 1024^2 run and the SOR solves of
+        # the 1024^2 (K4) and 1025^2 (K5) runs: every one on the resident
+        # route, one launch a solve
         for name in RESIDENT & MAIN_KERNELS[label]:
             solves = kernels.call_counts()[name] - calls_before[name]
             n_res = resident_counts()[name] - resident_before[name]
@@ -1024,12 +1084,20 @@ def report(res: Results, main_path: dict) -> list:
                "library_ms": res.library_ms.get(name)}
         keys = ["max_abs_err", "max_rel_err_f32", "ms", "plain_ms",
                 "bound_ms"]
+        if name not in res.extra:  # the FD kernels: the profiler's time too
+            row["device_ms"] = res.device_ms.get(name)
+            keys.append("device_ms")
         if name in RESIDENT:
+            row["launches_resident"] = main_path["launches_resident"][name]
+        if name in COLOR_GROUPS:
             require(name in res.vs_groups,
                     f"{name} was not timed beside the colour groups")
             row["color_groups_ms_same_input"] = res.vs_groups[name][1]
-            row["launches_resident"] = main_path["launches_resident"][name]
             keys.append("color_groups_ms_same_input")
+        if name in ONE_LAUNCH:
+            require(row["launches_per_call"] == 1,
+                    f"{name}: {row['launches_per_call']} launches a call on "
+                    "the main path")
         if name in res.more:
             row.update(res.more[name])
             keys += list(res.more[name])

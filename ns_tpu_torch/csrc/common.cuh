@@ -10,50 +10,82 @@
 
 namespace ns {
 
-constexpr int kMaxBCs = 8;
-
-// A boundary-condition list as the kernels see it (ns_tpu_torch.core.bc).
-// kind: 0 Dirichlet, 1 Neumann. side: 0 left (row 0), 1 right (row nx-1),
-// 2 bottom (col 0), 3 top (col ny-1). term: the Dirichlet value, or the
-// signed Neumann offset added to the inner neighbour (BC.edge_term, formed
-// in double on the host). Passed to the kernel by value.
-struct BCList {
-  int n;
-  int kind[kMaxBCs];
-  int side[kMaxBCs];
-  double term[kMaxBCs];
+// The edge plan of a boundary-condition list (ns_tpu_torch.core.bc), built
+// on the host by ops/kernels/poisson_kernels.py::k2_edge_plan. After the
+// list is applied in order, a non-corner cell of a side holds what the
+// side's last BC writes there: its term (Dirichlet) or the inner neighbour
+// next to it plus its term (Neumann); no other BC touches it. A corner holds
+// what its last writer among its two sides' BCs leaves there, read from the
+// edge cell next to it as the list left that cell. Per side (0 left = row
+// 0, 1 right = row nx-1, 2 bottom = col 0, 3 top = col ny-1): the kind of
+// its last BC (-1 none, 0 Dirichlet, 1 Neumann) and that BC's term (the
+// Dirichlet value, or the signed Neumann offset, BC.edge_term, formed in
+// double); per corner ((0,0), (0,ny-1), (nx-1,0), (nx-1,ny-1)) the side
+// whose BC writes it last, or -1. Passed to a kernel by value; kernels
+// index it with constant indices only (a runtime index would put it on the
+// stack).
+struct EdgePlan {
+  int kind[4];
+  int corner[4];
+  double term[4];
 };
 
-// Host: unpack the wrapper's flat [kind, side, term] * n spec.
-inline cudaError_t make_bcs(int n, const double* spec, BCList* out) {
-  if (n < 0 || n > kMaxBCs) return cudaErrorInvalidValue;
-  out->n = n;
-  for (int b = 0; b < n; ++b) {
-    out->kind[b] = static_cast<int>(spec[3 * b]);
-    out->side[b] = static_cast<int>(spec[3 * b + 1]);
-    out->term[b] = spec[3 * b + 2];
+// Host: unpack the wrapper's 12 doubles kind[4], corner[4], term[4].
+inline cudaError_t make_plan(const double* spec, EdgePlan* plan) {
+  for (int s = 0; s < 4; ++s) {
+    plan->kind[s] = static_cast<int>(spec[s]);
+    plan->corner[s] = static_cast<int>(spec[4 + s]);
+    plan->term[s] = spec[8 + s];
+    if (plan->kind[s] < -1 || plan->kind[s] > 1 || plan->corner[s] < -1 ||
+        plan->corner[s] > 3)
+      return cudaErrorInvalidValue;
   }
   return cudaSuccess;
 }
 
-// One BC's edge write on a row-major (nx, ny) field, shared out over the
-// threads tid = 0..nthr-1 of one block. A Neumann edge reads its inner
-// neighbour row/column, which no thread writes in the same phase.
+// Arithmetic with its rounding pinned: nvcc neither contracts these into an
+// FMA nor reorders them, so one expression rounds alike wherever it is
+// inlined.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+// The value unchanged, hidden from the optimizer.
+__device__ __forceinline__ float opaque(float x) {
+  asm("" : "+f"(x));
+  return x;
+}
+__device__ __forceinline__ double opaque(double x) {
+  asm("" : "+d"(x));
+  return x;
+}
+
+// x / d for a finite, nonzero d, rounded as IEEE division. The division's
+// range check sends a zero dividend down its slow path, which made K2mb
+// and K3 1.6-2.5x slower on a field at rest (a cavity's early steps). So a
+// zero x divides d instead (`opaque`: else nvcc, seeing the quotient
+// unused, divides x after all), and the quotient's zero, sign included, is
+// x * d. No branch: a warp of mixed cells runs one path.
 template <typename T>
-__device__ __forceinline__ void apply_bc_edge(T* a, int nx, int ny, int kind,
-                                              int side, T term, int tid,
-                                              int nthr) {
-  if (side <= 1) {  // left: row 0 from row 1; right: row nx-1 from row nx-2
-    const int row = side == 0 ? 0 : nx - 1;
-    const int inner = side == 0 ? 1 : nx - 2;
-    for (int j = tid; j < ny; j += nthr)
-      a[row * ny + j] = kind == 0 ? term : a[inner * ny + j] + term;
-  } else {  // bottom: col 0 from col 1; top: col ny-1 from col ny-2
-    const int col = side == 2 ? 0 : ny - 1;
-    const int inner = side == 2 ? 1 : ny - 2;
-    for (int i = tid; i < nx; i += nthr)
-      a[i * ny + col] = kind == 0 ? term : a[i * ny + inner] + term;
-  }
+__device__ __forceinline__ T div_nz(T x, T d) {
+  const bool zero = x == T(0);
+  const T q = opaque(zero ? d : x) / d;
+  return zero ? x * d : q;
+}
+
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
 }
 
 // A non-negative float orders like its bit pattern read as an unsigned

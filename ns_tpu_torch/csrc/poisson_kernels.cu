@@ -3,7 +3,8 @@
 // K2 jacobi_fused        replaces ns_tpu/ops/pallas/poisson_kernels.py
 //                        ::jacobi_fused_pallas (direct_fd's nit sweeps).
 // K2 jacobi_multiblock   its multi-block form, for grids beyond one block's
-//                        shared memory (the JAX package's XLA path there).
+//                        shared memory (the JAX package's XLA path there;
+//                        one launch a solve where its tiles fit the card).
 // K1 sor_redblack_fused  replaces ::sor_redblack_fused_pallas (chorin_fd's
 //                        SOR solved to tolerance, one launch).
 // K4 sor_redblack_packed replaces ::sor_redblack_packed_tiled_pallas (SOR
@@ -54,12 +55,17 @@
 // group of k sweeps, every column read to update half of them). fp32: 32
 // registers, no spill.
 //
-// The multi-block Jacobi is bandwidth-bound: each sweep is one grid launch
-// over the field into the other buffer of a ping-pong pair (the interior
-// reads only old values), then one single-block launch writes the BC edges
-// in list order, each edge its own __syncthreads phase (a Neumann edge
-// reads the freshly swept inner row, which other blocks wrote). No host
-// sync.
+// K2 beyond one block (direct_fd at 1024^2 and 1025^2: nit=50 sweeps of a
+// 4-8 MB field) keeps the same idea on tiles: each block holds its tile of
+// p with a halo of k cells (the reach of k Jacobi sweeps) in shared memory
+// and runs k sweeps there, each cut to the cells its own cells still depend
+// on, with K2's edge plan inside the sweep; then it exchanges its own cells
+// through L2 and meets the other blocks at a grid barrier. Where every tile
+// fits the card at once (jacobi_resident_plan in poisson_kernels.py) the
+// whole solve is one cooperative launch; beyond that, one launch per group
+// of k sweeps between two global buffers. nit is fixed: no gate, no host
+// read. Each sweep is bound by instruction issue on its SM, as K4's is: the
+// IEEE division of a cell update and the halo's recomputed cells.
 
 #include "common.cuh"
 
@@ -85,21 +91,20 @@ namespace ns {
 // twin rounds it, into registers (B_REG) or every sweep from global memory.
 // ---------------------------------------------------------------------------
 
-// The edge plan: per side (0 left = row 0, 1 right = row nx-1, 2 bottom =
-// col 0, 3 top = col ny-1) the kind of its last BC (-1 none, 0 Dirichlet,
-// 1 Neumann) and that BC's edge term; per corner ((0,0), (0,ny-1),
-// (nx-1,0), (nx-1,ny-1)) the side whose BC writes it last, or -1.
-struct EdgePlan {
-  int kind[4];
-  int corner[4];
-  double term[4];
-};
-
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
+// One Jacobi update of cell k of the working array c (row pitch `pitch`),
+// in the expression and order of the twin (ops/poisson.py::jacobi):
+// ((c[k+1] + c[k-1]) * dy2 + (c[k+pitch] + c[k-pitch]) * dx2) / denom - cb,
+// every operation rounded on its own, so K2 and K2's multi-block form give
+// the same bits on every grid both take (the division by div_nz).
+template <typename T>
+__device__ __forceinline__ T jacobi_cell(const T* __restrict__ c, int k,
+                                         int pitch, T dx2, T dy2, T denom,
+                                         T cbb) {
+  return sub_rn(div_nz(add_rn(mul_rn(add_rn(c[k + 1], c[k - 1]), dy2),
+                              mul_rn(add_rn(c[k + pitch], c[k - pitch]),
+                                     dx2)),
+                       denom),
+                cbb);
 }
 
 // MAXC: interior list entries a thread owns (at most). Each entry's code is
@@ -160,8 +165,7 @@ jacobi_fused_kernel(const T* __restrict__ p_in, const T* __restrict__ b,
         } else {
           c = mul_rn(cb, b[k]);
         }
-        const T nw = ((cur[k + 1] + cur[k - 1]) * dy2 +
-                      (cur[k + ny] + cur[k - ny]) * dx2) / denom - c;
+        const T nw = jacobi_cell(cur, k, ny, dx2, dy2, denom, c);
         nxt[k] = nw;
         const unsigned f = e >> 15;
         if (f) {
@@ -367,39 +371,6 @@ sor_color_kernel(T* __restrict__ p, const T* __restrict__ rhs, int nx, int ny,
   if (err != nullptr) {
     d = warp_max(d);
     if ((threadIdx.x & 31) == 0 && d != U(0)) atomicMax(err, d);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2, multi-block form: one Jacobi sweep over the whole grid, one thread per
-// cell, cur -> nxt (boundary cells copied). The BC edges follow in
-// bc_edges_kernel.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(256)
-jacobi_sweep_kernel(const T* __restrict__ cur, const T* __restrict__ b,
-                    T* __restrict__ nxt, int nx, int ny, T dx2, T dy2, T denom,
-                    T cb) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
-  const size_t k = static_cast<size_t>(i) * ny + j;
-  if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 2) {
-    nxt[k] = ((cur[k + 1] + cur[k - 1]) * dy2 +
-              (cur[k + ny] + cur[k - ny]) * dx2) / denom - cb * b[k];
-  } else {
-    nxt[k] = cur[k];
-  }
-}
-
-// The BC list's edge writes in list order, one block, each edge a phase.
-template <typename T>
-__global__ void __launch_bounds__(1024)
-bc_edges_kernel(T* __restrict__ a, int nx, int ny, BCList bcs) {
-  for (int q = 0; q < bcs.n; ++q) {
-    apply_bc_edge(a, nx, ny, bcs.kind[q], bcs.side[q], T(bcs.term[q]),
-                  threadIdx.x, blockDim.x);
-    __syncthreads();
   }
 }
 
@@ -715,6 +686,202 @@ sor_packed_resident_kernel(const T* __restrict__ p_in,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2's multi-block form. A block owns a tile of tile_rows x tile_cols cells
+// of the grid (boundary rows and columns included); its working tile adds a
+// halo of k cells on each side, the reach of k Jacobi sweeps. Each group of
+// kg <= k sweeps runs in shared memory on a ping-pong pair (the update
+// reads only old values; both buffers are loaded with p, so boundary cells
+// that no BC writes hold their value in either), each sweep cut to the
+// cells the own cells still depend on: `reach` = the sweeps left in the
+// group after this one, so only cells within reach of the own tile are
+// updated, and no cell that matters reads the stale rest. The tile applies
+// K2's edge plan in every sweep, halo included: the thread that sweeps an
+// interior cell next to an edge writes that edge cell (the cone of a cell
+// holds the interior cell next to it: that one is never farther from the
+// own tile). No update reads a corner, so the tile that owns a corner
+// writes it once, after the last sweep, from the edge cell next to it; the
+// tile plan leaves every tile at least two rows and columns, so that cell
+// is an own cell. cb * b is rounded on its own into shared memory (C_SMEM)
+// or every sweep from global memory (L2).
+//
+// RESIDENT: the whole solve in one cooperative launch, one block a SM:
+// between groups a block writes its own cells to the exchange plane of the
+// group's parity (through L2), meets the others at the grid barrier and
+// reloads its halo; the planes ping-pong, so a block that writes group
+// g+1's cells never overwrites what a slower block still reads of group g.
+// Otherwise one group a launch (n_sweeps <= k) from p_in to p_out.
+// n_sweeps = 0 copies p.
+// ---------------------------------------------------------------------------
+
+struct JacobiTile {
+  int wr, wc, r0, c0, h, tile_rows, tile_cols;
+};
+
+// One sweep of the working tile `cur` into `nxt` (one warp a row, its lanes
+// along the row) over the interior cells within `reach` of the own tile,
+// with the edge plan's writes.
+template <typename T, bool C_SMEM>
+__device__ __forceinline__ void jacobi_tile_sweep(
+    const JacobiTile& t, int nx, int ny, const T* __restrict__ cur,
+    T* __restrict__ nxt, const T* __restrict__ cbb, const T* __restrict__ b,
+    int reach, T dx2, T dy2, T denom, T cb, const EdgePlan& plan) {
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int wc = t.wc;
+  const T term[4] = {T(plan.term[0]), T(plan.term[1]), T(plan.term[2]),
+                     T(plan.term[3])};
+  const bool neu[4] = {plan.kind[0] == 1, plan.kind[1] == 1,
+                       plan.kind[2] == 1, plan.kind[3] == 1};
+  // working columns of the interior cells next to the bottom and top edges,
+  // where those sides have a BC (else -1: no lane matches)
+  const int c_bot = plan.kind[2] >= 0 ? 1 - t.c0 : -1;
+  const int c_top = plan.kind[3] >= 0 ? ny - 2 - t.c0 : -1;
+  const int r_lo = max(t.h - reach, 1 - t.r0);
+  const int r_hi = min(t.h + t.tile_rows - 1 + reach, nx - 2 - t.r0);
+  const int c_lo = max(t.h - reach, 1 - t.c0);
+  const int c_hi = min(t.h + t.tile_cols - 1 + reach, ny - 2 - t.c0);
+  for (int r = r_lo + ty; r <= r_hi; r += nwarps) {
+    const int gi = t.r0 + r;
+    const bool left = gi == 1 && plan.kind[0] >= 0;
+    const bool right = gi == nx - 2 && plan.kind[1] >= 0;
+    const size_t grow = static_cast<size_t>(gi) * ny + t.c0;
+    for (int c = c_lo + tx; c <= c_hi; c += 32) {
+      const int q = r * wc + c;
+      T cv;
+      if constexpr (C_SMEM) {
+        cv = cbb[q];
+      } else {
+        cv = mul_rn(cb, __ldg(b + grow + c));
+      }
+      const T nw = jacobi_cell(cur, q, wc, dx2, dy2, denom, cv);
+      nxt[q] = nw;
+      if (left | right | (c == c_bot) | (c == c_top)) {
+        if (left) nxt[q - wc] = neu[0] ? nw + term[0] : term[0];
+        if (right) nxt[q + wc] = neu[1] ? nw + term[1] : term[1];
+        if (c == c_bot) nxt[q - 1] = neu[2] ? nw + term[2] : term[2];
+        if (c == c_top) nxt[q + 1] = neu[3] ? nw + term[3] : term[3];
+      }
+    }
+  }
+}
+
+template <typename T, bool C_SMEM, bool RESIDENT>
+__global__ void __launch_bounds__(1024)
+jacobi_tiled_kernel(const T* __restrict__ p_in, const T* __restrict__ b,
+                    T* __restrict__ p_out, T* __restrict__ xch,
+                    unsigned* __restrict__ arrived, int nx, int ny,
+                    int tile_rows, int tile_cols, int k, int n_sweeps,
+                    int corners, T dx2, T dy2, T denom, T cb, EdgePlan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  JacobiTile t;
+  t.h = k;
+  t.tile_rows = tile_rows;
+  t.tile_cols = tile_cols;
+  t.wr = tile_rows + 2 * k;
+  t.wc = tile_cols + 2 * k;
+  t.r0 = blockIdx.y * tile_rows - k;
+  t.c0 = blockIdx.x * tile_cols - k;
+  const int cells = t.wr * t.wc;
+  T* cur = reinterpret_cast<T*>(smem);
+  T* nxt = cur + cells;
+  T* cbb = C_SMEM ? nxt + cells : nullptr;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  // the working cells inside the grid; outside it nothing is loaded or read
+  for (int r = ty; r < t.wr; r += nwarps) {
+    const int gi = t.r0 + r;
+    if (gi < 0 || gi >= nx) continue;
+    for (int c = tx; c < t.wc; c += 32) {
+      const int gj = t.c0 + c;
+      if (gj < 0 || gj >= ny) continue;
+      const size_t g = static_cast<size_t>(gi) * ny + gj;
+      const T v = p_in[g];
+      cur[r * t.wc + c] = v;
+      nxt[r * t.wc + c] = v;
+      if constexpr (C_SMEM) cbb[r * t.wc + c] = mul_rn(cb, b[g]);
+    }
+  }
+  __syncthreads();
+
+  const int groups = (n_sweeps + k - 1) / k;
+  const size_t plane = static_cast<size_t>(nx) * ny;
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  for (int g = 0; g < groups; ++g) {
+    const int kg = min(k, n_sweeps - g * k);
+    for (int s = 0; s < kg; ++s) {
+      jacobi_tile_sweep<T, C_SMEM>(t, nx, ny, cur, nxt, cbb, b, kg - 1 - s,
+                                   dx2, dy2, denom, cb, plan);
+      __syncthreads();
+      T* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+    if constexpr (RESIDENT) {
+      if (g + 1 < groups) {
+        T* X = xch + (g & 1) * plane;
+        for (int r = t.h + ty; r < t.h + tile_rows; r += nwarps) {
+          const int gi = t.r0 + r;
+          if (gi >= nx) break;
+          for (int c = t.h + tx; c < t.h + tile_cols; c += 32) {
+            const int gj = t.c0 + c;
+            if (gj >= ny) break;
+            __stcg(X + static_cast<size_t>(gi) * ny + gj, cur[r * t.wc + c]);
+          }
+        }
+        grid_barrier(arrived, (g + 1) * nblocks);
+        // the halo ring: every working cell of the grid outside the own tile
+        for (int r = ty; r < t.wr; r += nwarps) {
+          const int gi = t.r0 + r;
+          if (gi < 0 || gi >= nx) continue;
+          const bool own_row = r >= t.h && r < t.h + tile_rows;
+          for (int c = tx; c < t.wc; c += 32) {
+            const int gj = t.c0 + c;
+            if (gj < 0 || gj >= ny ||
+                (own_row && c >= t.h && c < t.h + tile_cols))
+              continue;
+            cur[r * t.wc + c] = __ldcg(X + static_cast<size_t>(gi) * ny + gj);
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  if (corners && threadIdx.x < 4) {
+    const int ci = (threadIdx.x >> 1) ? nx - 1 : 0;
+    const int cj = (threadIdx.x & 1) ? ny - 1 : 0;
+    const int r = ci - t.r0, c = cj - t.c0;
+    if (r >= t.h && r < t.h + tile_rows && c >= t.h && c < t.h + tile_cols) {
+      const int q = r * t.wc + c;
+      // the edge cell next to the corner that a Neumann BC of side s reads
+      const int inner[4] = {t.wc, -t.wc, 1, -1};
+      int side = -1;
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        side = threadIdx.x == m ? plan.corner[m] : side;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (side == s) {
+          const T term = T(plan.term[s]);
+          cur[q] = plan.kind[s] == 1 ? cur[q + inner[s]] + term : term;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = t.h + ty; r < t.h + tile_rows; r += nwarps) {
+    const int gi = t.r0 + r;
+    if (gi >= nx) break;
+    for (int c = t.h + tx; c < t.h + tile_cols; c += 32) {
+      const int gj = t.c0 + c;
+      if (gj >= ny) break;
+      p_out[static_cast<size_t>(gi) * ny + gj] = cur[r * t.wc + c];
+    }
+  }
+}
+
 template <typename T, int MAXC>
 cudaError_t launch_jacobi_fused(const T* p, const T* b, T* out, int nx,
                                 int ny, int n_iter, T dx2, T dy2, T denom,
@@ -740,14 +907,8 @@ int jacobi_fused(const void* p, const void* b, void* out, int nx, int ny,
   if (nx < 3 || ny < 3 || nx * ny >= (1 << 15) || n_iter < 0)
     return cudaErrorInvalidValue;
   EdgePlan plan;
-  for (int s = 0; s < 4; ++s) {
-    plan.kind[s] = static_cast<int>(plan_spec[s]);
-    plan.corner[s] = static_cast<int>(plan_spec[4 + s]);
-    plan.term[s] = plan_spec[8 + s];
-    if (plan.kind[s] < -1 || plan.kind[s] > 1 || plan.corner[s] < -1 ||
-        plan.corner[s] > 3)
-      return cudaErrorInvalidValue;
-  }
+  const cudaError_t e = make_plan(plan_spec, &plan);
+  if (e != cudaSuccess) return e;
   const int per_thread = ((nx - 2) * (ny - 2) + 1023) / 1024;
   const T* pp = static_cast<const T*>(p);
   const T* bb = static_cast<const T*>(b);
@@ -767,35 +928,92 @@ int jacobi_fused(const void* p, const void* b, void* out, int nx, int ny,
   return cudaErrorInvalidValue;
 }
 
-// n_iter sweeps alternate between `out` and `scratch`, starting with the
-// one that makes the last sweep land in `out`; `p` is only read.
+template <typename T>
+void* jacobi_tiled_kernel_ptr(int c_smem, int resident) {
+  if (resident)
+    return c_smem ? reinterpret_cast<void*>(jacobi_tiled_kernel<T, true, true>)
+                  : reinterpret_cast<void*>(jacobi_tiled_kernel<T, false, true>);
+  return c_smem ? reinterpret_cast<void*>(jacobi_tiled_kernel<T, true, false>)
+                : reinterpret_cast<void*>(jacobi_tiled_kernel<T, false, false>);
+}
+
+size_t jacobi_tiled_smem(int tile_rows, int tile_cols, int k, int c_smem,
+                         size_t itemsize) {
+  return (c_smem ? 3 : 2) * static_cast<size_t>(tile_rows + 2 * k) *
+         (tile_cols + 2 * k) * itemsize;
+}
+
+// Blocks of 1024 threads of the resident Jacobi kernel one SM holds at
+// once, for the wrapper's co-residency check.
+template <typename T>
+int jacobi_resident_occupancy(int tile_rows, int tile_cols, int k, int c_smem,
+                              int* blocks_per_sm) {
+  const void* kernel = jacobi_tiled_kernel_ptr<T>(c_smem, 1);
+  const size_t smem =
+      jacobi_tiled_smem(tile_rows, tile_cols, k, c_smem, sizeof(T));
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                       1024, smem);
+}
+
+// K2's multi-block entry. resident: one cooperative launch (xch: two
+// (nx, ny) exchange planes; arrived: the grid barrier's counter, zeroed
+// here). Otherwise one launch per group of k sweeps, alternating between
+// `out` and `scratch` so that the last lands in `out` (`p` is only read).
+// plan_spec: the edge plan, as for jacobi_fused. Every tile must hold at
+// least two rows and two columns (a ragged last tile of one would own a
+// corner without the edge cell next to it).
 template <typename T>
 int jacobi_multiblock(const void* p, const void* b, void* out, void* scratch,
-                      int nx, int ny, int n_iter, double dx2, double dy2,
-                      double denom, double cb, int n_bc, const double* bc_spec,
-                      void* stream) {
-  BCList bcs;
-  cudaError_t e = make_bcs(n_bc, bc_spec, &bcs);
+                      void* xch, void* arrived, int nx, int ny, int tile_rows,
+                      int tile_cols, int k, int c_smem, int resident,
+                      int n_iter, double dx2, double dy2, double denom,
+                      double cb, const double* plan_spec, void* stream) {
+  if (nx < 3 || ny < 3 || k < 1 || n_iter < 0 || tile_rows < 2 ||
+      tile_cols < 2 || nx % tile_rows == 1 || ny % tile_cols == 1)
+    return cudaErrorInvalidValue;
+  EdgePlan plan;
+  cudaError_t e = make_plan(plan_spec, &plan);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_iter <= 0)
-    return cudaMemcpyAsync(out, p, static_cast<size_t>(nx) * ny * sizeof(T),
-                           cudaMemcpyDeviceToDevice, s);
+  const void* kernel = jacobi_tiled_kernel_ptr<T>(c_smem, resident);
+  const size_t smem =
+      jacobi_tiled_smem(tile_rows, tile_cols, k, c_smem, sizeof(T));
+  e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((ny + tile_cols - 1) / tile_cols,
+                  (nx + tile_rows - 1) / tile_rows);
+  const T* a_p = static_cast<const T*>(p);
+  const T* a_b = static_cast<const T*>(b);
+  T* a_out = static_cast<T*>(out);
+  T* a_xch = static_cast<T*>(xch);
+  unsigned* a_arrived = static_cast<unsigned*>(arrived);
+  T a_dx2 = T(dx2), a_dy2 = T(dy2), a_denom = T(denom), a_cb = T(cb);
+  int n_sweeps = n_iter, corners = n_iter > 0;
+  void* args[] = {&a_p,     &a_b,      &a_out,   &a_xch,     &a_arrived,
+                  &nx,      &ny,       &tile_rows, &tile_cols, &k,
+                  &n_sweeps, &corners, &a_dx2,   &a_dy2,     &a_denom,
+                  &a_cb,    &plan};
+  if (resident) {
+    e = cudaMemsetAsync(arrived, 0, sizeof(unsigned), s);
+    if (e != cudaSuccess) return e;
+    return cudaLaunchCooperativeKernel(kernel, grid, dim3(1024), args, smem,
+                                       s);
+  }
+  const int groups = n_iter > 0 ? (n_iter + k - 1) / k : 1;
   T* bufs[2] = {static_cast<T*>(out), static_cast<T*>(scratch)};
-  int w = n_iter % 2 == 1 ? 0 : 1;
-  const T* cur = static_cast<const T*>(p);
-  const dim3 block(32, 8);
-  const dim3 grid((ny + block.x - 1) / block.x, (nx + block.y - 1) / block.y);
-  for (int it = 0; it < n_iter; ++it) {
-    T* nxt = bufs[w];
-    jacobi_sweep_kernel<T><<<grid, block, 0, s>>>(
-        cur, static_cast<const T*>(b), nxt, nx, ny, T(dx2), T(dy2), T(denom),
-        T(cb));
-    bc_edges_kernel<T><<<1, 1024, 0, s>>>(nxt, nx, ny, bcs);
-    cur = nxt;
+  int w = groups % 2 == 1 ? 0 : 1;
+  for (int g = 0; g < groups; ++g) {
+    a_out = bufs[w];
+    n_sweeps = max(min(k, n_iter - g * k), 0);
+    corners = n_iter > 0 && g == groups - 1;
+    e = cudaLaunchKernel(kernel, grid, dim3(1024), args, smem, s);
+    if (e != cudaSuccess) return e;
+    a_p = a_out;
     w ^= 1;
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 template <typename T, int MAXC>
@@ -987,11 +1205,20 @@ NS_JACOBI(f64, double)
 
 #define NS_JACOBI_MB(SUFFIX, T)                                               \
   int ns_jacobi_multiblock_##SUFFIX(                                          \
-      const void* p, const void* b, void* out, void* scratch, int nx, int ny, \
-      int n_iter, double dx2, double dy2, double denom, double cb, int n_bc,  \
-      const double* bc_spec, void* stream) {                                  \
-    return ns::jacobi_multiblock<T>(p, b, out, scratch, nx, ny, n_iter, dx2,  \
-                                    dy2, denom, cb, n_bc, bc_spec, stream);   \
+      const void* p, const void* b, void* out, void* scratch, void* xch,     \
+      void* arrived, int nx, int ny, int tile_rows, int tile_cols, int k,    \
+      int c_smem, int resident, int n_iter, double dx2, double dy2,          \
+      double denom, double cb, const double* plan_spec, void* stream) {      \
+    return ns::jacobi_multiblock<T>(p, b, out, scratch, xch, arrived, nx,    \
+                                    ny, tile_rows, tile_cols, k, c_smem,     \
+                                    resident, n_iter, dx2, dy2, denom, cb,   \
+                                    plan_spec, stream);                      \
+  }                                                                          \
+  int ns_jacobi_resident_occupancy_##SUFFIX(int tile_rows, int tile_cols,    \
+                                            int k, int c_smem,               \
+                                            int* blocks_per_sm) {            \
+    return ns::jacobi_resident_occupancy<T>(tile_rows, tile_cols, k, c_smem, \
+                                            blocks_per_sm);                  \
   }
 NS_JACOBI_MB(f32, float)
 NS_JACOBI_MB(f64, double)

@@ -36,7 +36,8 @@ def launch_counts() -> dict[str, int]:
 
 def call_counts() -> dict[str, int]:
     """Wrapper calls that launched since the last reset, by wrapper name
-    (K4's group route and K5 launch once per gate group of a call)."""
+    (the group routes of K2mb, K4 and K5 launch once per group of a
+    call)."""
     return {w.__name__: w.calls for w in WRAPPERS.values()}
 
 
@@ -44,7 +45,8 @@ def reset_launch_counts() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
         w.calls = 0
-    for w in (sor_redblack_packed_multiblock, sor_redblack_multiblock):
+    for w in (jacobi_multiblock, sor_redblack_packed_multiblock,
+              sor_redblack_multiblock):
         w.launches_resident = 0
     for w in (fused_zy_forward, fused_yz_inverse, fused_lamb):
         w.launches_bf16 = 0

@@ -14,8 +14,8 @@ raises with nvcc's stderr, and the CUDA path of every wrapper raises with
 it.
 
 The launch helpers below are what every wrapper shares: input validation,
-the BC list in the C layout, the entry point for a dtype, the current
-stream, and the error check after a launch.
+the entry point for a dtype, the current stream, and the error check after
+a launch.
 """
 
 from __future__ import annotations
@@ -45,8 +45,10 @@ _BOTH, _F32 = ("f32", "f64"), ("f32",)
 _ENTRIES = {
     "ns_jacobi_fused": ([_P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _P, _P],
                         _BOTH),
-    "ns_jacobi_multiblock": ([_P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _I,
-                              _P, _P], _BOTH),
+    "ns_jacobi_multiblock": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _D, _D, _D, _D, _P, _P], _BOTH),
+    "ns_jacobi_resident_occupancy": ([_I, _I, _I, _I, ctypes.POINTER(_I)],
+                                     _BOTH),
     "ns_sor_redblack_fused": ([_P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _I,
                                _P], _BOTH),
     "ns_sor_redblack_tiled_group": ([_P, _P, _P, _I, _I, _D, _D, _D, _D, _I,
@@ -59,7 +61,7 @@ _ENTRIES = {
     "ns_sor_packed_resident_occupancy": ([_I, _I, _I, _I, _I,
                                           ctypes.POINTER(_I)], _BOTH),
     "ns_momentum_explicit": ([_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D,
-                              _D, _D, _I, _I, _P, _I, _P, _P], _BOTH),
+                              _D, _D, _I, _P, _P], _BOTH),
     "ns_fused_zy_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                             _F32),
     "ns_fused_zy_forward_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -162,10 +164,8 @@ def check(code: int, what: str) -> None:
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 KIND = {"dirichlet": 0, "neumann": 1}
-# the sides by their C number (common.cuh::BCList, K2's edge plan)
+# the sides by their C number (csrc/common.cuh::EdgePlan)
 SIDES = ("left", "right", "bottom", "top")
-_SIDE = {s: i for i, s in enumerate(SIDES)}
-MAX_BCS = 8  # ns::kMaxBCs in csrc/common.cuh
 
 
 def entry(name: str, dtype: torch.dtype):
@@ -216,16 +216,6 @@ def check_fields(what: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{what}: inputs must be contiguous")
     if t.numel() == 0:
         raise ValueError(f"{what}: empty input {tuple(t.shape)}")
-
-
-def bc_spec(bcs) -> ctypes.Array:
-    """A BC list as the flat [kind, side, edge_term] * n double array the C
-    entry points unpack (csrc/common.cuh::make_bcs)."""
-    if len(bcs) > MAX_BCS:
-        raise ValueError(f"at most {MAX_BCS} BCs per field, got {len(bcs)}")
-    flat = [x for bc in bcs
-            for x in (KIND[bc.kind], _SIDE[bc.side], bc.edge_term())]
-    return (ctypes.c_double * len(flat))(*flat)
 
 
 def stream(device: torch.device) -> int:

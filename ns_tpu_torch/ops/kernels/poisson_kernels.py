@@ -6,7 +6,8 @@ and keeps a plain twin:
   K2 `jacobi_fused`            <- `jacobi_fused_pallas`;
                                   twin `ops.poisson.jacobi` + `apply_bcs`
   K2 `jacobi_multiblock`       <- the same, beyond one block (the grids where
-                                  the JAX package runs its XLA Jacobi); same
+                                  the JAX package runs its XLA Jacobi; tiles
+                                  with a halo, `jacobi_resident_plan`); same
                                   twin
   K1 `sor_redblack_fused`      <- `sor_redblack_fused_pallas`;
                                   twin `ops.poisson.sor_redblack`
@@ -22,9 +23,9 @@ and keeps a plain twin:
 Dispatch is by the tensor's device: a CPU tensor takes the plain twin, a
 CUDA tensor launches the kernel or raises; nothing falls back. Each wrapper
 counts its kernel launches in a `launches` attribute and its calls that
-launched in `calls` (K4 and K5 launch once per gate group where the host
-reads the gate; their resident route counts its solves in
-`launches_resident` too).
+launched in `calls` (the group routes of K2mb, K4 and K5 launch once per
+group; their resident routes count their solves in `launches_resident`
+too).
 
 What bounds each kernel on the H100, and how the design answers it, is in
 the CUDA source's header. In short:
@@ -36,15 +37,16 @@ the CUDA source's header. In short:
   publishes the gate through the colour barriers: two barriers a sweep. K2
   applies its BC list as an edge plan (`k2_edge_plan`) inside the sweep:
   one barrier a sweep.
-- K4 and K5 run a whole solve in one cooperative launch where the tile
-  plan (`resident_plan`, any ny) puts one block on each SM with its tile
-  of the packed planes resident in shared memory: k sweeps a group there,
-  an exchange of own cells through L2, a grid barrier and the gate read on
-  the device. Grids too large for the card's shared memory keep one launch
-  per gate group and the host gate (K4 on packed tiles, K5 as colour
-  half-sweeps over the whole grid, `_color_groups`); K2's multi-block form
-  runs each sweep as one grid launch and the BC edges as one ordered
-  single-block launch.
+- K2mb, K4 and K5 run a whole solve in one cooperative launch where their
+  tile plan (`jacobi_resident_plan`; `resident_plan`, any ny) puts one
+  block on each SM with its tile resident in shared memory (K4 and K5: of
+  the packed planes): k sweeps a group there, each cut to the dependency
+  cone, an exchange of own cells through L2 and a grid barrier (K4 and K5
+  then read the gate on the device; K2mb runs a fixed nit). Grids too
+  large for the card's shared memory keep one launch per group: K2mb on
+  the same tiles with no host read, K4 on packed tiles and K5 as colour
+  half-sweeps over the whole grid (`_color_groups`), both with the host
+  gate.
 """
 
 from __future__ import annotations
@@ -63,6 +65,9 @@ from ns_tpu_torch.ops.kernels import _build
 # Shared memory one Hopper block may opt into (227 KB), less 1 KB for the
 # kernels' static reduction scratch.
 SMEM_BUDGET = 227 * 1024 - 1024
+# the H100's shared memory per block (opt-in), and its SMs
+H100_SMEM_PER_BLOCK = 232448
+H100_SMS = 132
 
 
 def smem_fits(nx: int, ny: int, n_arrays: int = 2, itemsize: int = 4) -> bool:
@@ -158,31 +163,191 @@ jacobi_fused.launches = 0
 jacobi_fused.calls = 0
 
 
+# --- K2 beyond one block: the tile plan -----------------------------------------
+#
+# K2's multi-block form (csrc/poisson_kernels.cu::jacobi_tiled_kernel) gives
+# each block a tile of the grid, boundary cells included, and a halo of k
+# cells (the reach of k sweeps) in shared memory, one warp a working row.
+# A group of k sweeps then runs there, each cut to the dependency cone, with
+# the edge plan inside; corners are written by their owner after the last
+# sweep.
+
+JACOBI_K = 8  # sweeps per group: the halo's width
+# own-tile sides (rows, columns) the plan chooses among; 32m - 16 columns
+# keep the cone's widest rows (own + 2(k - 1)) within m warp passes
+JACOBI_ROWS = (16, 24, 32, 48, 64, 80, 96, 112, 128, 160, 192, 256)
+JACOBI_COLS = (32, 48, 64, 80, 96, 112, 128, 144, 176, 208, 240, 256)
+
+
+class JacobiPlan(NamedTuple):
+    tile_rows: int      # own rows of a block's tile
+    tile_cols: int      # own columns
+    grid_rows: int      # tiles down the grid (blockIdx.y)
+    grid_cols: int      # tiles across (blockIdx.x)
+    k: int              # sweeps per group
+    c_in_smem: bool     # cb * b's working tile in shared memory too
+    resident: bool      # one cooperative launch a solve, else one a group
+    smem_bytes: int     # shared memory of one block
+
+    @property
+    def blocks(self) -> int:
+        return self.grid_rows * self.grid_cols
+
+    @property
+    def working(self) -> tuple[int, int]:
+        """A block's working tile: own cells plus k cells of halo on each
+        side."""
+        return self.tile_rows + 2 * self.k, self.tile_cols + 2 * self.k
+
+
+def jacobi_group_cost(rows: int, cols: int, k: int) -> int:
+    """Warp passes (32 lanes along a working row) of one tile's group of k
+    sweeps, each cut to the cone: the sweep with r sweeps after it updates
+    the own cells and r cells around them."""
+    return sum((rows + 2 * r) * -(-(cols + 2 * r) // 32) for r in range(k))
+
+
+def _jacobi_plan(nx: int, ny: int, itemsize: int, smem_per_block: int,
+                 k: int, n_sms: int | None) -> JacobiPlan | None:
+    """The cheapest tile plan: with `n_sms`, the resident route's (one
+    block of 1024 threads on each SM at most: the group time of one tile,
+    then the fewest blocks); without, the group route's (the total of all
+    tiles). Every tile holds at least two rows and columns of the grid (a
+    ragged last tile of one would own a corner without the edge cell next
+    to it), and its ping-pong pair fits one block's shared memory (less 1
+    KB); cb * b's tile joins it where all three fit."""
+    budget = smem_per_block - 1024
+    best = None
+    for tr in JACOBI_ROWS:
+        for tc in JACOBI_COLS:
+            if nx % tr == 1 or ny % tc == 1:
+                continue
+            wr, wc = tr + 2 * k, tc + 2 * k
+            blocks = -(-nx // tr) * -(-ny // tc)
+            if 2 * wr * wc * itemsize > budget or (
+                    n_sms is not None and blocks > n_sms):
+                continue
+            cost = jacobi_group_cost(min(tr, nx), min(tc, ny), k)
+            key = ((cost if n_sms else blocks * cost), blocks, -tc)
+            if best is None or key < best[0]:
+                best = (key, tr, tc)
+    if best is None:
+        return None
+    _, tr, tc = best
+    cells = (tr + 2 * k) * (tc + 2 * k)
+    c_smem = 3 * cells * itemsize <= budget
+    return JacobiPlan(tr, tc, -(-nx // tr), -(-ny // tc), k, c_smem,
+                      n_sms is not None, (3 if c_smem else 2) * cells
+                      * itemsize)
+
+
+def jacobi_resident_plan(nx: int, ny: int, itemsize: int,
+                         n_sms: int = H100_SMS,
+                         smem_per_block: int = H100_SMEM_PER_BLOCK,
+                         k: int = JACOBI_K) -> JacobiPlan | None:
+    """The tile plan of K2's resident route (one cooperative launch a
+    solve), or None where no plan keeps every tile resident: at most
+    `n_sms` tiles, each tile's working ping-pong pair in one block's shared
+    memory. Of those, the one whose group of k cone-cut sweeps takes the
+    fewest warp passes (all tiles run at once), then the fewest blocks,
+    then the widest tile."""
+    return _jacobi_plan(nx, ny, itemsize, smem_per_block, k, n_sms)
+
+
+def jacobi_group_plan(nx: int, ny: int, itemsize: int,
+                      smem_per_block: int = H100_SMEM_PER_BLOCK,
+                      k: int = JACOBI_K) -> JacobiPlan:
+    """The tile plan of K2's group route (one launch a group of k sweeps,
+    for grids no resident plan holds): the fewest warp passes over all
+    tiles."""
+    return _jacobi_plan(nx, ny, itemsize, smem_per_block, k, None)
+
+
+def jacobi_groups(n_iter: int, k: int) -> int:
+    """Launches of the group route: one a group of k sweeps, and one copy
+    at n_iter = 0."""
+    return max(1, -(-n_iter // k))
+
+
+@functools.cache
+def _jacobi_card_plan(device: torch.device, nx: int, ny: int,
+                      dtype: torch.dtype) -> JacobiPlan:
+    """`jacobi_resident_plan` with this card's SMs and shared memory,
+    checked against the kernel's own occupancy; where none exists, the
+    group route's plan."""
+    props = torch.cuda.get_device_properties(device)
+    smem = getattr(props, "shared_memory_per_block_optin",
+                   H100_SMEM_PER_BLOCK)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = jacobi_resident_plan(nx, ny, itemsize, props.multi_processor_count,
+                                smem)
+    if plan is None:
+        return jacobi_group_plan(nx, ny, itemsize, smem)
+    per_sm = ctypes.c_int(0)
+    fn = _build.entry("ns_jacobi_resident_occupancy", dtype)
+    with torch.cuda.device(device):
+        code = fn(plan.tile_rows, plan.tile_cols, plan.k,
+                  int(plan.c_in_smem), ctypes.byref(per_sm))
+    _build.check(code, "resident Jacobi occupancy")
+    if per_sm.value * props.multi_processor_count < plan.blocks:
+        raise RuntimeError(
+            f"resident Jacobi: the plan {plan} needs {plan.blocks} resident "
+            f"blocks, the card holds {per_sm.value} an SM")
+    return plan
+
+
 def jacobi_multiblock(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
                       n_iter: int, p_bc) -> torch.Tensor:
-    """`jacobi_fused` for any grid size: each sweep is one grid launch into
-    the other buffer of a device ping-pong pair, followed by one launch
-    that writes the p BC edges in list order (K2, multi-block form). The
-    whole solve is enqueued with no host sync."""
+    """`jacobi_fused` for any grid size (K2, multi-block form), bitwise
+    equal to it on the grids both take: tiles of p with a halo of k cells
+    in shared memory, k cone-cut sweeps a group with the edge plan inside,
+    corners written by their owner after the last sweep.
+
+    Resident route, where this card's tile plan exists
+    (`jacobi_resident_plan`: 1024^2 and 1025^2 in both dtypes): the whole
+    solve is one cooperative launch; between groups the blocks exchange
+    their own cells through L2 and meet at a grid barrier. Counted in
+    `launches` and `launches_resident`.
+
+    Group route, for grids too large for the card's shared memory: one
+    launch per group of k sweeps (`jacobi_groups`), between two device
+    buffers. Neither route syncs with the host: nit is fixed."""
     if p.device.type == "cpu":
         return poisson.jacobi(p, b, dx, dy, n_iter,
                               bc_fn=lambda q: apply_bcs(q, p_bc))
     nx, ny = _build.check_inputs("jacobi_multiblock", p, b)
+    if n_iter < 0:
+        raise ValueError(f"jacobi_multiblock: n_iter={n_iter}")
+    plan = _jacobi_card_plan(p.device, nx, ny, p.dtype)
     dx2, dy2, denom = _consts(dx, dy)
-    out, scratch = torch.empty_like(p), torch.empty_like(p)
-    spec = _build.bc_spec(p_bc)
+    out = torch.empty_like(p)
+    if plan.resident:
+        scratch = None
+        xch = torch.empty((2, nx, ny), dtype=p.dtype, device=p.device)
+        arrived = torch.empty(1, dtype=torch.int32, device=p.device)
+    else:
+        scratch, xch, arrived = torch.empty_like(p), None, None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _build.entry("ns_jacobi_multiblock", p.dtype)
     with torch.cuda.device(p.device):
-        code = fn(p.data_ptr(), b.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), nx, ny, int(n_iter), dx2, dy2, denom,
-                  dx2 * dy2 / denom, len(p_bc), spec, _build.stream(p.device))
+        code = fn(p.data_ptr(), b.data_ptr(), out.data_ptr(), ptr(scratch),
+                  ptr(xch), ptr(arrived), nx, ny, plan.tile_rows,
+                  plan.tile_cols, plan.k, int(plan.c_in_smem),
+                  int(plan.resident), int(n_iter), dx2, dy2, denom,
+                  dx2 * dy2 / denom, _k2_spec(tuple(p_bc)),
+                  _build.stream(p.device))
     _build.check(code, "jacobi_multiblock")
-    jacobi_multiblock.launches += 1
+    if plan.resident:
+        jacobi_multiblock.launches += 1
+        jacobi_multiblock.launches_resident += 1
+    else:
+        jacobi_multiblock.launches += jacobi_groups(int(n_iter), plan.k)
     jacobi_multiblock.calls += 1
     return out
 
 
 jacobi_multiblock.launches = 0
+jacobi_multiblock.launches_resident = 0
 jacobi_multiblock.calls = 0
 
 
@@ -458,9 +623,6 @@ def packed_tile_bytes(k: int, itemsize: int) -> int:
 
 # --- the resident route of K4 and K5: the tile plan ---------------------------
 
-# the H100's shared memory per block (opt-in), and its SMs
-H100_SMEM_PER_BLOCK = 232448
-H100_SMS = 132
 # own-tile sides (packed rows, packed columns) the plan chooses among
 PLAN_ROWS = (16, 32, 48, 64, 96, 128, 192, 256)
 PLAN_COLS = (16, 32, 48, 64, 96, 128)

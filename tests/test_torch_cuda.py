@@ -94,18 +94,89 @@ def test_jacobi_fused(cuda, dtype, atol, shape):
         assert torch.equal(kernels.jacobi_fused(p0, b, h, h, 0, bcs), p0)
 
 
+# K2mb held bitwise against K2 on the grids one block holds: the same
+# expression, its rounding pinned, and the same edge plan
+K2MB_BITWISE = [(torch.float32, (50, 50)), (torch.float32, (120, 120)),
+                (torch.float32, (170, 170)), (torch.float64, (120, 120))]
+
+
+@pytest.mark.parametrize("dtype,shape", K2MB_BITWISE)
+def test_jacobi_multiblock_equals_jacobi_fused(cuda, dtype, shape):
+    """K2's multi-block form (one resident launch on its tile plan) gives
+    K2's bits for each BC list, at nit 50, 11 (a short last group) and 0."""
+    nx, ny = shape
+    h = 2.0 / (nx - 1)
+    p0, b = rand(shape, dtype, cuda, 0), rand(shape, dtype, cuda, 1, 10.0)
+    mb = kernels.jacobi_multiblock
+    for bcs in k2_bc_lists(h):
+        for nit in (50, 11, 0):
+            n0, r0 = mb.launches, mb.launches_resident
+            got = mb(p0, b, h, h, nit, bcs)
+            assert (mb.launches, mb.launches_resident) == (n0 + 1, r0 + 1)
+            assert torch.equal(got, kernels.jacobi_fused(p0, b, h, h, nit,
+                                                         bcs))
+
+
 @pytest.mark.parametrize("dtype,atol", DTYPES)
-@pytest.mark.parametrize("n", [257, 1024])
-def test_jacobi_multiblock(cuda, dtype, atol, n):
+@pytest.mark.parametrize("shape", [(1024, 1024), (1025, 1025), (257, 190)])
+def test_jacobi_multiblock(cuda, dtype, atol, shape):
+    """On the resident route (one launch a solve) against the twin for
+    each BC list, nit 50 and 7; nit 0 copies p."""
+    h = 2.0 / (shape[0] - 1)
+    p0 = rand(shape, dtype, cuda, 0)
+    b = rand(shape, dtype, cuda, 1, 10.0)
+    mb = kernels.jacobi_multiblock
+    for bcs in k2_bc_lists(h):
+        for nit in (50, 7):
+            n0, r0, c0 = mb.launches, mb.launches_resident, mb.calls
+            got = mb(p0, b, h, h, nit, bcs)
+            assert mb.launches - n0 == mb.launches_resident - r0 == \
+                mb.calls - c0 == 1
+            want = poisson.jacobi(p0, b, h, h, nit,
+                                  bc_fn=lambda q: apply_bcs(q, bcs))
+            close(got, want, dtype, atol)
+    assert torch.equal(mb(p0, b, h, h, 0, p_bcs(h)), p0)
+
+
+def test_jacobi_multiblock_group_route(cuda):
+    """4096^2 float32 has no resident plan: one launch per group of 8
+    sweeps (nit 50: seven, the last of two sweeps), no host sync, against
+    the twin."""
+    n = 4096
     h = 2.0 / (n - 1)
-    p0, b = rand((n, n), dtype, cuda, 0), rand((n, n), dtype, cuda, 1, 10.0)
-    for nit in (50, 7):  # even and odd: the result lands in `out` either way
-        n0 = kernels.jacobi_multiblock.launches
-        got = kernels.jacobi_multiblock(p0, b, h, h, nit, p_bcs(h))
-        assert kernels.jacobi_multiblock.launches == n0 + 1
-        want = poisson.jacobi(p0, b, h, h, nit,
-                              bc_fn=lambda q: apply_bcs(q, p_bcs(h)))
-        close(got, want, dtype, atol)
+    p0 = rand((n, n), torch.float32, cuda, 2)
+    b = rand((n, n), torch.float32, cuda, 3, 10.0)
+    mb = kernels.jacobi_multiblock
+    mb(p0, b, h, h, 50, p_bcs(h))
+    torch.cuda.synchronize()
+    n0, r0 = mb.launches, mb.launches_resident
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = mb(p0, b, h, h, 50, p_bcs(h))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (mb.launches - n0, mb.launches_resident - r0) == (7, 0)
+    want = poisson.jacobi(p0, b, h, h, 50,
+                          bc_fn=lambda q: apply_bcs(q, p_bcs(h)))
+    close(got, want, torch.float32, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jacobi_resident_solve_never_syncs(cuda, dtype):
+    """A 1024^2 nit=50 solve is one launch with no host synchronisation."""
+    n = 1024
+    h = 2.0 / (n - 1)
+    p0, b = rand((n, n), dtype, cuda, 4), rand((n, n), dtype, cuda, 5, 10.0)
+    mb = kernels.jacobi_multiblock
+    mb(p0, b, h, h, 50, p_bcs(h))
+    torch.cuda.synchronize()
+    n0 = mb.launches_resident
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mb(p0, b, h, h, 50, p_bcs(h))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert mb.launches_resident == n0 + 1
 
 
 def tables(shape):
@@ -481,22 +552,61 @@ def test_direct_solves_on_the_card_match_cpu(cuda, dtype, atol):
     close(mixed(f).cpu(), mixed(f.cpu()), dtype, atol)
 
 
+def momentum_bc_lists(h):
+    """The cavity's u and v lists, and lists with Neumann sides."""
+    cav_u = [dirichlet(0, "left"), dirichlet(1, "right"), dirichlet(0, "top"),
+             dirichlet(0, "bottom")]
+    cav_v = [dirichlet(0, s) for s in ("left", "right", "top", "bottom")]
+    neu_u = [neumann(0.5, "left", h, h), dirichlet(1, "right"),
+             neumann(-0.25, "top", h, h), dirichlet(0, "bottom")]
+    neu_v = [neumann(0, "bottom", h, h), dirichlet(0, "top"),
+             dirichlet(0, "left"), neumann(-1.0, "right", h, h)]
+    return [(cav_u, cav_v), (neu_u, neu_v)]
+
+
 @pytest.mark.parametrize("dtype,atol", DTYPES)
 @pytest.mark.parametrize("quirk", [True, False])
-def test_momentum_explicit_fused(cuda, dtype, atol, quirk):
-    nx, ny = 67, 130
+@pytest.mark.parametrize("shape", [(3, 3), (64, 37), (51, 51), (1024, 1024),
+                                   (1025, 1025), (67, 130)])
+def test_momentum_explicit_fused(cuda, dtype, atol, quirk, shape):
+    """K3 against its twin, one launch a call, with the cavity lists and
+    lists with Neumann sides (16-byte vectors at 1024^2 and 64x37 float64
+    / 67x130 float64; one element a copy at the odd widths). Square grids
+    have 2dx == 2dy, where the quirk's y-derivative is the x-derivative's
+    quotient; the others have their own spacings."""
+    nx, ny = shape
+    dx, dy = 2.0 / (nx - 1), 2.0 / (ny - 1)
+    f = [rand(shape, dtype, cuda, 6 + i) for i in range(4)]
+    for u_bc, v_bc in momentum_bc_lists(dx):
+        args = (*f, 1e-3, dx, dy, 0.1, u_bc, v_bc, quirk)
+        n0 = kernels.momentum_explicit_fused.launches
+        got = kernels.momentum_explicit_fused(*args)
+        assert kernels.momentum_explicit_fused.launches == n0 + 1
+        for g, w in zip(got, kernels.momentum_explicit(*args)):
+            close(g, w, dtype, atol)
+
+
+@pytest.mark.parametrize("shape", [(51, 51), (1024, 1024)])
+def test_momentum_explicit_fused_is_one_cuda_launch(cuda, shape):
+    """The profiler sees one CUDA kernel a call (two before: the interior,
+    then the BC edges)."""
+    nx, ny = shape
     h = 2.0 / (nx - 1)
-    u_bc = [neumann(0.5, "left", h, h), dirichlet(1, "right"),
-            neumann(-0.25, "top", h, h), dirichlet(0, "bottom")]
-    v_bc = [neumann(0, "bottom", h, h), dirichlet(0, "top"),
-            dirichlet(0, "left"), neumann(-1.0, "right", h, h)]
-    f = [rand((nx, ny), dtype, cuda, 6 + i) for i in range(4)]
-    args = (*f, 1e-3, h, h, 0.1, u_bc, v_bc, quirk)
-    n0 = kernels.momentum_explicit_fused.launches
-    got = kernels.momentum_explicit_fused(*args)
-    assert kernels.momentum_explicit_fused.launches == n0 + 1
-    for g, w in zip(got, kernels.momentum_explicit(*args)):
-        close(g, w, dtype, atol)
+    f = [rand(shape, torch.float32, cuda, 10 + i) for i in range(4)]
+    u_bc, v_bc = momentum_bc_lists(h)[1]
+    call = lambda: kernels.momentum_explicit_fused(  # noqa: E731
+        *f, 1e-3, h, h, 0.1, u_bc, v_bc, True)
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3 and all("momentum" in n for n in names), names
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

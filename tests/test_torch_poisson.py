@@ -21,7 +21,7 @@ from ns_tpu.ops.pallas.poisson_kernels import (
     jacobi_fused_pallas, pack_redblack, sor_redblack_fused_pallas,
     sor_redblack_packed_tiled_pallas, sor_redblack_tiled_any,
     unpack_redblack)
-from ns_tpu_torch.core.bc import apply_bcs, bcs_from_reference
+from ns_tpu_torch.core.bc import BC, apply_bcs, bcs_from_reference
 from ns_tpu_torch.ops import kernels, poisson
 from ns_tpu_torch.ops.kernels import _build, poisson_kernels
 
@@ -252,11 +252,21 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_kernel_input_validation_rejects_cpu_and_bad_bcs():
+    """The kernel entries take CUDA tensors only, and a BC list as its edge
+    plan: a BC of an unknown kind or side is refused where it is made, and
+    a list of any length (the reference p list three times) gives the plan
+    of each side's last BC."""
     p = torch.zeros((8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         _build.check_inputs("k", p)
-    with pytest.raises(ValueError, match="at most"):
-        _build.bc_spec(bcs_from_reference(j_p_bcs(0.1, 0.1)) * 3)
-    spec = list(_build.bc_spec(bcs_from_reference(j_p_bcs(0.5, 0.25))))
-    # [kind, side, term] per BC: top Dirichlet 0, then Neumann offsets 0
-    assert spec[:3] == [0.0, 3.0, 0.0] and spec[3:6] == [1.0, 2.0, -0.0]
+    with pytest.raises(ValueError, match="kind"):
+        BC("robin", 0.0, "left")
+    with pytest.raises(ValueError, match="side"):
+        BC("dirichlet", 0.0, "front")
+    bcs = bcs_from_reference(j_p_bcs(0.5, 0.25))
+    spec = list(poisson_kernels._k2_spec(tuple(bcs)))
+    assert list(poisson_kernels._k2_spec(tuple(bcs * 3))) == spec
+    # kind[4], corner[4], term[4] by side (left, right, bottom, top): top
+    # Dirichlet 0, the others Neumann with 0 offsets; left writes the
+    # corners of row 0 last, right those of row nx-1
+    assert spec == [1, 1, 1, 0, 0, 0, 1, 1, -0.0, 0.0, -0.0, 0.0]

@@ -36,7 +36,12 @@ Phases (any failure exits non-zero, and no result line is printed):
                predictor at 1024^2) and the 3D spectral DNS (Taylor-Green
                at 256^3, fused kernels by the 'auto' gate, K6 and K8 by
                their tensor-core kernels), then divergence_max on a 256^3
-               final state (K7 by its tensor-core kernel); each run's counts
+               final state (K7 by its tensor-core kernel), and the 2D
+               periodic solver (decaying turbulence at 1024^2 on bench.py's
+               engine, compact matmul-DFT at 'default'; taylor_green at the
+               CLI's defaults, 256^2), then bench.py's rollout timed
+               (steps/s, cell-updates/s, the device's idle share); each
+               run's counts
                are read just before and just after it, every kernel must
                have launched, and every K2mb solve of the direct_fd 1024^2
                run, every K4 solve of the 1024^2 run and every K5 solve of
@@ -48,8 +53,18 @@ Phases (any failure exits non-zero, and no result line is printed):
                residual; the 256^3 Taylor-Green run with the kernels against
                the same run without them (at 'highest', and the 'default'
                main run), the plain run at 'high' against 'highest'; a
-               float64 3D shear flow against exp(-nu t)
-The line before the last is {"kernels": [...]} with each kernel's route,
+               float64 3D shear flow against exp(-nu t); the 2D periodic
+               engines (fft, compact, real_gemm) in float64 on the card
+               against the CPU, a float32 1024^2 Taylor-Green run at
+               'default' and 'high' against exp(-2 nu t), 'high' against
+               'highest', bench.py's 'default' engine on 1024^2 decaying
+               turbulence against the CPU (with a control that rounds the
+               GEMM outputs to bf16 and must fail the bound), its
+               divergence_max and energy decay, and diffable's 64^2
+               initial-condition fit converging
+The line before the kernels line carries the card and the main runs' and
+bench.py rollout's rates. The line before the last is {"kernels": [...]}
+with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
 calls there and launches per call (K2mb, K4 and K5 also their resident
 launches; K4 and K5 the colour-group kernels' time on the same input), its
@@ -679,6 +694,12 @@ def launched_once(fn, call):
 # --- phase 4 -----------------------------------------------------------------
 
 N3D = 256  # the 3D main path's grid, N3D^3
+N2D = 1024  # bench.py's grid, N2D^2
+BENCH_STEPS = 300  # steps of the timed bench.py rollout
+BENCH_2D_CLI = ["decaying_turbulence", "--nx", str(N2D), "--nt", "20",
+                "--dt", "5e-4", "--nu", "1e-4", "--transform", "matmul",
+                "--compact", "--precision", "default"]
+PERIODIC_2D = ("taylor_green", "decaying_turbulence")
 TG3D = ["taylor_green_3d", "--nx", str(N3D), "--nt", "8", "--transform",
         "matmul"]
 MAIN_RUNS = [
@@ -704,6 +725,11 @@ MAIN_RUNS = [
                                 "--nu", "0.01"]),
     ("taylor_green_3d 256^3", TG3D + ["--precision", "default",
                                       "--pallas-transform", "auto"]),
+    # the 2D periodic family: bench.py's engine and physics at 1024^2
+    # (compact matmul-DFT, 'default'), and taylor_green at the CLI's
+    # defaults (256^2, transform auto, 'high', nt 200)
+    ("decaying_turbulence 1024^2 compact default", BENCH_2D_CLI),
+    ("taylor_green 256^2", ["taylor_green"]),
 ]
 # the wrappers with a resident route (one cooperative launch a solve)
 RESIDENT = {"jacobi_multiblock", "sor_redblack_packed_multiblock",
@@ -728,6 +754,10 @@ MAIN_KERNELS = {  # kernels each main-path run must launch
     "direct_fd exact 1024^2": set(),
     "taylor_green_3d 256^3": {"fused_zy_forward", "fused_lamb"},
     "divergence_max 256^3": {"fused_yz_inverse"},
+    # the 2D periodic solver runs cuFFT or cuBLAS GEMMs (the JAX package's
+    # spectral_periodic reaches no Pallas kernel either)
+    "decaying_turbulence 1024^2 compact default": set(),
+    "taylor_green 256^2": set(),
 }
 
 
@@ -749,6 +779,55 @@ def check_rollout(label, path, nt):
     require(np.all(d["u"][:, -1, 1:-1] == 1.0), f"{label}: lid edge != 1")
     require(float(np.abs(d["u"][-1]).max()) > 0, f"{label}: no flow")
     return d
+
+
+def check_rollout_2d(label, path, nt, n):
+    """A 2D periodic rollout: u, v, p of (nt, n, n), finite, moving."""
+    d = np.load(path)
+    for key in "uvp":
+        require(d[key].shape == (nt, n, n),
+                f"{label}: {key} has shape {d[key].shape}")
+        require(np.isfinite(d[key]).all(), f"{label}: {key} not finite")
+    require(float(np.abs(d["u"][-1]).max()) > 0, f"{label}: no flow")
+    require(not np.array_equal(d["u"][-1], d["u"][0]),
+            f"{label}: the flow did not move")
+    return d
+
+
+def bench_rollout_2d(card: str) -> dict:
+    """bench.py's workload through the port: rollout_final_compact of
+    decaying turbulence at 1024^2 (compact matmul-DFT, 'default', dt 5e-4,
+    nu 1e-4, k_peak 30, seed 0, float32) for BENCH_STEPS steps, timed as
+    profile_run times a step loop (median of 3 after a warm-up; one
+    profiled rollout for the device's idle share); the final state must be
+    finite, as bench.py checks."""
+    from ns_tpu_torch.cli import profile_run
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    cfg = sp.SpectralPeriodicConfig(nt=BENCH_STEPS, nx=N2D, ny=N2D, dt=5e-4,
+                                    nu=1e-4, dtype="float32",
+                                    transform="matmul",
+                                    matmul_precision="default",
+                                    compact_spectrum=True)
+    w0 = sp.decaying_turbulence_vorticity(cfg, seed=0, k_peak=30.0)
+    carry0 = sp.init_from_vorticity_compact(cfg, w0, DEVICE)
+    final = []
+    r = profile_run.profile_rollout(
+        lambda: final.append(sp.rollout_final_compact(cfg, carry0)),
+        cfg.nt)
+    require(bool(torch.isfinite(torch.view_as_real(final[-1][0])).all()),
+            "bench rollout produced a non-finite state")
+    rate = r["steps_per_s_median_of_3"]
+    out = {"config": "bench.py:36-40 decaying_turbulence 1024^2 compact "
+                     "matmul 'default'", "steps": cfg.nt,
+           "steps_per_s": rate, "cell_updates_per_s": rate * N2D * N2D,
+           "steps_per_s_runs": r["steps_per_s"],
+           "device_idle_share": r["device_idle_share"], "card": card}
+    print(f"  bench.py's rollout 1024^2: {rate:.1f} steps/s "
+          f"({rate * N2D * N2D:.3e} cell-updates/s), device idle "
+          f"{r['device_idle_share']:.3f}; {card}")
+    return out
+
 
 
 def final_state_3d() -> dict:
@@ -788,7 +867,7 @@ def initial_energies_3d() -> dict:
     return out
 
 
-def phase_main(tmp) -> dict:
+def phase_main(tmp, card: str) -> dict:
     from ns_tpu_torch.cli import run_solver
     from ns_tpu_torch.ops import kernels
 
@@ -833,7 +912,11 @@ def phase_main(tmp) -> dict:
             slow = [k for k in MAIN_KERNELS[label] if bf16[k] == bf16_before[k]]
             require(not slow, f"{label}: no tensor-core launch of {slow}")
         nt = int(argv[argv.index("--nt") + 1]) if "--nt" in argv else 200
-        check_rollout(label, out, nt)
+        if argv[0] in PERIODIC_2D:
+            n = int(argv[argv.index("--nx") + 1]) if "--nx" in argv else 256
+            check_rollout_2d(label, out, nt, n)
+        else:
+            check_rollout(label, out, nt)
         if "3d" in label:
             require(summary["use_pallas_transform"] is True,
                     f"{label}: the auto gate resolved off")
@@ -871,9 +954,11 @@ def phase_main(tmp) -> dict:
     require(st["e8"] < st["e0"], f"energy grew: {st['e8']} >= {st['e0']}")
     idle = [k for k, n in counts.items() if n == 0]
     require(not idle, f"kernels never launched on the main path: {idle}")
+    bench = bench_rollout_2d(card)
     return {"launches": counts, "launches_bf16": launches_bf16,
             "calls": calls, "launches_resident": resident_counts(),
-            "steps_per_s": rates, "tg3d_npz": out3d["taylor_green_3d 256^3"]}
+            "steps_per_s": rates, "tg3d_npz": out3d["taylor_green_3d 256^3"],
+            "bench_2d": bench}
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -1037,6 +1122,152 @@ def phase_fidelity_3d(tmp, main_npz):
     require(err <= 1e-12, f"shear flow decay off by {err}")
 
 
+# the float32 1024^2 Taylor-Green run (nu 0.1, dt 1e-3, 100 steps, compact
+# matmul-DFT) against the exact decay exp(-2 nu t), max error over max|w0|:
+# read on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md) 'default' 5.41e-3
+# (bf16 inputs: the nonlinear term, zero for this flow, comes out at bf16's
+# rounding), 'high' 5.09e-7; bounds with 1.8x and 4x headroom
+TG2D_BOUND = {"default": 1e-2, "high": 2e-6}
+# 'high' against 'highest' after 20 steps of 1024^2 decaying turbulence: both
+# are fp32 GEMMs with TF32 off, so 0; the 3D bound's (HIGH_VS_HIGHEST), which
+# a TF32 'high' failed there
+HIGH_VS_HIGHEST_2D = 6e-5
+# bench.py's engine (compact, 'default') after 20 steps of 1024^2 decaying
+# turbulence, card against CPU, max error of each part of the carry over its
+# max: both round each GEMM's inputs to bf16 and sum in fp32, the card on its
+# tensor cores (batched bf16 GEMMs with bf16 tables), the CPU in fp32 on the
+# rounded values. Read on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+# w_hat 1.93e-5, N_prev 5.38e-4 (the nonlinear term: a sum taken in another
+# order rounds to another bf16 neighbour at the next stage); bounds with
+# 5.2x and 3.7x headroom. The control that rounds each GEMM's output to bf16 read 3.27e-3
+# and 6.91e-3, 33x and 3.5x above them
+DEFAULT_CARD_VS_CPU_2D = {"w_hat": 1e-4, "N_prev": 2e-3}
+
+
+def default_card_vs_cpu(sp, kw, card_final):
+    """bench.py's engine at 'default' on the card against the CPU, on a
+    flow whose nonlinear term is not zero; and a control with each bf16
+    GEMM's output rounded to bf16 too (the rounding that the TPU's DEFAULT
+    does not do), which must read above the bound."""
+    from ns_tpu_torch.ops import gemm
+
+    def final(device):
+        cfg = sp.SpectralPeriodicConfig(matmul_precision="default", **kw)
+        return sp.carry_to_numpy(sp.NavierStokesSystem(
+            sp.decaying_turbulence_vorticity(cfg), matmul_precision="default",
+            device=device, **kw).final_state())
+
+    def rel(got, want):
+        return [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(got, want)]
+
+    cpu = final("cpu")
+    errs = rel(sp.carry_to_numpy(card_final), cpu)
+    exact_mm = gemm._bf16_mm_f32
+    gemm._bf16_mm_f32 = lambda a, b: exact_mm(a, b).bfloat16().float()
+    try:
+        controls = rel(final(DEVICE), cpu)
+    finally:
+        gemm._bf16_mm_f32 = exact_mm
+    for (part, bound), err, control in zip(DEFAULT_CARD_VS_CPU_2D.items(),
+                                           errs, controls):
+        label = f"1024^2 f32 default 20 steps: card vs CPU, {part}"
+        print(f"  {label:52s} max_rel {err:.3e} (bound {bound:g}); "
+              f"control, bf16 GEMM outputs {control:.3e} (must exceed it)")
+        require(err <= bound, f"2D default card vs CPU {part}: {err} > "
+                f"{bound}")
+        require(control > bound, f"2D default control {part}: {control} "
+                f"<= {bound}")
+
+
+def phase_fidelity_2d():
+    from ns_tpu_torch.solvers import diffable
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    print("phase 5: 2D periodic fidelity on the card")
+    # float64 card against CPU, engine for engine: 10 steps at 256^2
+    base = dict(nt=10, nx=256, ny=256, dt=5e-4, nu=1e-4, dtype="float64")
+    for name, kw in (("fft", dict(transform="fft")),
+                     ("compact", dict(transform="matmul",
+                                      compact_spectrum=True)),
+                     ("real_gemm", dict(transform="matmul",
+                                        compact_spectrum=True,
+                                        real_gemm=True))):
+        cfg = sp.SpectralPeriodicConfig(**base, **kw)
+        w0 = sp.decaying_turbulence_vorticity(cfg, seed=1)
+        fins = [sp.carry_to_numpy(sp.rollout_final(
+            cfg, sp.init_from_vorticity(cfg, w0, dev))) for dev in
+            (DEVICE, "cpu")]
+        err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(*fins))
+        print(f"  {'256^2 f64 10 steps, card vs CPU: ' + name:52s} "
+              f"max_rel {err:.3e} (bound 1e-10)")
+        require(err <= 1e-10, f"2D {name}: card vs CPU {err} > 1e-10")
+
+    # float32 1024^2 Taylor-Green against exp(-2 nu t)
+    tg = dict(nt=100, nx=N2D, ny=N2D, dt=1e-3, nu=0.1, transform="matmul",
+              compact_spectrum=True)
+    for prec, bound in TG2D_BOUND.items():
+        cfg = sp.SpectralPeriodicConfig(matmul_precision=prec, **tg)
+        w0 = sp.taylor_green_vorticity(cfg)
+        sys_ = sp.NavierStokesSystem(w0, matmul_precision=prec,
+                                     device=DEVICE, **tg)
+        w = sp.physical_from_carry(cfg, sys_.final_state()[0]).cpu().numpy()
+        exact = w0.astype(np.float64) * np.exp(-2.0 * 0.1 * 100 * 1e-3)
+        err = float(np.abs(w - exact).max() / np.abs(w0).max())
+        print(f"  {'1024^2 f32 TG 100 steps vs exp(-2 nu t), ' + prec:52s} "
+              f"max_rel {err:.3e} (bound {bound:g})")
+        require(err <= bound, f"2D TG {prec}: {err} > {bound}")
+
+    # decaying turbulence at 1024^2, 20 steps: 'high' vs 'highest', and on
+    # the 'default' run divergence_max and the energy's decay
+    dt = dict(nt=20, nx=N2D, ny=N2D, dt=5e-4, nu=1e-4, transform="matmul",
+              compact_spectrum=True)
+    fin = {}
+    for prec in ("default", "high", "highest"):
+        cfg = sp.SpectralPeriodicConfig(matmul_precision=prec, **dt)
+        sys_ = sp.NavierStokesSystem(sp.decaying_turbulence_vorticity(cfg),
+                                     matmul_precision=prec, device=DEVICE,
+                                     **dt)
+        fin[prec] = (cfg, sys_.carry0, sys_.final_state())
+    cfg, _, hi = fin["high"]
+    _, _, top = fin["highest"]
+    w_hi, w_top = (sp.physical_from_carry(cfg, c[0]) for c in (hi, top))
+    rel = float((w_hi - w_top).abs().max() / w_top.abs().max())
+    print(f"  {'1024^2 f32 20 steps: high vs highest':52s} max_rel "
+          f"{rel:.3e} (bound {HIGH_VS_HIGHEST_2D:g})")
+    require(rel <= HIGH_VS_HIGHEST_2D, f"2D high vs highest {rel}")
+    cfg, c0, c20 = fin["default"]
+    default_card_vs_cpu(sp, dt, c20)
+    full0, full20 = (sp.expand_compact(cfg, c[0]) for c in (c0, c20))
+    u, v, _ = sp.fields_from_hat(cfg, full20)
+    umax = float(torch.maximum(u.abs().max(), v.abs().max()))
+    div = float(sp.divergence_max(cfg, full20))
+    e0, e20 = (float(sp.energy_spectrum(cfg, f)[1].sum())
+               for f in (full0, full20))
+    print(f"  {'1024^2 f32 default 20 steps: divergence_max':52s} "
+          f"{div:.3e} ({div / umax:.3e} of max|u| {umax:.4f}; bound 1e-5); "
+          f"E0 {e0:.8e}, E20 {e20:.8e} (< E0)")
+    require(div <= 1e-5 * umax, f"2D divergence {div} > 1e-5 max|u|")
+    require(e20 < e0, f"2D energy grew: {e20} >= {e0}")
+
+    # diffable: the 64^2 initial-condition fit through the solver, float64
+    fit = sp.SpectralPeriodicConfig(nt=10, nx=64, ny=64, dt=0.01, nu=1e-2,
+                                    dtype="float64")
+    w_true = sp.taylor_green_vorticity(fit)
+    fin64 = sp.rollout_final(fit, sp.init_from_vorticity(fit, w_true,
+                                                         DEVICE))
+    target = torch.fft.irfft2(fin64[0], s=(64, 64))
+    # lr 1600: the 16^2 test's 100 scaled by the cell count (the mean-square
+    # loss's gradient falls as 1/n^2); the CPU reads 1e-13 of the first
+    # loss after 10 iterations
+    _, losses = diffable.fit_initial_vorticity(fit, target, nt=10,
+                                               n_iters=20, lr=1600.0)
+    print(f"  {'64^2 f64 fit_initial_vorticity, 20 iterations':52s} loss "
+          f"{losses[0]:.3e} -> {losses[-1]:.3e} (bound 1e-8 of the first)")
+    require(losses[-1] <= 1e-8 * losses[0], f"diffable fit: {losses}")
+
+
 # --- report ------------------------------------------------------------------
 
 KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
@@ -1131,17 +1362,19 @@ def main():
     res = Results()
     timed_phase("kernels", phase_kernels, res, torch.device(DEVICE))
     with tempfile.TemporaryDirectory() as tmp:
-        main_path = timed_phase("main", phase_main, tmp)
+        main_path = timed_phase("main", phase_main, tmp, card)
         timed_phase("fidelity", phase_fidelity, tmp)
         timed_phase("fidelity modes", phase_fidelity_modes, tmp)
         timed_phase("fidelity 3d", phase_fidelity_3d, tmp,
                     main_path["tg3d_npz"])
+        timed_phase("fidelity 2d", phase_fidelity_2d)
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "ns_tpu" for m in sys.modules),
             "the JAX package was imported")
     kernels = report(res, main_path)
     print(json.dumps({"card": card,
-                      "main_path_steps_per_s": main_path["steps_per_s"]}))
+                      "main_path_steps_per_s": main_path["steps_per_s"],
+                      "bench_2d": main_path["bench_2d"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@ idle share and device time by kernel.
 
 Takes run_solver's command line (same families, flags and defaults) and
 times the rollout without the frame extraction, readback and npz write
-of the CLI: `simulate()` for the FD families, `final_state()` for the 3D
-ones. One warm-up rollout, then the median steps/s of three timed ones,
-then one rollout under `torch.profiler` (CPU and CUDA activity), whose
+of the CLI: `simulate()` for the FD families, `final_state()` for the
+periodic ones (2D and 3D). One warm-up rollout, then the median steps/s
+of three timed ones, then one rollout under `torch.profiler` (CPU and
+CUDA activity), whose
 idle share is 1 - (summed duration of its device kernels) / (profiled
 wall time). Only the kernel records count (an aten op's own device time
 repeats its kernels'). Needs a CUDA device: there is no CPU mode for
@@ -15,6 +16,9 @@ device metrics.
         --transform matmul --precision default
     python -m ns_tpu_torch.cli.profile_run direct_fd --nx 1024 --nt 20 \\
         --dt 1e-5 --nu 0.01
+    python -m ns_tpu_torch.cli.profile_run decaying_turbulence --nx 1024 \\
+        --nt 200 --dt 5e-4 --nu 1e-4 --transform matmul --compact \\
+        --precision default
 
 Prints one JSON line, with the top kernels by device time and the top
 host ops by their own CPU time.
@@ -31,12 +35,10 @@ import torch
 from ns_tpu_torch.cli import run_solver
 
 
-def profile(argv) -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_run needs a CUDA device")
-    args, device, sys_ = run_solver.build(list(argv) + ["--device", "cuda"])
-    run = sys_.final_state if args.family in run_solver._3D else sys_.simulate
-
+def profile_rollout(run, nt: int) -> dict:
+    """Steps/s (one warm-up, then the median of three timed calls of
+    `run`, each `nt` steps ending in a synchronize), then one call under
+    the profiler: its device idle share, top kernels and top host ops."""
     def timed() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -45,7 +47,7 @@ def profile(argv) -> dict:
         return time.perf_counter() - t0
 
     timed()  # warm-up: cuBLAS/cuFFT plans, the kernel library's build
-    rates = [args.nt / timed() for _ in range(3)]
+    rates = [nt / timed() for _ in range(3)]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -59,7 +61,7 @@ def profile(argv) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return {
-        "argv": list(argv), "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0),
         "steps_per_s_median_of_3": statistics.median(rates),
         "steps_per_s": rates, "profiled_wall_ms": wall * 1e3,
         "device_busy_ms": busy_us / 1e3,
@@ -68,6 +70,15 @@ def profile(argv) -> dict:
         "top_host_self_ms": [[e.key[:80], e.self_cpu_time_total / 1e3,
                               e.count] for e in host[:6]],
     }
+
+
+def profile(argv) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_run needs a CUDA device")
+    args, device, sys_ = run_solver.build(list(argv) + ["--device", "cuda"])
+    periodic = run_solver._2D + run_solver._3D
+    run = sys_.final_state if args.family in periodic else sys_.simulate
+    return {"argv": list(argv), **profile_rollout(run, args.nt)}
 
 
 if __name__ == "__main__":

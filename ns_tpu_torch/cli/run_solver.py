@@ -1,20 +1,23 @@
 """Run a solver rollout with the torch port and save the reference-format
 npz.
 
-Port of `ns_tpu/cli/run_solver.py` for its FD and 3D families, with the
-same presets, flags and defaults:
+Port of `ns_tpu/cli/run_solver.py` for its FD and periodic families,
+with the same presets, flags and defaults:
 
   direct_fd        — nt=200 nit=50 50x50 lid-driven cavity (--pressure-mode
                      jacobi|exact)
   chorin_fd        — nt=200 nit=200 51x51, semi_implicit (--method
                      explicit|helmholtz for the other modes;
                      --pressure-mode redblack|gauss_seidel|multigrid|cg|dst)
+  taylor_green     — 2D periodic Taylor-Green vortex (256^2 by default)
+  decaying_turbulence — 2D periodic decaying turbulence at --nx (--seed;
+                     --n-traj N stacks N seeds as (N, nt, nx, ny))
   taylor_green_3d  — 3D Taylor-Green vortex (nu defaults to 1/1600); the
                      npz carries u/v/w/p
   decaying_turbulence_3d — 3D isotropic decaying turbulence (--seed)
 
-The FD npz holds u, v, p of shape (nt, nx, ny), the layout the JAX trainer
-reads. The 2D periodic and Chebyshev families and the
+The FD and 2D periodic npz hold u, v, p of shape (nt, nx, ny), the layout
+the JAX trainer reads. The Chebyshev family and the
 --guard/--progress/--stream-dir/--dist modes are not yet ported and exit
 with an error that says so. Rollouts run on the card; a machine without
 one needs --device cpu (without it the command exits with an error).
@@ -28,6 +31,9 @@ Examples:
   python -m ns_tpu_torch.cli.run_solver taylor_green_3d --nx 256 --nt 8 \
       --transform matmul --precision default
   python -m ns_tpu_torch.cli.run_solver taylor_green_3d --device cpu --nx 16
+  python -m ns_tpu_torch.cli.run_solver decaying_turbulence --nx 1024 \
+      --nt 100 --transform matmul --compact --precision default
+  python -m ns_tpu_torch.cli.run_solver taylor_green --device cpu --nx 32
 """
 
 import argparse
@@ -44,9 +50,9 @@ _FAMILIES = ["direct_fd", "chorin_fd", "chorin_spectral", "taylor_green",
              "decaying_turbulence", "taylor_green_3d",
              "decaying_turbulence_3d"]
 _NOT_PORTED = "is not yet ported to ns_tpu_torch, see ROADMAP.md"
-_PORTED = ("direct_fd", "chorin_fd", "taylor_green_3d",
-           "decaying_turbulence_3d")
+_2D = ("taylor_green", "decaying_turbulence")
 _3D = ("taylor_green_3d", "decaying_turbulence_3d")
+_PORTED = ("direct_fd", "chorin_fd") + _2D + _3D
 
 
 def save_npz(path: str, **fields) -> str:
@@ -93,11 +99,13 @@ def _parser() -> argparse.ArgumentParser:
                         "fp32, default = bf16 inputs")
     p.add_argument("--transform", default="auto",
                    choices=["auto", "fft", "matmul"],
-                   help="3D families: auto = compact matmul-DFT under the "
-                        "crossover, fft beyond; fft/matmul force an engine")
+                   help="periodic families: auto picks the engine by the "
+                        "card's measured rule (spectral_periodic / "
+                        "spectral3d AUTO_FFT_CROSSOVER); fft/matmul force "
+                        "an engine")
     p.add_argument("--precision", default="high",
                    choices=["default", "high", "highest"],
-                   help="3D matmul-DFT GEMMs: default = bf16 inputs, "
+                   help="periodic matmul-DFT GEMMs: default = bf16 inputs, "
                         "high and highest = fp32")
     p.add_argument("--pallas-transform", default="auto",
                    choices=["auto", "on", "off"],
@@ -106,19 +114,26 @@ def _parser() -> argparse.ArgumentParser:
                         "--precision default at >= 128^3 cells where the "
                         "kernels fit shared memory; on/off force it")
     p.add_argument("--forcing", default="none",
-                   choices=["none", "kolmogorov"],
-                   help="3D families: constant body forcing")
+                   choices=["none", "kolmogorov", "fno"],
+                   help="periodic families: constant body forcing "
+                        "(kolmogorov; fno, 2D only: the FNO benchmark's)")
     p.add_argument("--forcing-k", type=int, default=4,
                    help="forcing wavenumber (default 4)")
     p.add_argument("--forcing-amp", type=float, default=0.1,
                    help="forcing amplitude (default 0.1)")
     p.add_argument("--frame-stride", type=int, default=1,
-                   help="3D families: solver steps per SAVED frame (--nt "
-                        "then counts saved frames)")
+                   help="periodic families: solver steps per SAVED frame "
+                        "(--nt then counts saved frames)")
     p.add_argument("--spinup", type=int, default=0,
-                   help="3D families: solver steps discarded before the "
-                        "first saved frame")
+                   help="periodic families: solver steps discarded before "
+                        "the first saved frame")
+    p.add_argument("--compact", action="store_true",
+                   help="2D periodic families: carry the compact "
+                        "dealias-truncated spectrum (matmul engine)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--n-traj", type=int, default=1,
+                   help="decaying_turbulence only: N trajectories of seeds "
+                        "seed..seed+N-1 stacked as (N, nt, nx, ny)")
     p.add_argument("--pallas-momentum", action="store_true",
                    help="chorin_fd --method explicit: accepted for "
                         "command-line parity; on CUDA the port always runs "
@@ -143,7 +158,7 @@ def build(argv=None):
     rollout. Returns (args, device, system)."""
     p = _parser()
     args = p.parse_args(argv)
-    periodic_3d = args.family in _3D
+    periodic_2d, periodic_3d = args.family in _2D, args.family in _3D
     if args.nu is None:
         args.nu = 6.25e-4 if periodic_3d else 0.1
     if args.family not in _PORTED:
@@ -151,19 +166,36 @@ def build(argv=None):
     # the JAX CLI's flag rules, checked before any compute
     if args.pallas_momentum and args.family != "chorin_fd":
         p.error("--pallas-momentum applies to chorin_fd only")
-    if args.forcing != "none" and not periodic_3d:
+    if args.forcing != "none" and not (periodic_2d or periodic_3d):
         p.error("--forcing applies to the periodic families only")
+    if periodic_3d and args.forcing == "fno":
+        p.error("the 3D family supports --forcing kolmogorov only")
     if periodic_3d and (args.dist or args.stream_dir or args.progress
-                        or args.guard):
-        p.error("--dist/--stream-dir/--progress/--guard are not supported "
-                "for the 3D families")
+                        or args.guard or args.n_traj > 1 or args.compact):
+        p.error("--dist/--stream-dir/--progress/--guard/--n-traj/--compact "
+                "are not supported for the 3D families")
     if args.frame_stride < 1:
         p.error(f"--frame-stride must be >= 1, got {args.frame_stride}")
     if args.spinup < 0:
         p.error(f"--spinup must be >= 0, got {args.spinup}")
-    if (args.frame_stride > 1 or args.spinup) and not periodic_3d:
-        p.error("--frame-stride/--spinup apply to the periodic families "
-                "only")
+    if args.frame_stride > 1 or args.spinup:
+        if not (periodic_2d or periodic_3d):
+            p.error("--frame-stride/--spinup apply to the periodic "
+                    "families only")
+        if args.dist or args.stream_dir or args.progress or args.guard:
+            p.error("--frame-stride/--spinup are incompatible with "
+                    "--dist/--stream-dir/--progress/--guard")
+    if args.n_traj < 1:
+        p.error(f"--n-traj must be >= 1, got {args.n_traj}")
+    if args.n_traj > 1:
+        if args.family != "decaying_turbulence":
+            p.error("--n-traj needs random initial conditions "
+                    "(decaying_turbulence)")
+        if args.dist:
+            p.error("--n-traj is not supported with --dist")
+        if args.stream_dir or args.progress or args.guard:
+            p.error("--n-traj is incompatible with "
+                    "--stream-dir/--progress/--guard")
     for flag in ("stream_dir", "guard", "progress", "dist"):
         if getattr(args, flag):
             p.error(f"--{flag.replace('_', '-')} {_NOT_PORTED}")
@@ -174,6 +206,8 @@ def build(argv=None):
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     if periodic_3d:
         return args, device, _system_3d(args, device)
+    if periodic_2d:
+        return args, device, _system_2d(args, device)
     if args.family == "direct_fd":
         from ns_tpu_torch.solvers.direct_fd import NavierStokesSystem
         if args.pressure_mode not in ("jacobi", "exact", "redblack"):
@@ -221,6 +255,8 @@ def main(argv=None):
     args, device, sys_ = build(argv)
     if args.family in _3D:
         return _run_3d(args, device, sys_, t0)
+    if args.family in _2D:
+        return _run_2d(args, device, sys_, t0)
     u, v, pr = (t.cpu().numpy() for t in sys_.simulate())
     elapsed = time.perf_counter() - t0
     out = args.out or ("data.npz" if args.family == "direct_fd"
@@ -251,6 +287,62 @@ def _system_3d(args, device: torch.device):
     else:
         u0 = s3.random_solenoidal_velocity(cfg, seed=args.seed)
     return s3.NavierStokesSystem3D(u0, device=device, **kw)
+
+
+def _system_2d(args, device: torch.device):
+    """The 2D periodic system (ns_tpu_torch.solvers.spectral_periodic) of
+    a command line, with its initial carry on `device`."""
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    nx = args.nx or 256
+    kw = dict(nt=args.nt, nx=nx, ny=nx, dt=args.dt, nu=args.nu,
+              rho=args.rho, dtype=args.dtype, transform=args.transform,
+              matmul_precision=args.precision, compact_spectrum=args.compact,
+              forcing=args.forcing, forcing_k=args.forcing_k,
+              forcing_amp=args.forcing_amp)
+    cfg = sp.SpectralPeriodicConfig(**kw)
+    if args.family == "taylor_green":
+        w0 = sp.taylor_green_vorticity(cfg)
+    else:
+        w0 = sp.decaying_turbulence_vorticity(cfg, seed=args.seed)
+    return sp.NavierStokesSystem(w0, device=device, **kw)
+
+
+def _run_2d(args, device: torch.device, sys_, t0: float) -> dict:
+    """A 2D periodic rollout (or --n-traj rollouts through the one system)
+    and its u/v/p npz."""
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    cfg, nx = sys_.cfg, sys_.cfg.nx
+    strided = args.frame_stride > 1 or args.spinup > 0
+
+    def rollout(w_ic=None):
+        if strided:
+            return sys_.simulate_strided(args.nt, stride=args.frame_stride,
+                                         spinup=args.spinup, w_ic=w_ic)
+        return sys_.simulate() if w_ic is None else sys_.simulate_from(w_ic)
+
+    if args.n_traj > 1:
+        seeds = range(args.seed, args.seed + args.n_traj)
+        trajs = [[t.cpu().numpy() for t in rollout(
+            sp.decaying_turbulence_vorticity(cfg, seed=s))] for s in seeds]
+        u, v, pr = (np.stack(f) for f in zip(*trajs))
+        out = args.out or f"{args.family}_x{args.n_traj}.npz"
+    else:
+        u, v, pr = (t.cpu().numpy() for t in rollout())
+        out = args.out or f"{args.family}.npz"
+    elapsed = time.perf_counter() - t0
+    save_npz(out, u=u, v=v, p=pr)
+    steps = args.n_traj * (1 + args.spinup + (args.nt - 1) * args.frame_stride
+                           if strided else args.nt)
+    print(f"{args.family}: {args.n_traj} x nt={args.nt} (stride "
+          f"{args.frame_stride}, spinup {args.spinup}) grid={nx}x{nx} on "
+          f"{device} (transform {cfg.transform}, compact "
+          f"{cfg.compact_spectrum}, precision {cfg.matmul_precision}) in "
+          f"{elapsed:.2f}s ({steps / elapsed:.1f} steps/s) -> {out}")
+    return {"out": out, "device": str(device), "seconds": elapsed,
+            "steps_per_s": steps / elapsed, "transform": cfg.transform,
+            "compact_spectrum": cfg.compact_spectrum}
 
 
 def _run_3d(args, device: torch.device, sys_, t0: float) -> dict:

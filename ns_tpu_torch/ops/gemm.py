@@ -54,14 +54,19 @@ def _bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
-    """a @ b at `precision` (float32 only; other dtypes run as they are)."""
-    if a.dtype != torch.float32:
-        return a @ b
-    if precision == "default":
+    """a @ b at `precision` (float32 only; other dtypes run as they are).
+    At 'default' a bfloat16 operand against a float32 one is a constant
+    table rounded once, which the rounding here leaves as it is. A complex
+    operand is never rounded (its imaginary part would be lost)."""
+    table = {a.dtype, b.dtype} == {torch.float32, torch.bfloat16}
+    if (precision == "default" and (a.dtype == torch.float32 or table)
+            and not (a.is_complex() or b.is_complex())):
         a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
         if a.is_cuda:
             return _bf16_mm_f32(a, b)
         return a.float() @ b.float()
+    if a.dtype != torch.float32:
+        return a @ b
     with _no_tf32():
         return a @ b
 

@@ -756,6 +756,7 @@ def carry_to_numpy(carry) -> tuple[np.ndarray, np.ndarray]:
 
 def carry_from_numpy(cfg: Spectral3DConfig, carry, device=None):
     """Inverse of `carry_to_numpy`: complex numpy arrays onto `device` in
-    the config's complex dtype."""
+    the config's complex dtype (CUDA for None, core/device.py)."""
+    device = resolve_device(device)
     return tuple(torch.tensor(np.asarray(a), dtype=cfg.complex_dtype,
                               device=device) for a in carry)

@@ -1,10 +1,12 @@
 """The whole slice through both CLIs, and the port's no-jax guarantee.
 
 Both packages' run_solver write direct_fd and chorin_fd rollouts (nt=5,
-float64; the dst, multigrid, helmholtz and exact modes among them) and
-taylor_green_3d / decaying_turbulence_3d rollouts (16^3, nt=3, float64) on
-the CPU; the npz files agree <= 1e-9 and the port's FD file
-loads in the JAX trainer. A subprocess (this process has imported jax
+float64; the dst, multigrid, helmholtz and exact modes among them),
+taylor_green / decaying_turbulence rollouts (16^2, nt=3, float64; the
+compact engine, --n-traj, --forcing fno and --frame-stride/--spinup among
+them) and taylor_green_3d / decaying_turbulence_3d rollouts (16^3, nt=3,
+float64) on the CPU; the npz files agree <= 1e-9 and the port's FD and 2D
+files load in the JAX trainer. A subprocess (this process has imported jax
 through the conftest) shows the port's CLI runs without importing jax or
 the JAX package, and that the CPU path launches no kernel.
 """
@@ -66,6 +68,48 @@ def test_3d_cli_rollouts_match_jax_cli(tmp_path, argv):
         np.testing.assert_allclose(t[key], j[key], rtol=0, atol=1e-9)
 
 
+@pytest.mark.parametrize("argv,name,shape", [
+    (["taylor_green"], "taylor_green.npz", (3, 16, 16)),
+    (["decaying_turbulence", "--transform", "matmul", "--compact", "--seed",
+      "2"],
+     "decaying_turbulence.npz", (3, 16, 16)),
+    (["decaying_turbulence", "--transform", "fft", "--forcing", "fno",
+      "--forcing-k", "2"], "decaying_turbulence.npz", (3, 16, 16)),
+    (["taylor_green", "--transform", "matmul", "--frame-stride", "2",
+      "--spinup", "1", "--forcing", "kolmogorov", "--forcing-k", "2"],
+     "taylor_green.npz", (3, 16, 16)),
+    (["decaying_turbulence", "--n-traj", "2", "--seed", "3", "--transform",
+      "matmul", "--compact"],
+     "decaying_turbulence_x2.npz", (2, 3, 16, 16)),
+    (["decaying_turbulence", "--n-traj", "2", "--frame-stride", "2",
+      "--transform", "fft"], "decaying_turbulence_x2.npz", (2, 3, 16, 16)),
+])
+def test_2d_cli_rollouts_match_jax_cli(tmp_path, monkeypatch, argv, name,
+                                       shape):
+    """The 2D periodic families, written under the reference file names
+    ({family}.npz, {family}_x{N}.npz) in the working directory. Engine for
+    engine: where 'auto' differs (ROADMAP.md §3) the case names the JAX
+    package's engine, since compact truncates decaying turbulence's initial
+    field to the dealiased band and fft does not."""
+    common = ["--nx", "16", "--nt", "3", "--dtype", "float64", "--precision",
+              "highest"]
+    got = {}
+    for pkg, main in (("jax", j_cli.main), ("torch", t_cli.main)):
+        run_dir = tmp_path / pkg
+        run_dir.mkdir()
+        monkeypatch.chdir(run_dir)
+        main(argv + common + (["--device", "cpu"] if pkg == "torch" else []))
+        got[pkg] = np.load(run_dir / name)
+    j, t = got["jax"], got["torch"]
+    assert sorted(t.files) == sorted(j.files) == ["p", "u", "v"]
+    for key in "uvp":
+        assert t[key].shape == j[key].shape == shape
+        np.testing.assert_allclose(t[key], j[key], rtol=0, atol=1e-9)
+    if len(shape) == 3:
+        obs = load_obs(str(tmp_path / "torch" / name), None)
+        assert obs.shape == (3, 1, 3, 16, 16)
+
+
 @pytest.mark.parametrize("argv", [
     ["taylor_green_3d", "--forcing", "fno"],
     ["taylor_green_3d", "--compact"],
@@ -75,6 +119,12 @@ def test_3d_cli_rollouts_match_jax_cli(tmp_path, argv):
     ["direct_fd", "--forcing", "kolmogorov"],
     ["chorin_fd", "--spinup", "2"],
     ["taylor_green_3d", "--pallas-momentum"],
+    ["taylor_green", "--n-traj", "2"],
+    ["decaying_turbulence", "--n-traj", "0"],
+    ["decaying_turbulence", "--n-traj", "2", "--guard"],
+    ["taylor_green", "--frame-stride", "2", "--stream-dir", "x"],
+    ["decaying_turbulence", "--spinup", "-1"],
+    ["taylor_green", "--forcing", "sinusoid"],
 ])
 def test_cli_rejects_what_the_jax_cli_rejects(argv):
     for main in (j_cli.main, t_cli.main):
@@ -84,7 +134,8 @@ def test_cli_rejects_what_the_jax_cli_rejects(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["taylor_green"], ["chorin_spectral"], ["direct_fd", "--guard"],
+    ["taylor_green", "--stream-dir", "x"], ["chorin_spectral"],
+    ["direct_fd", "--guard"],
     ["chorin_fd", "--stream-dir", "x"], ["chorin_fd", "--progress"],
     ["chorin_fd", "--dist"],
     ["direct_fd", "--pressure-mode", "cg"],
@@ -148,7 +199,8 @@ def test_no_card_needs_device_cpu(monkeypatch, capsys):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["chorin_fd"], ["direct_fd", "--nt", "2"],
-                 ["taylor_green_3d", "--nx", "8"]):
+                 ["taylor_green_3d", "--nx", "8"],
+                 ["decaying_turbulence", "--nx", "8", "--compact"]):
         with pytest.raises(SystemExit) as e:
             t_cli.build(argv)
         assert e.value.code == 2

@@ -14,7 +14,10 @@ tensor-core kernels of K6, K7 and K8 against their twins at 'default'
 (bf16 operands and intermediates, fp32 sums on both sides), <= 1e-3 of
 max|out|: the sums run in another order, and that can flip a rounding of
 an intermediate to bf16 by one ulp. The direct solves (plain torch, cuBLAS on the card) are held against the same
-solve on the CPU: float64 <= 1e-10 and float32 <= 1e-4 of the scale.
+solve on the CPU: float64 <= 1e-10 and float32 <= 1e-4 of the scale. The 2D
+periodic solver (cuFFT, cuBLAS) likewise: each engine in float64 <= 1e-10,
+diffable's gradient <= 1e-9; float32 Taylor-Green runs against the exact
+decay within chip_smoke.py's bounds.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from ns_tpu_torch.core.bc import apply_bcs, dirichlet, neumann
 from ns_tpu_torch.ops import fast_poisson, kernels, poisson
 from ns_tpu_torch.ops.kernels.poisson_kernels import _color_groups
 from ns_tpu_torch.solvers import spectral3d as s3
+from ns_tpu_torch.solvers import spectral_periodic as sp
 
 pytestmark = pytest.mark.cuda
 
@@ -618,3 +622,129 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         half = big.half()
         kernels.sor_redblack_multiblock(half, half, 0.01, 0.01, 1.25, 0.0, 5)
+
+
+# --- the 2D periodic solver (spectral_periodic) and diffable on the card ---
+
+SP_ENGINES = {
+    "fft": dict(transform="fft"),
+    "matmul": dict(transform="matmul"),
+    "matmul_nodealias": dict(transform="matmul", dealias=False),
+    "compact": dict(transform="matmul", compact_spectrum=True),
+    "real_gemm": dict(transform="matmul", compact_spectrum=True,
+                      real_gemm=True),
+}
+# the float32 1024^2 Taylor-Green run against exp(-2 nu t), as chip_smoke.py's
+# phase 5 (TG2D_BOUND there)
+TG2D_BOUND = {"default": 1e-2, "high": 2e-6}
+# bench.py's engine at 'default', card against CPU after 20 steps of 1024^2
+# decaying turbulence, per part of the carry, as chip_smoke.py's phase 5
+# (DEFAULT_CARD_VS_CPU_2D there)
+DEFAULT_CARD_VS_CPU_2D = {"w_hat": 1e-4, "N_prev": 2e-3}
+
+
+@pytest.mark.parametrize("name", list(SP_ENGINES))
+def test_periodic_engines_card_vs_cpu_f64(cuda, name):
+    """Each engine, 5 forced steps at 64x48 in float64 on the card against
+    the CPU (cuFFT and cuBLAS sum in another order), <= 1e-10 of the
+    scale."""
+    cfg = sp.SpectralPeriodicConfig(nt=5, nx=64, ny=48, dt=2e-3, nu=1e-2,
+                                    dtype="float64", forcing="kolmogorov",
+                                    forcing_k=2, **SP_ENGINES[name])
+    w0 = sp.decaying_turbulence_vorticity(cfg, seed=2, k_peak=6.0)
+    fins = [sp.carry_to_numpy(sp.rollout_final(
+        cfg, sp.init_from_vorticity(cfg, w0, dev))) for dev in (cuda, "cpu")]
+    for a, b in zip(*fins):
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
+
+
+@pytest.mark.parametrize("prec", list(TG2D_BOUND))
+def test_periodic_taylor_green_1024_f32(cuda, prec):
+    """Compact matmul-DFT, 100 steps at 1024^2 in float32, against the
+    exact decay exp(-2 nu t) of the Taylor-Green vorticity."""
+    kw = dict(nt=100, nx=1024, ny=1024, dt=1e-3, nu=0.1, transform="matmul",
+              compact_spectrum=True, matmul_precision=prec)
+    cfg = sp.SpectralPeriodicConfig(**kw)
+    w0 = sp.taylor_green_vorticity(cfg)
+    sys_ = sp.NavierStokesSystem(w0, device=cuda, **kw)
+    w = sp.physical_from_carry(cfg, sys_.final_state()[0]).cpu().numpy()
+    exact = w0.astype(np.float64) * np.exp(-2.0 * 0.1 * 0.1)
+    assert np.abs(w - exact).max() / np.abs(w0).max() <= TG2D_BOUND[prec]
+
+
+def test_periodic_default_card_vs_cpu_1024(cuda):
+    """bench.py's engine (compact, 'default') on a flow whose nonlinear
+    term is not zero: the card's batched bf16 GEMMs against the CPU's fp32
+    sums of the same bf16-rounded inputs."""
+    kw = dict(nt=20, nx=1024, ny=1024, dt=5e-4, nu=1e-4, transform="matmul",
+              compact_spectrum=True, matmul_precision="default")
+    cfg = sp.SpectralPeriodicConfig(**kw)
+    w0 = sp.decaying_turbulence_vorticity(cfg)
+    fins = [sp.carry_to_numpy(sp.NavierStokesSystem(
+        w0, device=dev, **kw).final_state()) for dev in (cuda, "cpu")]
+    for bound, a, b in zip(DEFAULT_CARD_VS_CPU_2D.values(), *fins):
+        assert np.abs(a - b).max() <= bound * np.abs(b).max()
+
+
+def test_periodic_cli_on_the_card(cuda, tmp_path):
+    from ns_tpu_torch.cli import run_solver
+    for argv, shape in ((["taylor_green", "--nx", "128", "--nt", "5"],
+                         (5, 128, 128)),
+                        (["decaying_turbulence", "--nx", "128", "--nt", "3",
+                          "--n-traj", "2", "--compact", "--precision",
+                          "default"], (2, 3, 128, 128))):
+        out = tmp_path / "o.npz"
+        summary = run_solver.main(argv + ["--out", str(out)])
+        assert summary["device"] == "cuda"
+        d = np.load(out)
+        for key in "uvp":
+            assert d[key].shape == shape and np.isfinite(d[key]).all()
+
+
+def test_diffable_gradient_card_vs_cpu(cuda):
+    """The gradient of a rollout's loss with respect to its initial
+    vorticity (8 steps, 32^2, float64) on the card against the CPU,
+    <= 1e-9 relative."""
+    from ns_tpu_torch.solvers import diffable
+    cfg = sp.SpectralPeriodicConfig(nt=8, nx=32, ny=32, dt=5e-3, nu=1e-2,
+                                    dtype="float64")
+    target = sp.taylor_green_vorticity(cfg)
+    w0 = np.random.default_rng(0).normal(size=(32, 32)) * 0.1
+    grads = []
+    for dev in (cuda, "cpu"):
+        ops = sp.make_ops(cfg, dev)
+        transforms = sp.make_transforms(cfg, dev)
+        step_pair, _ = sp.make_step(cfg, dev)
+        w = torch.tensor(w0, device=dev, requires_grad=True)
+        h = torch.fft.rfft2(w)
+        carry = (h, sp.nonlinear_term(h, ops, cfg, transforms))
+        fin = diffable.rollout_chunked_remat(lambda c: step_pair(c)[0],
+                                             carry, 8, 4)
+        loss = torch.mean((torch.fft.irfft2(fin[0], s=(32, 32))
+                           - torch.as_tensor(target, device=dev)) ** 2)
+        grads.append(torch.autograd.grad(loss, w)[0].cpu().numpy())
+    assert np.abs(grads[0] - grads[1]).max() <= 1e-9 * np.abs(grads[1]).max()
+
+
+def test_compact_step_never_syncs(cuda):
+    """bench.py's compact 'default' step, and its real_gemm and fft
+    counterparts, enqueue without a host synchronisation."""
+    for kw in (dict(transform="matmul", compact_spectrum=True),
+               dict(transform="matmul", compact_spectrum=True,
+                    real_gemm=True), dict(transform="fft")):
+        cfg = sp.SpectralPeriodicConfig(nx=256, ny=256,
+                                        matmul_precision="default", **kw)
+        step, _ = sp.make_step(cfg, cuda)
+        carry = sp.init_from_vorticity(
+            cfg, sp.decaying_turbulence_vorticity(cfg), cuda)
+        carry = step(carry)[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                carry = step(carry)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(torch.view_as_real(
+            sp._to_full(cfg, carry[0]))).all())

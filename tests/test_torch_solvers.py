@@ -392,6 +392,26 @@ def test_gemm_default_is_the_tpu_default(shape):
         assert err <= 1e-5 * float(want.abs().max())
 
 
+
+def test_gemm_default_dtype_rule():
+    """'default' rounds a float32 pair, a bf16 table against float32 on
+    either side, and a float32 left operand against float64, to the same
+    product; a complex operand is never rounded (that would drop its
+    imaginary part), so real x complex raises as torch's matmul does."""
+    rng = np.random.default_rng(2)
+    a = torch.as_tensor(rng.normal(size=(24, 24)), dtype=torch.float32)
+    want = gemm.matmul(a, a, "default")
+    exact = bf16_emulation(a, a)
+    assert float((want - exact).abs().max()) <= 1e-5 * float(
+        exact.abs().max())
+    for x, y in ((a, a.bfloat16()), (a.bfloat16(), a), (a, a.double())):
+        got = gemm.matmul(x, y, "default")
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    c = torch.complex(a, a)
+    for x, y in ((a, c), (c, a)):
+        with pytest.raises(RuntimeError):
+            gemm.matmul(x, y, "default")
+
 def test_state_helpers():
     st = tstate.zeros_state(4, 5, dtype=torch.float64, history=True)
     assert st.u_prev is st.u and st.p.shape == (4, 5)

@@ -54,13 +54,22 @@ def test_one_step_from_a_jax_carry(engine):
     step_j, _ = j3.make_step(jc)
     c1 = jax.jit(lambda c: step_j(c)[0])(j3.init_from_velocity(jc, u0))
     want = t3.carry_to_numpy(jax.jit(lambda c: step_j(c)[0])(c1))
-    carried = t3.carry_from_numpy(tc, t3.carry_to_numpy(c1))
+    carried = t3.carry_from_numpy(tc, t3.carry_to_numpy(c1), device="cpu")
     assert carried[0].dtype == torch.complex128
     step_t, _ = t3.make_step(tc)
     got = t3.carry_to_numpy(step_t(carried)[0])
     for g, w in zip(got, want):
         close(g, w)
 
+
+def test_carry_from_numpy_needs_a_card_or_device_cpu(monkeypatch):
+    """A host carry goes to the card unless the caller asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = t3.Spectral3DConfig(nx=8, ny=8, nz=8)
+    host = (np.zeros((3, 8, 8, 5), np.complex64),) * 2
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        t3.carry_from_numpy(cfg, host)
+    assert t3.carry_from_numpy(cfg, host, "cpu")[0].device.type == "cpu"
 
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("engine", ENGINES, ids=["fft", "matmul"])

@@ -62,6 +62,22 @@ Phases (any failure exits non-zero, and no result line is printed):
                GEMM outputs to bf16 and must fail the bound), its
                divergence_max and energy decay, and diffable's 64^2
                initial-condition fit converging
+  4/5, the Chebyshev family (no kernel: cuBLAS GEMMs and torch ops), after
+               the phases above: chorin_spectral's reference preset (51^2,
+               nt=200) under --guard must trip at the step the float64 CPU
+               run trips, its frames frozen; the corrected mode at 1024^2
+               (parity engine, dt 1e-6, nt=20) at 'highest' and 'default'
+               under --guard must not trip; its step loop through
+               profile_run (steps/s, device records a step, idle share,
+               top kernels, set-up seconds); --progress --chunk 4 on
+               chorin_fd and taylor_green must give the plain run's npz;
+               then float64 51^2 rollouts against the chorin_spectral
+               goldens at the JAX tests' bounds, the three corrected
+               engines in float64 at 256^2 against the CPU (<= 1e-10), the
+               cached step bitwise equal to the plain one at 1024^2
+               float32, the 1024^2 divergence outside the pressure modes
+               the solver deflates (float32 main run <= 50; a float64 run
+               <= 1e-6 of its max), and cli.sanity
 The line before the kernels line carries the card and the main runs' and
 bench.py rollout's rates. The line before the last is {"kernels": [...]}
 with each kernel's route,
@@ -89,6 +105,8 @@ with the same bounds; K2's multi-block form against K2, bitwise. The 3D kernels 
 intermediates, fp32 sums on both sides; 1e-3 relative).
 """
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -1268,6 +1286,256 @@ def phase_fidelity_2d():
     require(losses[-1] <= 1e-8 * losses[0], f"diffable fit: {losses}")
 
 
+# --- the Chebyshev family (phases 4 and 5) ----------------------------------
+# chorin_spectral reaches no Pallas kernel in the JAX package, so the port
+# runs it as cuBLAS GEMMs and torch elementwise ops: these phases check the
+# path and time it; they launch no kernel of the library (the --progress
+# chorin_fd run launches K1 and K3, and must)
+
+CHEB_N = 1024  # the corrected mode's north-star grid
+# dt 1e-6: the advective CFL at the lid's smallest Gauss-Lobatto spacing
+# (1 - cos(pi/1023) = 4.7e-6) is ~0.2 (PERF.md section 4)
+CHEB_1024 = ["chorin_spectral", "--corrected", "--nx", str(CHEB_N), "--nt",
+             "20", "--dt", "1e-6"]
+# the interior divergence outside the pressure modes that the solver's
+# deflation (|lx + ly| <= 1e-8 max) leaves unprojected: the float32 main
+# run (CPU reading 9.5, max|div| 25) and a float64 run on the card,
+# relative to its max|div| (CPU reading 3.7e-9)
+CHEB_DIV_F32 = 50.0
+CHEB_DIV_F64_REL = 1e-6
+
+
+def run_cli(argv):
+    """run_solver.main(argv), its output echoed; returns (summary, the
+    guard and note lines it printed)."""
+    from ns_tpu_torch.cli import run_solver
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = run_solver.main(argv)
+    text = buf.getvalue()
+    print("  " + text.strip().replace("\n", "\n  "))
+    return summary, [line for line in text.splitlines()
+                     if line.startswith(("guard:", "note:"))]
+
+
+def guard_step(lines):
+    """The step of 'guard: divergence at step N', or None."""
+    for line in lines:
+        if line.startswith("guard: divergence at step "):
+            return int(line.split()[4])
+    return None
+
+
+def phase_main_chebyshev(tmp, card: str) -> dict:
+    """The Chebyshev family through the CLI: the reference preset under
+    --guard (it must trip, at the float64 CPU run's step), the corrected
+    1024^2 run at 'highest' and 'default' under --guard (no trip), its
+    step loop by profile_run, and --progress --chunk 4 on a cavity and a
+    2D periodic run against their plain runs."""
+    from ns_tpu_torch.cli import profile_run
+    from ns_tpu_torch.ops import kernels
+
+    print("phase 4: the Chebyshev family, --guard and --progress")
+    out = {"rates": {}, "setup_s": {}, "profile": {}}
+    path, path_cpu = (os.path.join(tmp, f"cheb51_{d}.npz")
+                      for d in ("card", "cpu"))
+    before = kernels.launch_counts()
+    _, said = run_cli(["chorin_spectral", "--guard", "--device", DEVICE,
+                       "--out", path])
+    _, said_cpu = run_cli(["chorin_spectral", "--guard", "--dtype",
+                           "float64", "--device", "cpu", "--out", path_cpu])
+    k, k_cpu = guard_step(said), guard_step(said_cpu)
+    require(k is not None and k == k_cpu,
+            f"chorin_spectral 51^2 --guard tripped at {k} on the card, "
+            f"{k_cpu} in float64 on the CPU")
+    d = np.load(path)
+    for key in "uvp":
+        require(d[key].shape == (200, 51, 51) and np.isfinite(d[key]).all(),
+                f"guarded 51^2 {key}: shape {d[key].shape} or not finite")
+        frozen = d[key][k - 1] if k > 0 else d[key][0]
+        require(all(np.array_equal(f, frozen) for f in d[key][k:]),
+                f"guarded 51^2 {key}: not frozen after the trip")
+    require(np.all(d["u"][:, -1, 1:-1] == 1.0) or k > 0,
+            "guarded 51^2: the frozen initial state lost its lid")
+    out["guard_step"] = k
+    for prec in ("highest", "default"):
+        label = f"chorin_spectral corrected 1024^2 {prec}"
+        path = os.path.join(tmp, f"cheb1024_{prec}.npz")
+        summary, said = run_cli(CHEB_1024 + ["--guard", "--gemm-precision",
+                                             prec, "--device", DEVICE,
+                                             "--out", path])
+        require(not said, f"{label}: the guard tripped: {said}")
+        d = np.load(path)
+        for key in "uvp":
+            require(d[key].shape == (20, CHEB_N, CHEB_N),
+                    f"{label}: {key} has shape {d[key].shape}")
+            require(np.isfinite(d[key]).all(), f"{label}: {key} not finite")
+        # the lid ('right' = 1) lands on row 0: the reference's descending
+        # Gauss-Lobatto coordinate
+        require(np.all(d["u"][:, 0, 1:-1] == 1.0), f"{label}: lid != 1")
+        require(not np.array_equal(d["v"][-1], d["v"][0]),
+                f"{label}: the flow did not move")
+        out["rates"][label] = summary["steps_per_s"]
+        out["setup_s"][label] = summary["setup_seconds"]
+        if prec == "highest":
+            out["npz_1024"] = path
+    ran = {n for n, c in kernels.launch_counts().items() if c > before[n]}
+    require(not ran, f"the Chebyshev runs launched kernels: {ran}")
+    for prec in ("highest", "default"):
+        r = profile_run.profile(CHEB_1024 + ["--gemm-precision", prec])
+        out["profile"][prec] = r
+        print(f"  step loop 1024^2 {prec}: "
+              f"{r['steps_per_s_median_of_3']:.1f} steps/s (runs "
+              f"{', '.join(f'{x:.1f}' for x in r['steps_per_s'])}), "
+              f"{r['device_records_per_step']:.1f} device records a step, "
+              f"idle {r['device_idle_share']:.3f}, set-up "
+              f"{r['setup_s']:.2f} s; top {r['top_device_ms'][:3]}; {card}")
+    # --progress --chunk 4 gives the plain run's npz
+    for label, argv, kernels_ran in (
+            ("chorin_fd explicit 51^2", ["chorin_fd", "--method", "explicit",
+                                         "--nt", "20"],
+             {"sor_redblack_fused", "momentum_explicit_fused"}),
+            ("taylor_green 256^2", ["taylor_green", "--nt", "20"], set())):
+        paths = [os.path.join(tmp, f"progress_{i}.npz") for i in range(2)]
+        run_cli(argv + ["--device", DEVICE, "--out", paths[0]])
+        before = kernels.launch_counts()
+        run_cli(argv + ["--progress", "--chunk", "4", "--device", DEVICE,
+                        "--out", paths[1]])
+        after = kernels.launch_counts()
+        missing = kernels_ran - {n for n in after if after[n] > before[n]}
+        require(not missing, f"{label} --progress: not launched: {missing}")
+        a, b = (np.load(x) for x in paths)
+        for key in "uvp":
+            require(np.array_equal(a[key], b[key]),
+                    f"{label}: --progress {key} differs from the plain run")
+        print(f"  {label}: --progress --chunk 4 npz == the plain run's")
+    return out
+
+
+def divergence_split(u, v, n: int):
+    """(max|div|, max|div outside the deflated pressure modes|, number of
+    deflated modes) of the interior divergence D[1:-1,:] u[:,1:-1] +
+    v[1:-1,:] D[1:-1,:]^T, in float64 on the card. The corrected solver
+    deflates the Uzawa modes with |lx + ly| <= 1e-8 max (the JAX
+    package's rule), so its projection leaves them; every other mode it
+    annihilates."""
+    from ns_tpu_torch.ops import cheb, parity
+
+    D = torch.as_tensor(cheb.d_matrix(n, quirk_compat=False), device=DEVICE)
+    M = cheb.d_matrix(n, False)[1:-1, 1:-1] @ cheb.d_matrix_pn_minus_2(n,
+                                                                      False)
+    pe = parity.ParityEig(M, "pressure", torch.float64, device=DEVICE)
+    p2 = parity.ParityEig2D(pe, pe)
+    den = p2.full_recip(p2.denoms(lambda lx, ly: lx + ly))
+    keep = den.abs() > 1e-8 * den.abs().max()
+    u, v = (torch.as_tensor(a).to(DEVICE, torch.float64) for a in (u, v))
+    div = D[1:-1, :] @ u[:, 1:-1] + v[1:-1, :] @ D[1:-1, :].T
+    G = pe.forward(pe.forward(div, -2), -1)
+    res = pe.inverse(pe.inverse(G * keep, -1), -2)
+    return (float(div.abs().max()), float(res.abs().max()),
+            int((~keep).sum()))
+
+
+def phase_fidelity_chebyshev(npz_1024: str):
+    from ns_tpu_torch.cli import run_solver, sanity
+    from ns_tpu_torch.solvers import chorin_spectral as cs
+
+    print("phase 5: the Chebyshev family on the card")
+    u_bc, v_bc, _ = run_solver.cavity_bcs(0.04, 0.04)
+    z = np.zeros((51, 51))
+    # 1. float64 51^2 against the goldens, at the JAX tests' bounds
+    kw = dict(nit=200, nx=51, ny=51, dt=0.001, rho=1, nu=0.1, beta=1.25,
+              device=DEVICE)
+    u, v, p = (a.cpu().numpy() for a in cs.NavierStokesSystem(
+        z, z, z, u_bc, v_bc, nt=3, **kw).simulate())
+    g = np.load(os.path.join(GOLDEN, "chorin_spectral_nt3.npz"))
+    p_scale = np.abs(g["p"][0]).max()
+    errs = {"p": np.abs(p[0] - g["p"][0]).max() / p_scale}
+    for key, a in (("u", u), ("v", v)):
+        errs[key] = np.abs(a[0] - g[key][0]).max() / (0.001 * p_scale)
+    growth = [float(np.abs(u[t]).max() / np.abs(g["u"][t]).max())
+              for t in (1, 2)]
+    print(f"  {'chorin_spectral_nt3.npz step 0':36s} p rel {errs['p']:.3e} "
+          f"(bound 1e-11), u {errs['u']:.3e} v {errs['v']:.3e} of dt*|p| "
+          f"(bound 1e-7); |u| growth vs golden steps 1-2 {growth}")
+    require(errs["p"] < 1e-11 and errs["u"] < 1e-7 and errs["v"] < 1e-7
+            and all(0.1 < x < 10.0 for x in growth),
+            f"chorin_spectral_nt3 golden: {errs}, growth {growth}")
+    seqs = cs.NavierStokesSystem(z, z, z, u_bc, v_bc, nt=6,
+                                 deflate_pressure_nullspace=True,
+                                 **kw).simulate()
+    g = np.load(os.path.join(GOLDEN, "chorin_spectral_deflated_nt6.npz"))
+    worst = max(float(np.abs(a.cpu().numpy()[t] - g[key][t]).max()
+                      / np.abs(g[key][t]).max())
+                for a, key in zip(seqs, "uvp") for t in range(6))
+    print(f"  {'chorin_spectral_deflated_nt6.npz':36s} max rel {worst:.3e} "
+          f"(bound 5e-11)")
+    require(worst < 5e-11, f"chorin_spectral_deflated_nt6: {worst}")
+    # 2. the corrected engines, float64 256^2, card against CPU, 10 steps
+    n = 256
+    bcs = run_solver.cavity_bcs(2.0 / (n - 1), 2.0 / (n - 1))[:2]
+    z = np.zeros((n, n))
+    for engine, ekw in (("dense", dict(parity_split=False)),
+                        ("composed", dict(parity_split=True)),
+                        ("quadrant", dict(parity_split=True,
+                                          parity_eig_form="quadrant"))):
+        cfg = cs.ChorinSpectralConfig(nt=10, nx=n, ny=n, dt=1e-4, nu=0.1,
+                                      quirk_compat=False,
+                                      deflate_pressure_nullspace=True, **ekw)
+        runs = []
+        for dev in (DEVICE, "cpu"):
+            step = cs.make_step(cfg, *bcs, device=dev)
+            runs.append(cs.simulate(cfg, cs.init_state(cfg, z, z, z, *bcs,
+                                                       device=dev), step))
+        err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                  for a, b in zip(*runs))
+        print(f"  {'256^2 f64 10 steps, card vs CPU: ' + engine:52s} "
+              f"max_rel {err:.3e} (bound 1e-10)")
+        require(err <= 1e-10, f"chorin_spectral {engine}: card vs CPU {err}")
+    # 3. cached against plain on the card, 1024^2 float32, 5 steps
+    n = CHEB_N
+    bcs = run_solver.cavity_bcs(2.0 / (n - 1), 2.0 / (n - 1))[:2]
+    z = np.zeros((n, n))
+    cfg = cs.ChorinSpectralConfig(nt=5, nx=n, ny=n, dt=1e-6, nu=0.1,
+                                  quirk_compat=False,
+                                  deflate_pressure_nullspace=True)
+    step = cs.make_step(cfg, *bcs, dtype=torch.float32, device=DEVICE)
+    s0 = cs.init_state(cfg, z, z, z, *bcs, dtype=torch.float32,
+                       device=DEVICE)
+    plain, cached = s0, (s0, step.seed(s0))
+    for _ in range(5):
+        plain, cached = step(plain), step.cached(*cached)
+    same = all(torch.equal(getattr(plain, k), getattr(cached[0], k))
+               for k in ("u", "v", "p", "u_prev", "v_prev"))
+    print(f"  {'1024^2 f32 5 steps: cached vs plain step':52s} "
+          f"{'bitwise equal' if same else 'DIFFERENT'}")
+    require(same, "chorin_spectral 1024^2: the cached step is not bitwise "
+            "the plain step")
+    # 4. the 1024^2 run's interior divergence
+    d = np.load(npz_1024)
+    dmax, res, n_defl = divergence_split(d["u"][-1], d["v"][-1], n)
+    print(f"  {'1024^2 f32 main run: divergence':52s} max {dmax:.3e}; "
+          f"outside the {n_defl} deflated modes {res:.3e} (bound "
+          f"{CHEB_DIV_F32:g}, headroom {CHEB_DIV_F32 / res:.1f}x)")
+    require(res <= CHEB_DIV_F32, f"1024^2 f32 divergence {res}")
+    seqs = cs.simulate(cfg, cs.init_state(cfg, z, z, z, *bcs,
+                                          device=DEVICE),
+                       cs.make_step(cfg, *bcs, device=DEVICE))
+    dmax, res, _ = divergence_split(seqs[0][-1], seqs[1][-1], n)
+    print(f"  {'1024^2 f64 5 steps: divergence':52s} max {dmax:.3e}; "
+          f"outside the deflated modes {res:.3e} = {res / dmax:.3e} of it "
+          f"(bound {CHEB_DIV_F64_REL:g}, headroom "
+          f"{CHEB_DIV_F64_REL * dmax / res:.0f}x)")
+    require(res <= CHEB_DIV_F64_REL * dmax, f"1024^2 f64 divergence {res}")
+    # 5. the operators' sanity CLI
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sanity.main([])
+    print("  cli.sanity: " + buf.getvalue().strip().splitlines()[-1])
+    require("all checks passed" in buf.getvalue(), "cli.sanity failed")
+
+
 # --- report ------------------------------------------------------------------
 
 KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
@@ -1368,13 +1636,28 @@ def main():
         timed_phase("fidelity 3d", phase_fidelity_3d, tmp,
                     main_path["tg3d_npz"])
         timed_phase("fidelity 2d", phase_fidelity_2d)
+        cheb = timed_phase("main chebyshev", phase_main_chebyshev, tmp,
+                           card)
+        timed_phase("fidelity chebyshev", phase_fidelity_chebyshev,
+                    cheb.pop("npz_1024"))
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "ns_tpu" for m in sys.modules),
             "the JAX package was imported")
     kernels = report(res, main_path)
     print(json.dumps({"card": card,
                       "main_path_steps_per_s": main_path["steps_per_s"],
-                      "bench_2d": main_path["bench_2d"]}))
+                      "bench_2d": main_path["bench_2d"],
+                      "chebyshev": {
+                          "guard_step_51": cheb["guard_step"],
+                          "cli_steps_per_s": cheb["rates"],
+                          "setup_s": cheb["setup_s"],
+                          "step_loop": {
+                              prec: {k: r[k] for k in (
+                                  "steps_per_s_median_of_3", "steps_per_s",
+                                  "device_records_per_step",
+                                  "device_idle_share", "setup_s",
+                                  "top_device_ms", "top_host_self_ms")}
+                              for prec, r in cheb["profile"].items()}}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

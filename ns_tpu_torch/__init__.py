@@ -8,9 +8,12 @@ wrapper takes its plain torch twin only for a CPU tensor; on a CUDA tensor
 it launches the kernel or raises.
 
 Ported so far: the FD cavity pipeline (core BCs and state, the pressure
-solvers, the direct_fd and chorin_fd solvers) and the 3D periodic
-pseudospectral DNS (`solvers/spectral3d.py` with the fused transform
-kernels), with their CLI. This package imports neither jax nor ns_tpu.
+solvers, the direct_fd and chorin_fd solvers), the 2D periodic solver and
+its differentiable rollouts, the 3D periodic pseudospectral DNS
+(`solvers/spectral3d.py` with the fused transform kernels), the Chebyshev
+family (`solvers/chorin_spectral.py`, `ops/parity.py`, a copy of
+`ops/cheb.py`), the divergence guard and the chunked progress rollout
+(`utils/`), with their CLI. This package imports neither jax nor ns_tpu.
 """
 
 __version__ = "0.1.0"

@@ -3,8 +3,10 @@ idle share and device time by kernel.
 
 Takes run_solver's command line (same families, flags and defaults) and
 times the rollout without the frame extraction, readback and npz write
-of the CLI: `simulate()` for the FD families, `final_state()` for the
-periodic ones (2D and 3D). One warm-up rollout, then the median steps/s
+of the CLI: `simulate()` for the cavity families (FD and Chebyshev),
+`final_state()` for the periodic ones (2D and 3D). The set-up (building
+the system: host tables, eigendecompositions, the copy to the card) is
+timed apart, as `setup_s`. One warm-up rollout, then the median steps/s
 of three timed ones, then one rollout under `torch.profiler` (CPU and
 CUDA activity), whose
 idle share is 1 - (summed duration of its device kernels) / (profiled
@@ -19,9 +21,12 @@ device metrics.
     python -m ns_tpu_torch.cli.profile_run decaying_turbulence --nx 1024 \\
         --nt 200 --dt 5e-4 --nu 1e-4 --transform matmul --compact \\
         --precision default
+    python -m ns_tpu_torch.cli.profile_run chorin_spectral --corrected \\
+        --nx 1024 --nt 20 --dt 1e-6
 
-Prints one JSON line, with the top kernels by device time and the top
-host ops by their own CPU time.
+Prints one JSON line, with the device records (kernels, copies, memsets)
+a step, the top kernels by device time and the top host ops by their own
+CPU time.
 """
 
 import collections
@@ -66,6 +71,8 @@ def profile_rollout(run, nt: int) -> dict:
         "steps_per_s": rates, "profiled_wall_ms": wall * 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
+        "device_records_per_step": sum(n for _, n in by_kernel.values())
+        / nt,
         "top_device_ms": [[name[:80], t / 1e3, n] for name, (t, n) in top],
         "top_host_self_ms": [[e.key[:80], e.self_cpu_time_total / 1e3,
                               e.count] for e in host[:6]],
@@ -75,10 +82,14 @@ def profile_rollout(run, nt: int) -> dict:
 def profile(argv) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_run needs a CUDA device")
+    t0 = time.perf_counter()
     args, device, sys_ = run_solver.build(list(argv) + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
     periodic = run_solver._2D + run_solver._3D
     run = sys_.final_state if args.family in periodic else sys_.simulate
-    return {"argv": list(argv), **profile_rollout(run, args.nt)}
+    return {"argv": list(argv), "setup_s": setup,
+            **profile_rollout(run, args.nt)}
 
 
 if __name__ == "__main__":

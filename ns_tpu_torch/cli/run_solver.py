@@ -1,14 +1,17 @@
 """Run a solver rollout with the torch port and save the reference-format
 npz.
 
-Port of `ns_tpu/cli/run_solver.py` for its FD and periodic families,
-with the same presets, flags and defaults:
+Port of `ns_tpu/cli/run_solver.py`, with the same presets, flags and
+defaults:
 
   direct_fd        — nt=200 nit=50 50x50 lid-driven cavity (--pressure-mode
                      jacobi|exact)
   chorin_fd        — nt=200 nit=200 51x51, semi_implicit (--method
                      explicit|helmholtz for the other modes;
                      --pressure-mode redblack|gauss_seidel|multigrid|cg|dst)
+  chorin_spectral  — the reference's 51x51 Dirichlet cavity (Chebyshev
+                     collocation; unstable by design: it overflows within
+                     a few steps); --corrected for the stable operator mode
   taylor_green     — 2D periodic Taylor-Green vortex (256^2 by default)
   decaying_turbulence — 2D periodic decaying turbulence at --nx (--seed;
                      --n-traj N stacks N seeds as (N, nt, nx, ny))
@@ -16,11 +19,15 @@ with the same presets, flags and defaults:
                      npz carries u/v/w/p
   decaying_turbulence_3d — 3D isotropic decaying turbulence (--seed)
 
-The FD and 2D periodic npz hold u, v, p of shape (nt, nx, ny), the layout
-the JAX trainer reads. The Chebyshev family and the
---guard/--progress/--stream-dir/--dist modes are not yet ported and exit
-with an error that says so. Rollouts run on the card; a machine without
-one needs --device cpu (without it the command exits with an error).
+The cavity and 2D periodic npz hold u, v, p of shape (nt, nx, ny), the
+layout the JAX trainer reads. --guard runs a cavity family under the
+divergence guard (utils/guard.py: the state freezes at the last good step
+and the first bad step is reported); --progress runs the rollout in
+--chunk-step chunks with a progress bar (utils/progress.py); both as the
+JAX CLI. --stream-dir and --dist are not yet ported and exit with an error
+that says so. Rollouts run on the card; a machine without one needs
+--device cpu (without it the command exits with an error). The summary
+reports the set-up time (building the system) apart from the total.
 
 Examples:
   python -m ns_tpu_torch.cli.run_solver direct_fd --out data.npz
@@ -34,6 +41,9 @@ Examples:
   python -m ns_tpu_torch.cli.run_solver decaying_turbulence --nx 1024 \
       --nt 100 --transform matmul --compact --precision default
   python -m ns_tpu_torch.cli.run_solver taylor_green --device cpu --nx 32
+  python -m ns_tpu_torch.cli.run_solver chorin_spectral --guard
+  python -m ns_tpu_torch.cli.run_solver chorin_spectral --corrected \
+      --nx 1024 --nt 20 --dt 1e-6 --guard
 """
 
 import argparse
@@ -52,7 +62,6 @@ _FAMILIES = ["direct_fd", "chorin_fd", "chorin_spectral", "taylor_green",
 _NOT_PORTED = "is not yet ported to ns_tpu_torch, see ROADMAP.md"
 _2D = ("taylor_green", "decaying_turbulence")
 _3D = ("taylor_green_3d", "decaying_turbulence_3d")
-_PORTED = ("direct_fd", "chorin_fd") + _2D + _3D
 
 
 def save_npz(path: str, **fields) -> str:
@@ -86,6 +95,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--beta", type=float, default=1.25)
     p.add_argument("--method", default="semi_implicit",
                    choices=["semi_implicit", "explicit", "helmholtz"])
+    p.add_argument("--corrected", action="store_true",
+                   help="chorin_spectral: stable corrected-operator mode")
     p.add_argument("--pressure-mode", default="redblack",
                    choices=["redblack", "gauss_seidel", "multigrid", "cg",
                             "dst", "jacobi", "exact"],
@@ -95,8 +106,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--gemm-precision", default=None,
                    choices=["default", "high", "highest"],
                    help="chorin_fd: precision of the float32 ADI/dst/"
-                        "helmholtz GEMMs: highest, high (and unset) = "
-                        "fp32, default = bf16 inputs")
+                        "helmholtz GEMMs; chorin_spectral: of every "
+                        "per-step product (unset = highest): highest, "
+                        "high (and unset) = fp32, default = bf16 inputs")
     p.add_argument("--transform", default="auto",
                    choices=["auto", "fft", "matmul"],
                    help="periodic families: auto picks the engine by the "
@@ -140,9 +152,20 @@ def _parser() -> argparse.ArgumentParser:
                         "the explicit predictor as its K3 kernel")
     p.add_argument("--stream-dir", type=str, default=None,
                    help=f"{_NOT_PORTED} (exits with an error)")
-    for flag in ("--guard", "--progress", "--dist"):
-        p.add_argument(flag, action="store_true",
-                       help=f"{_NOT_PORTED} (exits with an error)")
+    p.add_argument("--guard", action="store_true",
+                   help="cavity families: run under the divergence guard "
+                        "(utils/guard.py): on NaN/blow-up the state "
+                        "freezes at the last good step and the first bad "
+                        "step is reported")
+    p.add_argument("--guard-max-abs", type=float, default=1e6,
+                   help="guard trip threshold on any field magnitude")
+    p.add_argument("--progress", action="store_true",
+                   help="per-chunk progress bar (tqdm where it imports, "
+                        "else a line a chunk) for long rollouts")
+    p.add_argument("--chunk", type=int, default=25,
+                   help="steps per chunk for --progress")
+    p.add_argument("--dist", action="store_true",
+                   help=f"{_NOT_PORTED} (exits with an error)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--device", default="cuda",
@@ -161,8 +184,6 @@ def build(argv=None):
     periodic_2d, periodic_3d = args.family in _2D, args.family in _3D
     if args.nu is None:
         args.nu = 6.25e-4 if periodic_3d else 0.1
-    if args.family not in _PORTED:
-        p.error(f"family {args.family!r} {_NOT_PORTED}")
     # the JAX CLI's flag rules, checked before any compute
     if args.pallas_momentum and args.family != "chorin_fd":
         p.error("--pallas-momentum applies to chorin_fd only")
@@ -196,7 +217,7 @@ def build(argv=None):
         if args.stream_dir or args.progress or args.guard:
             p.error("--n-traj is incompatible with "
                     "--stream-dir/--progress/--guard")
-    for flag in ("stream_dir", "guard", "progress", "dist"):
+    for flag in ("stream_dir", "dist"):
         if getattr(args, flag):
             p.error(f"--{flag.replace('_', '-')} {_NOT_PORTED}")
     try:
@@ -208,7 +229,21 @@ def build(argv=None):
         return args, device, _system_3d(args, device)
     if periodic_2d:
         return args, device, _system_2d(args, device)
-    if args.family == "direct_fd":
+    if args.family == "chorin_spectral":
+        from ns_tpu_torch.solvers.chorin_spectral import NavierStokesSystem
+        nx = args.nx or 51
+        dx = dy = 2.0 / (nx - 1)
+        u_bc, v_bc, _ = cavity_bcs(dx, dy)
+        z = np.zeros((nx, nx))
+        sys_ = NavierStokesSystem(z, z, z, u_bc, v_bc, nt=args.nt,
+                                  nit=args.nit or 200, nx=nx, ny=nx,
+                                  dt=args.dt, rho=args.rho, nu=args.nu,
+                                  beta=args.beta, dtype=dtype,
+                                  quirk_compat=not args.corrected,
+                                  matmul_precision=(args.gemm_precision
+                                                    or "highest"),
+                                  device=device)
+    elif args.family == "direct_fd":
         from ns_tpu_torch.solvers.direct_fd import NavierStokesSystem
         if args.pressure_mode not in ("jacobi", "exact", "redblack"):
             # 'redblack' is the flag default, i.e. "not specified"
@@ -253,14 +288,51 @@ def main(argv=None):
     path, device, seconds and steps/s) for in-process callers."""
     t0 = time.perf_counter()
     args, device, sys_ = build(argv)
+    setup = time.perf_counter() - t0
     if args.family in _3D:
-        return _run_3d(args, device, sys_, t0)
-    if args.family in _2D:
-        return _run_2d(args, device, sys_, t0)
-    u, v, pr = (t.cpu().numpy() for t in sys_.simulate())
+        summary = _run_3d(args, device, sys_, t0)
+    elif args.family in _2D:
+        summary = _run_2d(args, device, sys_, t0)
+    else:
+        summary = _run_cavity_cli(args, device, sys_, t0)
+    return {**summary, "setup_seconds": setup}
+
+
+def _as_numpy(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _run_cavity(sys_, args):
+    """A cavity family's rollout, under the divergence guard (--guard) or
+    in chunks with a progress bar (--progress), as the JAX CLI runs it.
+    Returns (u, v, p), each (nt, nx, ny)."""
+    if args.progress and args.guard:
+        print("note: --progress is ignored under --guard (the guarded "
+              "rollout runs as one fused scan)")
+    if args.progress and not args.guard:
+        from ns_tpu_torch.utils.progress import chunked_simulate
+        outs, _ = chunked_simulate(
+            sys_._step, sys_.state0, args.nt,
+            lambda s: {"u": s.u, "v": s.v, "p": s.p},
+            chunk=args.chunk, desc=args.family)
+        return outs["u"], outs["v"], outs["p"]
+    if not args.guard:
+        return sys_.simulate()
+    from ns_tpu_torch.utils.guard import guarded_rollout
+    final, states = guarded_rollout(sys_._step, sys_.state0, args.nt,
+                                    max_abs=args.guard_max_abs)
+    if bool(final.bad):  # the one read of the flag, after the rollout
+        print(f"guard: divergence at step {int(final.first_bad_step)}"
+              " — state frozen at the last good value")
+    return states.u, states.v, states.p
+
+
+def _run_cavity_cli(args, device: torch.device, sys_, t0: float) -> dict:
+    """A cavity family's rollout and its u/v/p npz."""
+    u, v, pr = (_as_numpy(a) for a in _run_cavity(sys_, args))
     elapsed = time.perf_counter() - t0
-    out = args.out or ("data.npz" if args.family == "direct_fd"
-                       else f"data_{args.method}.npz")
+    out = args.out or (f"data_{args.method}.npz"
+                       if args.family == "chorin_fd" else "data.npz")
     save_npz(out, u=u, v=v, p=pr)
     rate = args.nt / elapsed
     print(f"{args.family}: nt={args.nt} grid={u.shape[1]}x{u.shape[2]} on "
@@ -315,8 +387,23 @@ def _run_2d(args, device: torch.device, sys_, t0: float) -> dict:
 
     cfg, nx = sys_.cfg, sys_.cfg.nx
     strided = args.frame_stride > 1 or args.spinup > 0
+    if args.guard:
+        if args.progress:
+            print("note: --guard is ignored for periodic "
+                  "--stream-dir/--progress runs (unsupported for the "
+                  "periodic families in general)")
+        else:
+            print("guard: not supported for the periodic families; "
+                  "running unguarded")
 
     def rollout(w_ic=None):
+        if args.progress:
+            from ns_tpu_torch.utils.progress import chunked_simulate
+            outs, _ = chunked_simulate(
+                lambda c: sys_._step(c)[0], sys_.carry0, args.nt,
+                lambda c: dict(zip("uvp", sys_._extract(c[0]))),
+                chunk=args.chunk, desc=args.family)
+            return outs["u"], outs["v"], outs["p"]
         if strided:
             return sys_.simulate_strided(args.nt, stride=args.frame_stride,
                                          spinup=args.spinup, w_ic=w_ic)
@@ -324,12 +411,12 @@ def _run_2d(args, device: torch.device, sys_, t0: float) -> dict:
 
     if args.n_traj > 1:
         seeds = range(args.seed, args.seed + args.n_traj)
-        trajs = [[t.cpu().numpy() for t in rollout(
+        trajs = [[_as_numpy(t) for t in rollout(
             sp.decaying_turbulence_vorticity(cfg, seed=s))] for s in seeds]
         u, v, pr = (np.stack(f) for f in zip(*trajs))
         out = args.out or f"{args.family}_x{args.n_traj}.npz"
     else:
-        u, v, pr = (t.cpu().numpy() for t in rollout())
+        u, v, pr = (_as_numpy(t) for t in rollout())
         out = args.out or f"{args.family}.npz"
     elapsed = time.perf_counter() - t0
     save_npz(out, u=u, v=v, p=pr)

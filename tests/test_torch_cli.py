@@ -134,9 +134,9 @@ def test_cli_rejects_what_the_jax_cli_rejects(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["taylor_green", "--stream-dir", "x"], ["chorin_spectral"],
-    ["direct_fd", "--guard"],
-    ["chorin_fd", "--stream-dir", "x"], ["chorin_fd", "--progress"],
+    ["taylor_green", "--stream-dir", "x"],
+    ["chorin_spectral", "--stream-dir", "x"],
+    ["chorin_fd", "--stream-dir", "x"], ["chorin_spectral", "--dist"],
     ["chorin_fd", "--dist"],
     ["direct_fd", "--pressure-mode", "cg"],
     ["direct_fd", "--pallas-momentum"],
@@ -230,3 +230,150 @@ def test_no_card_needs_device_cpu(monkeypatch, capsys):
     # a tensor given without a device stays where it is
     carry = t3.init_from_velocity(cfg, torch.as_tensor(u0))
     assert carry[0].device.type == "cpu"
+
+
+def _run_both(tmp_path, capsys, argv):
+    """Both CLIs on argv (float64, --out in tmp_path): their npz and the
+    guard/note lines each printed."""
+    got = {}
+    for pkg, main in (("jax", j_cli.main), ("torch", t_cli.main)):
+        out = tmp_path / f"{pkg}.npz"
+        extra = ["--device", "cpu"] if pkg == "torch" else []
+        main(argv + ["--dtype", "float64", "--out", str(out)] + extra)
+        said = [line for line in capsys.readouterr().out.splitlines()
+                if line.startswith(("guard:", "note:"))]
+        got[pkg] = (np.load(out), said)
+    return got["jax"], got["torch"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["chorin_spectral", "--corrected", "--nt", "5"],
+    ["chorin_spectral", "--corrected", "--nt", "5", "--nx", "25",
+     "--dt", "1e-4", "--gemm-precision", "high"],
+    ["chorin_spectral", "--corrected", "--nt", "5", "--guard"],
+    ["chorin_spectral", "--corrected", "--nt", "5", "--progress",
+     "--chunk", "2"],
+    ["chorin_spectral", "--nt", "6", "--guard"],
+    ["chorin_spectral", "--nt", "6", "--guard", "--progress"],
+    ["chorin_spectral", "--corrected", "--nt", "4", "--guard",
+     "--guard-max-abs", "1000"],
+    ["chorin_spectral", "--corrected", "--nt", "4", "--guard",
+     "--guard-max-abs", "30"],
+    ["direct_fd", "--nt", "5", "--nx", "17", "--guard"],
+    ["chorin_fd", "--nt", "5", "--nx", "17", "--progress", "--chunk", "2"],
+    ["chorin_fd", "--method", "explicit", "--nt", "12", "--nx", "17",
+     "--dt", "0.2", "--guard"],
+    ["taylor_green", "--nt", "3", "--nx", "16", "--progress", "--chunk",
+     "2", "--precision", "highest"],
+    ["decaying_turbulence", "--nt", "3", "--nx", "16", "--guard",
+     "--transform", "fft"],
+    ["taylor_green", "--nt", "3", "--nx", "16", "--guard", "--progress",
+     "--precision", "highest"],
+])
+def test_guard_progress_and_chebyshev_cli_match_jax_cli(tmp_path, capsys,
+                                                        argv):
+    """The chorin_spectral preset, --corrected, --guard (a trip, its step
+    and the frozen frames; no trip), --guard-max-abs, --progress/--chunk
+    and the notes the JAX CLI prints for flag mixes it ignores: npz <= 1e-9
+    (float64) and the same guard/note lines."""
+    (j, j_said), (t, t_said) = _run_both(tmp_path, capsys, argv)
+    assert t_said == j_said
+    if "--guard" in argv and argv[0] == "chorin_spectral" and (
+            "--corrected" not in argv or "30" in argv):
+        # the quirk preset's fields reach ~1e11 in its first step, and the
+        # corrected one's pressure 661 > 30
+        assert t_said[-1].startswith("guard: divergence at step 0")
+    if "0.2" in argv:
+        assert t_said and "divergence at step" in t_said[0]
+    for key in "uvp":
+        assert t[key].shape == j[key].shape
+        np.testing.assert_allclose(t[key], j[key], rtol=0, atol=1e-9)
+
+
+def test_quirk_cli_step_zero_matches_jax_cli(tmp_path, capsys):
+    """The reference preset unguarded, one step: p to 1e-11 of its max,
+    u and v to 1e-7 of the cancellation scale dt*|p| (the JAX golden
+    test's bounds)."""
+    (j, _), (t, _) = _run_both(tmp_path, capsys, ["chorin_spectral",
+                                                  "--nt", "1"])
+    p_scale = np.abs(j["p"][0]).max()
+    assert np.abs(t["p"][0] - j["p"][0]).max() <= 1e-11 * p_scale
+    for key in "uv":
+        assert np.abs(t[key][0] - j[key][0]).max() <= 1e-7 * 1e-3 * p_scale
+
+
+@pytest.mark.parametrize("argv", [
+    ["taylor_green_3d", "--progress"],
+    ["decaying_turbulence_3d", "--guard"],
+    ["taylor_green", "--frame-stride", "2", "--progress"],
+    ["taylor_green", "--spinup", "1", "--guard"],
+    ["decaying_turbulence", "--n-traj", "2", "--progress"],
+    ["chorin_spectral", "--frame-stride", "2"],
+    ["chorin_spectral", "--forcing", "kolmogorov"],
+    ["chorin_spectral", "--pallas-momentum"],
+])
+def test_cli_rejects_guard_progress_misuse_alike(argv):
+    for main in (j_cli.main, t_cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv + ["--nt", "1", "--nx", "9"])
+        assert e.value.code == 2
+
+
+def test_progress_chunk_zero_raises_alike(tmp_path):
+    argv = ["chorin_spectral", "--corrected", "--nt", "2", "--nx", "9",
+            "--progress", "--chunk", "0", "--out", str(tmp_path / "o.npz")]
+    for main, extra in ((j_cli.main, []), (t_cli.main, ["--device",
+                                                        "cpu"])):
+        with pytest.raises(ValueError, match="chunk must be >= 1"):
+            main(argv + extra)
+
+
+@pytest.mark.parametrize("n", [33, 51])
+def test_sanity_cli_prints_what_the_jax_cli_prints(capsys, n):
+    from ns_tpu.cli import sanity as j_sanity
+    from ns_tpu_torch.cli import sanity as t_sanity
+
+    j_sanity.main(["--n", str(n)])
+    want = capsys.readouterr().out
+    t_sanity.main(["--n", str(n)])
+    got = capsys.readouterr().out
+    assert got == want and got.splitlines()[-1] == "sanity: all checks passed"
+
+
+_NO_JAX_CHEB = """
+import json, sys
+from ns_tpu_torch.cli import run_solver, sanity
+run_solver.main(["chorin_spectral", "--nt", "3", "--nx", "17", "--device",
+                 "cpu", "--guard", "--out", sys.argv[1]])
+run_solver.main(["chorin_spectral", "--corrected", "--nt", "3", "--nx",
+                 "17", "--device", "cpu", "--progress", "--chunk", "2",
+                 "--out", sys.argv[1]])
+sanity.main(["--n", "17"])
+print(json.dumps({"jax": sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "ns_tpu"))}))
+"""
+
+
+def test_chebyshev_guard_progress_sanity_run_without_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_CHEB, str(tmp_path / "o.npz")],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert json.loads(lines[-1])["jax"] == []
+    assert "guard: divergence at step 0" in proc.stdout
+
+
+def test_chorin_spectral_needs_a_card_or_device_cpu(monkeypatch, capsys):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        t_cli.build(["chorin_spectral", "--nt", "2"])
+    assert e.value.code == 2
+    assert "--device cpu" in capsys.readouterr().err
+    args, device, sys_ = t_cli.build(["chorin_spectral", "--nt", "2",
+                                      "--nx", "9", "--device", "cpu"])
+    assert device.type == "cpu" and sys_.state0.u.device.type == "cpu"

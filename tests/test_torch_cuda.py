@@ -748,3 +748,77 @@ def test_compact_step_never_syncs(cuda):
         torch.cuda.synchronize()
         assert bool(torch.isfinite(torch.view_as_real(
             sp._to_full(cfg, carry[0]))).all())
+
+
+# --- chorin_spectral (no kernel: cuBLAS GEMMs and torch elementwise ops) -----
+
+def _cheb_cavity(n):
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    return cavity_bcs(2.0 / (n - 1), 2.0 / (n - 1))[:2]
+
+
+@pytest.mark.parametrize("engine", ["dense", "composed", "quadrant"])
+def test_chorin_spectral_corrected_card_vs_cpu_256(cuda, engine):
+    """The corrected engines in float64 at 256^2, 10 steps: the card
+    against the CPU <= 1e-10 of each field's max."""
+    from ns_tpu_torch.solvers import chorin_spectral as cs
+
+    n = 256
+    bcs = _cheb_cavity(n)
+    cfg = cs.ChorinSpectralConfig(
+        nt=10, nx=n, ny=n, dt=1e-4, nu=0.1, quirk_compat=False,
+        deflate_pressure_nullspace=True, parity_split=engine != "dense",
+        parity_eig_form="quadrant" if engine == "quadrant" else None)
+    z = np.zeros((n, n))
+    runs = [cs.simulate(cfg, cs.init_state(cfg, z, z, z, *bcs, device=dev),
+                        cs.make_step(cfg, *bcs, device=dev))
+            for dev in (cuda, "cpu")]
+    for a, b in zip(*runs):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= 1e-10
+
+
+def test_chorin_spectral_cached_step_bitwise_on_card_1024(cuda):
+    """The AB-derivative cache gives the plain step's bits on cuBLAS too
+    (float32, 1024^2, the parity engine, 5 steps)."""
+    from ns_tpu_torch.solvers import chorin_spectral as cs
+
+    n = 1024
+    bcs = _cheb_cavity(n)
+    cfg = cs.ChorinSpectralConfig(nt=5, nx=n, ny=n, dt=1e-6, nu=0.1,
+                                  quirk_compat=False,
+                                  deflate_pressure_nullspace=True)
+    step = cs.make_step(cfg, *bcs, dtype=torch.float32, device=cuda)
+    assert step.parity_split is True
+    z = np.zeros((n, n))
+    s0 = cs.init_state(cfg, z, z, z, *bcs, dtype=torch.float32, device=cuda)
+    plain, cached = s0, (s0, step.seed(s0))
+    for _ in range(5):
+        plain, cached = step(plain), step.cached(*cached)
+    for k in ("u", "v", "p", "u_prev", "v_prev"):
+        assert torch.equal(getattr(plain, k), getattr(cached[0], k)), k
+
+
+def test_chorin_spectral_guard_trips_on_card_as_on_cpu(cuda):
+    """The reference preset (51^2, float32 on the card, float64 on the
+    CPU) under the guard: the same first bad step, frozen frames, and no
+    host read inside the rollout."""
+    from ns_tpu_torch.solvers import chorin_spectral as cs
+    from ns_tpu_torch.utils.guard import guarded_rollout
+
+    bcs = _cheb_cavity(51)
+    z = np.zeros((51, 51))
+    got = {}
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        sys_ = cs.NavierStokesSystem(z, z, z, *bcs, nt=20, nx=51, ny=51,
+                                     nu=0.1, dtype=dtype, device=dev)
+        if dev == cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            final, states = guarded_rollout(sys_._step, sys_.state0, 20)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got[str(dev)] = (bool(final.bad), int(final.first_bad_step))
+        k = got[str(dev)][1]
+        frozen = states.u[k - 1] if k > 0 else sys_.state0.u
+        assert all(torch.equal(f, frozen) for f in states.u[k:])
+    assert got["cuda"] == got["cpu"] and got["cpu"][0]

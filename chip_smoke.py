@@ -78,8 +78,31 @@ Phases (any failure exits non-zero, and no result line is printed):
                float32, the 1024^2 divergence outside the pressure modes
                the solver deflates (float32 main run <= 50; a float64 run
                <= 1e-6 of its max), and cli.sanity
-The line before the kernels line carries the card and the main runs' and
-bench.py rollout's rates. The line before the last is {"kernels": [...]}
+  4/5, the 2D surrogates (no kernel: cuBLAS GEMMs, cuFFT and torch ops),
+               last: a fno_w checkpoint at 128^2, width 64, modes 43, depth
+               4 (RESULTS.md "Scaling the showcase to 128^2"), drawn from
+               np.random.default_rng(0) with the JAX init's distributions
+               and written in the JAX Trainer's format, served by
+               InferenceEngine.from_checkpoint(chunk=64) at B = 1 and B = 8
+               (200-step requests on decaying-turbulence states of the
+               port's solver: frames/s, p50 latency), one chunk under the
+               profiler at each B (idle share, device records a step, top
+               kernels), the B = 8 request with fft and with matmul forced;
+               checks: every frame finite, no kernel of the library
+               launched, the reply's spectral divergence <= 1e-5 of max|u|,
+               card vs CPU over 8 float32 steps at B = 2 <= 1e-4 of
+               max|u|, each of the 8 2D families in float64 at 32^2 card
+               vs CPU <= 1e-10 of its max (both FNO engines), fft vs matmul
+               with random complex weights within rtol 2e-4 and atol 1e-5
+               (the JAX test's shapes and the served one), cli.evaluate
+               --ckpt --physics --json card vs --device cpu (every number
+               finite and <= 1e-5 relative; the divergence maxima, which
+               are rounding noise, within 1e-5 of max|u|)
+After every phase the script checks that neither jax nor the JAX package
+was imported. The line before the kernels line carries the card, the main
+runs' and bench.py rollout's rates, the Chebyshev step loop and the
+surrogate phase's rates, profiles and check values. The line before the
+last is {"kernels": [...]}
 with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
 calls there and launches per call (K2mb, K4 and K5 also their resident
@@ -1536,6 +1559,362 @@ def phase_fidelity_chebyshev(npz_1024: str):
     require("all checks passed" in buf.getvalue(), "cli.sanity failed")
 
 
+# --- the 2D surrogates and their serving path (phases 4 and 5) -------------
+# The JAX models, engine and evaluation reach no Pallas kernel, so the port
+# runs them as cuBLAS GEMMs, cuFFT transforms and torch elementwise ops:
+# these phases serve a full-width fno_w checkpoint, time it and hold it to
+# the CPU, the JAX tests' engine bound and its own physics; they launch no
+# kernel of the library.
+
+# fno_w at 128^2, width 64, modes 43 (the full dealiased band), depth 4:
+# the configuration that cleared the surrogate target at 128^2 (RESULTS.md
+# "Scaling the showcase to 128^2", width 64 row), at the CLI's defaults
+# (transform 'auto' -> matmul, fno_dealias, precision None)
+SURROGATE = dict(n=128, width=64, modes=43, steps=200, batch=8, chunk=64,
+                 repeats=3)
+# the families held card against CPU in float64 (small widths), <= 1e-10
+FAMILY_N, FAMILY_F64 = 32, 1e-10
+SURR_CARD_VS_CPU = 1e-4   # float32, the first 8 steps at B=2, of max|u|
+SURR_DIV = 1e-5           # spectral divergence of the reply, of max|u|
+SURR_EVAL = 1e-5          # cli.evaluate card vs CPU, relative
+
+
+def fno_w_checkpoint(folder: str):
+    """Write a fno_w checkpoint at the SURROGATE configuration, drawn from
+    np.random.default_rng(0) with the JAX init's distributions (dense
+    uniform(+-1/sqrt(in)), spectral N(0, 1)/width^2), as the JAX Trainer
+    writes it: {"params", "opt_state": {}} with meta config and grid.
+    Returns (path, config)."""
+    import dataclasses
+
+    from ns_tpu_torch.models.layers import Dense
+    from ns_tpu_torch.serve.engine import _build_model
+    from ns_tpu_torch.train.checkpoint import jax_key, save_checkpoint
+    from ns_tpu_torch.train.trainer import TrainConfig
+
+    n = SURROGATE["n"]
+    cfg = TrainConfig(model="fno_w", fno_width=SURROGATE["width"],
+                      fno_modes=SURROGATE["modes"])
+    model = _build_model(cfg, n, n, device="meta")
+    rng = np.random.default_rng(0)
+    flat = {}
+    for name, p in model.named_parameters():
+        owner = model.get_submodule(name.rsplit(".", 1)[0])
+        if isinstance(owner, Dense):
+            bound = 1.0 / math.sqrt(owner.in_dim)
+            a = rng.uniform(-bound, bound, tuple(p.shape))
+        else:
+            a = rng.standard_normal(tuple(p.shape), dtype=np.float32)
+            a /= cfg.fno_width ** 2
+        flat[jax_key(name)] = a.astype(np.float32)
+    path = save_checkpoint({"params": flat, "opt_state": {}}, folder,
+                           meta={"config": dataclasses.asdict(cfg),
+                                 "grid": [n, n]})
+    return path, cfg
+
+
+def turbulence_frames(seeds, device) -> np.ndarray:
+    """(len(seeds), 3, n, n) float32 decaying-turbulence (u, v, p) states
+    of the port's spectral solver (k_peak n/12, tools/bench_surrogates.py:
+    112)."""
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    n = SURROGATE["n"]
+    cfg = sp.SpectralPeriodicConfig(nx=n, ny=n)
+    out = []
+    for s in seeds:
+        w0 = sp.decaying_turbulence_vorticity(cfg, seed=s, k_peak=n / 12)
+        w_hat = torch.fft.rfft2(torch.as_tensor(w0, device=device))
+        u, v, _ = sp.fields_from_hat(cfg, w_hat)
+        p = sp.pressure_from_hat(cfg, w_hat)
+        out.append(torch.stack([u, v, p]).cpu().numpy())
+    return np.stack(out).astype(np.float32)
+
+
+def spectral_divergence(reply: np.ndarray) -> float:
+    """max|div (u, v)| / max|u| of a (..., 3, n, n) reply, exact spectral
+    definition in float64 on the card."""
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    n = reply.shape[-1]
+    u, v = (torch.as_tensor(reply[..., i, :, :], device=DEVICE)
+            .to(torch.float64) for i in (0, 1))
+    kx = torch.fft.fftfreq(n, 1.0 / n, dtype=torch.float64,
+                           device=DEVICE)[:, None]
+    ky = torch.fft.rfftfreq(n, 1.0 / n, dtype=torch.float64, device=DEVICE)
+    div = sp.irfft2(sp._ik_mul(kx, torch.fft.rfft2(u))
+                    + sp._ik_mul(ky, torch.fft.rfft2(v)), (n, n))
+    return float(div.abs().max() / u.abs().max())
+
+
+def serve_rate(engine, x: np.ndarray, n_steps: int) -> dict:
+    """Latency of `repeats` predict(x, n_steps) requests after one warm-up
+    request: p50 seconds and frames/s (B * n_steps / p50)."""
+    engine.predict(x, n_steps)
+    lat = []
+    for _ in range(SURROGATE["repeats"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict(x, n_steps)
+        lat.append(time.perf_counter() - t0)
+    p50 = sorted(lat)[len(lat) // 2]
+    b = x.shape[0] if x.ndim == 4 else 1
+    return {"p50_s": p50, "latency_s": lat,
+            "frames_per_s": b * n_steps / p50}
+
+
+def family_checks_f64() -> float:
+    """Each 2D family in float64 at FAMILY_N^2 (small widths), the card
+    against the CPU from the same parameters and inputs: the rollout of
+    every FNO family at both engines (fno_w with its (u, v, p) recovery),
+    the basis solves and rnn's closed loop. Returns the worst error
+    relative to each output's max."""
+    import dataclasses
+
+    from ns_tpu_torch.models.vorticity import uvp_from_w
+    from ns_tpu_torch.serve.engine import _build_model
+    from ns_tpu_torch.train.trainer import TrainConfig, rollout_post
+
+    n, worst = FAMILY_N, 0.0
+    gen = torch.Generator().manual_seed(0)
+    grid0 = torch.randn(2, 3, n, n, generator=gen, dtype=torch.float64)
+    for model in ("basis_ode", "basis_ode2", "basis_gru", "basis_ode_conv",
+                  "rnn", "fno", "fno_w", "fno_psi"):
+        for transform in (("fft", "matmul") if model.startswith("fno")
+                          else ("auto",)):
+            cfg = TrainConfig(model=model, n_coeffs=3, hidden_dim=32,
+                              fno_width=8, fno_modes=n // 3 + 1,
+                              fno_transform=transform)
+            torch.manual_seed(1)
+            cpu = _build_model(cfg, n, n).double()
+            with torch.no_grad():  # spectral weights at scale 1
+                for name, p in cpu.named_parameters():
+                    if name.startswith("spectral."):
+                        p.mul_(cfg.fno_width ** 2)
+            card = _build_model(cfg, n, n).double().to(DEVICE)
+            card.load_state_dict(cpu.state_dict())
+            post = rollout_post(cfg)
+
+            def run(m, x):
+                if model == "rnn":
+                    return m.extrapolate(x.reshape(2, -1), 4)
+                if not model.startswith("fno"):
+                    return m(x, 5)
+                if model == "fno_w":
+                    x = x[:, :1]
+                xs = m.rollout(x, 3, post=post)
+                return (torch.stack(uvp_from_w(xs[:, :, 0]), dim=2)
+                        if model == "fno_w" else xs)
+
+            with torch.inference_mode():
+                want = run(cpu, grid0)
+                got = run(card, grid0.to(DEVICE)).cpu()
+            err = float((got - want).abs().max() / want.abs().max())
+            require(bool(torch.isfinite(got).all()) and err <= FAMILY_F64,
+                    f"{model} {transform} f64 {n}^2 card vs CPU: {err:.3e} "
+                    f"(bound {FAMILY_F64})")
+            worst = max(worst, err)
+    return worst
+
+
+def fft_vs_matmul_card() -> float:
+    """The two spectral engines on the card with random complex weights
+    (the mixed spectrum is not Hermitian), float32, at the JAX test's
+    shapes (tests/test_fno.py:134-149, rtol 2e-4, atol 1e-5) and at the
+    main path's (B=8, width 64, 128^2, modes 43; weights N(0, 1)/width so
+    the output is O(1)). Returns the worst |diff| / (atol + rtol |want|)."""
+    from ns_tpu_torch.models.fno import (SpectralWeights, _spectral_conv_fft,
+                                         _spectral_conv_matmul)
+
+    gen = torch.Generator().manual_seed(0)
+    worst = 0.0
+    n = SURROGATE["n"]
+    cases = [(2, 4, 16, 16, 5, 0.1), (2, 4, 17, 15, 5, 0.1),
+             (2, 4, 16, 18, 8, 0.1), (2, 4, 16, 16, 9, 0.1),
+             (2, 4, 32, 32, 16, 0.1),
+             (SURROGATE["batch"], SURROGATE["width"], n, n,
+              SURROGATE["modes"], 1.0 / SURROGATE["width"])]
+    for b, c, nx, ny, modes, scale in cases:
+        mx, my = min(modes, nx // 2), min(modes, ny // 2 + 1)
+        s = SpectralWeights(c, c, mx, my, scale, generator=gen)
+        W = s.mixing_table(torch.float32).detach().to(DEVICE)
+        x = torch.randn(b, c, nx, ny, generator=gen).to(DEVICE)
+        a = _spectral_conv_fft(W, x, mx, my)
+        m = _spectral_conv_matmul(W, x, mx, my)
+        r = float(((a - m).abs() / (1e-5 + 2e-4 * m.abs())).max())
+        shape = (b, c, nx, ny, modes)
+        require(r <= 1.0, f"fft vs matmul on the card at {shape}: {r:.3f} "
+                "of the bound rtol 2e-4 atol 1e-5")
+        worst = max(worst, r)
+    return worst
+
+
+def evaluate_card_vs_cpu(tmp, ckpt: str) -> float:
+    """cli.evaluate --ckpt --physics --json on the card and with --device
+    cpu, on a short 128^2 decaying-turbulence rollout of the port's
+    solver: every number finite, within SURR_EVAL relative (the divergence
+    maxima, which are rounding noise, within SURR_DIV of max|u|). Returns
+    the worst relative difference."""
+    from ns_tpu_torch.cli import evaluate
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    n = SURROGATE["n"]
+    cfg = sp.SpectralPeriodicConfig(nx=n, ny=n, dt=5e-3, nu=1e-3)
+    w0 = sp.decaying_turbulence_vorticity(cfg, seed=1, k_peak=n / 12)
+    u, v, p = sp.simulate_strided(cfg, w0, 9, stride=4, device=DEVICE)
+    npz = os.path.join(tmp, "surrogate_obs.npz")
+    np.savez(npz, u=u.cpu().numpy(), v=v.cpu().numpy(), p=p.cpu().numpy())
+    umax = float(u.abs().max())
+    reports = []
+    for device in (DEVICE, "cpu"):
+        out = os.path.join(tmp, f"eval_{device}.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            evaluate.main(["--ckpt", ckpt, "--npz-path", npz, "--physics",
+                           "--json", out, "--device", device])
+        with open(out) as f:
+            reports.append(json.load(f))
+    worst = 0.0
+
+    def walk(a, b, key=""):
+        nonlocal worst
+        if isinstance(b, dict):
+            for k in b:
+                walk(a[k], b[k], k)
+        elif isinstance(b, list):
+            for x, y in zip(a, b):
+                walk(x, y, key)
+        elif isinstance(b, float):
+            require(math.isfinite(a), f"cli.evaluate on the card: {key} "
+                    f"is {a}")
+            if key.startswith("divergence_max"):
+                require(abs(a - b) <= SURR_DIV * umax,
+                        f"cli.evaluate {key}: card {a:.3e}, CPU {b:.3e}")
+            else:
+                worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+
+    walk(*reports)
+    require(worst <= SURR_EVAL, f"cli.evaluate card vs CPU: {worst:.3e} "
+            f"relative (bound {SURR_EVAL})")
+    return worst
+
+
+def phase_surrogate(tmp, card: str) -> dict:
+    """Serve the SURROGATE fno_w checkpoint on the card through
+    InferenceEngine.from_checkpoint (B = 1 and B = 8, 200 steps; a profiled
+    chunk; fft and matmul forced), and hold it: finite, solenoidal, card
+    against CPU, each family in float64, fft against matmul, cli.evaluate
+    card against CPU."""
+    import dataclasses
+
+    from ns_tpu_torch.cli import profile_run
+    from ns_tpu_torch.ops import kernels
+    from ns_tpu_torch.serve import InferenceEngine
+    from ns_tpu_torch.serve.engine import _build_model, load_checkpoint_params
+
+    print("phase 4/5: the 2D surrogates and their serving path")
+    n, steps, b = SURROGATE["n"], SURROGATE["steps"], SURROGATE["batch"]
+    t0 = time.perf_counter()
+    ckpt, cfg = fno_w_checkpoint(os.path.join(tmp, "fno_w_128"))
+    x8 = turbulence_frames(range(b), DEVICE)
+    setup = time.perf_counter() - t0
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_checkpoint(ckpt, chunk=SURROGATE["chunk"],
+                                             device=DEVICE)
+    load = time.perf_counter() - t0
+    out = {"config": {"model": "fno_w", "grid": [n, n],
+                      "width": cfg.fno_width, "modes": cfg.fno_modes,
+                      "depth": 4, "transform": engine.models[0].transform,
+                      "precision": cfg.fno_precision, "steps": steps,
+                      "chunk": SURROGATE["chunk"]},
+           "setup_s": setup, "load_s": load, "device": card}
+    engine.warmup(SURROGATE["chunk"])
+    engine.warmup(SURROGATE["chunk"], batch=b)
+    out["b1"] = serve_rate(engine, x8[0], steps)
+    out["b8"] = serve_rate(engine, x8, steps)
+    reply = engine.predict(x8, steps)
+    require(reply.shape == (b, steps + 1, 3, n, n),
+            f"fno_w reply shape {reply.shape}")
+    require(bool(np.isfinite(reply).all()), "fno_w reply not finite")
+    require(bool(np.isfinite(engine.predict(x8[0], steps)).all()),
+            "fno_w B=1 reply not finite")
+    out["divergence_rel"] = spectral_divergence(reply)
+    out["divergence_rel_request"] = spectral_divergence(x8)
+    require(out["divergence_rel"] <= SURR_DIV,
+            f"fno_w reply divergence {out['divergence_rel']:.3e} of "
+            f"max|u| (bound {SURR_DIV})")
+    ran = {k for k, c in kernels.launch_counts().items() if c > before[k]}
+    require(not ran, f"the surrogate path launched kernels: {ran}")
+    for label, x in (("b1", x8[0]), ("b8", x8)):
+        r = profile_run.profile_rollout(
+            lambda x=x: engine.predict(x, SURROGATE["chunk"]),
+            SURROGATE["chunk"])
+        out["profile_" + label] = {k: r[k] for k in (
+            "steps_per_s_median_of_3", "device_idle_share",
+            "device_records_per_step", "device_busy_ms", "profiled_wall_ms",
+            "top_device_ms", "top_host_self_ms")}
+    # the B=8 request with each spectral engine forced, in turns
+    engines = {}
+    for transform in ("fft", "matmul"):
+        cfg_t = dataclasses.replace(cfg, fno_transform=transform)
+        m = _build_model(cfg_t, n, n, device="meta").to_empty(device=DEVICE)
+        engines[transform] = InferenceEngine(
+            cfg_t, [load_checkpoint_params(ckpt, m)], n, n,
+            chunk=SURROGATE["chunk"], device=DEVICE)
+    rates = {t: [] for t in engines}
+    for t in engines:
+        engines[t].warmup(SURROGATE["chunk"], batch=b)
+    for t in ("fft", "matmul", "matmul", "fft"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[t].predict(x8, steps)
+        rates[t].append(time.perf_counter() - t0)
+    out["engines_b8"] = {t: {"latency_s": r, "frames_per_s":
+                             [b * steps / s for s in r]}
+                         for t, r in rates.items()}
+    a = engines["fft"].predict(x8[:2], 8)
+    m = engines["matmul"].predict(x8[:2], 8)
+    out["fft_vs_matmul_rollout"] = float(np.abs(a - m).max()
+                                         / np.abs(m).max())
+    del engines
+    # card against CPU, float32, the first 8 steps at B = 2
+    cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu")
+    want = cpu.predict(x8[:2], 8)
+    got = engine.predict(x8[:2], 8)
+    out["card_vs_cpu_f32"] = float(np.abs(got - want).max()
+                                   / np.abs(want[:, :, 0]).max())
+    require(out["card_vs_cpu_f32"] <= SURR_CARD_VS_CPU,
+            f"fno_w f32 card vs CPU {out['card_vs_cpu_f32']:.3e} of max|u| "
+            f"(bound {SURR_CARD_VS_CPU})")
+    del cpu
+    out["families_f64"] = family_checks_f64()
+    out["fft_vs_matmul_of_bound"] = fft_vs_matmul_card()
+    out["evaluate_rel"] = evaluate_card_vs_cpu(tmp, ckpt)
+    s = engine.stats()
+    out["stats"] = {k: s[k] for k in ("requests", "steps_served",
+                                      "latency_s")}
+    for label in ("b1", "b8"):
+        r, pr = out[label], out["profile_" + label]
+        print(f"  fno_w {n}^2 w{cfg.fno_width} m{cfg.fno_modes} "
+              f"{label.upper()}: {r['frames_per_s']:.1f} frames/s, p50 "
+              f"{r['p50_s'] * 1e3:.1f} ms a {steps}-step request; chunk "
+              f"profile {pr['steps_per_s_median_of_3']:.1f} steps/s, idle "
+              f"{pr['device_idle_share']:.3f}, "
+              f"{pr['device_records_per_step']:.1f} device records a step; "
+              f"top {pr['top_device_ms'][:3]}; {card}")
+    for t, r in out["engines_b8"].items():
+        print(f"  B=8 forced {t}: frames/s "
+              f"{', '.join(f'{v:.1f}' for v in r['frames_per_s'])}")
+    print(f"  checks: divergence {out['divergence_rel']:.2e} of max|u| "
+          f"(the request's own {out['divergence_rel_request']:.2e}); "
+          f"card vs CPU f32 {out['card_vs_cpu_f32']:.2e}; families f64 "
+          f"{out['families_f64']:.2e}; fft vs matmul "
+          f"{out['fft_vs_matmul_of_bound']:.3f} of the bound (rollout "
+          f"{out['fft_vs_matmul_rollout']:.2e}); cli.evaluate "
+          f"{out['evaluate_rel']:.2e}")
+    return out
+
+
 # --- report ------------------------------------------------------------------
 
 KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
@@ -1617,16 +1996,24 @@ def report(res: Results, main_path: dict) -> list:
     return rows
 
 
+def require_no_jax():
+    require("jax" not in sys.modules, "jax was imported")
+    require(not any(m.split(".")[0] == "ns_tpu" for m in sys.modules),
+            "the JAX package was imported")
+
+
 def timed_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
     print(f"[{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    require_no_jax()
     return out
 
 
 def main():
     card = phase_device()
     phase_build()
+    require_no_jax()
     res = Results()
     timed_phase("kernels", phase_kernels, res, torch.device(DEVICE))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1640,9 +2027,8 @@ def main():
                            card)
         timed_phase("fidelity chebyshev", phase_fidelity_chebyshev,
                     cheb.pop("npz_1024"))
-    require("jax" not in sys.modules, "jax was imported")
-    require(not any(m.split(".")[0] == "ns_tpu" for m in sys.modules),
-            "the JAX package was imported")
+        surrogate = timed_phase("surrogate", phase_surrogate, tmp, card)
+    require_no_jax()
     kernels = report(res, main_path)
     print(json.dumps({"card": card,
                       "main_path_steps_per_s": main_path["steps_per_s"],
@@ -1657,7 +2043,8 @@ def main():
                                   "device_records_per_step",
                                   "device_idle_share", "setup_s",
                                   "top_device_ms", "top_host_self_ms")}
-                              for prec, r in cheb["profile"].items()}}}))
+                              for prec, r in cheb["profile"].items()}},
+                      "surrogate": surrogate}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,13 @@ its differentiable rollouts, the 3D periodic pseudospectral DNS
 (`solvers/spectral3d.py` with the fused transform kernels), the Chebyshev
 family (`solvers/chorin_spectral.py`, `ops/parity.py`, a copy of
 `ops/cheb.py`), the divergence guard and the chunked progress rollout
-(`utils/`), with their CLI. This package imports neither jax nor ns_tpu.
+(`utils/`), with their CLI; the 2D surrogate models (`models/`: the basis
+families, the full-field GRU, FNO2D with both spectral engines, FNOPsi,
+the vorticity and projection maps), the checkpoint format and the weight
+carry from JAX key paths (`train/checkpoint.py`), the training
+configuration (`train/trainer.py`), the inference engine
+(`serve/engine.py`) and `cli/evaluate.py`. This package imports neither
+jax nor ns_tpu.
 """
 
 __version__ = "0.1.0"

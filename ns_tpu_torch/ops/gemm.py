@@ -54,7 +54,8 @@ def _bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
-    """a @ b at `precision` (float32 only; other dtypes run as they are).
+    """a @ b at `precision` (float32 and complex64, whose products also run
+    with TF32 off; other dtypes run as they are).
     At 'default' a bfloat16 operand against a float32 one is a constant
     table rounded once, which the rounding here leaves as it is. A complex
     operand is never rounded (its imaginary part would be lost)."""
@@ -65,7 +66,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
         if a.is_cuda:
             return _bf16_mm_f32(a, b)
         return a.float() @ b.float()
-    if a.dtype != torch.float32:
+    if a.dtype not in (torch.float32, torch.complex64):
         return a @ b
     with _no_tf32():
         return a @ b

@@ -119,6 +119,32 @@ def _ik_mul(k: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return torch.complex(-k * z.imag, k * z.real)
 
 
+@lru_cache(maxsize=16)
+def _c2r_keep(ny: int, dtype: torch.dtype, device: torch.device):
+    """1 on the ky columns whose imaginary part a C2R transform uses, 0 on
+    ky = 0 and, for even ny, the Nyquist column."""
+    keep = torch.ones(ny // 2 + 1, dtype=dtype)
+    keep[0] = 0.0
+    if ny % 2 == 0:
+        keep[-1] = 0.0
+    return keep.to(device)
+
+
+def irfft2(z: torch.Tensor, s) -> torch.Tensor:
+    """The real field of an rfft2-layout half spectrum (..., nx, ny//2+1)
+    that need not be Hermitian, as numpy's irfft2 computes it: a complex
+    inverse along x, then a C2R transform along y that drops the imaginary
+    parts of the ky = 0 and Nyquist columns (which is also Re(gr @ Z @ gc)
+    of a matmul-DFT inverse). cuFFT's two-dimensional C2R assumes Hermitian
+    input and need not give that on other input (learned complex weights,
+    i*k on the unpaired Nyquist modes), so the inverse is written as two
+    one-dimensional transforms with those imaginary parts zeroed."""
+    nx, ny = s
+    t = torch.fft.ifft(z, n=nx, dim=-2)
+    keep = _c2r_keep(ny, t.real.dtype, t.device)
+    return torch.fft.irfft(torch.complex(t.real, t.imag * keep), n=ny, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Layout and constants (host-side numpy, copied from the JAX module)
 # ---------------------------------------------------------------------------

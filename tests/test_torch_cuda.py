@@ -822,3 +822,113 @@ def test_chorin_spectral_guard_trips_on_card_as_on_cpu(cuda):
         frozen = states.u[k - 1] if k > 0 else sys_.state0.u
         assert all(torch.equal(f, frozen) for f in states.u[k:])
     assert got["cuda"] == got["cpu"] and got["cpu"][0]
+
+
+# --- the 2D surrogates (cuBLAS, cuFFT; no kernel of the library) ------------
+
+FNO_ENGINE_CASES = [(2, 4, 16, 16, 5, 0.1), (2, 4, 17, 15, 5, 0.1),
+                    (2, 4, 16, 18, 8, 0.1), (2, 4, 16, 16, 9, 0.1),
+                    (2, 4, 32, 32, 16, 0.1), (8, 64, 128, 128, 43, 1 / 64)]
+
+
+@pytest.mark.parametrize("b,c,nx,ny,modes,scale", FNO_ENGINE_CASES)
+def test_fno_engines_agree_on_card(cuda, b, c, nx, ny, modes, scale):
+    """The fft engine against the matmul engine with random complex
+    weights, whose mixed spectrum is not Hermitian (cuFFT's 2D C2R assumes
+    it is; the port's irfft2 does not), float32, at the JAX test's bound
+    (rtol 2e-4, atol 1e-5): the JAX test's shapes and the served fno_w's
+    (B=8, width 64, 128^2, modes 43, weights N(0, 1)/width)."""
+    from ns_tpu_torch.models.fno import (SpectralWeights, _spectral_conv_fft,
+                                         _spectral_conv_matmul)
+
+    gen = torch.Generator().manual_seed(0)
+    mx, my = min(modes, nx // 2), min(modes, ny // 2 + 1)
+    s = SpectralWeights(c, c, mx, my, scale, generator=gen)
+    W = s.mixing_table(torch.float32).detach().to(cuda)
+    x = torch.randn(b, c, nx, ny, generator=gen).to(cuda)
+    torch.testing.assert_close(_spectral_conv_fft(W, x, mx, my),
+                               _spectral_conv_matmul(W, x, mx, my),
+                               rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("model", ["fno", "fno_w", "fno_psi", "basis_ode",
+                                   "rnn"])
+@pytest.mark.parametrize("transform", ["fft", "matmul"])
+def test_surrogate_card_vs_cpu_f64(cuda, model, transform):
+    """A model's rollout in float64 on the card against the CPU from the
+    same parameters (spectral weights at scale 1), <= 1e-10 of its max."""
+    from ns_tpu_torch.models.vorticity import uvp_from_w
+    from ns_tpu_torch.serve.engine import _build_model
+    from ns_tpu_torch.train.trainer import TrainConfig, rollout_post
+
+    n = 32
+    cfg = TrainConfig(model=model, n_coeffs=3, hidden_dim=32, fno_width=8,
+                      fno_modes=11, fno_transform=transform)
+    torch.manual_seed(1)
+    cpu = _build_model(cfg, n, n).double()
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.startswith("spectral."):
+                p.mul_(64.0)
+    card = _build_model(cfg, n, n).double().to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 3, n, n, generator=torch.Generator().manual_seed(2),
+                    dtype=torch.float64)
+
+    def run(m, x):
+        if model == "rnn":
+            return m.extrapolate(x.reshape(2, -1), 4)
+        if model == "basis_ode":
+            return m(x, 5)
+        if model == "fno_w":
+            xs = m.rollout(x[:, :1], 3, post=rollout_post(cfg))
+            return torch.stack(uvp_from_w(xs[:, :, 0]), dim=2)
+        return m.rollout(x, 3, post=rollout_post(cfg))
+
+    with torch.inference_mode():
+        want, got = run(cpu, x), run(card, x.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-10 * float(want.abs().max())
+
+
+def test_fno_w_served_on_card_matches_cpu(cuda, tmp_path):
+    """A fno_w checkpoint (64^2, width 16, full band) served on the card:
+    float32 replies within 1e-4 of max|u| of the CPU's over 8 steps at
+    B = 2, finite, chunked equal to unchunked, spectral divergence <= 1e-5
+    of max|u|."""
+    import dataclasses
+
+    from ns_tpu_torch.serve import InferenceEngine
+    from ns_tpu_torch.serve.engine import _build_model
+    from ns_tpu_torch.train.checkpoint import params_to_jax, save_checkpoint
+    from ns_tpu_torch.train.trainer import TrainConfig
+
+    n = 64
+    cfg = TrainConfig(model="fno_w", fno_width=16, fno_modes=22)
+    torch.manual_seed(3)
+    save_checkpoint({"params": params_to_jax(_build_model(cfg, n, n)),
+                     "opt_state": {}}, str(tmp_path),
+                    meta={"config": dataclasses.asdict(cfg), "grid": [n, n]})
+    cfg_sp = sp.SpectralPeriodicConfig(nx=n, ny=n)
+    frames = []
+    for seed in (0, 1):
+        w_hat = torch.fft.rfft2(torch.as_tensor(
+            sp.decaying_turbulence_vorticity(cfg_sp, seed=seed,
+                                             k_peak=n / 12)))
+        u, v, _ = sp.fields_from_hat(cfg_sp, w_hat)
+        frames.append(torch.stack([u, v, sp.pressure_from_hat(cfg_sp,
+                                                              w_hat)]))
+    x = torch.stack(frames).numpy().astype(np.float32)
+    card = InferenceEngine.from_checkpoint(str(tmp_path), chunk=3)
+    cpu = InferenceEngine.from_checkpoint(str(tmp_path), device="cpu")
+    got, want = card.predict(x, 8), cpu.predict(x, 8)
+    assert np.isfinite(got).all()
+    umax = np.abs(want[:, :, 0]).max()
+    assert np.abs(got - want).max() <= 1e-4 * umax
+    whole = InferenceEngine.from_checkpoint(str(tmp_path), chunk=64)
+    np.testing.assert_array_equal(whole.predict(x, 8), got)
+    u, v = (torch.as_tensor(got[:, :, i], dtype=torch.float64) for i in (0, 1))
+    kx = torch.fft.fftfreq(n, 1.0 / n, dtype=torch.float64)[:, None]
+    ky = torch.fft.rfftfreq(n, 1.0 / n, dtype=torch.float64)
+    div = sp.irfft2(sp._ik_mul(kx, torch.fft.rfft2(u))
+                    + sp._ik_mul(ky, torch.fft.rfft2(v)), (n, n))
+    assert float(div.abs().max()) <= 1e-5 * float(u.abs().max())

@@ -98,10 +98,37 @@ Phases (any failure exits non-zero, and no result line is printed):
                --ckpt --physics --json card vs --device cpu (every number
                finite and <= 1e-5 relative; the divergence maxima, which
                are rounding noise, within 1e-5 of max|u|)
+  4/5, training (no kernel of its own; its data step runs K1), last: the
+               reference pipeline (run_solver chorin_fd --method
+               semi_implicit at 51^2, K1 counted over its run; cli.train
+               basis_ode K=10 on its first 100 frames, 20 iterations, the
+               RESULTS.md head-to-head protocol cut; cli.evaluate --ckpt;
+               every file the JAX CLI writes; s/iteration of 10 more
+               iterations), then fno_w at 128^2, width 64, modes 43, depth 4
+               (the surrogate phase's configuration), trained full batch on
+               100 frames of the port's decaying turbulence (dt 1e-3, nu
+               1e-3, k_peak n/12, 100 steps a frame) for 20 iterations in
+               chunks of 10: finite falling losses, no kernel of the
+               library launched, peak memory, one chunk under
+               set_sync_debug_mode("error") (no host sync), one profiled
+               chunk (it/s, idle share, device records an iteration), 10
+               iterations and a resume of 10 bitwise equal to the 20; each
+               of the 8 2D families' objective and gradient in float64 at
+               32^2 card vs CPU <= 1e-10 (both FNO engines); the float32
+               gradient at precision None <= 2e-5 of max|grad| from
+               float64, also with TF32 turned on by the caller, and two
+               controls with the caller's TF32 on that must fail the bound
+               (the backward outside ops/gemm.py's rule; the rule taken out
+               of forward and backward); a 'default' gradient <= 8e-5
+               (relative L2) from a float64 emulation of its bf16-input
+               GEMMs, with a control whose backward rounds nothing that
+               must fail it; EnsembleTrainer with two fno_w members, 4
+               iterations
 After every phase the script checks that neither jax nor the JAX package
 was imported. The line before the kernels line carries the card, the main
-runs' and bench.py rollout's rates, the Chebyshev step loop and the
-surrogate phase's rates, profiles and check values. The line before the
+runs' and bench.py rollout's rates, the Chebyshev step loop, the
+surrogate phase's rates, profiles and check values, and the training
+phase's rates, memory, losses and check values. The line before the
 last is {"kernels": [...]}
 with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
@@ -129,6 +156,7 @@ intermediates, fp32 sums on both sides; 1e-3 relative).
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -1588,14 +1616,13 @@ def fno_w_checkpoint(folder: str):
     import dataclasses
 
     from ns_tpu_torch.models.layers import Dense
-    from ns_tpu_torch.serve.engine import _build_model
     from ns_tpu_torch.train.checkpoint import jax_key, save_checkpoint
-    from ns_tpu_torch.train.trainer import TrainConfig
+    from ns_tpu_torch.train.trainer import TrainConfig, build_model
 
     n = SURROGATE["n"]
     cfg = TrainConfig(model="fno_w", fno_width=SURROGATE["width"],
                       fno_modes=SURROGATE["modes"])
-    model = _build_model(cfg, n, n, device="meta")
+    model = build_model(cfg, n, n, device="meta")
     rng = np.random.default_rng(0)
     flat = {}
     for name, p in model.named_parameters():
@@ -1672,8 +1699,8 @@ def family_checks_f64() -> float:
     import dataclasses
 
     from ns_tpu_torch.models.vorticity import uvp_from_w
-    from ns_tpu_torch.serve.engine import _build_model
-    from ns_tpu_torch.train.trainer import TrainConfig, rollout_post
+    from ns_tpu_torch.train.trainer import (TrainConfig, build_model,
+                                            rollout_post)
 
     n, worst = FAMILY_N, 0.0
     gen = torch.Generator().manual_seed(0)
@@ -1686,12 +1713,12 @@ def family_checks_f64() -> float:
                               fno_width=8, fno_modes=n // 3 + 1,
                               fno_transform=transform)
             torch.manual_seed(1)
-            cpu = _build_model(cfg, n, n).double()
+            cpu = build_model(cfg, n, n).double()
             with torch.no_grad():  # spectral weights at scale 1
                 for name, p in cpu.named_parameters():
                     if name.startswith("spectral."):
                         p.mul_(cfg.fno_width ** 2)
-            card = _build_model(cfg, n, n).double().to(DEVICE)
+            card = build_model(cfg, n, n).double().to(DEVICE)
             card.load_state_dict(cpu.state_dict())
             post = rollout_post(cfg)
 
@@ -1809,7 +1836,8 @@ def phase_surrogate(tmp, card: str) -> dict:
     from ns_tpu_torch.cli import profile_run
     from ns_tpu_torch.ops import kernels
     from ns_tpu_torch.serve import InferenceEngine
-    from ns_tpu_torch.serve.engine import _build_model, load_checkpoint_params
+    from ns_tpu_torch.serve.engine import load_checkpoint_params
+    from ns_tpu_torch.train.trainer import build_model
 
     print("phase 4/5: the 2D surrogates and their serving path")
     n, steps, b = SURROGATE["n"], SURROGATE["steps"], SURROGATE["batch"]
@@ -1857,7 +1885,7 @@ def phase_surrogate(tmp, card: str) -> dict:
     engines = {}
     for transform in ("fft", "matmul"):
         cfg_t = dataclasses.replace(cfg, fno_transform=transform)
-        m = _build_model(cfg_t, n, n, device="meta").to_empty(device=DEVICE)
+        m = build_model(cfg_t, n, n, device="meta").to_empty(device=DEVICE)
         engines[transform] = InferenceEngine(
             cfg_t, [load_checkpoint_params(ckpt, m)], n, n,
             chunk=SURROGATE["chunk"], device=DEVICE)
@@ -1912,6 +1940,389 @@ def phase_surrogate(tmp, card: str) -> dict:
           f"{out['fft_vs_matmul_of_bound']:.3f} of the bound (rollout "
           f"{out['fft_vs_matmul_rollout']:.2e}); cli.evaluate "
           f"{out['evaluate_rel']:.2e}")
+    return out
+
+
+# --- training (phases 4 and 5) ------------------------------------------------
+# The JAX trainer reaches no Pallas kernel (its models are plain XLA); its
+# data step does: chorin_fd's semi-implicit solver runs K1 at 51^2. The
+# phase runs the reference pipeline (data, cli.train, cli.evaluate) and
+# trains the full-width fno_w on the card, then holds the objective, the
+# gradients and the optimizer's resume to the CPU, to float64 and to
+# themselves.
+
+# fno_w at 128^2, width 64, modes 43, depth 4, full batch on the 99 windows
+# of 100 frames of decaying turbulence (tools/bench_surrogates.py --nx 128:
+# dt 1e-3, nu 1e-3, k_peak n/12, 100 solver steps a frame), float32 at
+# precision None, 'auto' -> matmul, dealias on
+TRAIN = dict(n=128, width=64, modes=43, frames=100, stride=100, iters=20,
+             chunk=10, basis_iters=20)
+GRAD_F64 = 1e-10     # objective and gradient, card vs CPU, float64
+GRAD_F32 = 2e-5      # float32 gradient at None vs float64, of max|grad|
+# 'default' gradient vs its float64 emulation, relative L2 over every
+# gradient: the bf16 backward reads 4.3e-5 and a backward that rounds
+# nothing 1.5e-4, on the card and on the CPU alike (PERF.md)
+GRAD_DEFAULT = 8e-5
+
+
+def training_data(tmp) -> str:
+    """TRAIN's decaying-turbulence rollout of the port's solver as an npz
+    of (u, v, p) (frames, n, n)."""
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    n = TRAIN["n"]
+    cfg = sp.SpectralPeriodicConfig(nx=n, ny=n, dt=1e-3, nu=1e-3)
+    w0 = sp.decaying_turbulence_vorticity(cfg, seed=0, k_peak=n / 12)
+    u, v, p = sp.simulate_strided(cfg, w0, TRAIN["frames"],
+                                  stride=TRAIN["stride"], device=DEVICE)
+    path = os.path.join(tmp, "turbulence_128.npz")
+    np.savez(path, u=u.cpu().numpy(), v=v.cpu().numpy(), p=p.cpu().numpy())
+    return path
+
+
+def reference_pipeline(tmp) -> dict:
+    """run_solver chorin_fd --method semi_implicit (51^2, the reference
+    preset; K1), cli.train basis_ode K=10 on its first 100 frames
+    (RESULTS.md's head-to-head protocol, iterations cut), cli.evaluate
+    --ckpt; every file the JAX CLI writes, s/iteration from one timed
+    chunk of 10 more iterations."""
+    from ns_tpu_torch.cli import evaluate, run_solver, train
+    from ns_tpu_torch.ops import kernels
+
+    npz = os.path.join(tmp, "data_semi_implicit.npz")
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_solver.main(["chorin_fd", "--method", "semi_implicit",
+                         "--device", DEVICE, "--out", npz])
+    k1 = kernels.launch_counts()["sor_redblack_fused"]
+    require(k1 > 0, "the data step launched no K1")
+    out_dir = os.path.join(tmp, "basis_ode")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        tr = train.main(["--model", "basis_ode", "--n-coeffs", "10",
+                         "--n-frames", "100", "--npz-path", npz,
+                         "--n-iters", str(TRAIN["basis_iters"]),
+                         "--out-dir", out_dir, "--device", DEVICE])
+    cli_s = time.perf_counter() - t0
+    ck = out_dir + "_10"
+    files = sorted(os.listdir(ck))
+    want = ["checkpoint.npz", "checkpoint.npz.meta.json",
+            "extrapolation.npy", "metrics.jsonl"]
+    require(files == want, f"cli.train wrote {files}, not {want}")
+    with open(os.path.join(ck, "checkpoint.npz.meta.json")) as f:
+        meta = json.load(f)
+    require(meta["iter"] == TRAIN["basis_iters"]
+            and len(meta["losses"]) == TRAIN["basis_iters"]
+            and meta["grid"] == [51, 51] and meta["noise_key"] is None,
+            f"basis_ode meta: {sorted(meta)}")
+    extrap = np.load(os.path.join(ck, "extrapolation.npy"))
+    require(extrap.shape == (200, 3, 51, 51) and np.isfinite(extrap).all(),
+            f"basis_ode extrapolation {extrap.shape}")
+    losses = meta["losses"]
+    require(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+            f"basis_ode losses {losses[0]} -> {losses[-1]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_chunk(10)
+    torch.cuda.synchronize()
+    s_it = (time.perf_counter() - t0) / 10
+    rep = os.path.join(tmp, "basis_eval.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        evaluate.main(["--ckpt", ck, "--npz-path", npz, "--json", rep,
+                       "--device", DEVICE])
+    with open(rep) as f:
+        report = json.load(f)
+    rel = {k: w["rel_l2"] for k, w in report["windows"].items()}
+    require(set(rel) == {"train", "extrapolation", "full"}
+            and all(map(math.isfinite, rel.values())),
+            f"cli.evaluate windows: {rel}")
+    return {"k1_launches": k1, "cli_s": cli_s, "s_per_iter": s_it,
+            "losses": losses, "penalty_last": meta["penalties"][-1],
+            "rel_l2": rel}
+
+
+def fno_w_config(npz: str, out_dir: str, **kw):
+    from ns_tpu_torch.train.trainer import TrainConfig
+
+    return TrainConfig(model="fno_w", npz_path=npz, out_dir=out_dir,
+                       fno_width=TRAIN["width"], fno_modes=TRAIN["modes"],
+                       n_frames=TRAIN["frames"],
+                       n_iters=TRAIN["iters"], ckpt_every=TRAIN["chunk"],
+                       **kw)
+
+
+def train_full_width(tmp, npz: str) -> dict:
+    """fno_w at TRAIN's configuration: 20 iterations in chunks of 10 (peak
+    memory, finite falling losses, no library kernel, no host sync inside
+    a chunk), 10 + a resume of 10 against the 20 bitwise, then one
+    profiled chunk (it/s, idle share, device records an iteration)."""
+    from ns_tpu_torch.cli import profile_run
+    from ns_tpu_torch.ops import kernels
+    from ns_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(fno_w_config(npz, os.path.join(tmp, "fno_w")),
+                 device=DEVICE)
+    setup = time.perf_counter() - t0
+    before = kernels.launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        losses = tr.train()
+    ran = {k for k, c in kernels.launch_counts().items() if c > before[k]}
+    require(not ran, f"the training chunks launched kernels: {ran}")
+    peak = torch.cuda.max_memory_allocated()
+    require(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+            f"fno_w losses {losses[0]} -> {losses[-1]}")
+    params = {k: v.detach().clone() for k, v in tr.params.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.train_chunk(TRAIN["chunk"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prof = profile_run.profile_rollout(
+        lambda: tr.train_chunk(TRAIN["chunk"]), TRAIN["chunk"])
+    del tr
+    # 10 iterations, a resume of 10: the same bits as the 20 above
+    half = fno_w_config(npz, os.path.join(tmp, "fno_w_half"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        Trainer(dataclasses.replace(half, n_iters=TRAIN["chunk"]),
+                device=DEVICE).train()
+        tr = Trainer(dataclasses.replace(
+            half, resume=os.path.join(half.out_dir, "checkpoint.npz")),
+            device=DEVICE)
+        resumed = tr.train()
+    worst = max(float((tr.params[k].detach() - params[k]).abs().max())
+                for k in params)
+    del tr, params
+    return {"setup_s": setup, "losses": losses, "peak_gb": peak / 1e9,
+            "resume_losses_equal": resumed == losses,
+            "resume_params_max_abs": worst,
+            "profile": {k: prof[k] for k in (
+                "steps_per_s_median_of_3", "steps_per_s", "device_idle_share",
+                "device_records_per_step", "device_busy_ms",
+                "profiled_wall_ms", "top_device_ms", "top_host_self_ms")}}
+
+
+def loss_and_grads(cfg, model, obs):
+    """The port's objective of `cfg` (full batch, no noise) and every
+    parameter's gradient on `model`'s device."""
+    from ns_tpu_torch.train.metrics import l2_loss
+    from ns_tpu_torch.train.trainer import build_forward, training_tensors
+
+    frames, _ = training_tensors(cfg, obs)
+    loss = l2_loss(*build_forward(cfg, frames)(model))
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
+
+
+def grad_error(got: dict, want: dict) -> float:
+    """max |got - want| over every parameter's gradient, of max|want|."""
+    scale = max(float(g.abs().max()) for g in want.values())
+    return max(float((got[k].double().cpu() - want[k].double().cpu())
+                     .abs().max()) for k in want) / scale
+
+
+def grad_error_l2(got: dict, want: dict) -> float:
+    """|got - want| / |want|, L2 over every parameter's gradient."""
+    sq = lambda t: float((t.double().cpu() ** 2).sum())  # noqa: E731
+    return math.sqrt(sum(sq(got[k] - want[k].to(got[k].device))
+                         for k in want) / sum(map(sq, want.values())))
+
+
+def families_grad_f64() -> float:
+    """Each 2D training family in float64 at 32^2 (small widths), the
+    objective and its gradient on the card against the CPU from the same
+    parameters and data, both FNO engines. Returns the worst error."""
+    from ns_tpu_torch.train.trainer import TrainConfig, build_model
+
+    n, worst = 32, 0.0
+    gen = torch.Generator().manual_seed(0)
+    obs = torch.randn(6, 1, 3, n, n, generator=gen, dtype=torch.float64)
+    for model in ("basis_ode", "basis_ode2", "basis_gru", "basis_ode_conv",
+                  "rnn", "fno", "fno_w", "fno_psi"):
+        for transform in (("fft", "matmul") if model.startswith("fno")
+                          else ("auto",)):
+            cfg = TrainConfig(model=model, n_coeffs=3, hidden_dim=32,
+                              fno_width=8, fno_modes=n // 3 + 1,
+                              fno_transform=transform,
+                              fno_rollout_steps=2 if model == "fno" else 1)
+            cpu = build_model(cfg, n, n, dtype=torch.float64,
+                              generator=torch.Generator().manual_seed(1))
+            card = build_model(cfg, n, n, dtype=torch.float64,
+                               device="meta").to_empty(device=DEVICE)
+            card.load_state_dict(cpu.state_dict())
+            lw, gw = loss_and_grads(cfg, cpu, obs)
+            lg, gg = loss_and_grads(cfg, card, obs.to(DEVICE))
+            err = max(abs(float(lg) - float(lw)) / abs(float(lw)),
+                      grad_error(gg, gw))
+            require(err <= GRAD_F64, f"{model} {transform} f64 objective "
+                    f"and gradient card vs CPU: {err:.3e} (bound "
+                    f"{GRAD_F64})")
+            worst = max(worst, err)
+    return worst
+
+
+def fno_w_grads(precision, dtype, n=64, width=32, modes=21):
+    """The fno_w objective's gradient on the card at `precision` in
+    `dtype`, from one parameter draw and 9 frames of random vorticity."""
+    from ns_tpu_torch.train.trainer import TrainConfig, build_model
+
+    cfg = TrainConfig(model="fno_w", fno_width=width, fno_modes=modes,
+                      fno_precision=precision)
+    gen = torch.Generator().manual_seed(2)
+    model = build_model(cfg, n, n, dtype=torch.float64, generator=gen)
+    obs = torch.randn(9, 1, 3, n, n, generator=gen, dtype=torch.float64)
+    model = model.to(DEVICE, dtype)
+    return loss_and_grads(cfg, model, obs.to(DEVICE, dtype))[1]
+
+
+def tf32_gradient_check() -> dict:
+    """The float32 gradient at precision None against float64 on the card:
+    as the library leaves TF32, and with TF32 turned on by the caller (the
+    backward products run after the forward's switch has returned, so they
+    need their own: ops/gemm.py::_Product). Two controls with the caller's
+    TF32 on must fail the bound: the plain matmul, whose backward autograd
+    runs outside the forward's switch, and the switch taken out as well."""
+    from ns_tpu_torch.ops import gemm
+
+    want = fno_w_grads(None, torch.float64)
+    out = {"f32": grad_error(fno_w_grads(None, torch.float32), want)}
+    prev, rule, apply = (torch.backends.cuda.matmul.allow_tf32,
+                         gemm._no_tf32, gemm._apply)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        out["f32_caller_tf32"] = grad_error(
+            fno_w_grads(None, torch.float32), want)
+        gemm._apply = lambda product, a, b: product(a, b)
+        out["control_tf32_backward"] = grad_error(
+            fno_w_grads(None, torch.float32), want)
+        gemm._no_tf32 = contextlib.nullcontext
+        out["control_tf32"] = grad_error(
+            fno_w_grads(None, torch.float32), want)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, gemm._no_tf32,
+         gemm._apply) = prev, rule, apply
+    require(out["f32"] <= GRAD_F32 and out["f32_caller_tf32"] <= GRAD_F32,
+            f"float32 gradient vs float64: {out} (bound {GRAD_F32})")
+    require(min(out["control_tf32_backward"], out["control_tf32"])
+            > GRAD_F32, f"a TF32 control passed the bound: {out}")
+    return out
+
+
+def default_gradient_check() -> dict:
+    """A 'default' fno_w step's gradient (bf16 operands and cotangents,
+    fp32 sums, forward and backward) against a float64 emulation of the
+    same GEMMs (operands rounded to bf16, products in float64); a control
+    whose backward rounds nothing (fp32 products, the forward unchanged)
+    must fail the bound; the distance to the unrounded float64 gradient
+    beside them."""
+    from ns_tpu_torch.models import fno
+    from ns_tpu_torch.ops import gemm
+
+    def bf16_f64(a, b):
+        r = lambda t: t.to(torch.bfloat16).to(torch.float64)  # noqa: E731
+        return r(a) @ r(b)
+
+    plain, product = gemm.matmul, gemm._Product
+
+    def emulated(a, b, precision):
+        if precision == "default" and a.dtype == torch.float64 \
+                and not (a.is_complex() or b.is_complex()):
+            return gemm._apply(bf16_f64, a, b)
+        return plain(a, b, precision)
+
+    class Fp32Backward(product):
+        @staticmethod
+        def forward(ctx, a, b, forward_product):
+            ctx.save_for_backward(a, b)
+            ctx.product = gemm._fp32_product
+            return forward_product(a, b)
+
+    got = fno_w_grads("default", torch.float32)
+    exact = fno_w_grads("default", torch.float64)
+    gemm.matmul = fno.matmul = emulated
+    try:
+        want = fno_w_grads("default", torch.float64)
+    finally:
+        gemm.matmul = fno.matmul = plain
+    gemm._Product = Fp32Backward
+    try:
+        control = fno_w_grads("default", torch.float32)
+    finally:
+        gemm._Product = product
+    out = {"vs_emulation": grad_error_l2(got, want),
+           "control_fp32_backward": grad_error_l2(control, want),
+           "vs_float64": grad_error_l2(got, exact),
+           "vs_emulation_max": grad_error(got, want)}
+    require(all(math.isfinite(float(g.abs().max())) for g in got.values()),
+            "'default' gradient not finite")
+    require(out["vs_emulation"] <= GRAD_DEFAULT
+            < out["control_fp32_backward"],
+            f"'default' gradient vs its emulation: {out} (bound "
+            f"{GRAD_DEFAULT}, which the control must exceed)")
+    return out
+
+
+def ensemble_check(tmp, npz: str) -> dict:
+    """EnsembleTrainer, two fno_w members on TRAIN's grid (width 16, 20
+    frames), 4 iterations on the card: finite losses (4, 2), counts
+    [4, 4]."""
+    from ns_tpu_torch.train.ensemble import EnsembleTrainer
+
+    cfg = dataclasses.replace(
+        fno_w_config(npz, os.path.join(tmp, "ensemble")), fno_width=16,
+        fno_modes=12, n_frames=min(20, TRAIN["frames"]), n_iters=4,
+        ckpt_every=2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr = EnsembleTrainer(cfg, 2, device=DEVICE)
+        losses = np.asarray(tr.train())
+    extrap = tr.extrapolate()
+    with np.load(os.path.join(cfg.out_dir, "checkpoint.npz")) as d:
+        counts = d["opt_state/0/.count"].tolist()
+    require(losses.shape == (4, 2) and np.isfinite(losses).all()
+            and counts == [4, 4], f"ensemble: losses {losses}, counts "
+            f"{counts}")
+    n = TRAIN["n"]
+    require(extrap.shape == (2, TRAIN["frames"], 3, n, n)
+            and np.isfinite(extrap).all(), f"ensemble extrapolation "
+            f"{extrap.shape}")
+    return {"losses": losses.tolist()}
+
+
+def phase_train(tmp, card: str) -> dict:
+    """The reference pipeline and the full-width fno_w training on the
+    card, then the gradient, precision, resume and ensemble checks."""
+    print("phase 4/5: training (cli.train, Trainer, EnsembleTrainer)")
+    t0 = time.perf_counter()
+    npz = training_data(tmp)
+    out = {"data_s": time.perf_counter() - t0, "device": card}
+    out["basis_ode"] = reference_pipeline(tmp)
+    out["fno_w"] = fw = train_full_width(tmp, npz)
+    require(fw["resume_losses_equal"] and fw["resume_params_max_abs"] == 0,
+            f"resume on the card: losses equal {fw['resume_losses_equal']}, "
+            f"params differ by {fw['resume_params_max_abs']}")
+    out["families_grad_f64"] = families_grad_f64()
+    out["tf32"] = tf32_gradient_check()
+    out["default"] = default_gradient_check()
+    out["ensemble"] = ensemble_check(tmp, npz)
+    b, pr = out["basis_ode"], fw["profile"]
+    print(f"  data: {TRAIN['frames']} frames of 128^2 turbulence in "
+          f"{out['data_s']:.1f} s; basis_ode 51^2 K=10: "
+          f"{b['s_per_iter']:.3f} s/iteration, loss {b['losses'][0]:.1f} "
+          f"-> {b['losses'][-1]:.1f} in {TRAIN['basis_iters']}, K1 "
+          f"launches {b['k1_launches']}, rel-L2 {b['rel_l2']}; {card}")
+    print(f"  fno_w 128^2 w64 m43 full batch: "
+          f"{pr['steps_per_s_median_of_3']:.2f} it/s, idle "
+          f"{pr['device_idle_share']:.3f}, "
+          f"{pr['device_records_per_step']:.0f} device records an "
+          f"iteration, peak {fw['peak_gb']:.2f} GB, loss "
+          f"{fw['losses'][0]:.2f} -> {fw['losses'][-1]:.2f}; top "
+          f"{pr['top_device_ms'][:3]}; {card}")
+    print(f"  checks: resume bitwise; families f64 "
+          f"{out['families_grad_f64']:.2e}; f32 gradient {out['tf32']}; "
+          f"'default' {out['default']}; ensemble ok")
     return out
 
 
@@ -2028,6 +2439,7 @@ def main():
         timed_phase("fidelity chebyshev", phase_fidelity_chebyshev,
                     cheb.pop("npz_1024"))
         surrogate = timed_phase("surrogate", phase_surrogate, tmp, card)
+        training = timed_phase("train", phase_train, tmp, card)
     require_no_jax()
     kernels = report(res, main_path)
     print(json.dumps({"card": card,
@@ -2044,7 +2456,7 @@ def main():
                                   "device_idle_share", "setup_s",
                                   "top_device_ms", "top_host_self_ms")}
                               for prec, r in cheb["profile"].items()}},
-                      "surrogate": surrogate}))
+                      "surrogate": surrogate, "train": training}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

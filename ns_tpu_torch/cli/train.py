@@ -1,0 +1,150 @@
+"""Train a surrogate model: one CLI for every 2D family.
+
+Port of `ns_tpu/cli/train.py`, with every flag of the JAX CLI: the
+reference's (--npz-path --out-dir --n-iters --n-coeffs --gpu-device; the
+output directory gets the _{n_coeffs} suffix), --model, --resume and the
+operator families' and schedule's knobs, plus --device. Training runs on
+the card unless given --device cpu (without a card the command exits with
+an error); --gpu-device is accepted and ignored. --n-models > 1 trains an
+ensemble, on the one card whatever --mesh says. --dp > 1, --dist and the
+3D families are not yet ported and exit with an error. Writes
+checkpoint.npz (+ .meta.json) every --ckpt-every iterations,
+metrics.jsonl, and extrapolation.npy at the end.
+
+Examples:
+  python -m ns_tpu_torch.cli.train --model basis_ode \\
+      --npz-path data_semi_implicit.npz
+  python -m ns_tpu_torch.cli.train --model fno_w --npz-path turb.npz \\
+      --fno-width 64 --fno-modes 43 --n-iters 200 --device cpu
+"""
+
+import argparse
+import os
+
+import numpy as np
+
+from ns_tpu_torch.core.device import resolve_device
+from ns_tpu_torch.train.trainer import (_3D, MODELS, NOT_PORTED,
+                                        TrainConfig, Trainer)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--model", type=str, default="basis_ode", choices=MODELS)
+    p.add_argument("--npz-path", type=str, default="./data_semi_implicit.npz")
+    p.add_argument("--out-dir", type=str, default=None,
+                   help="default: ./checkpoints/<model>")
+    p.add_argument("--n-iters", type=int, default=1000)
+    p.add_argument("--n-coeffs", type=int, default=10)
+    p.add_argument("--n-frames", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--hidden-dim", type=int, default=512)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt-every", type=int, default=10,
+                   help="checkpoint interval; also the train chunk size "
+                        "(one host read of the losses a chunk)")
+    p.add_argument("--fno-rollout-steps", type=int, default=1,
+                   help="fno families: k-step rollout training (pushforward)")
+    p.add_argument("--fno-modes", type=int, default=12,
+                   help="fno families: spectral modes kept per axis")
+    p.add_argument("--fno-width", type=int, default=32,
+                   help="fno families: channel width")
+    p.add_argument("--fno-transform", default="auto",
+                   choices=["auto", "fft", "matmul"],
+                   help="fno families: spectral-transform engine (engines "
+                        "agree to fp rounding)")
+    p.add_argument("--fno-precision", default=None,
+                   choices=["default", "high", "highest"],
+                   help="fno families: GEMM precision in the spectral "
+                        "layers (default: fp32 with TF32 off; 'default' "
+                        "is bf16 inputs with fp32 sums, backward too)")
+    p.add_argument("--input-noise", type=float, default=0.0,
+                   help="fno families: train-time Gaussian input noise, as a "
+                        "fraction of the data std; 0 disables")
+    p.add_argument("--fno-remat", action="store_true",
+                   help="fno families: rematerialize each k-step unroll step "
+                        "in the backward pass")
+    p.add_argument("--fno-project", action="store_true",
+                   help="fno: compose the exact spectral divergence "
+                        "projection into the autoregressive rollout")
+    p.add_argument("--no-fno-dealias", action="store_true",
+                   help="fno_w/fno_psi: disable the 2/3-band rollout filter")
+    p.add_argument("--resume", type=str, default=None,
+                   help="checkpoint.npz to continue (the JAX package's too)")
+    p.add_argument("--n-models", type=int, default=1,
+                   help=">1 trains an ensemble of independently drawn models")
+    p.add_argument("--mesh", type=str, default="auto",
+                   choices=["auto", "none"],
+                   help="accepted; an ensemble runs on the one card")
+    p.add_argument("--batch-size", type=int, default=0,
+                   help="fno families: sample this many training windows "
+                        "per step (with replacement); 0 = full batch")
+    p.add_argument("--lr-schedule", default="constant",
+                   choices=["constant", "cosine"],
+                   help="learning-rate schedule (resume continues it)")
+    p.add_argument("--warmup-iters", type=int, default=0,
+                   help="linear 0 -> lr warmup iterations")
+    p.add_argument("--schedule-horizon", type=int, default=None,
+                   help="total iterations the schedule decays over "
+                        "(default: this run's --n-iters)")
+    p.add_argument("--grad-clip", type=float, default=0.0,
+                   help="global-norm gradient clip (0 disables)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel devices (not yet ported: 1 only)")
+    p.add_argument("--dist", action="store_true",
+                   help="multi-process training (not yet ported)")
+    p.add_argument("--gpu-device", type=int, default=0,
+                   help="accepted for reference-CLI compatibility; ignored")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; a machine without a "
+                        "card needs --device cpu)")
+    args = p.parse_args(argv)
+    if args.dp > 1 and args.n_models > 1:
+        p.error("--dp shards single-model training; --n-models > 1 "
+                "ensembles shard the 'ensemble' axis instead (use --mesh)")
+    if args.dist or args.dp > 1:
+        p.error(f"--dist and --dp > 1 (data-parallel training) {NOT_PORTED}")
+    if args.model in _3D:
+        p.error(f"the 3D family {args.model!r} {NOT_PORTED}")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        p.error(str(e))
+
+    out_dir = args.out_dir or f"./checkpoints/{args.model}"
+    out_dir = f"{out_dir}_{args.n_coeffs}"  # the reference's suffix
+    cfg = TrainConfig(model=args.model, npz_path=args.npz_path,
+                      out_dir=out_dir, n_iters=args.n_iters,
+                      n_coeffs=args.n_coeffs, lr=args.lr,
+                      hidden_dim=args.hidden_dim, n_frames=args.n_frames,
+                      seed=args.seed, ckpt_every=args.ckpt_every,
+                      fno_rollout_steps=args.fno_rollout_steps,
+                      fno_transform=args.fno_transform,
+                      fno_precision=args.fno_precision,
+                      fno_modes=args.fno_modes, fno_width=args.fno_width,
+                      fno_project=args.fno_project,
+                      input_noise=args.input_noise,
+                      fno_remat=args.fno_remat,
+                      fno_dealias=not args.no_fno_dealias,
+                      resume=args.resume, dp=args.dp,
+                      lr_schedule=args.lr_schedule,
+                      warmup_iters=args.warmup_iters,
+                      schedule_horizon=args.schedule_horizon,
+                      grad_clip=args.grad_clip,
+                      batch_size=args.batch_size)
+    if args.n_models > 1:
+        from ns_tpu_torch.train.ensemble import EnsembleTrainer
+        tr = EnsembleTrainer(cfg, args.n_models, mesh=args.mesh,
+                             device=device)
+    else:
+        tr = Trainer(cfg, device=device)
+    tr.train()
+    extrap = tr.extrapolate()
+    out = os.path.join(out_dir, "extrapolation.npy")
+    np.save(out, extrap)
+    print(f"saved {out} shape={extrap.shape}")
+    return tr
+
+
+if __name__ == "__main__":
+    main()

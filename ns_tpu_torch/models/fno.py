@@ -33,14 +33,13 @@ device.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ns_tpu_torch.models.layers import Dense
+from ns_tpu_torch.ops.cache import device_table
 from ns_tpu_torch.ops.gemm import cmatmul, matmul
 from ns_tpu_torch.solvers.spectral_periodic import irfft2
 
@@ -66,7 +65,7 @@ def _complex_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if dtype == torch.float64 else torch.complex64
 
 
-@lru_cache(maxsize=16)
+@device_table()
 def _dft_mats(nx: int, ny: int, mx: int, my: int, dtype: torch.dtype,
               device: torch.device):
     """Truncated DFT tables of the retained block, built in float64 on the

@@ -18,17 +18,16 @@ or inside a training loss.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ns_tpu_torch.ops.cache import device_table
 from ns_tpu_torch.ops.multigrid import poisson_multigrid
 from ns_tpu_torch.solvers.spectral_periodic import _ik_mul, irfft2
 
 
-@lru_cache(maxsize=16)
+@device_table()
 def _periodic_ops(nx: int, ny: int, dtype: torch.dtype, device: torch.device):
     """kx (nx, 1), ky (1, nyh) with the unpaired Nyquist modes zeroed (i*k
     on the lone -N/2 mode is not the spectrum of any real field), and 1/k^2

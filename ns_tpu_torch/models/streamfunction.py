@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ns_tpu_torch.models.fno import FNO2D
+from ns_tpu_torch.ops.cache import device_table
 from ns_tpu_torch.ops.gemm import matmul
 
 
@@ -52,7 +53,7 @@ def _band_kernel(n: int) -> np.ndarray:
     return np.real((E * keep) @ E.conj().T / n)
 
 
-@lru_cache(maxsize=16)
+@device_table()
 def _kernels(nx: int, ny: int, dtype: torch.dtype, device: torch.device):
     """(Dx, Dy^T, Bx, By^T) on `device`."""
     t = lambda m: torch.as_tensor(m).to(device=device, dtype=dtype)

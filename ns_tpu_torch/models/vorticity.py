@@ -27,13 +27,14 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ns_tpu_torch.ops.cache import device_table
 from ns_tpu_torch.ops.gemm import matmul
 from ns_tpu_torch.solvers.spectral_periodic import (
     SpectralPeriodicConfig, _ik_mul, irfft2, make_ops,
     velocity_from_vorticity_hat)
 
 
-@lru_cache(maxsize=16)
+@device_table()
 def _ops(nx: int, ny: int, dtype: torch.dtype, device: torch.device):
     name = "float64" if dtype == torch.float64 else "float32"
     return make_ops(SpectralPeriodicConfig(nx=nx, ny=ny, dtype=name), device)
@@ -85,7 +86,7 @@ def dealias_field(w: torch.Tensor, engine: str = "auto") -> torch.Tensor:
     return irfft2(torch.where(mask, torch.fft.rfft2(w), 0.0), (nx, ny))
 
 
-@lru_cache(maxsize=16)
+@device_table()
 def _band_mask(nx: int, ny: int, device: torch.device) -> torch.Tensor:
     kx = np.fft.fftfreq(nx, d=1.0 / nx)
     ky = np.fft.rfftfreq(ny, d=1.0 / ny)
@@ -120,7 +121,7 @@ def _dealias_projectors(nx: int, ny: int):
     return pr.astype(np.float32), pc.T.astype(np.float32)
 
 
-@lru_cache(maxsize=16)
+@device_table()
 def _projectors(nx: int, ny: int, dtype: torch.dtype, device: torch.device):
     t = lambda m: torch.as_tensor(m).to(device=device, dtype=dtype)
     return tuple(t(m) for m in _dealias_projectors(nx, ny))

@@ -18,6 +18,14 @@ On the CPU, which has no bf16 GEMM with an fp32 output, 'default' is an
 fp32 GEMM of the bf16-rounded inputs, the same maths summed in another
 order. Float64 products are always float64.
 
+Gradients follow the same rule. Autograd runs the backward products after
+the forward call has returned, so neither the TF32 switch of the forward
+nor its bf16 rounding would reach them: a float32 product that needs a
+gradient runs as `_Product`, whose backward computes g @ b^H and a^H @ g
+by the forward's own product. At 'default' that is the transpose of a
+TPU DEFAULT dot, another DEFAULT dot: bf16-rounded operands (the
+cotangent too), fp32 sums and result.
+
 `cmatmul` carries the same menu to complex operands by running each as
 real GEMMs on the (re, im) parts (torch has no bf16 complex type).
 """
@@ -53,6 +61,52 @@ def _bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a3, b3, out_dtype=torch.float32).reshape(*batch, m, n)
 
 
+def _fp32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    with _no_tf32():
+        return a @ b
+
+
+def _default_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.is_cuda:
+        return _bf16_mm_f32(a, b)
+    return a.float() @ b.float()
+
+
+class _Product(torch.autograd.Function):
+    """a @ b (both at least 2D) by `product`, whose backward runs the
+    transposed products by the same `product`; a broadcast operand's
+    gradient is summed over the batch axes it was broadcast along."""
+
+    @staticmethod
+    def forward(ctx, a, b, product):
+        ctx.save_for_backward(a, b)
+        ctx.product = product
+        return product(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        product = ctx.product
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = product(g, b.mH).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2 and a.dim() > 2:  # one product over the batch
+                k, n = a.shape[-1], g.shape[-1]
+                gb = product(a.reshape(-1, k).mH, g.reshape(-1, n))
+            else:
+                gb = product(a.mH, g).sum_to_size(b.shape)
+        return ga, gb, None
+
+
+def _apply(product, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+            and a.dim() >= 2 and b.dim() >= 2):
+        return _Product.apply(a, b, product)
+    return product(a, b)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
     """a @ b at `precision` (float32 and complex64, whose products also run
     with TF32 off; other dtypes run as they are).
@@ -62,14 +116,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
     table = {a.dtype, b.dtype} == {torch.float32, torch.bfloat16}
     if (precision == "default" and (a.dtype == torch.float32 or table)
             and not (a.is_complex() or b.is_complex())):
-        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        if a.is_cuda:
-            return _bf16_mm_f32(a, b)
-        return a.float() @ b.float()
+        return _apply(_default_product, a, b)
     if a.dtype not in (torch.float32, torch.complex64):
         return a @ b
-    with _no_tf32():
-        return a @ b
+    return _apply(_fp32_product, a, b)
 
 
 def cmatmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):

@@ -36,47 +36,10 @@ import torch
 
 from ns_tpu_torch.core.device import resolve_device
 from ns_tpu_torch.train.checkpoint import load_meta, params_from_jax
-from ns_tpu_torch.train.trainer import (FNO_FAMILIES, NOT_PORTED,
-                                        TrainConfig, load_obs, rollout_post)
-
-_3D = ("fno3d", "fno3d_w", "fno3d_a")
-
-
-def _build_model(cfg: TrainConfig, nx: int, ny: int, device=None):
-    """The model of `cfg` on an (nx, ny) grid, as the JAX package's Trainer
-    builds it, with parameters on `device` (the meta device builds no
-    values)."""
-    kw = dict(device=device)
-    if cfg.model == "basis_ode":
-        from ns_tpu_torch.models.basis import BasisODE
-        return BasisODE(cfg.n_coeffs, nx, ny, **kw)
-    if cfg.model == "basis_ode2":
-        from ns_tpu_torch.models.basis import BasisODE2
-        return BasisODE2(cfg.n_coeffs, nx, ny, **kw)
-    if cfg.model == "basis_gru":
-        from ns_tpu_torch.models.basis import BasisGRU
-        return BasisGRU(cfg.n_coeffs, nx, ny, **kw)
-    if cfg.model == "basis_ode_conv":
-        from ns_tpu_torch.models.basis import BasisODEConv
-        return BasisODEConv(cfg.n_coeffs, nx, ny, **kw)
-    if cfg.model in ("fno", "fno_w"):
-        from ns_tpu_torch.models.fno import FNO2D
-        return FNO2D(nx, ny, width=cfg.fno_width, modes=cfg.fno_modes,
-                     channels=1 if cfg.model == "fno_w" else 3,
-                     transform=cfg.fno_transform,
-                     precision=cfg.fno_precision, **kw)
-    if cfg.model == "fno_psi":
-        from ns_tpu_torch.models.streamfunction import FNOPsi
-        return FNOPsi(nx, ny, width=cfg.fno_width, modes=cfg.fno_modes,
-                      transform=cfg.fno_transform,
-                      precision=cfg.fno_precision, **kw)
-    if cfg.model in _3D:
-        raise NotImplementedError(f"the 3D family {cfg.model!r} "
-                                  f"{NOT_PORTED}")
-    if cfg.model == "rnn":
-        from ns_tpu_torch.models.gru import FullFieldGRU
-        return FullFieldGRU(3 * nx * ny, cfg.hidden_dim, **kw)
-    raise ValueError(f"unknown model family {cfg.model!r}")
+from ns_tpu_torch.train.trainer import (_3D, FNO_FAMILIES, NOT_PORTED,
+                                        TrainConfig, load_obs, rollout_post,
+                                        uvp_of_state)
+from ns_tpu_torch.train.trainer import build_model as _build_model
 
 
 def _checkpoint_path(ckpt: str) -> str:
@@ -203,29 +166,18 @@ class InferenceEngine(ServingBase):
 
     # -- rollouts -------------------------------------------------------------
 
-    def _uvp(self, state: torch.Tensor) -> torch.Tensor:
-        """(..., C, nx, ny) model state -> (..., 3, nx, ny) (u, v, p). fno_w's
-        recovery runs in float64 and is rounded once to the state's dtype:
-        in float32 its own FFT rounding left 1.1e-5 of max|u| of divergence
-        in the served (u, v) on the H100 (6.3e-6 on the CPU), in float64 it
-        leaves the rounding of the float32 reply (~2e-6)."""
-        if self.cfg.model != "fno_w":
-            return state
-        from ns_tpu_torch.models.vorticity import uvp_from_w
-        uvp = uvp_from_w(state[..., 0, :, :].to(torch.float64))
-        return torch.stack(uvp, dim=-3).to(state.dtype)
-
     def _rollout_fno(self, model, x: torch.Tensor, n_steps: int,
                      out: torch.Tensor) -> None:
         """Fill out (n_steps + 1, B, 3, nx, ny) on the host: frame 0 is the
         request state echoed in (u, v, p) space, then one host copy a chunk
         of at most `chunk` steps."""
-        out[0].copy_(self._uvp(x))
+        out[0].copy_(uvp_of_state(self.cfg, x))
         state, done = x, 0
         while done < n_steps:
             length = min(self.chunk, n_steps - done)
             xs = model.rollout(state, length, post=self._post)
-            out[done + 1:done + 1 + length].copy_(self._uvp(xs))
+            out[done + 1:done + 1 + length].copy_(
+                uvp_of_state(self.cfg, xs))
             state = xs[-1]
             done += length
 

@@ -38,12 +38,12 @@ carry's device.
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
 
 import numpy as np
 import torch
 
 from ns_tpu_torch.core.device import resolve_device
+from ns_tpu_torch.ops.cache import device_table
 from ns_tpu_torch.ops.gemm import matmul
 
 
@@ -119,7 +119,7 @@ def _ik_mul(k: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return torch.complex(-k * z.imag, k * z.real)
 
 
-@lru_cache(maxsize=16)
+@device_table()
 def _c2r_keep(ny: int, dtype: torch.dtype, device: torch.device):
     """1 on the ky columns whose imaginary part a C2R transform uses, 0 on
     ky = 0 and, for even ny, the Nyquist column."""
@@ -551,7 +551,7 @@ def _engine(cfg: SpectralPeriodicConfig, device):
     return _engine_cached(dataclasses.replace(cfg, nt=0), device)
 
 
-@lru_cache(maxsize=4)
+@device_table(maxsize=4)
 def _engine_cached(cfg: SpectralPeriodicConfig, device):
     if cfg.real_gemm:
         if not (cfg.transform == "matmul" and cfg.dealias

@@ -1,21 +1,56 @@
-"""The training configuration shared by training, evaluation and serving.
+"""One trainer for the surrogate families, and the configuration that
+training, evaluation and serving share.
 
-Port of the configuration part of `ns_tpu/train/trainer.py`: the model
-families, `TrainConfig` with every field, default and check of the JAX
-package's (a checkpoint's `meta["config"]` rebuilds it field by field),
-the observation loader and `rollout_post`, the per-step constraint map of
-the operator families' rollouts. The trainer itself is not ported yet; the
-3D families' rollout maps raise "not yet ported".
+Port of `ns_tpu/train/trainer.py` for the 2D families (the 3D ones raise
+"not yet ported"): `TrainConfig` with every field, default and check of the
+JAX package's (a checkpoint's `meta["config"]` rebuilds it field by field),
+the observation loader, `rollout_post` (the per-step constraint map of the
+operator families' rollouts), `build_model` (where training and serving
+build their models), `build_forward` (the per-family objective) and
+`Trainer`, the reference's training protocol:
+
+  - data: the npz rollout's first `n_frames` frames as (nt, M, 3, nx, ny);
+  - Adam at lr 1e-3 by default (`train/optim.py`, optax's arithmetic, with
+    the optional schedule and clip), loss = the global L2 norm of the
+    residual; the basis families' diversity penalty is logged, not
+    optimised;
+  - a checkpoint and a JSONL line every `ckpt_every` iterations, in the JAX
+    package's format (each package resumes the other's checkpoints), and a
+    full-horizon extrapolation at the end.
+
+Steps run in chunks of up to `ckpt_every` iterations whose losses stay on
+the device: a chunk reads nothing back to the host, and `train` reads the
+chunk's losses (and the penalty) once. Every entry point runs on the card
+unless given `device="cpu"`; without a card it raises.
+
+Random streams: the parameters are drawn on the CPU from
+`torch.Generator().manual_seed(cfg.seed)` with the JAX init's
+distributions, then moved to the device, so card and CPU runs start from
+the same bits (JAX's threefry draws cannot be reproduced). The input noise
+and the minibatch windows come from a generator on the device; its state
+is saved in the checkpoint's meta under `torch_generator`, and `noise_key`
+is written as null, so the JAX Trainer re-derives its own stream from the
+seed when it resumes. A JAX checkpoint's `noise_key` seeds the port's
+generator from its two words.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 import warnings
 from typing import Optional
 
 import numpy as np
 import torch
+
+from ns_tpu_torch.core.device import resolve_device
+from ns_tpu_torch.train.checkpoint import (jax_key, load_checkpoint,
+                                           load_meta, params_from_jax,
+                                           save_checkpoint)
+from ns_tpu_torch.train.metrics import AverageMeter, l2_loss
+from ns_tpu_torch.train.optim import Adam
 
 MODELS = ("basis_ode", "basis_ode2", "basis_gru", "basis_ode_conv",
           "rnn", "fno", "fno_w", "fno_psi", "fno3d", "fno3d_w",
@@ -176,3 +211,311 @@ def rollout_post(cfg):
         raise NotImplementedError(f"the {cfg.model} dealias filter "
                                   f"{NOT_PORTED}")
     return None
+
+
+_3D = ("fno3d", "fno3d_w", "fno3d_a")
+
+
+def build_model(cfg: TrainConfig, nx: int, ny: int, device=None, dtype=None,
+                generator=None):
+    """The model of `cfg` on an (nx, ny) grid, as the JAX package's Trainer
+    builds it, with parameters on `device` (the meta device builds no
+    values), drawn from `generator`."""
+    kw = dict(device=device, dtype=dtype, generator=generator)
+    if cfg.model == "basis_ode":
+        from ns_tpu_torch.models.basis import BasisODE
+        return BasisODE(cfg.n_coeffs, nx, ny, **kw)
+    if cfg.model == "basis_ode2":
+        from ns_tpu_torch.models.basis import BasisODE2
+        return BasisODE2(cfg.n_coeffs, nx, ny, **kw)
+    if cfg.model == "basis_gru":
+        from ns_tpu_torch.models.basis import BasisGRU
+        return BasisGRU(cfg.n_coeffs, nx, ny, **kw)
+    if cfg.model == "basis_ode_conv":
+        from ns_tpu_torch.models.basis import BasisODEConv
+        return BasisODEConv(cfg.n_coeffs, nx, ny, **kw)
+    if cfg.model in ("fno", "fno_w"):
+        from ns_tpu_torch.models.fno import FNO2D
+        return FNO2D(nx, ny, width=cfg.fno_width, modes=cfg.fno_modes,
+                     channels=1 if cfg.model == "fno_w" else 3,
+                     transform=cfg.fno_transform,
+                     precision=cfg.fno_precision, **kw)
+    if cfg.model == "fno_psi":
+        from ns_tpu_torch.models.streamfunction import FNOPsi
+        return FNOPsi(nx, ny, width=cfg.fno_width, modes=cfg.fno_modes,
+                      transform=cfg.fno_transform,
+                      precision=cfg.fno_precision, **kw)
+    if cfg.model in _3D:
+        raise NotImplementedError(f"the 3D family {cfg.model!r} "
+                                  f"{NOT_PORTED}")
+    if cfg.model == "rnn":
+        from ns_tpu_torch.models.gru import FullFieldGRU
+        return FullFieldGRU(3 * nx * ny, cfg.hidden_dim, **kw)
+    raise ValueError(f"unknown model family {cfg.model!r}")
+
+
+def uvp_of_state(cfg: TrainConfig, state: torch.Tensor) -> torch.Tensor:
+    """A model state (..., C, nx, ny) as (u, v, p) (..., 3, nx, ny): fno_w's
+    vorticity recovered in float64 and rounded once to the state's dtype
+    (in float32 the recovery's own FFT rounding left 1.1e-5 of max|u| of
+    divergence on the H100), every other family's state as it is. The one
+    definition of serving and `extrapolate`."""
+    if cfg.model != "fno_w":
+        return state
+    from ns_tpu_torch.models.vorticity import uvp_from_w
+    uvp = uvp_from_w(state[..., 0, :, :].to(torch.float64))
+    return torch.stack(uvp, dim=-3).to(state.dtype)
+
+
+def build_forward(cfg: TrainConfig, frames: torch.Tensor,
+                  data_scale: float = 1.0):
+    """forward(model, gen=None) -> (pred, target): the per-family training
+    objective, shared by Trainer and EnsembleTrainer.
+
+    frames is the training tensor of `training_tensors`, (nt, M, C, nx,
+    ny) with M trajectories sharing the operator; data_scale the std that
+    cfg.input_noise is a fraction of. `gen` (a torch.Generator on the
+    frames' device) draws the minibatch windows, then the input noise;
+    None draws neither (the ensemble's objective).
+      - rnn: teacher-forced next-frame prediction, trajectories on the
+        GRU's batch axis;
+      - the FNO families: the next-step map on every window (or a sample of
+        batch_size windows with replacement), k = fno_rollout_steps steps
+        from each start with every prediction fed back through
+        `rollout_post` (the loss is on the raw predictions), noise on the
+        first input only, each step rematerialised in the backward pass
+        when fno_remat;
+      - the basis families: the whole trajectory from frame 0.
+    """
+    nt = frames.shape[0]
+
+    def forward(model, gen=None):
+        if cfg.model == "rnn":
+            m = frames.shape[1]
+            seq = frames.transpose(0, 1).reshape(m, nt, -1)
+            return model(seq[:, :-1]), seq[:, 1:]
+        if cfg.model not in FNO_FAMILIES:
+            return model(frames[0], nt), frames
+        k = max(cfg.fno_rollout_steps, 1)
+        n_win = nt - k
+        idx = None
+        if cfg.batch_size > 0 and gen is not None:
+            idx = torch.randint(0, n_win, (cfg.batch_size,), generator=gen,
+                                device=frames.device)
+
+        def window(j):
+            if idx is None:
+                return frames[j:n_win + j]
+            return torch.index_select(frames, 0, idx + j)
+
+        x = window(0)
+        if cfg.input_noise > 0 and gen is not None:
+            x = x + cfg.input_noise * data_scale * torch.randn(
+                x.shape, generator=gen, device=x.device, dtype=x.dtype)
+        if k == 1:
+            return model(x), window(1)
+        if cfg.fno_remat:
+            from torch.utils.checkpoint import checkpoint
+            apply = lambda t: checkpoint(model, t, use_reentrant=False,  # noqa: E731
+                                         preserve_rng_state=False)
+        else:
+            apply = model
+        post = rollout_post(cfg)
+        preds, targets = [], []
+        for j in range(1, k + 1):
+            pred = apply(x)
+            preds.append(pred)
+            targets.append(window(j))
+            x = post(pred) if post is not None else pred
+        return torch.stack(preds), torch.stack(targets)
+
+    return forward
+
+
+@torch.no_grad()
+def extrapolate_model(cfg: TrainConfig, model, obs_full: torch.Tensor
+                      ) -> torch.Tensor:
+    """The full-horizon closed-loop rollout (nt, 3, nx, ny) from frame 0 of
+    trajectory 0 of obs_full (nt, M, 3, nx, ny), frame-aligned (out[t] ~
+    obs[t]) except rnn, which keeps the reference's nt predictions from
+    obs[0] (out[t] ~ obs[t + 1])."""
+    nt = obs_full.shape[0]
+    if cfg.model in FNO_FAMILIES:
+        x0 = obs_full[0, 0]
+        if cfg.model == "fno_w":
+            from ns_tpu_torch.models.vorticity import vorticity_from_uv
+            x0 = vorticity_from_uv(x0[0], x0[1])[None]       # (1, nx, ny)
+        seq = model.rollout(x0, nt - 1, post=rollout_post(cfg))
+        return uvp_of_state(cfg, torch.cat([x0[None], seq]))
+    if cfg.model == "rnn":
+        pred = model.extrapolate(obs_full[0, :1].reshape(1, -1), nt)
+        return pred[0].reshape(nt, *obs_full.shape[2:])
+    return model(obs_full[0], nt)[:, 0]
+
+
+def _noise_seed(seed: int) -> int:
+    """The input-noise generator's seed: its own stream beside the init's
+    (JAX folds 0x6E5E into the init key)."""
+    return ((seed & 0xFFFFFFFF) << 16) | 0x6E5E
+
+
+def check_data(cfg: TrainConfig, obs: np.ndarray, operator_only=False):
+    """The JAX trainers' checks of the data against the family: 2D data for
+    a 2D family, one trajectory for the basis families (rnn too when
+    `operator_only`), a fno_rollout_steps that leaves training windows."""
+    nt, n_traj, spatial = obs.shape[0], obs.shape[1], obs.shape[3:]
+    wants_3d = cfg.model in _3D
+    if (len(spatial) == 3) != wants_3d:
+        raise ValueError(
+            f"{cfg.model!r} expects "
+            f"{'3D (u,v,w,p)' if wants_3d else '2D (u,v,p)'}"
+            f" data; {cfg.npz_path} has spatial shape {spatial}")
+    multi = FNO_FAMILIES if operator_only else FNO_FAMILIES + ("rnn",)
+    if n_traj > 1 and cfg.model not in multi:
+        raise ValueError(
+            f"multi-trajectory data (M={n_traj}) needs an operator "
+            f"family {multi}; {cfg.model!r} learns a single coefficient "
+            "trajectory by design (reference semantics)")
+    if cfg.model in FNO_FAMILIES and not 1 <= cfg.fno_rollout_steps < nt:
+        raise ValueError(
+            f"fno_rollout_steps must be in [1, n_frames={nt}); got "
+            f"{cfg.fno_rollout_steps} (a k >= n_frames leaves no training "
+            "windows and the loss is identically 0)")
+
+
+def training_tensors(cfg: TrainConfig, obs: torch.Tensor):
+    """(frames, data_scale): the tensor the objective trains on (fno_w: the
+    vorticity of the data, (nt, M, 1, nx, ny); obs otherwise) and the std
+    (ddof 0, as jnp.std) that input_noise is a fraction of."""
+    frames = obs
+    if cfg.model == "fno_w":
+        from ns_tpu_torch.models.vorticity import vorticity_from_uv
+        frames = vorticity_from_uv(obs[:, :, 0], obs[:, :, 1])[:, :, None]
+    scale = 1.0
+    if cfg.model in FNO_FAMILIES:
+        scale = float(torch.std(frames, correction=0))
+    return frames, scale
+
+
+class Trainer:
+    """Train one surrogate of `cfg` on `device` (the card unless "cpu")."""
+
+    def __init__(self, cfg: TrainConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        obs = load_obs(cfg.npz_path, cfg.n_frames)
+        check_data(cfg, obs)
+        self.nt = obs.shape[0]
+        self.nx, self.ny = obs.shape[3], obs.shape[4]
+        if cfg.model in FNO_FAMILIES and cfg.input_noise < 0:
+            raise ValueError(
+                f"input_noise must be >= 0; got {cfg.input_noise}")
+        if cfg.dp > 1:
+            raise NotImplementedError(f"data-parallel training (dp="
+                                      f"{cfg.dp}) {NOT_PORTED}")
+        self.model = build_model(
+            cfg, self.nx, self.ny,
+            generator=torch.Generator().manual_seed(cfg.seed)).to(self.device)
+        self.obs = torch.as_tensor(obs, device=self.device)
+        self.frames, self._data_scale = training_tensors(cfg, self.obs)
+        self.params = {jax_key(n): p for n, p in self.model.named_parameters()}
+        self.opt = Adam(cfg, self.params)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(_noise_seed(cfg.seed))
+        self.losses: list = []
+        self.penalties: list = []
+        self.start_iter = 1
+        if cfg.resume:
+            self._resume(cfg.resume)
+        self._forward = build_forward(cfg, self.frames, self._data_scale)
+
+    def _resume(self, path: str) -> None:
+        state = load_checkpoint(path, {"params": self.params,
+                                       "opt_state": self.opt.state_tree()})
+        params_from_jax(self.model, state["params"],
+                        what=f"checkpoint {path}")
+        self.opt.load_state_tree(state["opt_state"])
+        meta = load_meta(path)
+        self.losses = list(meta.get("losses", []))
+        self.penalties = list(meta.get("penalties", []))
+        self.start_iter = int(meta.get("iter", 0)) + 1
+        if meta.get("torch_generator") is not None:
+            self.gen.set_state(torch.frombuffer(
+                bytearray.fromhex(meta["torch_generator"]), dtype=torch.uint8))
+        elif meta.get("noise_key") is not None:
+            hi, lo = (int(w) for w in meta["noise_key"])
+            self.gen.manual_seed((hi << 32) | lo)
+
+    # -- steps ----------------------------------------------------------------
+
+    def _step(self) -> torch.Tensor:
+        loss = l2_loss(*self._forward(self.model, self.gen))
+        grads = torch.autograd.grad(loss, list(self.params.values()),
+                                    materialize_grads=True)
+        self.opt.step(dict(zip(self.params, grads)))
+        return loss.detach()
+
+    def train_chunk(self, n: int) -> torch.Tensor:
+        """n steps; their losses (n,) stay on the device."""
+        return torch.stack([self._step() for _ in range(n)])
+
+    def _penalty(self):
+        if not hasattr(self.model, "diversity_penalty"):
+            return None
+        with torch.no_grad():
+            return self.model.diversity_penalty()
+
+    # -- loop -----------------------------------------------------------------
+
+    def train(self, log_every: int = 50, progress: bool = True) -> list:
+        cfg = self.cfg
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        from ns_tpu_torch.utils.jsonl import JSONLLogger
+        loss_meter = AverageMeter()
+        t0 = time.perf_counter()
+        with JSONLLogger(os.path.join(cfg.out_dir, "metrics.jsonl")) as jlog:
+            it = self.start_iter - 1  # completed iterations
+            while it < cfg.n_iters:
+                n = min(cfg.ckpt_every - it % cfg.ckpt_every,
+                        cfg.n_iters - it)
+                losses = self.train_chunk(n)
+                pen = self._penalty()
+                if pen is not None:  # logged, not optimised; one read a chunk
+                    losses = torch.cat([losses, pen[None].to(losses.dtype)])
+                vals = losses.tolist()
+                if pen is not None:
+                    self.penalties.extend([vals.pop()] * n)
+                for v in vals:
+                    loss_meter.update(v)
+                self.losses.extend(vals)
+                it += n
+                if it % cfg.ckpt_every == 0 or it == cfg.n_iters:
+                    self.save(it)
+                    jlog.log({"loss": vals[-1], "loss_avg": loss_meter.avg},
+                             iter=it)
+                if progress and (it % log_every < n or it == cfg.n_iters):
+                    rate = (it - self.start_iter + 1) / (time.perf_counter()
+                                                         - t0)
+                    print(f"[{it}/{cfg.n_iters}] loss {loss_meter.avg:.4f} "
+                          f"({rate:.1f} it/s)", flush=True)
+        return self.losses
+
+    def save(self, it: int, is_best: bool = False) -> str:
+        meta = {"iter": it, "losses": self.losses,
+                "penalties": self.penalties, "grid": [self.nx, self.ny],
+                "noise_key": None,
+                "torch_generator": self.gen.get_state().numpy().tobytes().hex(),
+                "config": dataclasses.asdict(self.cfg)}
+        return save_checkpoint({"params": self.params,
+                                "opt_state": self.opt.state_tree()},
+                               self.cfg.out_dir, is_best=is_best, meta=meta)
+
+    # -- eval -----------------------------------------------------------------
+
+    def extrapolate(self, npz_path: Optional[str] = None) -> np.ndarray:
+        """The full-horizon rollout (nt, 3, nx, ny) that the CLI writes to
+        extrapolation.npy (`extrapolate_model`)."""
+        obs = load_obs(npz_path or self.cfg.npz_path, None)
+        out = extrapolate_model(self.cfg, self.model,
+                                torch.as_tensor(obs, device=self.device))
+        return out.cpu().numpy()

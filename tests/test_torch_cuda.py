@@ -20,6 +20,8 @@ diffable's gradient <= 1e-9; float32 Taylor-Green runs against the exact
 decay within chip_smoke.py's bounds.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -858,19 +860,19 @@ def test_surrogate_card_vs_cpu_f64(cuda, model, transform):
     """A model's rollout in float64 on the card against the CPU from the
     same parameters (spectral weights at scale 1), <= 1e-10 of its max."""
     from ns_tpu_torch.models.vorticity import uvp_from_w
-    from ns_tpu_torch.serve.engine import _build_model
-    from ns_tpu_torch.train.trainer import TrainConfig, rollout_post
+    from ns_tpu_torch.train.trainer import (TrainConfig, build_model,
+                                            rollout_post)
 
     n = 32
     cfg = TrainConfig(model=model, n_coeffs=3, hidden_dim=32, fno_width=8,
                       fno_modes=11, fno_transform=transform)
     torch.manual_seed(1)
-    cpu = _build_model(cfg, n, n).double()
+    cpu = build_model(cfg, n, n).double()
     with torch.no_grad():
         for name, p in cpu.named_parameters():
             if name.startswith("spectral."):
                 p.mul_(64.0)
-    card = _build_model(cfg, n, n).double().to(cuda)
+    card = build_model(cfg, n, n).double().to(cuda)
     card.load_state_dict(cpu.state_dict())
     x = torch.randn(2, 3, n, n, generator=torch.Generator().manual_seed(2),
                     dtype=torch.float64)
@@ -898,14 +900,13 @@ def test_fno_w_served_on_card_matches_cpu(cuda, tmp_path):
     import dataclasses
 
     from ns_tpu_torch.serve import InferenceEngine
-    from ns_tpu_torch.serve.engine import _build_model
     from ns_tpu_torch.train.checkpoint import params_to_jax, save_checkpoint
-    from ns_tpu_torch.train.trainer import TrainConfig
+    from ns_tpu_torch.train.trainer import TrainConfig, build_model
 
     n = 64
     cfg = TrainConfig(model="fno_w", fno_width=16, fno_modes=22)
     torch.manual_seed(3)
-    save_checkpoint({"params": params_to_jax(_build_model(cfg, n, n)),
+    save_checkpoint({"params": params_to_jax(build_model(cfg, n, n)),
                      "opt_state": {}}, str(tmp_path),
                     meta={"config": dataclasses.asdict(cfg), "grid": [n, n]})
     cfg_sp = sp.SpectralPeriodicConfig(nx=n, ny=n)
@@ -932,3 +933,123 @@ def test_fno_w_served_on_card_matches_cpu(cuda, tmp_path):
     div = sp.irfft2(sp._ik_mul(kx, torch.fft.rfft2(u))
                     + sp._ik_mul(ky, torch.fft.rfft2(v)), (n, n))
     assert float(div.abs().max()) <= 1e-5 * float(u.abs().max())
+
+
+# --- training on the card ----------------------------------------------------
+# chip_smoke.py's configuration and bounds: the float32 gradient at
+# precision None within 2e-5 of max|grad| of the float64 one (fp32 sums;
+# TF32's 10-bit operands miss it, in the backward alone as in every
+# product); the 'default' gradient within 8e-5 (relative L2) of a float64
+# emulation of its GEMMs (bf16-rounded operands and cotangents, products
+# in float64), which a backward that rounds nothing misses; resume
+# bitwise.
+
+
+def _fno_w_grads(cuda, precision, dtype, n=64, width=32, modes=21):
+    from ns_tpu_torch.train.metrics import l2_loss
+    from ns_tpu_torch.train.trainer import (TrainConfig, build_forward,
+                                            build_model, training_tensors)
+
+    cfg = TrainConfig(model="fno_w", fno_width=width, fno_modes=modes,
+                      fno_precision=precision)
+    gen = torch.Generator().manual_seed(2)
+    model = build_model(cfg, n, n, dtype=torch.float64,
+                        generator=gen).to(cuda, dtype)
+    obs = torch.randn(9, 1, 3, n, n, generator=gen,
+                      dtype=torch.float64).to(cuda, dtype)
+    frames, _ = training_tensors(cfg, obs)
+    loss = l2_loss(*build_forward(cfg, frames)(model))
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return {name: g.double().cpu() for (name, _), g in zip(named, grads)}
+
+
+def _grad_err(got, want):
+    scale = max(float(g.abs().max()) for g in want.values())
+    return max(float((got[k] - want[k]).abs().max()) for k in want) / scale
+
+
+def _grad_err_l2(got, want):
+    sq = lambda t: float((t ** 2).sum())  # noqa: E731
+    return (sum(sq(got[k] - want[k]) for k in want)
+            / sum(map(sq, want.values()))) ** 0.5
+
+
+def test_float32_gradient_keeps_tf32_off(cuda, monkeypatch):
+    """The backward products follow the forward's rule even when the
+    caller turned TF32 on; the plain matmul (its backward outside the
+    forward's switch) fails the bound, and so does the rule taken out."""
+    from ns_tpu_torch.ops import gemm
+
+    want = _fno_w_grads(cuda, None, torch.float64)
+    assert _grad_err(_fno_w_grads(cuda, None, torch.float32), want) <= 2e-5
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert _grad_err(_fno_w_grads(cuda, None, torch.float32), want) <= 2e-5
+    monkeypatch.setattr(gemm, "_apply", lambda product, a, b: product(a, b))
+    assert _grad_err(_fno_w_grads(cuda, None, torch.float32), want) > 2e-5
+    monkeypatch.setattr(gemm, "_no_tf32", contextlib.nullcontext)
+    assert _grad_err(_fno_w_grads(cuda, None, torch.float32), want) > 2e-5
+
+
+def test_default_precision_trains_on_the_card(cuda, monkeypatch):
+    """A 'default' objective runs its backward on the card (bf16 tensor
+    cores, fp32 sums) and stays near a float64 emulation of its GEMMs,
+    where a backward of unrounded fp32 products does not."""
+    from ns_tpu_torch.models import fno
+    from ns_tpu_torch.ops import gemm
+
+    got = _fno_w_grads(cuda, "default", torch.float32)
+
+    class Fp32Backward(gemm._Product):
+        @staticmethod
+        def forward(ctx, a, b, forward_product):
+            ctx.save_for_backward(a, b)
+            ctx.product = gemm._fp32_product
+            return forward_product(a, b)
+
+    with monkeypatch.context() as m:
+        m.setattr(gemm, "_Product", Fp32Backward)
+        control = _fno_w_grads(cuda, "default", torch.float32)
+    plain = gemm.matmul
+
+    def emulated(a, b, precision):
+        if precision == "default" and a.dtype == torch.float64 \
+                and not (a.is_complex() or b.is_complex()):
+            r = lambda t: t.to(torch.bfloat16).to(torch.float64)  # noqa: E731
+            return gemm._apply(lambda x, y: r(x) @ r(y), a, b)
+        return plain(a, b, precision)
+
+    monkeypatch.setattr(gemm, "matmul", emulated)
+    monkeypatch.setattr(fno, "matmul", emulated)
+    want = _fno_w_grads(cuda, "default", torch.float64)
+    assert all(torch.isfinite(g).all() for g in got.values())
+    assert _grad_err_l2(got, want) <= 8e-5 < _grad_err_l2(control, want)
+
+
+def test_training_resumes_bitwise_on_the_card(cuda, tmp_path):
+    """2 iterations and a resume of 2 equal 4, with input noise and
+    minibatch sampling from the card's generator."""
+    from ns_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    n, nt = 32, 8
+    cfg_sp = sp.SpectralPeriodicConfig(nx=n, ny=n, dt=5e-3, nu=1e-3)
+    w0 = sp.decaying_turbulence_vorticity(cfg_sp, seed=0, k_peak=4)
+    u, v, p = sp.simulate_strided(cfg_sp, w0, nt, stride=4, device=cuda)
+    npz = str(tmp_path / "d.npz")
+    np.savez(npz, u=u.cpu().numpy(), v=v.cpu().numpy(), p=p.cpu().numpy())
+    base = dict(model="fno_w", npz_path=npz, fno_width=8, fno_modes=8,
+                n_frames=nt, ckpt_every=2, input_noise=0.05, batch_size=3,
+                fno_rollout_steps=2, lr_schedule="cosine", warmup_iters=1,
+                grad_clip=1.0)
+    whole = Trainer(TrainConfig(out_dir=str(tmp_path / "w"), n_iters=4,
+                                **base))
+    losses = whole.train(progress=False)
+    Trainer(TrainConfig(out_dir=str(tmp_path / "h"), n_iters=2, **base)
+            ).train(progress=False)
+    half = Trainer(TrainConfig(out_dir=str(tmp_path / "h"), n_iters=4,
+                               resume=str(tmp_path / "h" / "checkpoint.npz"),
+                               **base))
+    assert half.train(progress=False) == losses
+    for k, p in whole.params.items():
+        assert torch.equal(p, half.params[k]), k
+    assert np.isfinite(losses).all()

@@ -124,11 +124,38 @@ Phases (any failure exits non-zero, and no result line is printed):
                GEMMs, with a control whose backward rounds nothing that
                must fail it; EnsembleTrainer with two fno_w members, 4
                iterations
+  4/5, the 3D surrogates (no kernel of the library), last: 40 frames of
+               64^3 decaying turbulence from the port's 3D solver (dt
+               1e-3, nu 6.25e-4, k_peak 4, 100 steps a frame, 'auto' ->
+               matmul at 'high'; timed), fno3d_a at 64^3, width 24, modes
+               16, depth 4 (RESULTS.md's round-5 3D row: batch 4, 4-step
+               pushforward with remat, lr 1e-3 cosine, 100 warm-up,
+               horizon 1500, clip 1) trained 20 iterations in chunks of
+               10 (finite losses, peak memory, one chunk under
+               set_sync_debug_mode("error"), one profiled chunk: it/s,
+               idle share, device records an iteration; 10 + a resume of
+               10 bitwise equal to the 20), its checkpoint served by
+               InferenceEngine.from_checkpoint at B = 1 and B = 4
+               (100-step requests, chunk 16: frames/s, p50, a profiled
+               chunk, and the share of its wall time that its
+               device-to-host reply copy records take);
+               checks: the reply's spectral divergence <= 1e-5 of
+               max|u|, card vs CPU over 4 float32 steps at B = 1 <= 1e-4
+               of max|u|, fno3d (with fno_project), fno3d_w and fno3d_a
+               in float64 at 12^3 card vs CPU <= 1e-10 (forward,
+               objective and gradient, both engines), fft vs matmul at
+               the served shape within rtol 2e-4 and atol 1e-5,
+               cli.evaluate --ckpt --physics card vs CPU as in the 2D
+               phase, divergence_max of a field that is not band-limited
+               (float64, 64^3) card vs CPU <= 1e-12, and no kernel of
+               the library launched; its "[... s]" line says whether it
+               kept its 90 s budget
 After every phase the script checks that neither jax nor the JAX package
 was imported. The line before the kernels line carries the card, the main
 runs' and bench.py rollout's rates, the Chebyshev step loop, the
-surrogate phase's rates, profiles and check values, and the training
-phase's rates, memory, losses and check values. The line before the
+surrogate phase's rates, profiles and check values, the training
+phase's rates, memory, losses and check values, and the 3D surrogate
+phase's (`surrogate3d`). The line before the
 last is {"kernels": [...]}
 with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
@@ -1674,20 +1701,21 @@ def spectral_divergence(reply: np.ndarray) -> float:
     return float(div.abs().max() / u.abs().max())
 
 
-def serve_rate(engine, x: np.ndarray, n_steps: int) -> dict:
-    """Latency of `repeats` predict(x, n_steps) requests after one warm-up
-    request: p50 seconds and frames/s (B * n_steps / p50)."""
+def serve_rate(engine, x: np.ndarray, n_steps: int, repeats: int,
+               batch: int) -> dict:
+    """Latency of `repeats` predict(x, n_steps) requests of `batch` states
+    after one warm-up request: p50 seconds and frames/s (B * n_steps /
+    p50)."""
     engine.predict(x, n_steps)
     lat = []
-    for _ in range(SURROGATE["repeats"]):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.predict(x, n_steps)
         lat.append(time.perf_counter() - t0)
     p50 = sorted(lat)[len(lat) // 2]
-    b = x.shape[0] if x.ndim == 4 else 1
     return {"p50_s": p50, "latency_s": lat,
-            "frames_per_s": b * n_steps / p50}
+            "frames_per_s": batch * n_steps / p50}
 
 
 def family_checks_f64() -> float:
@@ -1782,7 +1810,6 @@ def evaluate_card_vs_cpu(tmp, ckpt: str) -> float:
     solver: every number finite, within SURR_EVAL relative (the divergence
     maxima, which are rounding noise, within SURR_DIV of max|u|). Returns
     the worst relative difference."""
-    from ns_tpu_torch.cli import evaluate
     from ns_tpu_torch.solvers import spectral_periodic as sp
 
     n = SURROGATE["n"]
@@ -1791,7 +1818,18 @@ def evaluate_card_vs_cpu(tmp, ckpt: str) -> float:
     u, v, p = sp.simulate_strided(cfg, w0, 9, stride=4, device=DEVICE)
     npz = os.path.join(tmp, "surrogate_obs.npz")
     np.savez(npz, u=u.cpu().numpy(), v=v.cpu().numpy(), p=p.cpu().numpy())
-    umax = float(u.abs().max())
+    return evaluate_on_both(tmp, ckpt, npz, float(u.abs().max()),
+                            "cli.evaluate")
+
+
+def evaluate_on_both(tmp, ckpt: str, npz: str, umax: float,
+                     what: str) -> float:
+    """cli.evaluate --ckpt --physics --json on the card and with --device
+    cpu: every number of the card's report finite, the divergence maxima
+    within SURR_DIV * umax of the CPU's, every other number within
+    SURR_EVAL relative. Returns the worst relative difference."""
+    from ns_tpu_torch.cli import evaluate
+
     reports = []
     for device in (DEVICE, "cpu"):
         out = os.path.join(tmp, f"eval_{device}.json")
@@ -1811,16 +1849,15 @@ def evaluate_card_vs_cpu(tmp, ckpt: str) -> float:
             for x, y in zip(a, b):
                 walk(x, y, key)
         elif isinstance(b, float):
-            require(math.isfinite(a), f"cli.evaluate on the card: {key} "
-                    f"is {a}")
+            require(math.isfinite(a), f"{what} on the card: {key} is {a}")
             if key.startswith("divergence_max"):
                 require(abs(a - b) <= SURR_DIV * umax,
-                        f"cli.evaluate {key}: card {a:.3e}, CPU {b:.3e}")
+                        f"{what} {key}: card {a:.3e}, CPU {b:.3e}")
             else:
                 worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
 
     walk(*reports)
-    require(worst <= SURR_EVAL, f"cli.evaluate card vs CPU: {worst:.3e} "
+    require(worst <= SURR_EVAL, f"{what} card vs CPU: {worst:.3e} "
             f"relative (bound {SURR_EVAL})")
     return worst
 
@@ -1858,8 +1895,8 @@ def phase_surrogate(tmp, card: str) -> dict:
            "setup_s": setup, "load_s": load, "device": card}
     engine.warmup(SURROGATE["chunk"])
     engine.warmup(SURROGATE["chunk"], batch=b)
-    out["b1"] = serve_rate(engine, x8[0], steps)
-    out["b8"] = serve_rate(engine, x8, steps)
+    out["b1"] = serve_rate(engine, x8[0], steps, SURROGATE["repeats"], 1)
+    out["b8"] = serve_rate(engine, x8, steps, SURROGATE["repeats"], b)
     reply = engine.predict(x8, steps)
     require(reply.shape == (b, steps + 1, 3, n, n),
             f"fno_w reply shape {reply.shape}")
@@ -2326,6 +2363,338 @@ def phase_train(tmp, card: str) -> dict:
     return out
 
 
+# --- the 3D surrogates (phases 4 and 5) --------------------------------------
+# Neither package's 3D surrogate path reaches a Pallas kernel: the JAX
+# models are plain XLA and the data step (64^3 at 'high') takes the plain
+# matmul route. The phase trains the JAX package's 3D flagship on the card,
+# serves its checkpoint, and holds the families, the engines and
+# cli.evaluate to the CPU.
+
+# fno3d_a at 64^3, width 24, modes 16, depth 4, float32 at precision None,
+# 'auto' -> matmul, dealias on; 4-step pushforward with remat, batch 4,
+# lr 1e-3 cosine with 100 warm-up iterations over a 1500-iteration
+# horizon, clip 1.0 (RESULTS.md "3D surrogate extrapolation quality",
+# round-5 row "width 24, modes 16, 1500 iters, cosine+warmup+clip"); data:
+# decaying turbulence (dt 1e-3, nu 6.25e-4, k_peak max(3, n/16), seed 0,
+# 100 steps a frame; tools/bench_surrogates3d.py:105-125). Cut: 40 frames
+# (not 200) and 20 iterations (not 1500, the schedule's horizon kept).
+SURR3D = dict(n=64, width=24, modes=16, frames=40, stride=100, iters=20,
+              chunk=10, steps=100, batch=4, serve_chunk=16, repeats=3,
+              family_n=12, eval_frames=6)
+SURR3D_CARD_VS_CPU = 1e-4   # float32, 4 steps at B=1, of max|u|
+SURR3D_BUDGET_S = 90
+
+
+def turbulence3d_data(tmp) -> tuple:
+    """SURR3D's decaying-turbulence rollout of the port's 3D solver as an
+    npz of (u, v, w, p) (frames, n, n, n); returns (path, seconds)."""
+    from ns_tpu_torch.solvers import spectral3d as s3
+
+    n = SURR3D["n"]
+    cfg = s3.Spectral3DConfig(nx=n, ny=n, nz=n, dt=1e-3, nu=6.25e-4,
+                              dtype="float32", transform="auto")
+    u0 = s3.random_solenoidal_velocity(cfg, seed=0, k_peak=max(3.0, n / 16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = s3.simulate_strided(cfg, u0, SURR3D["frames"],
+                                 stride=SURR3D["stride"], device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    path = os.path.join(tmp, "turbulence3d_64.npz")
+    np.savez(path, **{k: f.cpu().numpy() for k, f in zip("uvwp", fields)})
+    return path, seconds
+
+
+def fno3d_a_config(npz: str, out_dir: str, **kw):
+    from ns_tpu_torch.train.trainer import TrainConfig
+
+    return TrainConfig(model="fno3d_a", npz_path=npz, out_dir=out_dir,
+                       fno_width=SURR3D["width"], fno_modes=SURR3D["modes"],
+                       n_frames=SURR3D["frames"], n_iters=SURR3D["iters"],
+                       ckpt_every=SURR3D["chunk"], fno_rollout_steps=4,
+                       fno_remat=True, batch_size=4, lr=1e-3,
+                       lr_schedule="cosine", warmup_iters=100,
+                       schedule_horizon=1500, grad_clip=1.0, **kw)
+
+
+def train3d_full_width(tmp, npz: str) -> dict:
+    """fno3d_a at SURR3D's configuration: 20 iterations in chunks of 10
+    (finite losses, peak memory), one chunk under set_sync_debug_mode
+    ("error"), one profiled chunk (it/s, idle share, device records an
+    iteration), then 10 + a resume of 10 against the 20 bitwise."""
+    from ns_tpu_torch.cli import profile_run
+    from ns_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = fno3d_a_config(npz, os.path.join(tmp, "fno3d_a"))
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=DEVICE)
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        losses = tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(len(losses) == SURR3D["iters"] and all(map(math.isfinite,
+                                                       losses)),
+            f"fno3d_a losses {losses}")
+    params = {k: v.detach().clone() for k, v in tr.params.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.train_chunk(SURR3D["chunk"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prof = profile_run.profile_rollout(
+        lambda: tr.train_chunk(SURR3D["chunk"]), SURR3D["chunk"])
+    del tr
+    half = fno3d_a_config(npz, os.path.join(tmp, "fno3d_a_half"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        Trainer(dataclasses.replace(half, n_iters=SURR3D["chunk"]),
+                device=DEVICE).train()
+        tr = Trainer(dataclasses.replace(
+            half, resume=os.path.join(half.out_dir, "checkpoint.npz")),
+            device=DEVICE)
+        resumed = tr.train()
+    worst = max(float((tr.params[k].detach() - params[k]).abs().max())
+                for k in params)
+    del tr, params
+    require(resumed == losses and worst == 0,
+            f"fno3d_a resume on the card: losses equal {resumed == losses}, "
+            f"params differ by {worst}")
+    return {"setup_s": setup, "train_20_s": train_s, "losses": losses,
+            "peak_gb": peak / 1e9, "ckpt": os.path.join(cfg.out_dir,
+                                                        "checkpoint.npz"),
+            "profile": {k: prof[k] for k in (
+                "steps_per_s_median_of_3", "steps_per_s", "device_idle_share",
+                "device_records_per_step", "device_busy_ms",
+                "profiled_wall_ms", "top_device_ms", "top_host_self_ms")}}
+
+
+def spectral_divergence3d(reply: np.ndarray) -> float:
+    """max|div (u, v, w)| / max|u| of a (..., 4, n, n, n) reply, the exact
+    spectral definition in float64 on the card."""
+    from ns_tpu_torch.solvers.spectral3d import _ik_mul, irfft3
+
+    n = reply.shape[-1]
+    u = torch.as_tensor(np.ascontiguousarray(reply[..., :3, :, :, :]),
+                        device=DEVICE).to(torch.float64)
+    uh = torch.fft.rfftn(u, dim=(-3, -2, -1))
+    k = torch.fft.fftfreq(n, 1.0 / n, dtype=torch.float64, device=DEVICE)
+    kz = torch.fft.rfftfreq(n, 1.0 / n, dtype=torch.float64, device=DEVICE)
+    div = irfft3(_ik_mul(k[:, None, None], uh[..., 0, :, :, :])
+                 + _ik_mul(k[None, :, None], uh[..., 1, :, :, :])
+                 + _ik_mul(kz, uh[..., 2, :, :, :]), (n, n, n))
+    return float(div.abs().max() / u.abs().max())
+
+
+def families3d_f64() -> float:
+    """fno3d (with fno_project), fno3d_w and fno3d_a in float64 at 12^3,
+    both engines, card against CPU from the same parameters and inputs: a
+    3-step rollout with its filter and recovery, and the 2-step objective
+    with its gradient. Returns the worst error of max."""
+    from ns_tpu_torch.train.trainer import (TrainConfig, build_model,
+                                            rollout_post, state_of_fields,
+                                            uvp_of_state)
+
+    n, worst = SURR3D["family_n"], 0.0
+    gen = torch.Generator().manual_seed(0)
+    obs = torch.randn(6, 1, 4, n, n, n, generator=gen, dtype=torch.float64)
+    for model in ("fno3d", "fno3d_w", "fno3d_a"):
+        for transform in ("fft", "matmul"):
+            cfg = TrainConfig(model=model, fno_width=6, fno_modes=4,
+                              fno_transform=transform, fno_project=True,
+                              fno_rollout_steps=2)
+            cpu = build_model(cfg, n, n, n, dtype=torch.float64,
+                              generator=torch.Generator().manual_seed(1))
+            with torch.no_grad():  # spectral weights at scale 1
+                for name, p in cpu.named_parameters():
+                    if name.startswith("spectral."):
+                        p.mul_(cfg.fno_width ** 2)
+            card = build_model(cfg, n, n, n, dtype=torch.float64,
+                               device="meta").to_empty(device=DEVICE)
+            card.load_state_dict(cpu.state_dict())
+            post = rollout_post(cfg)
+
+            def run(m, x):
+                s = state_of_fields(cfg, x)
+                return uvp_of_state(cfg, m.rollout(s, 3, post=post))
+
+            with torch.inference_mode():
+                want = run(cpu, obs[0])
+                got = run(card, obs[0].to(DEVICE)).cpu()
+            err = float((got - want).abs().max() / want.abs().max())
+            lw, gw = loss_and_grads(cfg, cpu, obs)
+            lg, gg = loss_and_grads(cfg, card, obs.to(DEVICE))
+            err = max(err, abs(float(lg) - float(lw)) / abs(float(lw)),
+                      grad_error(gg, gw))
+            require(bool(torch.isfinite(got).all()) and err <= FAMILY_F64,
+                    f"{model} {transform} f64 {n}^3 card vs CPU: {err:.3e} "
+                    f"(bound {FAMILY_F64})")
+            worst = max(worst, err)
+    return worst
+
+
+def fft_vs_matmul_card3d() -> dict:
+    """The two 3D spectral engines on the card at the served shape (B = 4,
+    width 24, 64^3, modes 16) with random complex weights (scale 1/width;
+    the kz = 0 plane of the mixed spectrum is not Hermitian), float32, at
+    the 2D phase's bounds (rtol 2e-4, atol 1e-5): the worst |diff| / (atol
+    + rtol |want|), and the two engines' ms a layer, in turns."""
+    from ns_tpu_torch.models.fno3d import (SpectralWeights3D,
+                                           _spectral_conv3d_fft,
+                                           _spectral_conv3d_matmul)
+
+    gen = torch.Generator().manual_seed(0)
+    n, c, m = SURR3D["n"], SURR3D["width"], SURR3D["modes"]
+    mz = min(m, n // 2 + 1)
+    s = SpectralWeights3D(c, c, 4 * m * m * mz, 1.0 / c, generator=gen)
+    W = s.mixing_table(torch.float32).detach().to(DEVICE)
+    x = torch.randn(SURR3D["batch"], c, n, n, n, generator=gen).to(DEVICE)
+    with torch.no_grad():
+        a = _spectral_conv3d_fft(W, x, m, m, mz)
+        b = _spectral_conv3d_matmul(W, x, m, m, mz)
+        r = float(((a - b).abs() / (1e-5 + 2e-4 * b.abs())).max())
+        ms = turns_ms([lambda: _spectral_conv3d_fft(W, x, m, m, mz),
+                       lambda: _spectral_conv3d_matmul(W, x, m, m, mz)], 10)
+    require(r <= 1.0, f"3D fft vs matmul on the card: {r:.3f} of the bound "
+            "rtol 2e-4 atol 1e-5")
+    return {"of_bound": r, "fft_ms": ms[0], "matmul_ms": ms[1],
+            "out_max": float(b.abs().max())}
+
+
+def evaluate3d_card_vs_cpu(tmp, ckpt: str, npz: str) -> float:
+    """`evaluate_on_both` on the first SURR3D["eval_frames"] frames of the
+    64^3 data."""
+    short = os.path.join(tmp, "turbulence3d_short.npz")
+    with np.load(npz) as d:
+        np.savez(short, **{k: d[k][:SURR3D["eval_frames"]] for k in "uvwp"})
+        umax = float(np.abs(d["u"][:SURR3D["eval_frames"]]).max())
+    return evaluate_on_both(tmp, ckpt, short, umax, "cli.evaluate 3D")
+
+
+def divergence_max_card_vs_cpu() -> dict:
+    """spectral3d.divergence_max of a float64 field that is not
+    band-limited (its i*k Nyquist rows make a non-Hermitian spectrum), on
+    the card against the CPU, through the fft engine's inverse."""
+    from ns_tpu_torch.solvers import spectral3d as s3
+
+    n = SURR3D["n"]
+    cfg = s3.Spectral3DConfig(nx=n, ny=n, nz=n, dtype="float64")
+    u = torch.randn(3, n, n, n, generator=torch.Generator().manual_seed(3),
+                    dtype=torch.float64)
+    uh = torch.fft.rfftn(u, dim=(-3, -2, -1))
+    want = float(s3.divergence_max(cfg, uh))
+    got = float(s3.divergence_max(cfg, uh.to(DEVICE)))
+    rel = abs(got - want) / want
+    require(rel <= 1e-12, f"divergence_max card {got!r} vs CPU {want!r}")
+    return {"card": got, "cpu": want, "rel": rel}
+
+
+def phase_surrogate3d(tmp, card: str) -> dict:
+    """Train fno3d_a at SURR3D's configuration on the card, serve its
+    checkpoint through InferenceEngine.from_checkpoint (B = 1 and B = 4,
+    100-step requests, chunk 16, a profiled chunk each), and hold it:
+    finite, solenoidal, card against CPU, the families in float64, fft
+    against matmul, cli.evaluate card against CPU, divergence_max card
+    against CPU; no kernel of the library launched."""
+    from ns_tpu_torch.cli import profile_run
+    from ns_tpu_torch.ops import kernels
+    from ns_tpu_torch.serve import InferenceEngine
+
+    print("phase 4/5: the 3D surrogates (no kernel of the library)")
+    before = kernels.launch_counts()
+    n, steps, b = SURR3D["n"], SURR3D["steps"], SURR3D["batch"]
+    npz, data_s = turbulence3d_data(tmp)
+    out = {"config": {"model": "fno3d_a", "grid": [n, n, n],
+                      "width": SURR3D["width"], "modes": SURR3D["modes"],
+                      "depth": 4, "frames": SURR3D["frames"],
+                      "iters": SURR3D["iters"], "batch_size": 4,
+                      "rollout_steps": 4, "remat": True,
+                      "steps": steps, "serve_chunk": SURR3D["serve_chunk"]},
+           "data_s": data_s, "device": card}
+    out["train"] = tr = train3d_full_width(tmp, npz)
+    ckpt = tr.pop("ckpt")
+    engine = InferenceEngine.from_checkpoint(
+        ckpt, chunk=SURR3D["serve_chunk"], device=DEVICE)
+    out["config"]["transform"] = engine.models[0].transform
+    with np.load(npz) as d:
+        x4 = np.stack([d[k][:b] for k in "uvwp"], axis=1)  # (B, 4, n, n, n)
+    serve = {}
+    for label, x, bb in (("b1", x4[0], 1), ("b4", x4, b)):
+        engine.warmup(SURR3D["serve_chunk"], batch=bb)
+        serve[label] = serve_rate(engine, x, steps, SURR3D["repeats"], bb)
+        r = profile_run.profile_rollout(
+            lambda x=x: engine.predict(x, SURR3D["serve_chunk"]),
+            SURR3D["serve_chunk"])
+        serve["profile_" + label] = {k: r[k] for k in (
+            "steps_per_s_median_of_3", "device_idle_share",
+            "device_records_per_step", "device_busy_ms", "profiled_wall_ms",
+            "top_device_ms", "top_host_self_ms", "memcpy_dtoh_ms")}
+        # the reply's copy: the profiled chunk's device-to-host records
+        require(r["memcpy_dtoh_ms"] > 0,
+                f"the profiled {label} chunk recorded no reply copy")
+        serve[label].update(
+            copy_ms_per_frame=r["memcpy_dtoh_ms"] / (SURR3D["serve_chunk"]
+                                                     * bb),
+            frame_ms=r["profiled_wall_ms"] / (SURR3D["serve_chunk"] * bb),
+            copy_share=r["memcpy_dtoh_ms"] / r["profiled_wall_ms"])
+    out["serve"] = serve
+    reply = engine.predict(x4, steps)
+    require(reply.shape == (b, steps + 1, 4, n, n, n)
+            and bool(np.isfinite(reply).all()),
+            f"fno3d_a reply {reply.shape}, finite {np.isfinite(reply).all()}")
+    out["divergence_rel"] = spectral_divergence3d(reply)
+    out["divergence_rel_request"] = spectral_divergence3d(x4)
+    del reply
+    require(out["divergence_rel"] <= SURR_DIV,
+            f"fno3d_a reply divergence {out['divergence_rel']:.3e} of "
+            f"max|u| (bound {SURR_DIV})")
+    cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu")
+    want = cpu.predict(x4[0], 4)
+    got = engine.predict(x4[0], 4)
+    out["card_vs_cpu_f32"] = float(np.abs(got - want).max()
+                                   / np.abs(want[:, :3]).max())
+    require(out["card_vs_cpu_f32"] <= SURR3D_CARD_VS_CPU,
+            f"fno3d_a f32 card vs CPU {out['card_vs_cpu_f32']:.3e} of max|u| "
+            f"(bound {SURR3D_CARD_VS_CPU})")
+    del cpu, engine
+    out["families_f64"] = families3d_f64()
+    out["fft_vs_matmul"] = fft_vs_matmul_card3d()
+    out["evaluate_rel"] = evaluate3d_card_vs_cpu(tmp, ckpt, npz)
+    out["divergence_max_card_vs_cpu"] = divergence_max_card_vs_cpu()
+    ran = {k for k, c in kernels.launch_counts().items() if c > before[k]}
+    require(not ran, f"the 3D surrogate phase launched kernels: {ran}")
+    pr, t = tr["profile"], tr
+    print(f"  data: {SURR3D['frames']} frames of {n}^3 turbulence "
+          f"({SURR3D['frames'] * SURR3D['stride']} solver steps) in "
+          f"{data_s:.1f} s; {card}")
+    print(f"  fno3d_a {n}^3 w{SURR3D['width']} m{SURR3D['modes']} k=4 remat "
+          f"B=4: {pr['steps_per_s_median_of_3']:.2f} it/s, idle "
+          f"{pr['device_idle_share']:.3f}, "
+          f"{pr['device_records_per_step']:.0f} device records an "
+          f"iteration, peak {t['peak_gb']:.2f} GB, loss {t['losses'][0]:.3f}"
+          f" -> {t['losses'][-1]:.3f}; top {pr['top_device_ms'][:3]}; {card}")
+    for label in ("b1", "b4"):
+        r, p = serve[label], serve["profile_" + label]
+        print(f"  served {label.upper()}: {r['frames_per_s']:.1f} frames/s, "
+              f"p50 {r['p50_s'] * 1e3:.1f} ms a {steps}-step request; "
+              f"reply copy {r['copy_ms_per_frame']:.2f} of "
+              f"{r['frame_ms']:.2f} ms a frame ({r['copy_share']:.2f}); "
+              f"chunk {p['steps_per_s_median_of_3']:.1f} steps/s, idle "
+              f"{p['device_idle_share']:.3f}; top {p['top_device_ms'][:3]}")
+    fm = out["fft_vs_matmul"]
+    print(f"  checks: resume bitwise; divergence {out['divergence_rel']:.2e} "
+          f"of max|u| (request {out['divergence_rel_request']:.2e}); card vs "
+          f"CPU f32 {out['card_vs_cpu_f32']:.2e}; families f64 "
+          f"{out['families_f64']:.2e}; fft vs matmul {fm['of_bound']:.3f} "
+          f"of the bound (fft {fm['fft_ms']:.3f}, matmul "
+          f"{fm['matmul_ms']:.3f} ms a layer); cli.evaluate "
+          f"{out['evaluate_rel']:.2e}; divergence_max card vs CPU "
+          f"{out['divergence_max_card_vs_cpu']['rel']:.1e}")
+    return out
+
+
 # --- report ------------------------------------------------------------------
 
 KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
@@ -2413,10 +2782,14 @@ def require_no_jax():
             "the JAX package was imported")
 
 
-def timed_phase(name: str, fn, *args):
+def timed_phase(name: str, fn, *args, budget_s=None):
     t0 = time.perf_counter()
     out = fn(*args)
-    print(f"[{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    took = time.perf_counter() - t0
+    budget = "" if budget_s is None else (
+        f"; {'within' if took <= budget_s else 'OVER'} its {budget_s} s "
+        "budget")
+    print(f"[{name}: {took:.1f} s{budget}]", flush=True)
     require_no_jax()
     return out
 
@@ -2440,6 +2813,8 @@ def main():
                     cheb.pop("npz_1024"))
         surrogate = timed_phase("surrogate", phase_surrogate, tmp, card)
         training = timed_phase("train", phase_train, tmp, card)
+        surrogate3d = timed_phase("surrogate 3d", phase_surrogate3d, tmp,
+                                  card, budget_s=SURR3D_BUDGET_S)
     require_no_jax()
     kernels = report(res, main_path)
     print(json.dumps({"card": card,
@@ -2456,7 +2831,8 @@ def main():
                                   "device_idle_share", "setup_s",
                                   "top_device_ms", "top_host_self_ms")}
                               for prec, r in cheb["profile"].items()}},
-                      "surrogate": surrogate, "train": training}))
+                      "surrogate": surrogate, "train": training,
+                      "surrogate3d": surrogate3d}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

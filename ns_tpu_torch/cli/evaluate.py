@@ -7,13 +7,11 @@ horizon, per field, along the horizon, and against the persistence
 baseline (frame 0 forever). Ensemble checkpoints are scored as the member
 mean, with the member spread beside it. `--physics` adds the periodic
 grid's observables: the time-mean energy-spectrum error and the max
-spectral divergence of the prediction.
+spectral divergence of the prediction (2D, and 3D (u, v, w, p) data).
 
 The checkpoint rollout and `--physics` run on the card unless given
 `--device cpu` (without a card they exit with an error); scoring a saved
-extrapolation without `--physics` is numpy only. 3D (u, v, w, p) data is
-scored from a saved extrapolation; its checkpoint rollout and physics are
-not ported yet.
+extrapolation without `--physics` is numpy only.
 
 Examples:
   python -m ns_tpu_torch.cli.evaluate --ckpt checkpoints/fno_w_10 \\
@@ -115,6 +113,41 @@ def physics_metrics(pred: np.ndarray, obs: np.ndarray, device=None) -> dict:
     }
 
 
+def physics_metrics3d(pred: np.ndarray, obs: np.ndarray,
+                      device=None) -> dict:
+    """The 3D counterpart of `physics_metrics` on (nt, 4, nx, ny, nz)
+    (u, v, w, p) rollouts: the time-mean shell-binned energy-spectrum error
+    and the max spectral divergence of the predicted velocity (the 3D
+    solver's diagnostics, float32 as the JAX package's), on `device`
+    (None: the card)."""
+    import torch
+
+    from ns_tpu_torch.core.device import resolve_device
+    from ns_tpu_torch.solvers import spectral3d as s3
+
+    device = resolve_device(device)
+    nt, (nx, ny, nz) = obs.shape[0], obs.shape[-3:]
+    cfg = s3.Spectral3DConfig(nx=nx, ny=ny, nz=nz)
+
+    def per_seq(seq):
+        vel = torch.as_tensor(np.ascontiguousarray(seq[:, :3]), device=device)
+        u_hat = torch.fft.rfftn(vel, dim=(-3, -2, -1))   # (nt, 3, ...)
+        # energy_spectrum sums its first axis: every component of every
+        # frame into one spectrum, so /nt is the time mean
+        spec = s3.energy_spectrum(cfg, u_hat.flatten(0, 1))[1] / nt
+        div = s3.divergence_max(cfg, u_hat.transpose(0, 1))
+        return spec.cpu().numpy(), float(div)
+
+    spec_p, div_p = per_seq(pred)
+    spec_o, div_o = per_seq(obs)
+    return {
+        "spectrum_rel_l2": float(np.linalg.norm(spec_p - spec_o)
+                                 / np.linalg.norm(spec_o)),
+        "divergence_max_pred": div_p,
+        "divergence_max_obs": div_o,
+    }
+
+
 def _print_report(report: dict) -> None:
     print(f"frames: {report['n_frames']} (train window "
           f"{report['n_train']})")
@@ -169,8 +202,8 @@ def main(argv=None):
     p.add_argument("--physics", action="store_true",
                    help="add periodic-grid physics observables: time-mean "
                         "energy-spectrum error and exact spectral "
-                        "divergence of the prediction (2*pi-periodic 2D "
-                        "data only)")
+                        "divergence of the prediction (2*pi-periodic "
+                        "data only, 2D and 3D)")
     p.add_argument("--json", default=None,
                    help="also write the full report as JSON here")
     p.add_argument("--device", default="cuda",
@@ -182,9 +215,6 @@ def main(argv=None):
         is_3d = "w" in d  # run_solver *_3d rollouts carry (u, v, w, p)
         names = ("u", "v", "w", "p") if is_3d else ("u", "v", "p")
         fields = [d[k] for k in names]
-    if is_3d and (args.ckpt or args.physics):
-        p.error("3D (u, v, w, p) data: the 3D checkpoint rollout and "
-                "physics are not yet ported to ns_tpu_torch, see ROADMAP.md")
     if fields[0].ndim == 4 + is_3d:  # multi-trajectory dataset
         if not 0 <= args.traj < fields[0].shape[0]:
             raise SystemExit(f"--traj must be in [0, "
@@ -241,7 +271,8 @@ def main(argv=None):
     if ensemble:
         report["ensemble"] = ensemble
     if args.physics:
-        report["physics"] = physics_metrics(pred, obs, device)
+        report["physics"] = (physics_metrics3d if is_3d else
+                             physics_metrics)(pred, obs, device)
     _print_report(report)
     if args.json:
         with open(args.json, "w") as f:

@@ -43,7 +43,8 @@ from ns_tpu_torch.cli import run_solver
 def profile_rollout(run, nt: int) -> dict:
     """Steps/s (one warm-up, then the median of three timed calls of
     `run`, each `nt` steps ending in a synchronize), then one call under
-    the profiler: its device idle share, top kernels and top host ops."""
+    the profiler: its device idle share, top kernels, top host ops and
+    the device-to-host copies' time."""
     def timed() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -76,6 +77,8 @@ def profile_rollout(run, nt: int) -> dict:
         "top_device_ms": [[name[:80], t / 1e3, n] for name, (t, n) in top],
         "top_host_self_ms": [[e.key[:80], e.self_cpu_time_total / 1e3,
                               e.count] for e in host[:6]],
+        "memcpy_dtoh_ms": sum(t for name, (t, _) in by_kernel.items()
+                              if name.startswith("Memcpy DtoH")) / 1e3,
     }
 
 

@@ -1,4 +1,4 @@
-"""Train a surrogate model: one CLI for every 2D family.
+"""Train a surrogate model: one CLI for every family, 2D and 3D.
 
 Port of `ns_tpu/cli/train.py`, with every flag of the JAX CLI: the
 reference's (--npz-path --out-dir --n-iters --n-coeffs --gpu-device; the
@@ -6,8 +6,8 @@ output directory gets the _{n_coeffs} suffix), --model, --resume and the
 operator families' and schedule's knobs, plus --device. Training runs on
 the card unless given --device cpu (without a card the command exits with
 an error); --gpu-device is accepted and ignored. --n-models > 1 trains an
-ensemble, on the one card whatever --mesh says. --dp > 1, --dist and the
-3D families are not yet ported and exit with an error. Writes
+ensemble, on the one card whatever --mesh says. --dp > 1 and --dist are
+not yet ported and exit with an error. Writes
 checkpoint.npz (+ .meta.json) every --ckpt-every iterations,
 metrics.jsonl, and extrapolation.npy at the end.
 
@@ -16,6 +16,9 @@ Examples:
       --npz-path data_semi_implicit.npz
   python -m ns_tpu_torch.cli.train --model fno_w --npz-path turb.npz \\
       --fno-width 64 --fno-modes 43 --n-iters 200 --device cpu
+  python -m ns_tpu_torch.cli.train --model fno3d_a --npz-path turb3d.npz \
+      --fno-width 24 --fno-modes 16 --fno-rollout-steps 4 --fno-remat \
+      --batch-size 4 --lr-schedule cosine --warmup-iters 100 --grad-clip 1
 """
 
 import argparse
@@ -24,8 +27,8 @@ import os
 import numpy as np
 
 from ns_tpu_torch.core.device import resolve_device
-from ns_tpu_torch.train.trainer import (_3D, MODELS, NOT_PORTED,
-                                        TrainConfig, Trainer)
+from ns_tpu_torch.train.trainer import (MODELS, NOT_PORTED, TrainConfig,
+                                        Trainer)
 
 
 def main(argv=None):
@@ -65,10 +68,12 @@ def main(argv=None):
                    help="fno families: rematerialize each k-step unroll step "
                         "in the backward pass")
     p.add_argument("--fno-project", action="store_true",
-                   help="fno: compose the exact spectral divergence "
-                        "projection into the autoregressive rollout")
+                   help="fno/fno3d: compose the exact spectral divergence "
+                        "(2D) / Leray (3D) projection into the "
+                        "autoregressive rollout")
     p.add_argument("--no-fno-dealias", action="store_true",
-                   help="fno_w/fno_psi: disable the 2/3-band rollout filter")
+                   help="fno_w/fno_psi/fno3d: disable the 2/3-band rollout "
+                        "filter")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint.npz to continue (the JAX package's too)")
     p.add_argument("--n-models", type=int, default=1,
@@ -104,8 +109,6 @@ def main(argv=None):
                 "ensembles shard the 'ensemble' axis instead (use --mesh)")
     if args.dist or args.dp > 1:
         p.error(f"--dist and --dp > 1 (data-parallel training) {NOT_PORTED}")
-    if args.model in _3D:
-        p.error(f"the 3D family {args.model!r} {NOT_PORTED}")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

@@ -172,16 +172,43 @@ class SpectralWeights(nn.Module):
         return W.permute(2, 3, 0, 1).reshape(R * my, C, C_out)
 
 
-def _resolve_transform(transform: str, nx: int, ny: int) -> str:
+def _resolve_transform(transform: str, *sides: int) -> str:
     if transform not in ("auto", "fft", "matmul"):
         raise ValueError(f"transform must be auto|fft|matmul, got "
                          f"{transform!r}")
     if transform == "auto":
-        return "matmul" if max(nx, ny) <= _MATMUL_MAX_SIDE else "fft"
+        return "matmul" if max(sides) <= _MATMUL_MAX_SIDE else "fft"
     return transform
 
 
-class FNO2D(nn.Module):
+class NextStepOperator(nn.Module):
+    """A residual next-step map x -> x + body(x): `prepare` builds what every
+    step of a forward pass or a rollout shares, `_body` is the network."""
+
+    def step(self, x: torch.Tensor, prepared) -> torch.Tensor:
+        return x + self._body(x, prepared)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., channels, *grid) -> the next state."""
+        return self.step(x, self.prepare(x.dtype, x.device))
+
+    def rollout(self, x0: torch.Tensor, n_steps: int,
+                post=None) -> torch.Tensor:
+        """Autoregressive extrapolation: (..., C, *grid) -> stacked
+        (n_steps, ..., C, *grid). `post`, if given, maps each prediction
+        onto a constraint manifold before it is fed forward (dealias
+        filtering, divergence projection)."""
+        prepared = self.prepare(x0.dtype, x0.device)
+        xs, x = [], x0
+        for _ in range(n_steps):
+            x = self.step(x, prepared)
+            if post is not None:
+                x = post(x)
+            xs.append(x)
+        return torch.stack(xs) if xs else x0.new_zeros((0,) + x0.shape)
+
+
+class FNO2D(NextStepOperator):
     """Next-step operator on (..., channels, nx, ny) fields."""
 
     def __init__(self, nx: int, ny: int, width: int = 32, modes: int = 12,
@@ -231,25 +258,3 @@ class FNO2D(nn.Module):
                                self.precision)
             h = F.gelu(s + byp.channels(h), approximate="tanh")
         return self.proj.channels(h)
-
-    def step(self, x: torch.Tensor, prepared) -> torch.Tensor:
-        return x + self._body(x, prepared)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (..., channels, nx, ny) -> the next state."""
-        return self.step(x, self.prepare(x.dtype, x.device))
-
-    def rollout(self, x0: torch.Tensor, n_steps: int,
-                post=None) -> torch.Tensor:
-        """Autoregressive extrapolation: (..., C, nx, ny) -> stacked
-        (n_steps, ..., C, nx, ny). `post`, if given, maps each prediction
-        onto a constraint manifold before it is fed forward (dealias
-        filtering, divergence projection)."""
-        prepared = self.prepare(x0.dtype, x0.device)
-        xs, x = [], x0
-        for _ in range(n_steps):
-            x = self.step(x, prepared)
-            if post is not None:
-                x = post(x)
-            xs.append(x)
-        return torch.stack(xs) if xs else x0.new_zeros((0,) + x0.shape)

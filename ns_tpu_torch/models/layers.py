@@ -63,11 +63,12 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return matmul(x, self.w, None) + self.b
 
-    def channels(self, h: torch.Tensor) -> torch.Tensor:
-        """The layer on the channel axis of (..., in, nx, ny) -> (..., out,
-        nx, ny): one product w^T @ h per sample, no transposes of h."""
-        out = matmul(self.w.T, h.flatten(-2), None) + self.b[:, None]
-        return out.unflatten(-1, h.shape[-2:])
+    def channels(self, h: torch.Tensor, spatial: int = 2) -> torch.Tensor:
+        """The layer on the channel axis of (..., in, *grid) -> (..., out,
+        *grid), `spatial` grid axes: one product w^T @ h per sample, no
+        transposes of h."""
+        out = matmul(self.w.T, h.flatten(-spatial), None) + self.b[:, None]
+        return out.unflatten(-1, h.shape[-spatial:])
 
 
 class GRUCell(nn.Module):

@@ -1,13 +1,13 @@
 """Training-free divergence-free projection of predicted velocity fields.
 
-Port of the 2D half of `ns_tpu/models/projection.py` (the 3D Leray
-projection and the 3D rollout filter are not ported yet). A Helmholtz
-projection
+Port of `ns_tpu/models/projection.py`. A Helmholtz projection
 
     u <- u - grad(phi),   laplace(phi) = div(u)
 
 restores div(u) = 0 without touching the model:
-  - periodic: diagonal in Fourier space (one rfft2 pair);
+  - periodic: diagonal in Fourier space (one rfft2 pair; in 3D the Leray
+    projection of (u, v, w), one rfftn pair, and the 3D rollout filter,
+    which also dealiases every channel);
   - bounded (the reference's cavity data): phi solves a homogeneous-
     Dirichlet Poisson problem by the port's geometric multigrid (2^k + 1
     grids), with backward divergence and forward gradient, whose
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ns_tpu_torch.ops.cache import device_table
 from ns_tpu_torch.ops.multigrid import poisson_multigrid
+from ns_tpu_torch.solvers.spectral3d import irfft3
 from ns_tpu_torch.solvers.spectral_periodic import _ik_mul, irfft2
 
 
@@ -94,3 +95,63 @@ def project_bounded(u: torch.Tensor, v: torch.Tensor, dx: float, dy: float,
     gx = F.pad((phi[:, 1:] - phi[:, :-1]) / dx, (0, 1, 0, 0))
     gy = F.pad((phi[1:, :] - phi[:-1, :]) / dy, (0, 0, 0, 1))
     return u - gx, v - gy
+
+
+@device_table()
+def _leray3d_ops(nx: int, ny: int, nz: int, dtype: torch.dtype,
+                 device: torch.device):
+    """((kx (nx, 1, 1), ky (1, ny, 1), kz (1, 1, nzh)) with the unpaired
+    Nyquist modes zeroed, 1/k^2 with the mean mode 0), and the 2/3-band
+    mask of the rfftn layout."""
+    kx = np.fft.fftfreq(nx, d=1.0 / nx)[:, None, None]
+    ky = np.fft.fftfreq(ny, d=1.0 / ny)[None, :, None]
+    kz = np.fft.rfftfreq(nz, d=1.0 / nz)[None, None, :]
+    mask = ((np.abs(kx) < nx / 3.0) & (np.abs(ky) < ny / 3.0)
+            & (kz < nz / 3.0))
+    if nx % 2 == 0:
+        kx[nx // 2] = 0.0
+    if ny % 2 == 0:
+        ky[0, ny // 2] = 0.0
+    if nz % 2 == 0:
+        kz[0, 0, -1] = 0.0
+    k2 = kx * kx + ky * ky + kz * kz
+    inv_k2 = np.where(k2 == 0.0, 0.0, 1.0 / np.where(k2 == 0.0, 1.0, k2))
+    t = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)  # noqa: E731
+    return ((t(kx), t(ky), t(kz), t(inv_k2)),
+            torch.as_tensor(mask, device=device))
+
+
+def _leray3d_hat(k, uh, vh, wh):
+    """The projected spectra: v_hat - k (k . v_hat) / k^2."""
+    kx, ky, kz, inv_k2 = k
+    corr = (kx * uh + ky * vh + kz * wh) * inv_k2
+    return uh - kx * corr, vh - ky * corr, wh - kz * corr
+
+
+def project_leray3d(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor):
+    """Exact spectral Leray projection on [0, 2*pi)^3 grids of any shape
+    (..., nx, ny, nz), the 3D counterpart of `project_periodic`."""
+    s = u.shape[-3:]
+    k, _ = _leray3d_ops(*s, u.dtype, u.device)
+    uvw = torch.fft.rfftn(torch.stack([u, v, w], dim=-4), dim=(-3, -2, -1))
+    out = irfft3(torch.stack(_leray3d_hat(k, *uvw.unbind(-4)), dim=-4), s)
+    return out.unbind(-4)
+
+
+def rollout_filter3d(x: torch.Tensor, project: bool = True,
+                     dealias: bool = True) -> torch.Tensor:
+    """The constraint filter of 3D surrogate rollouts on channel-stacked
+    (..., 4, nx, ny, nz) (u, v, w, p) states: the 2/3-band dealias of every
+    channel and/or the exact Nyquist-safe Leray projection of the velocity
+    channels, in one spectral round trip."""
+    if not (project or dealias):
+        return x
+    s = x.shape[-3:]
+    k, mask = _leray3d_ops(*s, x.dtype, x.device)
+    xh = torch.fft.rfftn(x, dim=(-3, -2, -1))
+    if dealias:
+        xh = torch.where(mask, xh, 0.0)
+    if project:
+        uh, vh, wh, ph = xh.unbind(-4)
+        xh = torch.stack([*_leray3d_hat(k, uh, vh, wh), ph], dim=-4)
+    return irfft3(xh, s)

@@ -73,6 +73,33 @@ def _default_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+# a layer's weight gradient sums x_b @ y_b over the batch b, each a small
+# (m, n) tile over a long contraction K (the grid's points), one block of
+# the card a tile. Under _CUT_BATCH samples, K is cut into pieces of
+# _PIECE (halving while it divides), one batched product over all the
+# pieces, summed after; from _CUT_BATCH on, the batch fills the card
+# uncut, and the copies a cut takes cost more than it saves. On the H100
+# (PERF.md, tools/torch_weight_grad.py): cut, fno3d_a's batch of 4 over
+# 64^3 ran 0.29 ms a bypass gradient (8.66 uncut) and a batch of 32 2.09
+# (8.16); uncut, fno_w's 99 windows over 128^2 ran 0.62 (1.16 cut), and
+# 199 windows over 64^2 0.26 (0.63 cut).
+_CUT_BATCH, _PIECE = 64, 1024
+
+
+def _batch_contract(product, x: torch.Tensor, y: torch.Tensor):
+    """The sum over the batch axes of x @ y, x (..., m, K), y (..., K, n):
+    (m, n)."""
+    m, K = x.shape[-2:]
+    nb, c = x.numel() // (m * K), 1
+    while (nb < _CUT_BATCH and K % (2 * c) == 0
+           and K // (2 * c) >= _PIECE):
+        c *= 2
+    L = K // c
+    x4 = x.reshape(nb, m, c, L).transpose(1, 2)              # (B, c, m, L)
+    y4 = y.reshape(nb, c, L, y.shape[-1])                    # (B, c, L, n)
+    return product(x4, y4).sum((0, 1))
+
+
 class _Product(torch.autograd.Function):
     """a @ b (both at least 2D) by `product`, whose backward runs the
     transposed products by the same `product`; a broadcast operand's
@@ -90,7 +117,10 @@ class _Product(torch.autograd.Function):
         product = ctx.product
         ga = gb = None
         if ctx.needs_input_grad[0]:
-            ga = product(g, b.mH).sum_to_size(a.shape)
+            if a.dim() == 2 and b.dim() > 2:  # a layer's weight gradient
+                ga = _batch_contract(product, g, b.mH)
+            else:
+                ga = product(g, b.mH).sum_to_size(a.shape)
         if ctx.needs_input_grad[1]:
             if b.dim() == 2 and a.dim() > 2:  # one product over the batch
                 k, n = a.shape[-1], g.shape[-1]

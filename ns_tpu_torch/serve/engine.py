@@ -1,17 +1,17 @@
 """In-process inference engine: checkpoint directory -> rollouts on the card.
 
-Port of `ns_tpu/serve/engine.py` for the 2D families (the 3D ones raise
-"not yet ported"). The engine rebuilds any trained surrogate (rnn, the
-four basis families, fno, fno_w, fno_psi) from a checkpoint alone (its
-meta JSON carries the full TrainConfig and the grid), loads the JAX
-parameter tree into the torch model (`train/checkpoint.py::
-params_from_jax`) and serves `predict(frame0, n_steps)` under
-`torch.inference_mode()`:
+Port of `ns_tpu/serve/engine.py`. The engine rebuilds any trained
+surrogate (rnn, the four basis families, fno, fno_w, fno_psi and the 3D
+fno3d, fno3d_w, fno3d_a) from a checkpoint alone (its meta JSON carries
+the full TrainConfig and the grid), loads the JAX parameter tree into the
+torch model (`train/checkpoint.py::params_from_jax`) and serves
+`predict(frame0, n_steps)` under `torch.inference_mode()`:
 
 - the operator families roll out autoregressively in chunks of at most
-  `chunk` steps, each chunk's frames copied to the host once (fno_w's
-  w -> (u, v, p) recovery runs on the card before the copy, in float64),
-  which bounds device memory on long replies;
+  `chunk` steps, each chunk's frames copied to the host once (the
+  recovery of fno_w's (u, v, p) and of fno3d_w's and fno3d_a's (u, v, w,
+  p) runs on the card before the copy, in float64), which bounds device
+  memory on long replies;
 - the basis families discretise t in [0, 1] into the requested horizon
   (models/node.py), so the horizon is the time grid and is not chunked;
 - rnn rolls out closed-loop.
@@ -36,9 +36,9 @@ import torch
 
 from ns_tpu_torch.core.device import resolve_device
 from ns_tpu_torch.train.checkpoint import load_meta, params_from_jax
-from ns_tpu_torch.train.trainer import (_3D, FNO_FAMILIES, NOT_PORTED,
-                                        TrainConfig, load_obs, rollout_post,
-                                        uvp_of_state)
+from ns_tpu_torch.train.trainer import (FNO_FAMILIES, TrainConfig,
+                                        load_obs, rollout_post,
+                                        state_of_fields, uvp_of_state)
 from ns_tpu_torch.train.trainer import build_model as _build_model
 
 
@@ -106,25 +106,25 @@ class InferenceEngine(ServingBase):
     """Serve full-state extrapolation from a trained surrogate.
 
     predict(frame0, n_steps) -> frames (numpy float32):
-      frame0  (3, nx, ny) or (B, 3, nx, ny) (u, v, p)
-      frames  (n_steps + 1, 3, nx, ny) / (B, n_steps + 1, 3, nx, ny);
-              frames[..., 0, :, :, :] is the input frame (for fno_w its
-              (u, v, p) recovered from its vorticity), so frames[t]
-              approximates the state t surrogate frames later. For an
-              ensemble (M models) a leading member axis is prepended.
+      frame0  (3, nx, ny) or (B, 3, nx, ny) (u, v, p); for the 3D families
+              (4, nx, ny, nz) or (B, 4, nx, ny, nz) (u, v, w, p)
+      frames  (n_steps + 1,) + frame0's state shape, B leading if batched;
+              frames[..., 0, :, ...] is the input frame (for fno_w, fno3d_w
+              and fno3d_a its fields recovered from the model's
+              representation), so frames[t] approximates the state t
+              surrogate frames later. For an ensemble (M models) a leading
+              member axis is prepended.
 
     `models` holds one module per ensemble member, parameters loaded, on
-    `device`.
+    `device`; `nz` is the 3D families' third grid side.
     """
 
     def __init__(self, cfg: TrainConfig, models, nx: int, ny: int,
-                 chunk: int = 64, device=None):
+                 chunk: int = 64, device=None, nz: int | None = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        if cfg.model in _3D:
-            raise NotImplementedError(f"the 3D family {cfg.model!r} "
-                                      f"{NOT_PORTED}")
         self.cfg, self.nx, self.ny, self.chunk = cfg, nx, ny, chunk
+        self.nz = nz
         self.device = resolve_device(device)
         self.models = [m.to(self.device).eval() for m in models]
         self.n_models = len(self.models)
@@ -152,25 +152,26 @@ class InferenceEngine(ServingBase):
         else:  # a checkpoint from before the grid was recorded: its data
             grid = list(load_obs(cfg.npz_path, 1).shape[3:])
         nx, ny = grid[0], grid[1]
+        nz = grid[2] if len(grid) == 3 else None
         n_models = int(meta.get("n_models", 1))
         flat = _params_of(ckpt)
         models = []
         for m in range(n_models):
-            model = _build_model(cfg, nx, ny, device="meta")
+            model = _build_model(cfg, nx, ny, nz, device="meta")
             model = model.to_empty(device=device)
             member = flat if n_models == 1 else {k: v[m]
                                                  for k, v in flat.items()}
             models.append(params_from_jax(model, member,
                                           what=f"checkpoint {ckpt}"))
-        return cls(cfg, models, nx, ny, chunk=chunk, device=device)
+        return cls(cfg, models, nx, ny, chunk=chunk, device=device, nz=nz)
 
     # -- rollouts -------------------------------------------------------------
 
     def _rollout_fno(self, model, x: torch.Tensor, n_steps: int,
                      out: torch.Tensor) -> None:
-        """Fill out (n_steps + 1, B, 3, nx, ny) on the host: frame 0 is the
-        request state echoed in (u, v, p) space, then one host copy a chunk
-        of at most `chunk` steps."""
+        """Fill out (n_steps + 1, B) + the state shape on the host: frame 0
+        is the request state echoed in the data's fields, then one host copy
+        a chunk of at most `chunk` steps."""
         out[0].copy_(uvp_of_state(self.cfg, x))
         state, done = x, 0
         while done < n_steps:
@@ -182,11 +183,10 @@ class InferenceEngine(ServingBase):
             done += length
 
     def _run(self, x: torch.Tensor, n_steps: int, out: torch.Tensor) -> None:
-        """x (B, 3, nx, ny) on the device; fill out (M, n_steps + 1, B, 3,
-        nx, ny) on the host."""
-        if self.cfg.model == "fno_w":
-            from ns_tpu_torch.models.vorticity import vorticity_from_uv
-            x = vorticity_from_uv(x[:, 0], x[:, 1])[:, None]  # (B, 1, nx, ny)
+        """x (B,) + the state shape on the device; fill out (M, n_steps + 1,
+        B) + the state shape on the host."""
+        if self.cfg.model in FNO_FAMILIES:
+            x = state_of_fields(self.cfg, x)
         for model, out_m in zip(self.models, out):
             if self.cfg.model in FNO_FAMILIES:
                 self._rollout_fno(model, x, n_steps, out_m)
@@ -201,23 +201,29 @@ class InferenceEngine(ServingBase):
 
     # -- public API ---------------------------------------------------------
 
+    def _state_shape(self) -> tuple:
+        return ((4, self.nx, self.ny, self.nz) if self.nz
+                else (3, self.nx, self.ny))
+
     def predict(self, frame0: np.ndarray, n_steps: int) -> np.ndarray:
         frame0 = np.asarray(frame0, dtype=np.float32)
-        state_shape = (3, self.nx, self.ny)
-        if (frame0.ndim not in (3, 4) or frame0.shape[-3:] != state_shape):
+        state_shape = self._state_shape()
+        r = len(state_shape)
+        if (frame0.ndim not in (r, r + 1)
+                or frame0.shape[-r:] != state_shape):
             raise ValueError(
                 f"frame0 must be {state_shape} or (B,) + {state_shape}; "
                 f"got {frame0.shape}")
         if n_steps < 0:
             raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-        batched = frame0.ndim == 4
+        batched = frame0.ndim == r + 1
         x = frame0 if batched else frame0[None]
         t0 = time.perf_counter()
         seq = np.empty((self.n_models, n_steps + 1) + x.shape, np.float32)
         with torch.inference_mode():
             self._run(torch.tensor(x, device=self.device), n_steps,
                       torch.from_numpy(seq))
-        # (M, n_steps + 1, B, 3, nx, ny) -> (M, B, n_steps + 1, 3, nx, ny)
+        # (M, n_steps + 1, B, ...) -> (M, B, n_steps + 1, ...)
         out = np.moveaxis(seq, 1, 2)
         if not batched:
             out = out[:, 0]
@@ -229,7 +235,7 @@ class InferenceEngine(ServingBase):
     def warmup(self, n_steps: int = 1, batch: int = 1) -> None:
         """Run one request of the given shape (cuBLAS and cuFFT plans, the
         cached tables) before the first timed one."""
-        shape = (3, self.nx, self.ny)
+        shape = self._state_shape()
         if batch > 1:
             shape = (batch,) + shape
         self.predict(np.zeros(shape, np.float32), n_steps)

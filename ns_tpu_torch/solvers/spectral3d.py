@@ -44,11 +44,27 @@ import torch
 from ns_tpu_torch.core.device import resolve_device
 from ns_tpu_torch.ops.gemm import cmatmul
 from ns_tpu_torch.ops.kernels import transform3d_kernels as t3k
+from ns_tpu_torch.solvers.spectral_periodic import _c2r_keep
 
 
 def _ik_mul(k: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """i * k * z for real k and complex z."""
     return torch.complex(-k * z.imag, k * z.real)
+
+
+def irfft3(z: torch.Tensor, s) -> torch.Tensor:
+    """The real field of an rfftn-layout half spectrum (..., nx, ny,
+    nz//2+1) that need not be Hermitian, as numpy's irfftn computes it: a
+    complex inverse along x and y, then a C2R transform along z that drops
+    the imaginary parts of the kz = 0 and Nyquist planes. The 3D
+    counterpart of `spectral_periodic.irfft2`: cuFFT's multi-dimensional
+    C2R assumes Hermitian input, which learned complex weights and i*k on
+    the unpaired Nyquist modes do not give. On a Hermitian spectrum it
+    equals `torch.fft.irfftn` (bitwise on the CPU)."""
+    nx, ny, nz = s
+    t = torch.fft.ifftn(z, s=(nx, ny), dim=(-3, -2))
+    keep = _c2r_keep(nz, t.real.dtype, t.device)
+    return torch.fft.irfft(torch.complex(t.real, t.imag * keep), n=nz, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)

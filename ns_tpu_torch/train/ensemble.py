@@ -1,8 +1,8 @@
 """Ensemble training: N independently drawn surrogates of one family,
 trained in lockstep.
 
-Port of `ns_tpu/train/ensemble.py` (`EnsembleTrainer`) for the 2D families
-of `ENSEMBLE_MODELS`. The JAX package vmaps one step over a leading model
+Port of `ns_tpu/train/ensemble.py` (`EnsembleTrainer`) for the families of
+`ENSEMBLE_MODELS`, 2D and 3D. The JAX package vmaps one step over a leading model
 axis; here a step runs the members one after another, each with its own
 objective, gradient and optimizer state, which gives each member the
 update the single-model step gives it. The checkpoint is the JAX one:
@@ -31,7 +31,8 @@ from ns_tpu_torch.train.metrics import l2_loss
 from ns_tpu_torch.train.optim import Adam
 from ns_tpu_torch.train.trainer import (build_forward, build_model,
                                         check_data, extrapolate_model,
-                                        load_obs, training_tensors)
+                                        grid_meta, grid_of, load_obs,
+                                        training_tensors)
 
 ENSEMBLE_MODELS = ("basis_ode", "basis_ode2", "basis_gru", "basis_ode_conv",
                    "fno", "fno_w", "fno_psi", "fno3d", "fno3d_w",
@@ -71,10 +72,12 @@ class EnsembleTrainer:
         self.device = resolve_device(device)
         obs = load_obs(cfg.npz_path, cfg.n_frames)
         check_data(cfg, obs, operator_only=True)
-        self.nt, self.nx, self.ny = obs.shape[0], obs.shape[3], obs.shape[4]
+        self.nt = obs.shape[0]
+        self.nx, self.ny, self.nz = grid_of(obs)
         gen = torch.Generator().manual_seed(cfg.seed)
-        self.models = [build_model(cfg, self.nx, self.ny, generator=gen)
-                       .to(self.device) for _ in range(n_models)]
+        self.models = [build_model(cfg, self.nx, self.ny, self.nz,
+                                   generator=gen).to(self.device)
+                       for _ in range(n_models)]
         self.obs = torch.as_tensor(obs, device=self.device)
         self.frames, _ = training_tensors(cfg, self.obs)
         self.params = [{jax_key(n): p for n, p in m.named_parameters()}
@@ -138,12 +141,13 @@ class EnsembleTrainer:
 
     def save(self, it: int) -> str:
         meta = {"iter": it, "losses": self.losses,
-                "grid": [self.nx, self.ny], "n_models": self.n_models,
+                "grid": grid_meta(self.nx, self.ny, self.nz),
+                "n_models": self.n_models,
                 "config": dataclasses.asdict(self.cfg)}
         return save_checkpoint(self._state(), self.cfg.out_dir, meta=meta)
 
     def extrapolate(self, npz_path: Optional[str] = None) -> np.ndarray:
-        """(n_models, nt, 3, nx, ny): each member's full-horizon rollout
+        """(n_models, nt, C, *grid): each member's full-horizon rollout
         from frame 0, frame-aligned like Trainer.extrapolate."""
         obs = torch.as_tensor(load_obs(npz_path or self.cfg.npz_path, None),
                               device=self.device)

@@ -1,15 +1,15 @@
 """One trainer for the surrogate families, and the configuration that
 training, evaluation and serving share.
 
-Port of `ns_tpu/train/trainer.py` for the 2D families (the 3D ones raise
-"not yet ported"): `TrainConfig` with every field, default and check of the
-JAX package's (a checkpoint's `meta["config"]` rebuilds it field by field),
-the observation loader, `rollout_post` (the per-step constraint map of the
-operator families' rollouts), `build_model` (where training and serving
-build their models), `build_forward` (the per-family objective) and
-`Trainer`, the reference's training protocol:
+Port of `ns_tpu/train/trainer.py`: `TrainConfig` with every field, default
+and check of the JAX package's (a checkpoint's `meta["config"]` rebuilds it
+field by field), the observation loader, `rollout_post` (the per-step
+constraint map of the operator families' rollouts), `build_model` (where
+training and serving build their models), `build_forward` (the per-family
+objective) and `Trainer`, the reference's training protocol:
 
-  - data: the npz rollout's first `n_frames` frames as (nt, M, 3, nx, ny);
+  - data: the npz rollout's first `n_frames` frames as (nt, M, 3, nx, ny),
+    or (nt, M, 4, nx, ny, nz) for 3D (u, v, w, p) rollouts;
   - Adam at lr 1e-3 by default (`train/optim.py`, optax's arithmetic, with
     the optional schedule and clip), loss = the global L2 norm of the
     residual; the basis families' diversity penalty is logged, not
@@ -191,8 +191,11 @@ def rollout_post(cfg):
     autoregression, or None: the 2/3-band dealias for fno_w and fno_psi
     (for fno_psi channelwise: a spectral mask commutes with the spectral
     derivatives, so the solenoidal property holds), the exact divergence
-    projection for fno with fno_project. One definition for training
-    feedback, evaluation and serving."""
+    projection for fno with fno_project; in 3D the dealias and/or Leray
+    filter of every fno3d step (one spectral round trip) and the band
+    filter of fno3d_w's and fno3d_a's (their recovery makes them
+    divergence-free). One definition for training feedback, evaluation
+    and serving."""
     if cfg.model in ("fno_w", "fno_psi") and cfg.fno_dealias:
         from ns_tpu_torch.models.vorticity import dealias_field
         return lambda x: dealias_field(x)
@@ -206,21 +209,26 @@ def rollout_post(cfg):
         return post
     if cfg.model == "fno3d" and (getattr(cfg, "fno_project", False)
                                  or cfg.fno_dealias):
-        raise NotImplementedError(f"the fno3d rollout filter {NOT_PORTED}")
+        from functools import partial
+
+        from ns_tpu_torch.models.projection import rollout_filter3d
+        return partial(rollout_filter3d,
+                       project=getattr(cfg, "fno_project", False),
+                       dealias=cfg.fno_dealias)
     if cfg.model in ("fno3d_w", "fno3d_a") and cfg.fno_dealias:
-        raise NotImplementedError(f"the {cfg.model} dealias filter "
-                                  f"{NOT_PORTED}")
+        from ns_tpu_torch.models.vorticity3d import dealias_field3d
+        return dealias_field3d
     return None
 
 
 _3D = ("fno3d", "fno3d_w", "fno3d_a")
 
 
-def build_model(cfg: TrainConfig, nx: int, ny: int, device=None, dtype=None,
-                generator=None):
-    """The model of `cfg` on an (nx, ny) grid, as the JAX package's Trainer
-    builds it, with parameters on `device` (the meta device builds no
-    values), drawn from `generator`."""
+def build_model(cfg: TrainConfig, nx: int, ny: int, nz: int | None = None,
+                device=None, dtype=None, generator=None):
+    """The model of `cfg` on an (nx, ny) grid, or (nx, ny, nz) for the 3D
+    families, as the JAX package's Trainer builds it, with parameters on
+    `device` (the meta device builds no values), drawn from `generator`."""
     kw = dict(device=device, dtype=dtype, generator=generator)
     if cfg.model == "basis_ode":
         from ns_tpu_torch.models.basis import BasisODE
@@ -246,8 +254,11 @@ def build_model(cfg: TrainConfig, nx: int, ny: int, device=None, dtype=None,
                       transform=cfg.fno_transform,
                       precision=cfg.fno_precision, **kw)
     if cfg.model in _3D:
-        raise NotImplementedError(f"the 3D family {cfg.model!r} "
-                                  f"{NOT_PORTED}")
+        from ns_tpu_torch.models.fno3d import FNO3D
+        return FNO3D(nx, ny, nz, width=cfg.fno_width, modes=cfg.fno_modes,
+                     channels=4 if cfg.model == "fno3d" else 3,
+                     transform=cfg.fno_transform,
+                     precision=cfg.fno_precision, **kw)
     if cfg.model == "rnn":
         from ns_tpu_torch.models.gru import FullFieldGRU
         return FullFieldGRU(3 * nx * ny, cfg.hidden_dim, **kw)
@@ -255,16 +266,36 @@ def build_model(cfg: TrainConfig, nx: int, ny: int, device=None, dtype=None,
 
 
 def uvp_of_state(cfg: TrainConfig, state: torch.Tensor) -> torch.Tensor:
-    """A model state (..., C, nx, ny) as (u, v, p) (..., 3, nx, ny): fno_w's
-    vorticity recovered in float64 and rounded once to the state's dtype
-    (in float32 the recovery's own FFT rounding left 1.1e-5 of max|u| of
-    divergence on the H100), every other family's state as it is. The one
-    definition of serving and `extrapolate`."""
-    if cfg.model != "fno_w":
-        return state
-    from ns_tpu_torch.models.vorticity import uvp_from_w
-    uvp = uvp_from_w(state[..., 0, :, :].to(torch.float64))
-    return torch.stack(uvp, dim=-3).to(state.dtype)
+    """A model state (..., C, *grid) as the data's fields: fno_w's vorticity
+    as (u, v, p) (..., 3, nx, ny), fno3d_w's vorticity and fno3d_a's vector
+    potential as (u, v, w, p) (..., 4, nx, ny, nz), each recovered in
+    float64 and rounded once to the state's dtype (in float32 fno_w's
+    recovery's own FFT rounding left 1.1e-5 of max|u| of divergence on the
+    H100); every other family's state as it is. The one definition of
+    serving and `extrapolate`."""
+    if cfg.model == "fno_w":
+        from ns_tpu_torch.models.vorticity import uvp_from_w
+        uvp = uvp_from_w(state[..., 0, :, :].to(torch.float64))
+        return torch.stack(uvp, dim=-3).to(state.dtype)
+    if cfg.model in W_FAMILIES:
+        from ns_tpu_torch.models.vorticity3d import repr3d_fns
+        return repr3d_fns(cfg.model)[1](
+            state.to(torch.float64)).to(state.dtype)
+    return state
+
+
+def state_of_fields(cfg: TrainConfig, x: torch.Tensor) -> torch.Tensor:
+    """Data fields (..., C, *grid) as the model's state: fno_w's vorticity
+    (..., 1, nx, ny), fno3d_w's and fno3d_a's representation of (u, v, w)
+    (..., 3, nx, ny, nz), in the fields' dtype; every other family's
+    fields as they are."""
+    if cfg.model == "fno_w":
+        from ns_tpu_torch.models.vorticity import vorticity_from_uv
+        return vorticity_from_uv(x[..., 0, :, :], x[..., 1, :, :]).unsqueeze(-3)
+    if cfg.model in W_FAMILIES:
+        from ns_tpu_torch.models.vorticity3d import repr3d_fns
+        return repr3d_fns(cfg.model)[0](x[..., :3, :, :, :])
+    return x
 
 
 def build_forward(cfg: TrainConfig, frames: torch.Tensor,
@@ -272,8 +303,8 @@ def build_forward(cfg: TrainConfig, frames: torch.Tensor,
     """forward(model, gen=None) -> (pred, target): the per-family training
     objective, shared by Trainer and EnsembleTrainer.
 
-    frames is the training tensor of `training_tensors`, (nt, M, C, nx,
-    ny) with M trajectories sharing the operator; data_scale the std that
+    frames is the training tensor of `training_tensors`, (nt, M, C, *grid)
+    with M trajectories sharing the operator; data_scale the std that
     cfg.input_noise is a fraction of. `gen` (a torch.Generator on the
     frames' device) draws the minibatch windows, then the input noise;
     None draws neither (the ensemble's objective).
@@ -335,22 +366,30 @@ def build_forward(cfg: TrainConfig, frames: torch.Tensor,
 @torch.no_grad()
 def extrapolate_model(cfg: TrainConfig, model, obs_full: torch.Tensor
                       ) -> torch.Tensor:
-    """The full-horizon closed-loop rollout (nt, 3, nx, ny) from frame 0 of
-    trajectory 0 of obs_full (nt, M, 3, nx, ny), frame-aligned (out[t] ~
+    """The full-horizon closed-loop rollout (nt, C, *grid) from frame 0 of
+    trajectory 0 of obs_full (nt, M, C, *grid), frame-aligned (out[t] ~
     obs[t]) except rnn, which keeps the reference's nt predictions from
     obs[0] (out[t] ~ obs[t + 1])."""
     nt = obs_full.shape[0]
     if cfg.model in FNO_FAMILIES:
-        x0 = obs_full[0, 0]
-        if cfg.model == "fno_w":
-            from ns_tpu_torch.models.vorticity import vorticity_from_uv
-            x0 = vorticity_from_uv(x0[0], x0[1])[None]       # (1, nx, ny)
+        x0 = state_of_fields(cfg, obs_full[0, 0])
         seq = model.rollout(x0, nt - 1, post=rollout_post(cfg))
         return uvp_of_state(cfg, torch.cat([x0[None], seq]))
     if cfg.model == "rnn":
         pred = model.extrapolate(obs_full[0, :1].reshape(1, -1), nt)
         return pred[0].reshape(nt, *obs_full.shape[2:])
     return model(obs_full[0], nt)[:, 0]
+
+
+def grid_of(obs) -> tuple:
+    """(nx, ny, nz) of observations (nt, M, C, *grid); nz None for 2D."""
+    nx, ny, *nz = obs.shape[3:]
+    return nx, ny, (nz[0] if nz else None)
+
+
+def grid_meta(nx: int, ny: int, nz: int | None) -> list:
+    """The checkpoint meta's `grid`: [nx, ny] or [nx, ny, nz]."""
+    return [nx, ny] if nz is None else [nx, ny, nz]
 
 
 def _noise_seed(seed: int) -> int:
@@ -385,12 +424,10 @@ def check_data(cfg: TrainConfig, obs: np.ndarray, operator_only=False):
 
 def training_tensors(cfg: TrainConfig, obs: torch.Tensor):
     """(frames, data_scale): the tensor the objective trains on (fno_w: the
-    vorticity of the data, (nt, M, 1, nx, ny); obs otherwise) and the std
-    (ddof 0, as jnp.std) that input_noise is a fraction of."""
-    frames = obs
-    if cfg.model == "fno_w":
-        from ns_tpu_torch.models.vorticity import vorticity_from_uv
-        frames = vorticity_from_uv(obs[:, :, 0], obs[:, :, 1])[:, :, None]
+    vorticity of the data, (nt, M, 1, nx, ny); fno3d_w and fno3d_a: the
+    vorticity or vector potential, (nt, M, 3, nx, ny, nz); obs otherwise)
+    and the std (ddof 0, as jnp.std) that input_noise is a fraction of."""
+    frames = state_of_fields(cfg, obs)
     scale = 1.0
     if cfg.model in FNO_FAMILIES:
         scale = float(torch.std(frames, correction=0))
@@ -406,7 +443,7 @@ class Trainer:
         obs = load_obs(cfg.npz_path, cfg.n_frames)
         check_data(cfg, obs)
         self.nt = obs.shape[0]
-        self.nx, self.ny = obs.shape[3], obs.shape[4]
+        self.nx, self.ny, self.nz = grid_of(obs)
         if cfg.model in FNO_FAMILIES and cfg.input_noise < 0:
             raise ValueError(
                 f"input_noise must be >= 0; got {cfg.input_noise}")
@@ -414,7 +451,7 @@ class Trainer:
             raise NotImplementedError(f"data-parallel training (dp="
                                       f"{cfg.dp}) {NOT_PORTED}")
         self.model = build_model(
-            cfg, self.nx, self.ny,
+            cfg, self.nx, self.ny, self.nz,
             generator=torch.Generator().manual_seed(cfg.seed)).to(self.device)
         self.obs = torch.as_tensor(obs, device=self.device)
         self.frames, self._data_scale = training_tensors(cfg, self.obs)
@@ -502,7 +539,8 @@ class Trainer:
 
     def save(self, it: int, is_best: bool = False) -> str:
         meta = {"iter": it, "losses": self.losses,
-                "penalties": self.penalties, "grid": [self.nx, self.ny],
+                "penalties": self.penalties,
+                "grid": grid_meta(self.nx, self.ny, self.nz),
                 "noise_key": None,
                 "torch_generator": self.gen.get_state().numpy().tobytes().hex(),
                 "config": dataclasses.asdict(self.cfg)}
@@ -513,7 +551,7 @@ class Trainer:
     # -- eval -----------------------------------------------------------------
 
     def extrapolate(self, npz_path: Optional[str] = None) -> np.ndarray:
-        """The full-horizon rollout (nt, 3, nx, ny) that the CLI writes to
+        """The full-horizon rollout (nt, C, *grid) that the CLI writes to
         extrapolation.npy (`extrapolate_model`)."""
         obs = load_obs(npz_path or self.cfg.npz_path, None)
         out = extrapolate_model(self.cfg, self.model,

@@ -1053,3 +1053,184 @@ def test_training_resumes_bitwise_on_the_card(cuda, tmp_path):
     for k, p in whole.params.items():
         assert torch.equal(p, half.params[k]), k
     assert np.isfinite(losses).all()
+
+
+# --- the 3D surrogates (cuBLAS, cuFFT; no kernel of the library) ------------
+# chip_smoke.py's bounds: float64 card against CPU <= 1e-10 of the max;
+# float32 fft against matmul at rtol 2e-4, atol 1e-5; float32 replies
+# within 1e-4 of max|u| of the CPU's, their spectral divergence <= 1e-5 of
+# max|u|.
+
+
+def _fno3d_pair(cuda, model, transform, n):
+    from ns_tpu_torch.train.trainer import TrainConfig, build_model
+
+    cfg = TrainConfig(model=model, fno_width=6, fno_modes=4,
+                      fno_transform=transform, fno_project=True,
+                      fno_rollout_steps=2)
+    cpu = build_model(cfg, n, n, n, dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():  # spectral weights at scale 1
+        for name, p in cpu.named_parameters():
+            if name.startswith("spectral."):
+                p.mul_(36.0)
+    card = build_model(cfg, n, n, n, dtype=torch.float64,
+                       device="meta").to_empty(device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+def _objective(cfg, model, obs):
+    from ns_tpu_torch.train.metrics import l2_loss
+    from ns_tpu_torch.train.trainer import build_forward, training_tensors
+
+    frames, _ = training_tensors(cfg, obs)
+    loss = l2_loss(*build_forward(cfg, frames)(model))
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return float(loss), {n: g.double().cpu() for (n, _), g in
+                         zip(named, grads)}
+
+
+@pytest.mark.parametrize("model", ["fno3d", "fno3d_w", "fno3d_a"])
+@pytest.mark.parametrize("transform", ["fft", "matmul"])
+def test_fno3d_families_card_vs_cpu_f64(cuda, model, transform):
+    """A 3-step rollout with its filter and recovery, and the 2-step
+    objective with its gradient, in float64 on the card against the CPU
+    from the same parameters, <= 1e-10 of the max."""
+    from ns_tpu_torch.train.trainer import (rollout_post, state_of_fields,
+                                            uvp_of_state)
+
+    n = 12
+    cfg, cpu, card = _fno3d_pair(cuda, model, transform, n)
+    obs = torch.randn(6, 1, 4, n, n, n, dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(2))
+    post = rollout_post(cfg)
+
+    def run(m, x):
+        return uvp_of_state(cfg, m.rollout(state_of_fields(cfg, x), 3,
+                                           post=post))
+
+    with torch.inference_mode():
+        want, got = run(cpu, obs[0]), run(card, obs[0].to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-10 * float(want.abs().max())
+    lw, gw = _objective(cfg, cpu, obs)
+    lg, gg = _objective(cfg, card, obs.to(cuda))
+    assert abs(lg - lw) <= 1e-10 * abs(lw)
+    assert _grad_err(gg, gw) <= 1e-10
+
+
+FNO3D_ENGINE_CASES = [(2, 4, 10, 10, 10, 3, 0.1), (2, 4, 9, 8, 7, 3, 0.1),
+                      (2, 4, 16, 16, 8, 5, 0.1),
+                      (4, 24, 64, 64, 64, 16, 1 / 24)]
+
+
+@pytest.mark.parametrize("b,c,nx,ny,nz,modes,scale", FNO3D_ENGINE_CASES)
+def test_fno3d_engines_agree_on_card(cuda, b, c, nx, ny, nz, modes, scale):
+    """The 3D fft engine (cuFFT, irfft3) against the matmul engine with
+    random complex weights, whose mixed spectrum is not Hermitian on kz =
+    0, float32 (the last case is the served fno3d_a's shape)."""
+    from ns_tpu_torch.models.fno3d import (SpectralWeights3D,
+                                           _spectral_conv3d_fft,
+                                           _spectral_conv3d_matmul)
+
+    gen = torch.Generator().manual_seed(0)
+    mx, my, mz = min(modes, nx // 2), min(modes, ny // 2), min(modes,
+                                                               nz // 2 + 1)
+    s = SpectralWeights3D(c, c, 4 * mx * my * mz, scale, generator=gen)
+    W = s.mixing_table(torch.float32).detach().to(cuda)
+    x = torch.randn(b, c, nx, ny, nz, generator=gen).to(cuda)
+    torch.testing.assert_close(_spectral_conv3d_fft(W, x, mx, my, mz),
+                               _spectral_conv3d_matmul(W, x, mx, my, mz),
+                               rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_divergence_max_card_vs_cpu_not_band_limited(cuda, n):
+    """The 3D fft engine's inverse (cuFFT's C2R) on i*k spectra of a field
+    that is not band-limited (its Nyquist rows are not Hermitian), float64,
+    card against CPU."""
+    cfg = s3.Spectral3DConfig(nx=n, ny=n, nz=n, dtype="float64")
+    u = torch.randn(3, n, n, n, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(3))
+    uh = torch.fft.rfftn(u, dim=(-3, -2, -1))
+    want = float(s3.divergence_max(cfg, uh))
+    got = float(s3.divergence_max(cfg, uh.to(cuda)))
+    assert abs(got - want) <= 1e-12 * want
+
+
+def _turbulence3d(cuda, path, n, nt):
+    cfg = s3.Spectral3DConfig(nx=n, ny=n, nz=n, dt=5e-3, nu=5e-3)
+    u0 = s3.random_solenoidal_velocity(cfg, seed=0, k_peak=3.0)
+    fields = s3.simulate_strided(cfg, u0, nt, stride=4, device=cuda)
+    np.savez(path, **{k: f.cpu().numpy() for k, f in zip("uvwp", fields)})
+    return str(path)
+
+
+def test_fno3d_a_served_on_card_matches_cpu(cuda, tmp_path):
+    """A fno3d_a checkpoint (24^3, width 8) served on the card: float32
+    replies within 1e-4 of max|u| of the CPU's over 4 steps at B = 2,
+    finite, chunked equal to unchunked, spectral divergence <= 1e-5 of
+    max|u|."""
+    import dataclasses
+
+    from ns_tpu_torch.serve import InferenceEngine
+    from ns_tpu_torch.train.checkpoint import params_to_jax, save_checkpoint
+    from ns_tpu_torch.train.trainer import TrainConfig, build_model
+
+    n = 24
+    cfg = TrainConfig(model="fno3d_a", fno_width=8, fno_modes=6)
+    save_checkpoint({"params": params_to_jax(build_model(
+        cfg, n, n, n, generator=torch.Generator().manual_seed(3))),
+        "opt_state": {}}, str(tmp_path),
+        meta={"config": dataclasses.asdict(cfg), "grid": [n, n, n]})
+    with np.load(_turbulence3d(cuda, tmp_path / "d.npz", n, 2)) as d:
+        x = np.stack([d[k] for k in "uvwp"], axis=1).astype(np.float32)
+    card = InferenceEngine.from_checkpoint(str(tmp_path), chunk=3)
+    cpu = InferenceEngine.from_checkpoint(str(tmp_path), device="cpu")
+    got, want = card.predict(x, 4), cpu.predict(x, 4)
+    assert np.isfinite(got).all()
+    umax = np.abs(want[:, :, :3]).max()
+    assert np.abs(got - want).max() <= 1e-4 * umax
+    whole = InferenceEngine.from_checkpoint(str(tmp_path), chunk=64)
+    np.testing.assert_array_equal(whole.predict(x, 4), got)
+    u = torch.as_tensor(got[:, :, :3], dtype=torch.float64)
+    uh = torch.fft.rfftn(u, dim=(-3, -2, -1))
+    k = torch.fft.fftfreq(n, 1.0 / n, dtype=torch.float64)
+    kz = torch.fft.rfftfreq(n, 1.0 / n, dtype=torch.float64)
+    div = s3.irfft3(s3._ik_mul(k[:, None, None], uh[..., 0, :, :, :])
+                    + s3._ik_mul(k[None, :, None], uh[..., 1, :, :, :])
+                    + s3._ik_mul(kz, uh[..., 2, :, :, :]), (n, n, n))
+    assert float(div.abs().max()) <= 1e-5 * float(u.abs().max())
+
+
+def test_3d_training_after_a_served_rollout(cuda, tmp_path):
+    """Tables first built by a served 3D rollout (torch.inference_mode)
+    are saved for a later training backward in the same process; the
+    training step is the 4-step remat objective with the card's
+    generator, and 2 + a resume of 2 equal 4."""
+    from ns_tpu_torch.serve import InferenceEngine
+    from ns_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    n, nt = 20, 8
+    npz = _turbulence3d(cuda, tmp_path / "d.npz", n, nt)
+    base = dict(model="fno3d_a", npz_path=npz, fno_width=6, fno_modes=5,
+                n_frames=nt, ckpt_every=2, batch_size=2, input_noise=0.05,
+                fno_rollout_steps=4, fno_remat=True, lr_schedule="cosine",
+                warmup_iters=1, grad_clip=1.0)
+    Trainer(TrainConfig(out_dir=str(tmp_path / "s"), n_iters=0, **base)
+            ).save(0)
+    with np.load(npz) as d:
+        x = np.stack([d[k][0] for k in "uvwp"]).astype(np.float32)
+    eng = InferenceEngine.from_checkpoint(str(tmp_path / "s"), chunk=2)
+    assert np.isfinite(eng.predict(x, 3)).all()
+    whole = Trainer(TrainConfig(out_dir=str(tmp_path / "w"), n_iters=4,
+                                **base))
+    losses = whole.train(progress=False)
+    assert np.isfinite(losses).all()
+    Trainer(TrainConfig(out_dir=str(tmp_path / "h"), n_iters=2, **base)
+            ).train(progress=False)
+    half = Trainer(TrainConfig(out_dir=str(tmp_path / "h"), n_iters=4,
+                               resume=str(tmp_path / "h" / "checkpoint.npz"),
+                               **base))
+    assert half.train(progress=False) == losses

@@ -255,10 +255,13 @@ def test_wrong_config_names_the_leaves(tmp_path):
         eng.predict(np.zeros((3, NX, NY), np.float32), -1)
     with pytest.raises(ValueError, match="chunk"):
         InferenceEngine(eng.cfg, eng.models, NX, NY, chunk=0, device="cpu")
-    for model in ("fno3d", "fno3d_a"):
-        cfg3 = TrainConfig(model=model)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            _build_model(cfg3, NX, NY)
+    for model in ("fno3d", "fno3d_a"):  # the 3D families' leaves are JAX's
+        kw3 = dict(model=model, fno_modes=3, fno_width=6)
+        m3 = _build_model(TrainConfig(**kw3), NX, NY, NX)
+        want = jck._flatten_with_paths(jax_build(
+            JaxConfig(**kw3), NX, NY, NX).init(jax.random.PRNGKey(0)))
+        assert {k: tuple(v.shape) for k, v in want.items()} == {
+            k: tuple(v.shape) for k, v in tck.params_to_jax(m3).items()}
 
 
 def test_train_config_is_the_jax_config():

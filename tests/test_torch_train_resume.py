@@ -249,7 +249,8 @@ def test_cli_writes_the_jax_cli_files(tmp_path):
 
 @pytest.mark.parametrize("extra,needle", [
     (["--dp", "2"], "not yet ported"), (["--dist"], "not yet ported"),
-    (["--model", "fno3d_a"], "not yet ported")])
+    (["--model", "fno3d_a", "--dp", "2"], "(data-parallel training) is "
+     "not yet ported")])
 def test_cli_names_what_is_not_ported(tmp_path, capsys, extra, needle):
     with pytest.raises(SystemExit):
         port_cli.main(["--npz-path", "unused.npz", "--device", "cpu"]

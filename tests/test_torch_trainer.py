@@ -178,8 +178,15 @@ def test_trainer_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttr.Trainer(cfg)
     assert "device" in NO_CUDA
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttr.build_model(ttr.TrainConfig(model="fno3d"), 8, 8)
+    obs = observations()
+    npz3 = str(tmp_path / "d3.npz")
+    np.savez(npz3, **{k: np.repeat(obs[:, 0, i % 3, :, :, None], 4, axis=-1)
+                      for i, k in enumerate("uvwp")})
+    cfg3 = ttr.TrainConfig(model="fno3d", npz_path=npz3, fno_width=4,
+                           fno_modes=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttr.Trainer(cfg3)
+    assert ttr.Trainer(cfg3, device="cpu").model.nz == 4
 
 
 def test_basis_training_lowers_the_loss(tmp_path):

@@ -150,12 +150,45 @@ Phases (any failure exits non-zero, and no result line is printed):
                (float64, 64^3) card vs CPU <= 1e-12, and no kernel of
                the library launched; its "[... s]" line says whether it
                kept its 90 s budget
+  4/5, serving and the runtime, last: the surrogate phase's fno_w
+               checkpoint behind serve/server.py's make_server(coalesce=8)
+               on port 0: 8 concurrent ServeClients, 200-step requests of
+               decaying-turbulence states, 3 bursts (requests/s, frames/s,
+               p50 and p99 latency, the mean coalesced batch), each reply
+               <= 1e-4 of max|u| from the serialized engine.predict reply
+               and fewer batches than requests; a client-batched B = 8
+               50-step request on the lock path, reduce=members and
+               =spread; python -m ns_tpu_torch.cli.serve --port 0
+               --warmup-steps 8 as a subprocess (its "serving ... on
+               http://" line, /health, one request; while it starts, the
+               export round trips run: <= 1e-6 of max, and a kernel
+               configuration refused); the solver oracles over HTTP:
+               SolverEngine 128^2 (fno_w's data physics, 100 steps a
+               frame) and SolverEngine3D 64^3 (fno3d_a's, 10 steps a
+               frame), 10 frames each, held to a plain step loop of the
+               port's solver from the echoed state (<= 1e-4 of max|u|)
+               and to the spectral divergence bound (<= 1e-5); the
+               runtime engines, each captured as CUDA graphs (captured
+               True), its replay bitwise equal to its eager loop, the
+               kernels of one replayed call counted from the profiler's
+               device records, eager and replayed steps/s in turns:
+               bench.py's cell (RolloutEngine, 1024^2 compact 'default',
+               nt 300), FDRolloutEngine chorin_fd explicit 51^2 (K1, K3)
+               and 1024^2 (K4, K3), direct_fd 50^2 (K2) and 1024^2 (K2mb),
+               Rollout3DEngine Taylor-Green 256^3 fused (K6, K8);
+               run_solver --stream-dir at 1024^2
+               (chorin_fd explicit: K4 and K3 counted; decaying turbulence
+               on bench.py's engine) against the same command's npz run:
+               files bitwise equal, the native writer, a lower device
+               peak, streamed and npz steps/s; its "[... s]" line says
+               whether it kept its 75 s budget
 After every phase the script checks that neither jax nor the JAX package
 was imported. The line before the kernels line carries the card, the main
 runs' and bench.py rollout's rates, the Chebyshev step loop, the
 surrogate phase's rates, profiles and check values, the training
-phase's rates, memory, losses and check values, and the 3D surrogate
-phase's (`surrogate3d`). The line before the
+phase's rates, memory, losses and check values, the 3D surrogate
+phase's (`surrogate3d`) and the serving and runtime phase's
+(`serve_runtime`). The line before the
 last is {"kernels": [...]}
 with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
@@ -169,7 +202,9 @@ over 3.35 TB/s and its operations over the peak of their type) and the
 library call's time (`library_ms`, null where no one PyTorch call
 computes the function); K6, K7 and K8 add both precisions' times
 (`ms_default`, `ms_highest`), the 'highest' route's twin time and bound,
-and their tensor-core launches. The last is {"ok": true, "device": {...}}.
+and their tensor-core launches; K1, K2, K2mb, K3, K4, K6 and K8 their
+launches in one replayed call of each runtime engine (`launches_replayed`,
+from the profiler). The last is {"ok": true, "device": {...}}.
 
 Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so the kernel is not bitwise equal to its twin); float32 <= 1e-4
@@ -1667,13 +1702,13 @@ def fno_w_checkpoint(folder: str):
     return path, cfg
 
 
-def turbulence_frames(seeds, device) -> np.ndarray:
+def turbulence_frames(seeds, device, n=None) -> np.ndarray:
     """(len(seeds), 3, n, n) float32 decaying-turbulence (u, v, p) states
     of the port's spectral solver (k_peak n/12, tools/bench_surrogates.py:
-    112)."""
+    112; n: SURROGATE's grid unless given)."""
     from ns_tpu_torch.solvers import spectral_periodic as sp
 
-    n = SURROGATE["n"]
+    n = n or SURROGATE["n"]
     cfg = sp.SpectralPeriodicConfig(nx=n, ny=n)
     out = []
     for s in seeds:
@@ -2695,6 +2730,495 @@ def phase_surrogate3d(tmp, card: str) -> dict:
     return out
 
 
+# --- serving and runtime (phases 4 and 5) -------------------------------------
+# The HTTP service (serve/server.py with coalescing, the client, cli.serve),
+# the solver oracles, the runtime engines replayed from CUDA graphs against
+# their eager loops (the kernels K1-K4, K6 and K8 run from the graphs) and
+# --stream-dir with the native writer.
+
+SERVE = dict(clients=8, steps=200, bursts=3, oracle_frames=10,
+             oracle_n=128, oracle_stride=100, oracle3d_n=64,
+             oracle3d_stride=10, stream_nt=100, export_n=256,
+             export_fd_n=1024)
+SERVE_BUDGET_S = 75
+ORACLE_VS_PLAIN = 1e-4   # float32 oracle frames vs a plain loop, of max|u|
+EXPORT_VS_ENGINE = 1e-6  # an exported program vs the engine, of max
+# (label, engine, configuration, nt): every runtime configuration the phase
+# replays, at the main path's shapes
+RUNTIME_RUNS = [
+    ("bench 2d 1024^2", "periodic", dict(nx=N2D, dt=5e-4, nu=1e-4), 300),
+    ("chorin_fd explicit 51^2", "chorin_fd", dict(nx=51), 200),
+    ("chorin_fd explicit 1024^2", "chorin_fd",
+     dict(nx=1024, dt=1e-5, nu=0.01), 50),
+    ("direct_fd 50^2", "direct_fd", dict(nx=50), 200),
+    ("direct_fd 1024^2", "direct_fd", dict(nx=1024, dt=1e-5, nu=0.01), 20),
+    ("taylor_green_3d 256^3 fused", "3d", dict(nx=N3D), 8),
+]
+# the kernel symbol each wrapper's launches show in the profiler's records
+# (K8: the first of its two kernels)
+KERNEL_SYMBOLS = {"sor_redblack_fused": "sor_redblack_fused_kernel",
+                  "jacobi_fused": "jacobi_fused_kernel",
+                  "jacobi_multiblock": "jacobi_tiled_kernel",
+                  "momentum_explicit_fused": "momentum_kernel",
+                  "sor_redblack_packed_multiblock":
+                      "sor_packed_resident_kernel",
+                  "fused_zy_forward": "zy_forward_bf16_kernel",
+                  "fused_lamb": "lamb_phys_bf16_kernel"}
+
+
+class _Server:
+    """serve/server.py's make_server on port 0, served from a daemon
+    thread; close() shuts it down (the dispatcher's thread too)."""
+
+    def __init__(self, engine, coalesce=0):
+        import threading
+
+        from ns_tpu_torch.serve.server import make_server
+        self.httpd = make_server(engine, port=0, coalesce=coalesce)
+        self.port = self.httpd.server_address[1]
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def kernel_launches(records) -> dict:
+    """Launches of each wrapper's kernel among profiler device records."""
+    return {name: sum(1 for r in records
+                      if f"::{sym}<" in r or f"::{sym}(" in r)
+            for name, sym in KERNEL_SYMBOLS.items()}
+
+
+def profiled_records(fn) -> list:
+    """The names of the device records of one call of fn
+    (runtime/engine.py's `_device_records`)."""
+    from ns_tpu_torch.runtime.engine import _device_records
+
+    return [name for name, _ in _device_records(fn, torch.device(DEVICE))]
+
+
+def serve_http(tmp, card: str, untimed) -> dict:
+    """fno_w (SURROGATE) behind make_server(coalesce=8): SERVE["clients"]
+    concurrent ServeClients with 200-step requests, each reply held to the
+    serialized engine.predict reply; a client-batched request on the lock
+    path; the single-model reduce contract; cli.serve as a subprocess
+    (started first: it loads the checkpoint while this process loads its
+    engine and runs `untimed`, work that times nothing, and it is stopped
+    before the timed requests)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ns_tpu_torch.serve import InferenceEngine, ServeClient
+
+    n, steps, k = SURROGATE["n"], SERVE["steps"], SERVE["clients"]
+    folder = os.path.join(tmp, "fno_w_128")  # the surrogate phase's
+    ckpt = os.path.join(folder, "checkpoint.npz")
+    if not os.path.isfile(ckpt):
+        ckpt, _ = fno_w_checkpoint(folder)
+    # python -m ns_tpu_torch.cli.serve, as a user starts it
+    t_cli = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ns_tpu_torch.cli.serve", "--ckpt", folder,
+         "--port", "0", "--warmup-steps", "8", "--device", DEVICE,
+         "--quiet"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env={**os.environ, "PYTHONPATH": ROOT}, cwd=ROOT)
+    out = {"clients": k, "steps": steps, "device": card}
+    try:
+        engine = InferenceEngine.from_checkpoint(
+            ckpt, chunk=SURROGATE["chunk"], device=DEVICE)
+        xs = turbulence_frames(range(100, 100 + k), DEVICE)
+        engine.warmup(SURROGATE["chunk"], batch=k)
+        want = [engine.predict(x, steps) for x in xs]  # serialized replies
+        umax = max(float(np.abs(w[:, :2]).max()) for w in want)
+        untimed()
+        line = ""
+        for line in proc.stdout:
+            if line.startswith("serving"):
+                break
+        require(line.startswith(f"serving fno_w ({n}x{n}) on http://"),
+                f"cli.serve printed {line!r}")
+        c = ServeClient("127.0.0.1", int(line.rsplit(":", 1)[1]),
+                        timeout=120)
+        require(c.health()["model"] == "fno_w", "cli.serve /health")
+        r = c.rollout(xs[0], 8)
+        require(r.shape == (9, 3, n, n) and bool(np.isfinite(r).all()),
+                f"cli.serve reply {r.shape}")
+        out["cli_serve_vs_engine"] = float(np.abs(r - want[0][:9]).max()
+                                           / umax)
+        require(out["cli_serve_vs_engine"] <= SURR_CARD_VS_CPU,
+                f"cli.serve reply {out['cli_serve_vs_engine']:.3e}")
+        out["cli_serve_s"] = time.perf_counter() - t_cli
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        proc.stdout.close()
+    srv = _Server(engine, coalesce=8)
+    try:
+        clients = [ServeClient("127.0.0.1", srv.port) for _ in range(k)]
+
+        def request(i):
+            t0 = time.perf_counter()
+            r = clients[i].rollout(xs[i], steps)
+            return r, time.perf_counter() - t0
+
+        lat, walls, worst = [], [], 0.0
+        with ThreadPoolExecutor(max_workers=k) as ex:
+            for _ in range(SERVE["bursts"]):
+                t0 = time.perf_counter()
+                got = list(ex.map(request, range(k)))
+                walls.append(time.perf_counter() - t0)
+                for (r, s), w in zip(got, want):
+                    require(r.shape == w.shape,
+                            f"coalesced reply {r.shape}, want {w.shape}")
+                    worst = max(worst, float(np.abs(r - w).max()) / umax)
+                    lat.append(s)
+        st = srv.httpd.dispatcher.stats()
+        require(worst <= SURR_CARD_VS_CPU,
+                f"coalesced vs serialized {worst:.3e} of max|u| (bound "
+                f"{SURR_CARD_VS_CPU})")
+        require(st["batches"] < st["coalesced_requests"],
+                f"no request was coalesced: {st}")
+        lat.sort()
+        wall = sorted(walls)[len(walls) // 2]
+        out.update(coalesced_vs_serialized=worst, dispatcher=st,
+                   mean_batch=st["coalesced_requests"] / st["batches"],
+                   burst_wall_s=walls, requests_per_s=k / wall,
+                   frames_per_s=k * steps / wall,
+                   p50_s=lat[len(lat) // 2],
+                   p99_s=lat[min(len(lat) - 1, int(0.99 * len(lat)))])
+        # a client-batched request keeps the serialized lock path
+        c, short = clients[0], steps // 4
+        r = c.rollout(xs, short)
+        require(r.shape == (k, short + 1, 3, n, n),
+                f"client-batched reply {r.shape}")
+        out["batched_vs_serialized"] = max(
+            float(np.abs(r[i] - want[i][:short + 1]).max()) / umax
+            for i in range(k))
+        require(out["batched_vs_serialized"] <= SURR_CARD_VS_CPU,
+                f"batched vs serialized {out['batched_vs_serialized']:.3e}")
+        m = c.rollout(xs[0], 8, reduce="members")
+        sp_ = c.rollout(xs[0], 8, reduce="spread")
+        require(m.shape == (1, 9, 3, n, n) and sp_.shape == (9, 3, n, n)
+                and not sp_.any(), f"reduce: members {m.shape}, spread "
+                f"{sp_.shape} (zero: {not sp_.any()})")
+    finally:
+        srv.close()
+    require(not srv.httpd.dispatcher._thread.is_alive(),
+            "the dispatcher outlived its server")
+    print(f"  fno_w {n}^2 over HTTP, coalesce 8: {k} clients x {steps} "
+          f"steps: {out['requests_per_s']:.2f} requests/s, "
+          f"{out['frames_per_s']:.1f} frames/s, p50 {out['p50_s']:.3f} s, "
+          f"p99 {out['p99_s']:.3f} s, mean batch {out['mean_batch']:.2f} "
+          f"({st['batches']} batches); coalesced vs serialized "
+          f"{worst:.2e} of max|u|; cli.serve up and answered in "
+          f"{out['cli_serve_s']:.1f} s; {card}")
+    return out
+
+
+def serve_oracles(card: str) -> dict:
+    """SolverEngine (fno_w's data physics, 100 steps a frame) and
+    SolverEngine3D (fno3d_a's, 10 steps a frame) over HTTP: frames held to
+    a plain step loop of the port's solver from the echoed state, spectral
+    divergence of each reply, frames/s of a warm request."""
+    from ns_tpu_torch.models.vorticity import vorticity_from_uv
+    from ns_tpu_torch.serve import ServeClient, SolverEngine, SolverEngine3D
+    from ns_tpu_torch.solvers import spectral3d as s3
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    nf = SERVE["oracle_frames"]
+    n2, st2 = SERVE["oracle_n"], SERVE["oracle_stride"]
+    n3, st3 = SERVE["oracle3d_n"], SERVE["oracle3d_stride"]
+    c3 = s3.Spectral3DConfig(nx=n3, ny=n3, nz=n3)
+    u3 = s3.random_solenoidal_velocity(c3, seed=0, k_peak=max(3.0, n3 / 16))
+    x3 = np.concatenate([u3, np.zeros((1, n3, n3, n3))]).astype(np.float32)
+    x2 = turbulence_frames([7], DEVICE, n2)[0]
+    out = {"device": card}
+    for label, eng, x, stride in (
+            ("oracle_2d", SolverEngine(n2, n2, dt=1e-3, nu=1e-3, stride=st2,
+                                       device=DEVICE), x2, st2),
+            ("oracle_3d", SolverEngine3D(n3, n3, n3, dt=1e-3, nu=6.25e-4,
+                                         stride=st3, device=DEVICE), x3,
+             st3)):
+        srv = _Server(eng)
+        try:
+            c = ServeClient("127.0.0.1", srv.port)
+            c.rollout(x, 1)                                 # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reply = c.rollout(x, nf)
+            seconds = time.perf_counter() - t0
+        finally:
+            srv.close()
+        require(reply.shape == (nf + 1,) + x.shape
+                and bool(np.isfinite(reply).all()),
+                f"{label} reply {reply.shape}")
+        echo = torch.as_tensor(reply[0], device=DEVICE)
+        if label == "oracle_2d":
+            cfg = eng.cfg
+            w = vorticity_from_uv(echo[0], echo[1])
+            plain = torch.stack(sp.simulate_strided(
+                cfg, w, nf, stride=stride, spinup=stride - 1), 1)
+            div = spectral_divergence(reply)
+        else:
+            cfg = eng.cfg
+            plain = torch.stack(s3.simulate_strided(
+                cfg, echo[:3], nf, stride=stride, spinup=stride - 1), 1)
+            div = spectral_divergence3d(reply)
+        plain = plain.cpu().numpy()
+        umax = float(np.abs(reply[:, :-1]).max())
+        err = float(np.abs(reply[1:] - plain).max()) / umax
+        require(err <= ORACLE_VS_PLAIN,
+                f"{label} vs a plain loop {err:.3e} of max|u| (bound "
+                f"{ORACLE_VS_PLAIN})")
+        require(div <= SURR_DIV, f"{label} divergence {div:.3e} of max|u| "
+                f"(bound {SURR_DIV})")
+        out[label] = {"grid": list(x.shape[1:]), "stride": stride,
+                      "frames": nf, "latency_s": seconds,
+                      "frames_per_s": nf / seconds,
+                      "steps_per_s": nf * stride / seconds,
+                      "vs_plain_loop": err, "divergence_rel": div,
+                      "transform": cfg.transform,
+                      "precision": cfg.matmul_precision}
+        print(f"  {label} {'x'.join(map(str, x.shape[1:]))}, stride "
+              f"{stride}: {nf / seconds:.2f} frames/s "
+              f"({nf * stride / seconds:.1f} steps/s) over HTTP; vs plain "
+              f"loop {err:.2e}, divergence {div:.2e} of max|u|; {card}")
+    return out
+
+
+def runtime_engine(kind: str, cfg_kw: dict, nt: int):
+    """(engine, inputs) of one RUNTIME_RUNS configuration."""
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.runtime import (FDRolloutEngine, Rollout3DEngine,
+                                      RolloutEngine)
+    from ns_tpu_torch.solvers import chorin_fd, direct_fd
+    from ns_tpu_torch.solvers import spectral3d as s3
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    if kind == "periodic":
+        n = cfg_kw["nx"]
+        cfg = sp.SpectralPeriodicConfig(
+            nt=nt, nx=n, ny=n, dt=cfg_kw["dt"], nu=cfg_kw["nu"],
+            transform="matmul", matmul_precision="default",
+            compact_spectrum=True)
+        w0 = sp.decaying_turbulence_vorticity(cfg, seed=0, k_peak=30.0)
+        return RolloutEngine(cfg, device=DEVICE), (w0,)
+    if kind == "3d":
+        n = cfg_kw["nx"]
+        cfg = s3.Spectral3DConfig(nt=nt, nx=n, ny=n, nz=n,
+                                  transform="matmul",
+                                  matmul_precision="default",
+                                  use_pallas_transform="auto")
+        require(cfg.use_pallas_transform is True, "3D auto gate resolved off")
+        return (Rollout3DEngine(cfg, device=DEVICE),
+                (s3.taylor_green_velocity(cfg),))
+    n = cfg_kw["nx"]
+    kw = dict(nt=nt, nx=n, ny=n, dt=cfg_kw.get("dt", 1e-3),
+              nu=cfg_kw.get("nu", 0.1))
+    cfg = (chorin_fd.ChorinFDConfig(nit=200, method="explicit", **kw)
+           if kind == "chorin_fd" else direct_fd.DirectFDConfig(nit=50, **kw))
+    z = np.zeros((n, n), np.float32)
+    return (FDRolloutEngine(kind, cfg, *cavity_bcs(2.0 / (n - 1),
+                                                   2.0 / (n - 1)),
+                            device=DEVICE), (z, z, z))
+
+
+def steps_per_s(fn, nt: int) -> float:
+    """nt / seconds of one call of fn, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return nt / (time.perf_counter() - t0)
+
+
+def runtime_replays(card: str) -> dict:
+    """Each RUNTIME_RUNS configuration captured (captured=True), its replay
+    bitwise equal to the eager loop, its kernels named in the device
+    records of one replayed call, eager and replayed steps/s (median of
+    3, in turns)."""
+    out, replayed = {"device": card}, {k: 0 for k in KERNEL_SYMBOLS}
+    for label, kind, cfg_kw, nt in RUNTIME_RUNS:
+        t0 = time.perf_counter()
+        eng, inputs = runtime_engine(kind, cfg_kw, nt)
+        build_s = time.perf_counter() - t0
+        require(eng.captured, f"{label}: not captured ({eng.eager_reason})")
+        inputs = eng._inputs(*inputs)
+        as_tuple = lambda r: r if isinstance(r, tuple) else (r,)  # noqa
+        a, b = as_tuple(eng(*inputs)), as_tuple(eng.eager(*inputs))
+        require(all(bool(torch.isfinite(x).all()) for x in a),
+                f"{label}: replay not finite")
+        require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"{label}: the replay differs from the eager loop")
+        launches = kernel_launches(profiled_records(lambda: eng(*inputs)))
+        for k, v in launches.items():
+            replayed[k] += v
+        eager, replay = [], []
+        for mode in ("eager", "replay", "replay", "eager", "eager", "replay"):
+            if mode == "eager":
+                eager.append(steps_per_s(lambda: eng.eager(*inputs), nt))
+            else:
+                replay.append(steps_per_s(lambda: eng(*inputs), nt))
+        med = lambda r: sorted(r)[len(r) // 2]  # noqa: E731
+        out[label] = {"nt": nt, "captured": eng.captured,
+                      "graphs": eng.stats()["graphs"], "chunk": eng.stats()[
+                          "chunk"], "build_s": build_s,
+                      "eager_steps_per_s": med(eager),
+                      "replayed_steps_per_s": med(replay),
+                      "eager_runs": eager, "replay_runs": replay,
+                      "kernel_launches_replayed": {
+                          k: v for k, v in launches.items() if v}}
+        print(f"  {label}: captured, replay == eager bitwise; eager "
+              f"{med(eager):.1f}, replayed {med(replay):.1f} steps/s "
+              f"(median of 3 in turns); kernels in one replayed call "
+              f"{out[label]['kernel_launches_replayed']}; {card}")
+    out["launches_replayed"] = replayed
+    return out
+
+
+def export_checks(tmp) -> dict:
+    """Export round trips on the card (<= EXPORT_VS_ENGINE of max) and a
+    kernel configuration refused."""
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.runtime import (FDRolloutEngine, RolloutEngine,
+                                      export_fd_rollout, export_rollout,
+                                      load_fd_rollout_artifact,
+                                      load_rollout_artifact)
+    from ns_tpu_torch.solvers import chorin_fd
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    out = {}
+    ne = SERVE["export_n"]
+    c2 = sp.SpectralPeriodicConfig(nt=20, nx=ne, ny=ne)
+    w0 = sp.taylor_green_vorticity(c2)
+    art = export_rollout(c2, os.path.join(tmp, "rollout.pt2z"), DEVICE)
+    want = RolloutEngine(c2, device=DEVICE)(w0)
+    got = load_rollout_artifact(art)(torch.as_tensor(w0, device=DEVICE))
+    out["export_2d_vs_engine"] = float((got - want).abs().max()
+                                       / want.abs().max())
+    n = SERVE["export_fd_n"]
+    bcs = cavity_bcs(2.0 / (n - 1), 2.0 / (n - 1))
+    cf = chorin_fd.ChorinFDConfig(nt=10, nx=n, ny=n, dt=1e-5, nu=0.01,
+                                  method="semi_implicit", pressure_mode="dst")
+    art = export_fd_rollout("chorin_fd", cf, *bcs,
+                            os.path.join(tmp, "fd.pt2z"), device=DEVICE)
+    z = torch.zeros((n, n), device=DEVICE)
+    want = FDRolloutEngine("chorin_fd", cf, *bcs, device=DEVICE)(z, z, z)
+    got = load_fd_rollout_artifact(art)(z, z.clone(), z.clone())
+    out["export_fd_vs_engine"] = max(float((g - w).abs().max())
+                                     / max(float(w.abs().max()), 1e-30)
+                                     for g, w in zip(got, want))
+    for key in ("export_2d_vs_engine", "export_fd_vs_engine"):
+        require(out[key] <= EXPORT_VS_ENGINE,
+                f"{key} {out[key]:.3e} (bound {EXPORT_VS_ENGINE})")
+    try:
+        export_fd_rollout("chorin_fd", chorin_fd.ChorinFDConfig(
+            nt=1, nx=51, ny=51, method="explicit"), *cavity_bcs(0.04, 0.04),
+            os.path.join(tmp, "k.pt2z"), device=DEVICE)
+        fail("export took a configuration that runs a kernel")
+    except ValueError as e:
+        out["export_refused"] = str(e)
+    print(f"  export round trips on the card: 2D "
+          f"{out['export_2d_vs_engine']:.2e}, chorin_fd dst "
+          f"{out['export_fd_vs_engine']:.2e} of max; explicit chorin_fd "
+          "refused")
+    return out
+
+
+STREAM_RUNS = [
+    ("chorin_fd explicit 1024^2", ["chorin_fd", "--method", "explicit",
+                                   "--nx", "1024", "--dt", "1e-5", "--nu",
+                                   "0.01"], "uvp"),
+    ("decaying_turbulence 1024^2 bench engine",
+     ["decaying_turbulence", "--nx", str(N2D), "--dt", "5e-4", "--nu",
+      "1e-4", "--transform", "matmul", "--compact", "--precision",
+      "default"], "uvp"),
+]
+
+
+def stream_runs(tmp, card: str) -> dict:
+    """run_solver --stream-dir against the same command's npz run: each
+    .npy bitwise equal to the npz field, the native writer in use, less
+    device memory than the in-memory run; the FD run's K4 and K3 counted."""
+    from ns_tpu_torch.io import native_writer
+    from ns_tpu_torch.ops import kernels
+
+    nt = SERVE["stream_nt"]
+    backends = []
+    init = native_writer.AsyncNpyWriter.__init__
+
+    def spy(self, *a, **k):  # which backend each writer of the run took
+        init(self, *a, **k)
+        backends.append(self.backend)
+
+    out = {"device": card, "nt": nt}
+    for label, argv, names in STREAM_RUNS:
+        argv = argv + ["--nt", str(nt)]
+        res = {}
+        for mode in ("npz", "stream"):
+            extra = (["--out", os.path.join(tmp, f"{argv[0]}.npz")]
+                     if mode == "npz" else
+                     ["--stream-dir", os.path.join(tmp, f"{argv[0]}_s")])
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            native_writer.AsyncNpyWriter.__init__ = spy
+            try:
+                summary, _ = run_cli(argv + extra)
+            finally:
+                native_writer.AsyncNpyWriter.__init__ = init
+            res[mode] = {"steps_per_s": summary["steps_per_s"],
+                         "seconds": summary["seconds"],
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "launches": {k: v for k, v in
+                                      kernels.launch_counts().items() if v}}
+        with np.load(os.path.join(tmp, f"{argv[0]}.npz")) as d:
+            for key in names:
+                s = np.load(os.path.join(tmp, f"{argv[0]}_s", f"{key}.npy"))
+                require(np.array_equal(s, d[key]),
+                        f"{label}: streamed {key} differs from the npz")
+        require(res["stream"]["peak_bytes"] < res["npz"]["peak_bytes"],
+                f"{label}: streamed peak {res['stream']['peak_bytes']} >= "
+                f"in-memory {res['npz']['peak_bytes']}")
+        if argv[0] == "chorin_fd":
+            for k in ("sor_redblack_packed_multiblock",
+                      "momentum_explicit_fused"):
+                require(res["stream"]["launches"].get(k, 0) > 0,
+                        f"{label}: {k} did not launch in the streamed run")
+        out[label] = res
+        print(f"  {label} nt={nt}: streamed {res['stream']['steps_per_s']:.1f}"
+              f" steps/s (peak {res['stream']['peak_bytes'] / 1e9:.2f} GB), "
+              f"npz {res['npz']['steps_per_s']:.1f} steps/s (peak "
+              f"{res['npz']['peak_bytes'] / 1e9:.2f} GB); files equal "
+              f"bitwise; {card}")
+    require(backends and set(backends) == {"native"},
+            f"the stream runs' writers took {set(backends)}")
+    out["writer_backends"] = sorted(set(backends))
+    return out
+
+
+def phase_serve_runtime(tmp, card: str) -> dict:
+    """The HTTP service, the solver oracles, the runtime engines replayed
+    from CUDA graphs and --stream-dir (module docstring)."""
+    print("phase 4/5: serving (HTTP, coalescing, oracles), the runtime "
+          "engines as CUDA graphs, --stream-dir")
+    out, seconds = {}, {}
+
+    def exports():  # run while cli.serve starts (serve_http)
+        out["exports"] = export_checks(tmp)
+
+    for key, fn in (
+            ("http", lambda: serve_http(tmp, card, exports)),
+            ("oracles", lambda: serve_oracles(card)),
+            ("runtime", lambda: runtime_replays(card)),
+            ("stream", lambda: stream_runs(tmp, card))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    print(f"  part seconds: {seconds}")
+    return out
+
+
 # --- report ------------------------------------------------------------------
 
 KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
@@ -2719,12 +3243,14 @@ KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
 ]
 
 
-def report(res: Results, main_path: dict) -> list:
+def report(res: Results, main_path: dict, replayed: dict) -> list:
     """The kernels line: every number measured or computed in this run.
     `ms`/`plain_ms` are at the main path's precision; K6, K7 and K8 also
     give both precisions' kernel times (ms_default, ms_highest), the
     'highest' route's twin time and bound, and their tensor-core launches
-    on the main path."""
+    on the main path; the kernels the runtime engines replay
+    (KERNEL_SYMBOLS) their launches in one replayed call of each engine
+    (`launches_replayed`, the profiler's device records)."""
     rows = []
     launches = main_path["launches"]
     for name, src, rep in KERNELS:
@@ -2772,6 +3298,10 @@ def report(res: Results, main_path: dict) -> list:
                     f"{name}: no {key}")
         require(row["launches"] > 0 and row["calls"] > 0,
                 f"{name}: no launch on the main path")
+        if name in KERNEL_SYMBOLS:
+            row["launches_replayed"] = replayed[name]
+            require(replayed[name] > 0,
+                    f"{name}: no launch in the replayed CUDA graphs")
         rows.append(row)
     return rows
 
@@ -2815,8 +3345,10 @@ def main():
         training = timed_phase("train", phase_train, tmp, card)
         surrogate3d = timed_phase("surrogate 3d", phase_surrogate3d, tmp,
                                   card, budget_s=SURR3D_BUDGET_S)
+        serving = timed_phase("serve and runtime", phase_serve_runtime, tmp,
+                              card, budget_s=SERVE_BUDGET_S)
     require_no_jax()
-    kernels = report(res, main_path)
+    kernels = report(res, main_path, serving["runtime"]["launches_replayed"])
     print(json.dumps({"card": card,
                       "main_path_steps_per_s": main_path["steps_per_s"],
                       "bench_2d": main_path["bench_2d"],
@@ -2832,7 +3364,7 @@ def main():
                                   "top_device_ms", "top_host_self_ms")}
                               for prec, r in cheb["profile"].items()}},
                       "surrogate": surrogate, "train": training,
-                      "surrogate3d": surrogate3d}))
+                      "surrogate3d": surrogate3d, "serve_runtime": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,12 @@ families, the full-field GRU, FNO2D with both spectral engines, FNOPsi,
 the vorticity and projection maps), the checkpoint format and the weight
 carry from JAX key paths (`train/checkpoint.py`), the training
 configuration (`train/trainer.py`), the inference engine
-(`serve/engine.py`) and `cli/evaluate.py`. This package imports neither
-jax nor ns_tpu.
+(`serve/engine.py`) and `cli/evaluate.py`; training and the 3D
+surrogates; the HTTP rollout service and the solver oracles (`serve/`,
+`cli/serve.py`), the runtime engines replayed from CUDA graphs and their
+`torch.export` artifacts (`runtime/`), and streaming rollouts to .npy
+(`io/`, run_solver's `--stream-dir`). This package imports neither jax
+nor ns_tpu.
 """
 
 __version__ = "0.1.0"

@@ -23,11 +23,14 @@ The cavity and 2D periodic npz hold u, v, p of shape (nt, nx, ny), the
 layout the JAX trainer reads. --guard runs a cavity family under the
 divergence guard (utils/guard.py: the state freezes at the last good step
 and the first bad step is reported); --progress runs the rollout in
---chunk-step chunks with a progress bar (utils/progress.py); both as the
-JAX CLI. --stream-dir and --dist are not yet ported and exit with an error
-that says so. Rollouts run on the card; a machine without one needs
---device cpu (without it the command exits with an error). The summary
-reports the set-up time (building the system) apart from the total.
+--chunk-step chunks with a progress bar (utils/progress.py); --stream-dir
+streams the frames to .npy files a chunk at a time (io/streaming.py: u/v/p
+for the cavity families, u/v/p/w for the 2D periodic ones) instead of
+writing the npz; all three as the JAX CLI. --dist is not yet ported and
+exits with an error that says so. Rollouts run on the card; a machine
+without one needs --device cpu (without it the command exits with an
+error). The summary reports the set-up time (building the system) apart
+from the total.
 
 Examples:
   python -m ns_tpu_torch.cli.run_solver direct_fd --out data.npz
@@ -151,7 +154,11 @@ def _parser() -> argparse.ArgumentParser:
                         "command-line parity; on CUDA the port always runs "
                         "the explicit predictor as its K3 kernel")
     p.add_argument("--stream-dir", type=str, default=None,
-                   help=f"{_NOT_PORTED} (exits with an error)")
+                   help="stream frames to .npy files in this directory "
+                        "instead of materializing the stacked rollout "
+                        "(horizons larger than device memory): u/v/p for "
+                        "the cavity families, u/v/p/w for the 2D periodic "
+                        "ones")
     p.add_argument("--guard", action="store_true",
                    help="cavity families: run under the divergence guard "
                         "(utils/guard.py): on NaN/blow-up the state "
@@ -217,9 +224,8 @@ def build(argv=None):
         if args.stream_dir or args.progress or args.guard:
             p.error("--n-traj is incompatible with "
                     "--stream-dir/--progress/--guard")
-    for flag in ("stream_dir", "dist"):
-        if getattr(args, flag):
-            p.error(f"--{flag.replace('_', '-')} {_NOT_PORTED}")
+    if args.dist:
+        p.error(f"--dist {_NOT_PORTED}")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -303,12 +309,22 @@ def _as_numpy(a) -> np.ndarray:
 
 
 def _run_cavity(sys_, args):
-    """A cavity family's rollout, under the divergence guard (--guard) or
-    in chunks with a progress bar (--progress), as the JAX CLI runs it.
-    Returns (u, v, p), each (nt, nx, ny)."""
-    if args.progress and args.guard:
+    """A cavity family's rollout, streamed to disk (--stream-dir), under
+    the divergence guard (--guard) or in chunks with a progress bar
+    (--progress), as the JAX CLI runs it. Returns (u, v, p), each (nt, nx,
+    ny), or None when the frames were streamed."""
+    if args.progress and args.guard and not args.stream_dir:
         print("note: --progress is ignored under --guard (the guarded "
               "rollout runs as one fused scan)")
+    if args.stream_dir:
+        if args.guard:
+            print("note: --guard is ignored when streaming (the guard "
+                  "needs the scan carry; stream chunks run unguarded)")
+        from ns_tpu_torch.io.streaming import stream_rollout
+        stream_rollout(sys_._step, sys_.state0, args.nt,
+                       lambda s: {"u": s.u, "v": s.v, "p": s.p},
+                       args.stream_dir)
+        return None
     if args.progress and not args.guard:
         from ns_tpu_torch.utils.progress import chunked_simulate
         outs, _ = chunked_simulate(
@@ -328,8 +344,12 @@ def _run_cavity(sys_, args):
 
 
 def _run_cavity_cli(args, device: torch.device, sys_, t0: float) -> dict:
-    """A cavity family's rollout and its u/v/p npz."""
-    u, v, pr = (_as_numpy(a) for a in _run_cavity(sys_, args))
+    """A cavity family's rollout and its u/v/p npz (or its streamed
+    .npy files)."""
+    fields = _run_cavity(sys_, args)
+    if fields is None:
+        return _streamed(args, device, t0, "streamed u/v/p")
+    u, v, pr = (_as_numpy(a) for a in fields)
     elapsed = time.perf_counter() - t0
     out = args.out or (f"data_{args.method}.npz"
                        if args.family == "chorin_fd" else "data.npz")
@@ -339,6 +359,17 @@ def _run_cavity_cli(args, device: torch.device, sys_, t0: float) -> dict:
           f"{device} in {elapsed:.2f}s ({rate:.1f} steps/s) -> {out}")
     return {"out": out, "device": str(device), "seconds": elapsed,
             "steps_per_s": rate}
+
+
+def _streamed(args, device: torch.device, t0: float, what: str) -> dict:
+    """The summary of a --stream-dir run (the frames are on disk)."""
+    elapsed = time.perf_counter() - t0
+    rate = args.nt / elapsed
+    print(f"{args.family}: nt={args.nt} {what} to "
+          f"{args.stream_dir} on {device} in {elapsed:.2f}s ({rate:.1f} "
+          "steps/s)")
+    return {"out": args.stream_dir, "device": str(device),
+            "seconds": elapsed, "steps_per_s": rate}
 
 
 def _system_3d(args, device: torch.device):
@@ -388,13 +419,28 @@ def _run_2d(args, device: torch.device, sys_, t0: float) -> dict:
     cfg, nx = sys_.cfg, sys_.cfg.nx
     strided = args.frame_stride > 1 or args.spinup > 0
     if args.guard:
-        if args.progress:
+        if args.progress or args.stream_dir:
             print("note: --guard is ignored for periodic "
                   "--stream-dir/--progress runs (unsupported for the "
                   "periodic families in general)")
         else:
             print("guard: not supported for the periodic families; "
                   "running unguarded")
+
+    if args.stream_dir:
+        from ns_tpu_torch.io.streaming import stream_rollout
+
+        def extract(c):
+            # the reference simulate() triple (u, v, p) plus vorticity, from
+            # the carry's layout expanded to the rfft2 one
+            u, v, p = sys_._extract(c[0])
+            w = torch.fft.irfft2(sp._to_full(cfg, c[0]), s=(nx, nx))
+            return {"u": u, "v": v, "p": p, "w": w}
+
+        stream_rollout(lambda c: sys_._step(c)[0], sys_.carry0, args.nt,
+                       extract, args.stream_dir)
+        return _streamed(args, device, t0,
+                         f"grid={nx}x{nx} streamed u/v/p/w")
 
     def rollout(w_ic=None):
         if args.progress:

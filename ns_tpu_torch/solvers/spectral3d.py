@@ -470,17 +470,27 @@ def _as_velocity(cfg: Spectral3DConfig, u0, device=None) -> torch.Tensor:
                            device=resolve_device(device))
 
 
+def _carry_builder(cfg: Spectral3DConfig, device):
+    """u0 -> carry on `device`, its constants built once: transform,
+    dealias, Leray-project the IC (guards imperfectly solenoidal inputs),
+    self-start the AB2 history with the first nonlinear eval."""
+    ops = make_ops(cfg, device)
+    transforms = make_transforms(cfg, device)
+
+    def build(u0):
+        u_hat = transforms[0](u0.to(cfg.real_dtype))
+        if not cfg.compact and cfg.dealias:
+            u_hat = torch.where(ops["mask"], u_hat, 0.0)
+        u_hat = leray_project(ops, u_hat)
+        return u_hat, nonlinear_term(cfg, ops, transforms, u_hat)
+
+    return build
+
+
 def carry_from_velocity(cfg: Spectral3DConfig, u0: torch.Tensor):
-    """Carry from a physical (3, nx, ny, nz) velocity on its device:
-    transform, dealias, Leray-project the IC (guards imperfectly solenoidal
-    inputs), self-start the AB2 history with the first nonlinear eval."""
-    ops = make_ops(cfg, u0.device)
-    transforms = make_transforms(cfg, u0.device)
-    u_hat = transforms[0](u0.to(cfg.real_dtype))
-    if not cfg.compact and cfg.dealias:
-        u_hat = torch.where(ops["mask"], u_hat, 0.0)
-    u_hat = leray_project(ops, u_hat)
-    return u_hat, nonlinear_term(cfg, ops, transforms, u_hat)
+    """Carry from a physical (3, nx, ny, nz) velocity on its device
+    (`_carry_builder`)."""
+    return _carry_builder(cfg, u0.device)(u0)
 
 
 def init_from_velocity(cfg: Spectral3DConfig, u0, device=None):

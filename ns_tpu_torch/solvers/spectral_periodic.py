@@ -653,13 +653,19 @@ def init_from_vorticity_real(cfg: SpectralPeriodicConfig, w0, device=None):
     return init_from_vorticity(cfg, w0, device)
 
 
+def make_inverse(cfg: SpectralPeriodicConfig, device=None):
+    """Spectrum in the carry's layout -> physical vorticity on `device`,
+    its tables built once."""
+    if cfg.real_gemm:
+        return make_real_gemm_transforms(cfg, device)[1]
+    if cfg.compact_spectrum:
+        return make_compact_transforms(cfg, device)[1]
+    return lambda z: torch.fft.irfft2(z, s=(cfg.nx, cfg.ny))
+
+
 def physical_from_carry(cfg: SpectralPeriodicConfig, w_spec: torch.Tensor):
     """Spectrum in the carry's layout -> physical vorticity."""
-    if cfg.real_gemm:
-        return make_real_gemm_transforms(cfg, w_spec.device)[1](w_spec)
-    if cfg.compact_spectrum:
-        return make_compact_transforms(cfg, w_spec.device)[1](w_spec)
-    return torch.fft.irfft2(w_spec, s=(cfg.nx, cfg.ny))
+    return make_inverse(cfg, w_spec.device)(w_spec)
 
 
 def _advance(step, carry, n: int):

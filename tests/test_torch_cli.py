@@ -134,10 +134,45 @@ def test_cli_rejects_what_the_jax_cli_rejects(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["taylor_green", "--stream-dir", "x"],
-    ["chorin_spectral", "--stream-dir", "x"],
-    ["chorin_fd", "--stream-dir", "x"], ["chorin_spectral", "--dist"],
+    ["taylor_green", "--transform", "fft"],
+    ["chorin_spectral", "--corrected", "--guard"],
+    ["chorin_fd", "--method", "explicit", "--progress"],
+])
+def test_cli_stream_dir_as_the_jax_cli(tmp_path, capsys, argv):
+    """--stream-dir (ported; these cases once checked its "not yet ported"
+    error) streams each family as the JAX CLI does: the same .npy files
+    (u/v/p, u/v/p/w for the periodic families; float64 rollouts stored as
+    float32: within one float32 rounding or the npz runs' 1e-9), the
+    same note where the JAX CLI ignores a flag under streaming, and no
+    npz."""
+    nx = 16 if argv[0] == "taylor_green" else 17
+    common = ["--nt", "3", "--nx", str(nx), "--dtype", "float64"]
+    notes = {}
+    for pkg, main, extra in (("jax", j_cli.main, []),
+                             ("torch", t_cli.main, ["--device", "cpu"])):
+        out = tmp_path / pkg
+        main(argv + common + extra + ["--stream-dir", str(out),
+                                      "--out", str(tmp_path / f"{pkg}.npz")])
+        notes[pkg] = [line for line in capsys.readouterr().out.splitlines()
+                      if line.startswith("note:")]
+        assert not (tmp_path / f"{pkg}.npz").exists()
+    assert notes["torch"] == notes["jax"]
+    assert (len(notes["jax"]) == 1) == ("--guard" in argv)
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "torch")) == names
+    assert names == (["p.npy", "u.npy", "v.npy", "w.npy"]
+                     if argv[0] == "taylor_green"
+                     else ["p.npy", "u.npy", "v.npy"])
+    for name in names:
+        j, t = (np.load(tmp_path / pkg / name) for pkg in ("jax", "torch"))
+        assert t.shape == j.shape == (3, nx, nx) and t.dtype == np.float32
+        np.testing.assert_allclose(t, j, rtol=2.0**-23, atol=1e-9)
+
+
+@pytest.mark.parametrize("argv", [
+    ["chorin_spectral", "--dist"],
     ["chorin_fd", "--dist"],
+    ["taylor_green", "--dist"],
     ["direct_fd", "--pressure-mode", "cg"],
     ["direct_fd", "--pallas-momentum"],
     ["chorin_fd", "--pallas-momentum"],

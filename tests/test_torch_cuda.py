@@ -21,6 +21,7 @@ decay within chip_smoke.py's bounds.
 """
 
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -1234,3 +1235,114 @@ def test_3d_training_after_a_served_rollout(cuda, tmp_path):
                                resume=str(tmp_path / "h" / "checkpoint.npz"),
                                **base))
     assert half.train(progress=False) == losses
+
+
+# --- the runtime engines, serving and the native writer ----------------------
+
+
+def _fd_engine(family, n, nt, **kw):
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.runtime import FDRolloutEngine
+    from ns_tpu_torch.solvers import chorin_fd, direct_fd
+
+    base = dict(nt=nt, nx=n, ny=n, dt=kw.pop("dt", 1e-3),
+                nu=kw.pop("nu", 0.1))
+    cfg = (chorin_fd.ChorinFDConfig(method="explicit", **base, **kw)
+           if family == "chorin_fd" else direct_fd.DirectFDConfig(**base,
+                                                                  **kw))
+    z = np.zeros((n, n), np.float32)
+    return FDRolloutEngine(family, cfg, *cavity_bcs(2.0 / (n - 1),
+                                                   2.0 / (n - 1))), (z, z, z)
+
+
+@pytest.mark.parametrize("case", [
+    ("chorin_fd", 51, 120, {}),                                 # K1 + K3
+    ("direct_fd", 50, 120, {"nit": 50}),                        # K2
+    ("chorin_fd", 1024, 12, {"dt": 1e-5, "nu": 0.01}),          # K4 + K3
+    ("direct_fd", 1024, 7, {"dt": 1e-5, "nu": 0.01, "nit": 50}),  # K2mb
+])
+def test_fd_engine_replay_equals_eager(cuda, case):
+    """The captured rollout (a chunk graph replayed, a remainder graph) is
+    bitwise the eager loop, with the kernels inside the graphs."""
+    family, n, nt, kw = case
+    eng, ics = _fd_engine(family, n, nt, **kw)
+    assert eng.captured, eng.eager_reason
+    got, want = eng(*ics), eng.eager(*ics)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+    assert "captured=True" in repr(eng)
+    again = eng(*ics)  # a second call overwrites nothing it returned
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_fd_engine_with_a_host_gate_runs_eagerly(cuda):
+    """K4 at 4096^2 float32 takes its group route, whose gate is read on
+    the host: the engine cannot capture it, says so, and runs eagerly."""
+    eng, ics = _fd_engine("chorin_fd", 4096, 2, dt=1e-6, nu=0.01, nit=20)
+    assert eng.captured is False
+    assert "synchronizing" in eng.eager_reason
+    assert eng.stats()["captured"] is False
+    got, want = eng(*ics), eng.eager(*ics)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_periodic_engines_replay_equals_eager(cuda):
+    from ns_tpu_torch.runtime import Rollout3DEngine, RolloutEngine
+
+    cfg = sp.SpectralPeriodicConfig(nt=70, nx=256, ny=256, dt=5e-4, nu=1e-4,
+                                    transform="matmul",
+                                    matmul_precision="default",
+                                    compact_spectrum=True)
+    w0 = sp.decaying_turbulence_vorticity(cfg, seed=0, k_peak=10.0)
+    eng = RolloutEngine(cfg)
+    assert eng.captured and eng.stats()["graphs"] == ["chunk", "finish",
+                                                     "init", "rest"]
+    assert torch.equal(eng(w0), eng.eager(w0))
+    c3 = s3.Spectral3DConfig(nt=3, nx=128, ny=128, nz=128,
+                             transform="matmul", matmul_precision="default",
+                             use_pallas_transform="auto")
+    assert c3.use_pallas_transform is True
+    e3 = Rollout3DEngine(c3)
+    u0 = s3.taylor_green_velocity(c3)
+    assert e3.captured and torch.equal(e3(u0), e3.eager(u0))
+    names = [n for n, _ in e3.replay_records("rest")]
+    assert any("lamb_phys_bf16_kernel" in n for n in names)
+
+
+def test_server_round_trip_on_the_card(cuda):
+    import threading
+
+    from ns_tpu_torch.serve import ServeClient, SolverEngine
+    from ns_tpu_torch.serve.server import make_server
+
+    eng = SolverEngine(64, 64, stride=5, chunk=3)
+    httpd = make_server(eng, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        c = ServeClient("127.0.0.1", httpd.server_address[1])
+        assert c.health()["model"] == "solver:spectral_periodic"
+        x = np.zeros((3, 64, 64), np.float32)
+        x[0] = np.sin(np.linspace(0, 2 * np.pi, 64, endpoint=False))[None]
+        out = c.rollout(x, 4)
+        assert out.shape == (5, 3, 64, 64) and np.isfinite(out).all()
+        np.testing.assert_array_equal(out, eng.predict(x, 4))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_native_writer_builds_from_the_port(tmp_path):
+    """The native backend builds from ns_tpu_torch/csrc/stream_writer.cpp
+    into ns_tpu_torch/_build/ (g++ on the card's machine)."""
+    from ns_tpu_torch.io import AsyncNpyWriter
+    from ns_tpu_torch.runtime.native import build
+
+    data = np.arange(4 * 6, dtype=np.float32).reshape(4, 6)
+    with AsyncNpyWriter(str(tmp_path / "n.npy"), data.shape,
+                        backend="native") as w:
+        w.write(0, data)
+    np.testing.assert_array_equal(np.load(tmp_path / "n.npy"), data)
+    assert build._SO.endswith(os.path.join("ns_tpu_torch", "_build",
+                                           "_ns_native.so"))

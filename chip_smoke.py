@@ -182,14 +182,45 @@ Phases (any failure exits non-zero, and no result line is printed):
                files bitwise equal, the native writer, a lower device
                peak, streamed and npz steps/s; its "[... s]" line says
                whether it kept its 75 s budget
+  4/5, scale-out (ns_tpu_torch/parallel, launch.py; no kernel of its own
+               but the FD ensembles' K1, K2, K3), last: ensemble_init +
+               ensemble_rollout_final at B = 64 on bench.py's 1024^2
+               engine and physics, 20 steps (the JAX package's scale-out
+               record's workload, BASELINE.md:62): ensemble-steps/s
+               (median of 5 and the runs), cell-updates/s, peak memory,
+               the device's idle share, member 3 against its own rollout
+               (w_hat <= 5e-4 and N_prev <= 4e-3 of their max: the batched
+               bf16 GEMMs sum in another order; a control with bf16 GEMM
+               outputs must exceed both), the same ensemble at 'high' with
+               member 3 within 1e-5 of max|w| of its own rollout (both:
+               whether bitwise); ensemble_fd_rollout
+               of chorin_fd explicit 51^2 (K1, K3) and direct_fd 50^2
+               (K2), B = 8, nt 50, counts set to 0 just before and read
+               just after, every member bitwise its single rollout;
+               `python -m ns_tpu_torch.launch --nprocs 1 --platform cuda
+               -- python -m ns_tpu_torch.cli.run_solver
+               decaying_turbulence --dist` at 1024^2 (NCCL, world of 1,
+               all_to_all): 'default' nt 200, its assembled npz's u and v
+               within 1e-4 of max|u| of a single-device run that recovers
+               them through the compact inverse, as --dist does, and
+               within 1e-2 of the plain run (its fp32 irfft2 against the
+               bf16 inverse; the plain frames one step apart must part by
+               more), both rates; once the --dist run has read its rate,
+               the launcher's self-test on the card (1 rank) and, at the
+               same time, on a CPU gang of 4 (gloo) this script asks for,
+               alongside the plain run and the checks;
+               enable_nan_checks raising on a NaN made on the card,
+               utils/profiling's timed and trace there (the trace holds
+               chorin_fd.pressure); its "[... s]" line says whether it
+               kept its 90 s budget
 After every phase the script checks that neither jax nor the JAX package
 was imported. The line before the kernels line carries the card, the main
 runs' and bench.py rollout's rates, the Chebyshev step loop, the
 surrogate phase's rates, profiles and check values, the training
 phase's rates, memory, losses and check values, the 3D surrogate
-phase's (`surrogate3d`) and the serving and runtime phase's
-(`serve_runtime`). The line before the
-last is {"kernels": [...]}
+phase's (`surrogate3d`), the serving and runtime phase's
+(`serve_runtime`) and the scale-out phase's (`scale_out`). The line before
+the last is {"kernels": [...]}
 with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
 calls there and launches per call (K2mb, K4 and K5 also their resident
@@ -3219,6 +3250,422 @@ def phase_serve_runtime(tmp, card: str) -> dict:
     return out
 
 
+# --- phase 4/5: scale-out ----------------------------------------------------
+
+# bench.py's physics and engine (1024^2 decaying turbulence, compact
+# matmul-DFT at 'default', dt 5e-4, nu 1e-4, k_peak 30), as the B = 64
+# ensemble of the JAX package's scale-out record (BASELINE.md:62), 20 steps
+SCALE = dict(B=64, n=N2D, nt=20, member=3, repeats=5, fd_B=8, fd_nt=50,
+             dist_n=N2D, gang_timeout=300)
+SCALE_BUDGET_S = 90
+# member 3 of the B = 64 ensemble against its own single rollout, each
+# carry part of its max. At 'default' the batched bf16 GEMMs (cuBLAS bmm)
+# sum in another order than the single rollout's (mm; a batch of 1 gives
+# the single rollout bitwise), and a sum rounded to another bf16 neighbour
+# at the next stage grows over the 20 steps. Read on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md, scale-out): w_hat 1.06e-4, N_prev 1.29e-3, where the
+# same single rollout on the card against the CPU (another order too) reads
+# 3.5e-5 and 1.01e-3; bounds with 4.7x and 3.1x headroom. The control, the
+# single rollout with each bf16 GEMM's output rounded to bf16, read 3.66e-3
+# and 8.5e-3 and must exceed them. The float32 'high' ensemble (fp32 GEMMs)
+# is held to ENSEMBLE_VS_SINGLE of max|w| (read 9.6e-7).
+ENSEMBLE_DEFAULT_VS_SINGLE = {"w_hat": 5e-4, "N_prev": 4e-3}
+ENSEMBLE_VS_SINGLE = 1e-5
+# run_solver --dist 'default' 1024^2, nt 200 (the JAX CLI's --dist command), u and
+# v of max|u|:
+#  - against a single-device run of the same engine that recovers u, v as
+#    --dist does, through the compact inverse transform at 'default'
+#    (`make_compact_transforms`): DIST_VS_COMPACT, 1e-4. The
+#    sharded path runs the engine's own GEMM stages, nonlinear term and
+#    step, so at a world of 1 only the all_to_all copies and the six- rather
+#    than two-field inverse batch lie between them;
+#  - against the plain CLI run, which recovers them by an fp32 irfft2:
+#    DIST_VS_PLAIN. The compact inverse takes bf16 operands (2^-9 a
+#    coefficient), so the two part by ~4e-3 of max|u| (read 4.2e-3 on an
+#    NVIDIA H100 80GB HBM3 at 700 W, PERF.md scale-out). Its control: the plain
+#    run's frames one step apart (an extraction off by one step) must part
+#    by more than the bound.
+DIST_RUN = ("default", 200)
+DIST_VS_COMPACT = 1e-4
+DIST_VS_PLAIN = 1e-2
+
+def scale_ensemble(card: str) -> dict:
+    """ensemble_init + ensemble_rollout_final at B = 64, 1024^2, 'default':
+    ensemble-steps/s (median of 5 and the runs), cell-updates/s, peak
+    memory, the device's idle share, member 3 against its own single
+    rollout; then the same ensemble at 'high', member 3 within 1e-5 of
+    max|w| of its own rollout."""
+    import statistics
+
+    from ns_tpu_torch.parallel.ensemble import (ensemble_energy,
+                                                ensemble_init,
+                                                ensemble_rollout_final)
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    B, n, m = SCALE["B"], SCALE["n"], SCALE["member"]
+
+    def config(prec):
+        return sp.SpectralPeriodicConfig(nt=SCALE["nt"], nx=n, ny=n,
+                                         dt=5e-4, nu=1e-4, dtype="float32",
+                                         transform="matmul",
+                                         matmul_precision=prec,
+                                         compact_spectrum=True)
+
+    cfg = config("default")
+    w0 = np.stack([sp.decaying_turbulence_vorticity(cfg, seed=s,
+                                                    k_peak=30.0)
+                   for s in range(B)])
+
+    def member_vs_single(cfg, final):
+        """(carry part errors of max, physical w error of max|w|,
+        bitwise) of member m against its own rollout."""
+        single = sp.rollout_final(cfg, sp.init_from_vorticity(cfg, w0[m],
+                                                              DEVICE))
+        parts = {k: float((a[m] - b).abs().max() / b.abs().max())
+                 for k, a, b in zip(("w_hat", "N_prev"), final, single)}
+        w_ens = sp.physical_from_carry(cfg, final[0][m])
+        w_one = sp.physical_from_carry(cfg, single[0])
+        w_err = float((w_ens - w_one).abs().max() / w_one.abs().max())
+        return parts, w_err, bool(torch.equal(w_ens, w_one))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    final = []
+
+    def run():
+        carry = ensemble_init(cfg, w0, device=DEVICE)
+        final[:] = [ensemble_rollout_final(cfg, carry)]
+
+    def timed() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed()  # warm-up
+    rates = [cfg.nt / timed() for _ in range(SCALE["repeats"])]
+    peak = torch.cuda.max_memory_allocated() - base
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall = timed()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    w_hat = final[0][0]
+    require(w_hat.shape[0] == B and bool(torch.isfinite(
+        torch.view_as_real(w_hat)).all()), "B = 64 ensemble not finite")
+    parts, w_err, bitwise = member_vs_single(cfg, final[0])
+    from ns_tpu_torch.ops import gemm
+    exact_mm = gemm._bf16_mm_f32
+    gemm._bf16_mm_f32 = lambda a, b: exact_mm(a, b).bfloat16().float()
+    try:
+        control = sp.rollout_final(cfg, sp.init_from_vorticity(cfg, w0[m],
+                                                               DEVICE))
+    finally:
+        gemm._bf16_mm_f32 = exact_mm
+    control, _, _ = member_vs_single(cfg, [c[None].expand(m + 1, *c.shape)
+                                           for c in control])
+    for part, bound in ENSEMBLE_DEFAULT_VS_SINGLE.items():
+        require(parts[part] <= bound,
+                f"ensemble member {m} 'default' {part} vs its own rollout: "
+                f"{parts[part]:.3e} of max > {bound}")
+        require(control[part] > bound,
+                f"ensemble control (bf16 GEMM outputs) {part}: "
+                f"{control[part]:.3e} <= {bound}")
+    energy = float(ensemble_energy(cfg, w_hat))
+    require(math.isfinite(energy) and energy > 0, f"energy {energy}")
+    final.clear()
+    cfg_high = config("high")
+    high = ensemble_rollout_final(cfg_high, ensemble_init(cfg_high, w0,
+                                                          device=DEVICE))
+    _, high_err, high_bitwise = member_vs_single(cfg_high, high)
+    require(high_err <= ENSEMBLE_VS_SINGLE,
+            f"ensemble member {m} 'high' vs its own rollout: {high_err:.3e} "
+            f"of max|w| > {ENSEMBLE_VS_SINGLE}")
+    rate = statistics.median(rates)
+    out = {"config": "B=64 decaying_turbulence 1024^2 compact matmul "
+                     "'default' dt 5e-4 nu 1e-4 k_peak 30, 20 steps "
+                     "(bench.py:36-40; BASELINE.md:62's workload)",
+           "ensemble_steps_per_s_median_of_5": rate,
+           "ensemble_steps_per_s": rates,
+           "cell_updates_per_s": rate * B * n * n,
+           "peak_bytes": peak, "device_idle_share":
+               1.0 - busy_us / 1e3 / (wall * 1e3),
+           "device_busy_ms_per_step": busy_us / 1e3 / cfg.nt,
+           "member_vs_single_default": {**parts, "w_of_max": w_err,
+                                        "bitwise": bitwise,
+                                        "control_bf16_outputs": control},
+           "member_vs_single_high": {"w_of_max": high_err,
+                                     "bitwise": high_bitwise},
+           "mean_energy": energy, "card": card}
+    print(f"  ensemble B={B} {n}^2: {rate:.2f} ensemble-steps/s (runs "
+          f"{', '.join(f'{r:.2f}' for r in rates)}), "
+          f"{out['cell_updates_per_s']:.3e} cell-updates/s, peak "
+          f"{peak / 1e9:.2f} GB, idle {out['device_idle_share']:.3f}; "
+          f"member {m} vs single: 'default' {parts} of max (w {w_err:.2e}, "
+          f"bitwise {bitwise}; control {control}), 'high' w "
+          f"{high_err:.2e} (bitwise "
+          f"{high_bitwise}); {card}")
+    return out
+
+
+def scale_fd_ensembles(card: str) -> dict:
+    """ensemble_fd_rollout of chorin_fd explicit 51^2 (K1 + K3) and
+    direct_fd 50^2 (K2), B = 8: the kernels counted over the ensemble runs
+    (counts set to 0 just before, read just after), every member bitwise
+    equal to its own single rollout on the card."""
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.core.state import FlowState
+    from ns_tpu_torch.ops import kernels
+    from ns_tpu_torch.parallel.ensemble import ensemble_fd_rollout
+    from ns_tpu_torch.solvers import chorin_fd, direct_fd
+
+    B, nt = SCALE["fd_B"], SCALE["fd_nt"]
+    rng = np.random.default_rng(0)
+    runs = {}
+    c = chorin_fd.ChorinFDConfig(nt=nt, nit=200, nx=51, ny=51, dt=0.001,
+                                 rho=1.0, nu=0.1, beta=1.25,
+                                 method="explicit")
+    bc = cavity_bcs(c.dx, c.dy)
+    z = np.zeros((51, 51))
+    runs["chorin_fd explicit 51^2"] = (
+        chorin_fd.make_step(c, *bc, device=DEVICE),
+        [chorin_fd.init_state(c, 0.01 * rng.normal(size=(51, 51)), z, z,
+                              *bc, device=DEVICE) for _ in range(B)],
+        {"sor_redblack_fused", "momentum_explicit_fused"})
+    d = direct_fd.DirectFDConfig(nt=nt, nit=50, nx=50, ny=50)
+    bd = cavity_bcs(d.dx, d.dy)
+    runs["direct_fd 50^2"] = (
+        direct_fd.make_step(d, *bd),
+        [FlowState(*(torch.as_tensor(0.01 * rng.normal(size=(50, 50)),
+                                     dtype=torch.float32, device=DEVICE)
+                     for _ in range(3))) for _ in range(B)],
+        {"jacobi_fused"})
+    out = {}
+    for label, (step, members, want) in runs.items():
+        fields = [f for f in ("u", "v", "p", "u_prev", "v_prev")
+                  if getattr(members[0], f) is not None]
+        batch = FlowState(**{f: torch.stack([getattr(s, f) for s in members])
+                             for f in fields})
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = ensemble_fd_rollout(step, batch, nt)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        missing = want - set(launches)
+        require(not missing, f"FD ensemble {label}: {missing} not launched")
+        for i, s in enumerate(members):
+            for _ in range(nt):
+                s = step(s)
+            for f in fields:
+                require(torch.equal(getattr(got, f)[i], getattr(s, f)),
+                        f"FD ensemble {label}: member {i} field {f} is not "
+                        "its single rollout bitwise")
+        out[label] = {"B": B, "nt": nt, "launches": launches,
+                      "member_steps_per_s": B * nt / seconds,
+                      "bitwise": True}
+        print(f"  FD ensemble {label} B={B} nt={nt}: launches {launches}, "
+              f"{B * nt / seconds:.1f} member-steps/s, every member "
+              f"bitwise its single rollout; {card}")
+    return out
+
+
+def _launch_start(args, timeout) -> subprocess.Popen:
+    """Start python -m ns_tpu_torch.launch ... from the repo root, with the
+    launcher's own --timeout a little under `timeout`."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "ns_tpu_torch.launch", "--timeout",
+         str(timeout - 15)] + args, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+
+
+def _launch_wait(proc, args, timeout) -> str:
+    """The launch's stdout; fails unless it exits 0 within `timeout`."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"launch {' '.join(args)} did not finish in {timeout} s")
+    require(proc.returncode == 0, f"launch {' '.join(args)} failed "
+            f"(rc {proc.returncode}):\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    return stdout
+
+
+def _launch(args, timeout) -> str:
+    return _launch_wait(_launch_start(args, timeout), args, timeout)
+
+
+def scale_dist(tmp, card: str) -> dict:
+    """run_solver --dist through the launcher on a world of 1 (NCCL,
+    all_to_all), its assembled npz's u and v against a single-device run
+    that recovers them through the compact inverse (DIST_VS_COMPACT) and
+    against the same command's plain run (DIST_VS_PLAIN, with its control),
+    of max|u| (p is the compact truncated Poisson solve under --dist, the
+    full rfft2 one in the plain run, in both packages). The launcher's
+    self-tests start once the --dist run has read its rate, and run
+    alongside the plain run and the checks (`selftest_s`)."""
+    from ns_tpu_torch.cli import run_solver
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    n = SCALE["dist_n"]
+    prec, nt = DIST_RUN
+    argv = ["decaying_turbulence", "--nx", str(n), "--nt", str(nt),
+            "--compact", "--transform", "matmul", "--precision", prec]
+    dist_out = os.path.join(tmp, "dist.npz")
+    stdout = _launch(["--nprocs", "1", "--platform", "cuda", "--",
+                      sys.executable, "-m", "ns_tpu_torch.cli.run_solver"]
+                     + argv + ["--dist", "--out", dist_out],
+                     SCALE["gang_timeout"])
+    line = [ln for ln in stdout.splitlines() if "steps/s" in ln]
+    require(line, f"--dist printed no rate:\n{stdout[-2000:]}")
+    dist_rate = float(line[0].split("(")[-1].split(" steps/s")[0])
+    selftests = start_selftests()
+    plain_out = os.path.join(tmp, "plain.npz")
+    summary = run_solver.main(argv + ["--device", DEVICE, "--out",
+                                      plain_out])
+    with np.load(dist_out) as a, np.load(plain_out) as b:
+        require(a["u"].shape == (nt, n, n), f"--dist u shape {a['u'].shape}")
+        fields = {k: (torch.as_tensor(a[k], device=DEVICE),
+                      torch.as_tensor(b[k], device=DEVICE)) for k in "uv"}
+    for path in (dist_out, plain_out):
+        os.remove(path)
+    umax = float(fields["u"][1].abs().max())
+    of_max = lambda d: float(d.abs().max()) / umax  # noqa: E731
+    # the single-device engine, u and v through the compact inverse
+    _, _, sys_ = run_solver.build(argv + ["--device", DEVICE])
+    inv = sp.make_compact_transforms(sys_.cfg, DEVICE)[1]
+    ops = sp.make_compact_ops(sys_.cfg, DEVICE)
+    carry = sys_.carry0
+    vs_compact = dict.fromkeys("uv", 0.0)
+    for i in range(nt):
+        carry, w_new = sys_._step(carry)
+        uv = inv(torch.stack(sp.velocity_from_vorticity_hat(w_new, ops)))
+        for k, ref in zip("uv", uv):
+            vs_compact[k] = max(vs_compact[k], of_max(fields[k][0][i] - ref))
+    vs_plain = {k: of_max(d - p) for k, (d, p) in fields.items()}
+    control = {k: of_max(p[1:] - p[:-1]) for k, (_, p) in fields.items()}
+    del fields
+    require(max(vs_compact.values()) <= DIST_VS_COMPACT,
+            f"--dist vs the compact-inverse run: {vs_compact} of max|u| > "
+            f"{DIST_VS_COMPACT}")
+    require(max(vs_plain.values()) <= DIST_VS_PLAIN,
+            f"--dist vs plain: {vs_plain} of max|u| > {DIST_VS_PLAIN}")
+    require(min(control.values()) > DIST_VS_PLAIN,
+            f"control (plain frames one step apart): {control} of max|u| "
+            f"<= {DIST_VS_PLAIN}")
+    out = {"world": 1, "backend": "nccl", "card": card, "argv": argv,
+           "dist_steps_per_s": dist_rate,
+           "plain_cli_steps_per_s": summary["steps_per_s"],
+           "vs_compact_inverse_of_max_u": vs_compact,
+           "vs_plain_of_max_u": vs_plain,
+           "control_one_step_of_max_u": control,
+           "bounds": {"vs_compact_inverse": DIST_VS_COMPACT,
+                      "vs_plain": DIST_VS_PLAIN}}
+    print(f"  run_solver --dist (launch, 1 rank, NCCL) {n}^2 nt={nt} "
+          f"'{prec}': {dist_rate:.1f} steps/s (the sharded rollout) "
+          f"against the plain CLI's {summary['steps_per_s']:.1f} (set-up "
+          f"and I/O included, the self-tests running alongside); u, v vs "
+          f"the compact-inverse run {vs_compact} (bound {DIST_VS_COMPACT}),"
+          f" vs plain {vs_plain} (bound {DIST_VS_PLAIN}; control "
+          f"{control}) of max|u|; {card}")
+    out["selftest_s"] = wait_selftests(selftests)
+    return out
+
+
+SELFTESTS = {"cuda, 1 rank (NCCL)": ["--nprocs", "1", "--platform", "cuda"],
+             "a CPU gang of 4 ranks (gloo), asked for by this script":
+                 ["--nprocs", "4", "--platform", "cpu"]}
+
+
+def start_selftests():
+    """The launcher's self-test on the card (1 rank, NCCL) and, at the same
+    time, on a CPU gang of 4 (gloo) that this script asks for."""
+    return time.perf_counter(), {
+        label: _launch_start(args + ["--selftest"], 120)
+        for label, args in SELFTESTS.items()}
+
+
+def wait_selftests(started) -> dict:
+    """Seconds from the start to each self-test's end; fails unless every
+    rank printed SELFTEST OK."""
+    t0, procs = started
+    out = {}
+    for label, args in SELFTESTS.items():
+        stdout = _launch_wait(procs[label], args + ["--selftest"], 120)
+        n = int(args[1])
+        require(all(f"SELFTEST OK p{i}" in stdout for i in range(n)),
+                f"self-test {label}: {stdout[-2000:]}")
+        out[label] = time.perf_counter() - t0
+        print(f"  launch --selftest on {label}: SELFTEST OK on every rank "
+              f"(done {out[label]:.1f} s after both started)")
+    return out
+
+
+def scale_debug_tools(tmp) -> dict:
+    """enable_nan_checks raises on a NaN made on the card; timed and trace
+    run there, the trace holding chorin_fd's pressure scope."""
+    import glob
+
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.solvers import chorin_fd
+    from ns_tpu_torch.utils import guard, profiling
+
+    guard.enable_nan_checks()
+    try:
+        torch.log(torch.tensor([-1.0], device=DEVICE))
+        raised = False
+    except FloatingPointError:
+        raised = True
+    finally:
+        guard.enable_nan_checks(False)
+    require(raised, "enable_nan_checks did not raise on a NaN on the card")
+    c = chorin_fd.ChorinFDConfig(nt=1, nit=200, nx=51, ny=51, dt=0.001,
+                                 rho=1.0, nu=0.1, method="explicit")
+    bc = cavity_bcs(c.dx, c.dy)
+    z = np.zeros((51, 51))
+    step = chorin_fd.make_step(c, *bc, device=DEVICE)
+    s0 = chorin_fd.init_state(c, z, z, z, *bc, device=DEVICE)
+    secs, _ = profiling.timed(step, s0, iters=20, warmup=2)
+    log_dir = os.path.join(tmp, "trace")
+    with profiling.trace(log_dir):
+        step(s0)
+        torch.cuda.synchronize()
+    files = glob.glob(os.path.join(log_dir, "*.json"))
+    require(len(files) == 1, f"trace wrote {files}")
+    with open(files[0]) as f:
+        require("chorin_fd.pressure" in f.read(),
+                "the trace holds no chorin_fd.pressure scope")
+    print(f"  enable_nan_checks raised on the card; timed: chorin_fd "
+          f"explicit 51^2 step {secs * 1e3:.3f} ms; trace holds "
+          "chorin_fd.pressure")
+    return {"nan_check_raised": True, "timed_step_ms": secs * 1e3}
+
+
+def phase_scale_out(tmp, card: str) -> dict:
+    """Ensembles, the FD ensembles' kernels, run_solver --dist with the
+    self-tests alongside its checks, and the debug tools (module
+    docstring)."""
+    print("phase 4/5: scale-out (ensembles at B = 64, FD ensembles, "
+          "launch + run_solver --dist, self-tests, debug tools)")
+    out, seconds = {}, {}
+    for key, fn in (("ensemble", lambda: scale_ensemble(card)),
+                    ("fd_ensemble", lambda: scale_fd_ensembles(card)),
+                    ("dist", lambda: scale_dist(tmp, card)),
+                    ("debug_tools", lambda: scale_debug_tools(tmp))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    print(f"  part seconds: {seconds}")
+    return out
+
+
 # --- report ------------------------------------------------------------------
 
 KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
@@ -3347,6 +3794,8 @@ def main():
                                   card, budget_s=SURR3D_BUDGET_S)
         serving = timed_phase("serve and runtime", phase_serve_runtime, tmp,
                               card, budget_s=SERVE_BUDGET_S)
+        scale_out = timed_phase("scale-out", phase_scale_out, tmp, card,
+                                budget_s=SCALE_BUDGET_S)
     require_no_jax()
     kernels = report(res, main_path, serving["runtime"]["launches_replayed"])
     print(json.dumps({"card": card,
@@ -3364,7 +3813,8 @@ def main():
                                   "top_device_ms", "top_host_self_ms")}
                               for prec, r in cheb["profile"].items()}},
                       "surrogate": surrogate, "train": training,
-                      "surrogate3d": surrogate3d, "serve_runtime": serving}))
+                      "surrogate3d": surrogate3d, "serve_runtime": serving,
+                      "scale_out": scale_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,14 @@ configuration (`train/trainer.py`), the inference engine
 surrogates; the HTTP rollout service and the solver oracles (`serve/`,
 `cli/serve.py`), the runtime engines replayed from CUDA graphs and their
 `torch.export` artifacts (`runtime/`), and streaming rollouts to .npy
-(`io/`, run_solver's `--stream-dir`). This package imports neither jax
-nor ns_tpu.
+(`io/`, run_solver's `--stream-dir`); the public `core` and `io` names
+(the reference npz, `spatial_coarsen`), the functional ensemble-training
+API, the NaN tripwire, `shadow_check`, `utils/host` and `utils/profiling`;
+scale-out on torch.distributed, one rank per process and one device per
+rank (`parallel/`: meshes, halo exchange, counted collectives,
+`distributed`, ensembles, the sharded periodic and direct_fd solvers;
+`launch.py`, `cli/dist_selftest.py`, run_solver's `--dist`). This package
+imports neither jax nor ns_tpu.
 """
 
 __version__ = "0.1.0"

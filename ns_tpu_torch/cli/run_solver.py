@@ -26,8 +26,10 @@ and the first bad step is reported); --progress runs the rollout in
 --chunk-step chunks with a progress bar (utils/progress.py); --stream-dir
 streams the frames to .npy files a chunk at a time (io/streaming.py: u/v/p
 for the cavity families, u/v/p/w for the 2D periodic ones) instead of
-writing the npz; all three as the JAX CLI. --dist is not yet ported and
-exits with an error that says so. Rollouts run on the card; a machine
+writing the npz; all three as the JAX CLI. --dist (2D periodic families,
+under `python -m ns_tpu_torch.launch`) shards the rollout over the ranks
+and writes per-rank shard files plus, unless --no-assemble, the npz.
+Rollouts run on the card; a machine
 without one needs --device cpu (without it the command exits with an
 error). The summary reports the set-up time (building the system) apart
 from the total.
@@ -58,17 +60,21 @@ import torch
 
 from ns_tpu_torch.core.bc import dirichlet, neumann
 from ns_tpu_torch.core.device import resolve_device
+from ns_tpu_torch.io.npz import save_rollout
 
 _FAMILIES = ["direct_fd", "chorin_fd", "chorin_spectral", "taylor_green",
              "decaying_turbulence", "taylor_green_3d",
              "decaying_turbulence_3d"]
-_NOT_PORTED = "is not yet ported to ns_tpu_torch, see ROADMAP.md"
 _2D = ("taylor_green", "decaying_turbulence")
 _3D = ("taylor_green_3d", "decaying_turbulence_3d")
 
 
 def save_npz(path: str, **fields) -> str:
-    """np.savez of the fields at `path`, creating its directory."""
+    """np.savez of the fields at `path`, creating its directory: the
+    reference (u, v, p) triple through `io/npz.py::save_rollout`, as the
+    JAX CLI writes it, the 3D u/v/w/p set as it is."""
+    if list(fields) == ["u", "v", "p"]:
+        return save_rollout(path, fields["u"], fields["v"], fields["p"])
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **fields)
     return path
@@ -172,7 +178,17 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, default=25,
                    help="steps per chunk for --progress")
     p.add_argument("--dist", action="store_true",
-                   help=f"{_NOT_PORTED} (exits with an error)")
+                   help="periodic families: multi-process mode. Join the "
+                        "process group from the NS_TPU_* environment (set "
+                        "by `python -m ns_tpu_torch.launch`), shard the "
+                        "rollout row-wise over every rank (one device a "
+                        "rank), and write per-rank shard files (no rank "
+                        "holds the full rollout). The coordinator "
+                        "reassembles the standard npz at --out unless "
+                        "--no-assemble")
+    p.add_argument("--no-assemble", action="store_true",
+                   help="--dist: skip the coordinator's npz reassembly "
+                        "(leave only the per-rank shard files)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--device", default="cuda",
@@ -225,7 +241,20 @@ def build(argv=None):
             p.error("--n-traj is incompatible with "
                     "--stream-dir/--progress/--guard")
     if args.dist:
-        p.error(f"--dist {_NOT_PORTED}")
+        if not periodic_2d:
+            p.error("--dist currently supports the periodic families "
+                    "(taylor_green|decaying_turbulence); the cavity "
+                    "families' multi-process path is the sharded APIs in "
+                    "ns_tpu_torch/parallel/ directly")
+        if args.stream_dir:
+            p.error("--stream-dir is not supported with --dist; shard "
+                    "files go to <--out>.shards")
+        if not ("NS_TPU_COORDINATOR" in os.environ
+                or "MASTER_ADDR" in os.environ):
+            p.error("--dist needs a process group: run under `python -m "
+                    "ns_tpu_torch.launch --nprocs N [--platform cpu] -- "
+                    "python -m ns_tpu_torch.cli.run_solver ... --dist`")
+        return args, None, None
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -294,6 +323,8 @@ def main(argv=None):
     path, device, seconds and steps/s) for in-process callers."""
     t0 = time.perf_counter()
     args, device, sys_ = build(argv)
+    if args.dist:
+        return _run_distributed(args)
     setup = time.perf_counter() - t0
     if args.family in _3D:
         summary = _run_3d(args, device, sys_, t0)
@@ -372,6 +403,75 @@ def _streamed(args, device: torch.device, t0: float, what: str) -> dict:
             "seconds": elapsed, "steps_per_s": rate}
 
 
+def _run_distributed(args) -> dict:
+    """Multi-process periodic rollout: the rollout row-sharded over every
+    rank, fed from each rank's rows of the initial field, written as
+    per-rank shard files, and reassembled by the coordinator into the
+    reference npz. The compact matmul engine writes u, v, p (and the
+    npz); the others write the vorticity w.
+
+    Launch (one host, N processes):
+      python -m ns_tpu_torch.launch --nprocs 2 --platform cpu -- \\
+          python -m ns_tpu_torch.cli.run_solver decaying_turbulence --dist \\
+          --nx 256 --nt 100 --compact --transform matmul --device cpu
+    The rank's platform is the launcher's (NS_TPU_PLATFORM), else
+    --device's."""
+    from ns_tpu_torch.parallel import distributed as dist
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+    from ns_tpu_torch.utils.host import sync
+
+    platform = os.environ.get("NS_TPU_PLATFORM") or torch.device(
+        args.device).type
+    device = dist.initialize(platform=platform)
+    pid, nproc = dist.process_index(), dist.process_count()
+    kw, w0 = _config_2d(args)
+    cfg = sp.SpectralPeriodicConfig(**kw)
+    nx = cfg.nx
+
+    mesh = dist.make_global_mesh({"x": nproc})
+    if cfg.transform == "matmul" and cfg.compact_spectrum:
+        from ns_tpu_torch.parallel.spectral_sharded import (
+            make_sharded_compact_simulate)
+        sim, sharding = make_sharded_compact_simulate(cfg, mesh,
+                                                      fields="uvp")
+        names = ("u", "v", "p")
+    else:
+        from ns_tpu_torch.parallel.spectral_sharded import (
+            make_sharded_simulate)
+        sim, sharding = make_sharded_simulate(cfg, mesh)
+        names = ("w",)
+
+    lo, hi = dist.process_local_rows(cfg.nx, mesh, "x")
+    w0_g = dist.global_array(sharding, w0[lo:hi])
+    dist.barrier("rollout_start")  # the group's communicator is up
+    t0 = time.perf_counter()
+    out = sim(w0_g)
+    if len(names) == 1:
+        out = (out,)
+    sync([a.local for a in out])
+    elapsed = time.perf_counter() - t0
+
+    out_dir = (args.out or f"{args.family}_dist.npz") + ".shards"
+    for name, arr in zip(names, out):
+        dist.save_array_shards(out_dir, name, arr)
+    dist.barrier("rollout_io")
+    rate = args.nt / elapsed
+    print(f"p{pid}/{nproc}: {args.family} nt={args.nt} grid={nx}x{nx} on "
+          f"{nproc} devices in {elapsed:.2f}s ({rate:.1f} steps/s) -> "
+          f"{out_dir}", flush=True)
+
+    path = None
+    if dist.is_coordinator() and not args.no_assemble:
+        fields = {n: dist.assemble_shards(out_dir, n) for n in names}
+        path = args.out or f"{args.family}.npz"
+        save_npz(path, **fields)
+        print(f"p0: assembled {'/'.join(names)} -> {path}", flush=True)
+    dist.barrier("done")
+    dist.shutdown()
+    return {"out": path, "shards": out_dir, "device": str(device),
+            "seconds": elapsed, "steps_per_s": rate, "processes": nproc}
+
+
 def _system_3d(args, device: torch.device):
     """The 3D periodic system (ns_tpu_torch.solvers.spectral3d) of a
     command line, with its initial carry on `device`."""
@@ -392,9 +492,9 @@ def _system_3d(args, device: torch.device):
     return s3.NavierStokesSystem3D(u0, device=device, **kw)
 
 
-def _system_2d(args, device: torch.device):
-    """The 2D periodic system (ns_tpu_torch.solvers.spectral_periodic) of
-    a command line, with its initial carry on `device`."""
+def _config_2d(args):
+    """(SpectralPeriodicConfig fields, initial vorticity as host numpy) of
+    a 2D periodic command line: the plain run's and --dist's."""
     from ns_tpu_torch.solvers import spectral_periodic as sp
 
     nx = args.nx or 256
@@ -405,9 +505,16 @@ def _system_2d(args, device: torch.device):
               forcing_amp=args.forcing_amp)
     cfg = sp.SpectralPeriodicConfig(**kw)
     if args.family == "taylor_green":
-        w0 = sp.taylor_green_vorticity(cfg)
-    else:
-        w0 = sp.decaying_turbulence_vorticity(cfg, seed=args.seed)
+        return kw, sp.taylor_green_vorticity(cfg)
+    return kw, sp.decaying_turbulence_vorticity(cfg, seed=args.seed)
+
+
+def _system_2d(args, device: torch.device):
+    """The 2D periodic system (ns_tpu_torch.solvers.spectral_periodic) of
+    a command line, with its initial carry on `device`."""
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    kw, w0 = _config_2d(args)
     return sp.NavierStokesSystem(w0, device=device, **kw)
 
 

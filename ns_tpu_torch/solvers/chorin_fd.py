@@ -44,7 +44,8 @@ Port of `ns_tpu/solvers/chorin_fd.py` (the reference chorin_fd family):
                        (`ops/fast_poisson.py::make_dst_poisson`, built
                        once per `make_step`).
   - correction: u <- u* - dt/(2dx) * grad(p), central.
-  - step order: predictor -> u/v BCs -> pressure -> p BCs -> correction;
+  - step order: predictor -> u/v BCs -> pressure -> p BCs -> correction
+    (three `utils/profiling.py::named_scope`s, as the JAX step has);
     ICs get BCs applied once at init; (u^n, u^{n-1}) history threaded
     through the rollout.
 
@@ -80,6 +81,7 @@ from ns_tpu_torch.ops.kernels import (momentum_explicit_fused, smem_fits,
                                       sor_redblack_packed_multiblock)
 from ns_tpu_torch.ops.multigrid import poisson_multigrid
 from ns_tpu_torch.ops.poisson import cg_poisson, sor_wavefront
+from ns_tpu_torch.utils.profiling import named_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,21 +280,25 @@ def make_step(cfg: ChorinFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
     def step(state: FlowState) -> FlowState:
         un, vn, p = state.u, state.v, state.p
         un1, vn1 = state.u_prev, state.v_prev
-        if cfg.method == "explicit":
-            # stencils + BC edge writes in one kernel call
-            ui, vi = momentum_explicit_fused(
-                un, vn, un1, vn1, cfg.dt, cfg.dx, cfg.dy, cfg.nu, u_bc, v_bc,
-                quirk_compat=cfg.quirk_compat)
-        else:
-            if cfg.method == "helmholtz":
-                ui, vi = _helmholtz_predictor(cfg, hsolve, un, vn, un1, vn1)
+        with named_scope("chorin_fd.predictor"):
+            if cfg.method == "explicit":
+                # stencils + BC edge writes in one kernel call
+                ui, vi = momentum_explicit_fused(
+                    un, vn, un1, vn1, cfg.dt, cfg.dx, cfg.dy, cfg.nu, u_bc,
+                    v_bc, quirk_compat=cfg.quirk_compat)
             else:
-                ui, vi = _semi_implicit_predictor(cfg, A_inv, B_inv, un, vn,
-                                                  un1, vn1)
-            ui, vi = apply_bcs(ui, u_bc), apply_bcs(vi, v_bc)
-        p = apply_bcs(_pressure(cfg, p, _pressure_rhs(cfg, ui, vi),
-                                dst_solve), p_bc)
-        u_next, v_next = _correction(cfg, ui, vi, p)
+                if cfg.method == "helmholtz":
+                    ui, vi = _helmholtz_predictor(cfg, hsolve, un, vn, un1,
+                                                  vn1)
+                else:
+                    ui, vi = _semi_implicit_predictor(cfg, A_inv, B_inv, un,
+                                                      vn, un1, vn1)
+                ui, vi = apply_bcs(ui, u_bc), apply_bcs(vi, v_bc)
+        with named_scope("chorin_fd.pressure"):
+            p = apply_bcs(_pressure(cfg, p, _pressure_rhs(cfg, ui, vi),
+                                    dst_solve), p_bc)
+        with named_scope("chorin_fd.correction"):
+            u_next, v_next = _correction(cfg, ui, vi, p)
         return FlowState(u=u_next, v=v_next, p=p, u_prev=un, v_prev=vn)
 
     return step

@@ -306,20 +306,23 @@ def _complex_dft(cfg: SpectralPeriodicConfig):
             for k, v in _dft_constants(cfg).items()}
 
 
-def _interleaved_transforms(cfg: SpectralPeriodicConfig, rows, kyc: int,
-                            device):
-    """(fwd, inv) between physical (..., nx, ny) real fields and complex
-    spectra (..., len(rows), kyc) holding the kx rows `rows` and the first
-    kyc ky columns of the rfft2 layout, as two real GEMMs each way:
+def _interleaved_stages(cfg: SpectralPeriodicConfig, rows, kyc: int,
+                        device):
+    """The four GEMM stages (y_fwd, x_fwd, x_inv, y_inv) between physical
+    (..., nx, ny) real fields and complex spectra (..., len(rows), kyc)
+    holding the kx rows `rows` and the first kyc ky columns of the rfft2
+    layout; a ky column is a pair of adjacent real columns (re, im) between
+    the stages:
 
-      fwd: t = w @ FyT_int               (nx, 2kyc)  view_as_real(w @ Fy^T)
-           P = [Fx_re; Fx_im] @ t        (2R, 2kyc)  -> z = Fx @ (w @ Fy^T)
-      inv: P = [Fxi_re; Fxi_im] @ view_as_real(z)    -> a = Fxi @ z
-           w = view_as_real(a) @ B_int   (nx, ny)    Re(a @ B)
+      y_fwd: t = w @ FyT_int               (n, 2kyc)   view_as_real(w @ Fy^T)
+      x_fwd: P = [Fx_re; Fx_im] @ t        (2R, 2k)    -> z = Fx @ t
+      x_inv: P = [Fxi_re; Fxi_im] @ view_as_real(z)    -> a = Fxi @ z (nx, 2k)
+      y_inv: w = a @ B_int                 (n, ny)     Re(a @ B)
 
     FyT_int interleaves real and imaginary columns and B_int the rows
-    (Re B, -Im B), so the inverse's second stage computes only the real
-    part it returns."""
+    (Re B, -Im B), so y_inv computes only the real part it returns. The x
+    stages take any number k of ky columns (a rank's share of them in
+    `parallel/spectral_sharded.py`, which moves them between the stages)."""
     M = _complex_dft(cfg)
     prec = cfg.matmul_precision
     nx, R = cfg.nx, len(rows)
@@ -335,23 +338,42 @@ def _interleaved_transforms(cfg: SpectralPeriodicConfig, rows, kyc: int,
                    .reshape(2 * kyc, cfg.ny), device)
 
     def combine(P, n):
-        """(..., 2n, 2kyc) = [Re M; Im M] @ view_as_real(t) -> the real
-        and imaginary parts of M @ t, each (..., n, kyc)."""
-        P = P.unflatten(-2, (2, n)).unflatten(-1, (kyc, 2))
+        """(..., 2n, 2k) = [Re M; Im M] @ view_as_real(t) -> the real and
+        imaginary parts of M @ t, each (..., n, k)."""
+        P = P.unflatten(-2, (2, n)).unflatten(-1, (P.shape[-1] // 2, 2))
         re = P[..., 0, :, :, 0] - P[..., 1, :, :, 1]
         im = P[..., 0, :, :, 1] + P[..., 1, :, :, 0]
         return re, im
 
-    def fwd(w):
-        t = matmul(w.to(cfg.real_dtype), FyT_int, prec)
+    def y_fwd(w):
+        return matmul(w.to(cfg.real_dtype), FyT_int, prec)
+
+    def x_fwd(t):
         return torch.complex(*combine(matmul(Fx_cat, t, prec), R))
 
-    def inv(z):
-        zr = torch.view_as_real(z.contiguous()).flatten(-2)  # (..., R, 2kyc)
+    def x_inv(z):
+        zr = torch.view_as_real(z.contiguous()).flatten(-2)  # (..., R, 2k)
         re, im = combine(matmul(Fxi_cat, zr, prec), nx)
-        return matmul(torch.stack([re, im], -1).flatten(-2), B_int, prec)
+        return torch.stack([re, im], -1).flatten(-2)
 
-    return fwd, inv
+    def y_inv(a):
+        return matmul(a, B_int, prec)
+
+    return y_fwd, x_fwd, x_inv, y_inv
+
+
+def _interleaved_transforms(cfg: SpectralPeriodicConfig, rows, kyc: int,
+                            device):
+    """(fwd, inv) of `_interleaved_stages`: two real GEMMs each way."""
+    y_fwd, x_fwd, x_inv, y_inv = _interleaved_stages(cfg, rows, kyc, device)
+    return lambda w: x_fwd(y_fwd(w)), lambda z: y_inv(x_inv(z))
+
+
+def make_compact_stages(cfg: SpectralPeriodicConfig, device=None):
+    """The compact transforms' four stages (`_interleaved_stages`) on the
+    compact layout (Rx, kyc)."""
+    rows, _, _, kyc = _compact_meta(cfg)
+    return _interleaved_stages(cfg, rows, kyc, device)
 
 
 def make_compact_transforms(cfg: SpectralPeriodicConfig, device=None):

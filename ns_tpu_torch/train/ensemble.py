@@ -1,34 +1,50 @@
 """Ensemble training: N independently drawn surrogates of one family,
 trained in lockstep.
 
-Port of `ns_tpu/train/ensemble.py` (`EnsembleTrainer`) for the families of
-`ENSEMBLE_MODELS`, 2D and 3D. The JAX package vmaps one step over a leading model
-axis; here a step runs the members one after another, each with its own
-objective, gradient and optimizer state, which gives each member the
-update the single-model step gives it. The checkpoint is the JAX one:
-every params and opt_state leaf carries a leading model axis (counts
-(n_models,) int32), as `init_ensemble` and `jax.vmap(tx.init)` lay it out,
-and meta holds `n_models`. The JAX rules stay: no input noise, no
-minibatch, n_models >= 2, one trajectory for the basis families. There is
-one card, so the mesh argument is accepted and every member runs on
-`device`.
+Port of `ns_tpu/train/ensemble.py`. The JAX package vmaps one step over a
+leading model axis; here a step runs the members one after another, each
+with its own objective, gradient and optimizer state, which gives each
+member the update the single-model step gives it.
+
+The functional API (`init_ensemble`, `raw_ensemble_step`,
+`make_ensemble_train_step`, `train_ensemble`) keeps the JAX signatures
+with the port's objects:
+  - `model` builds one member from a `generator=` keyword (a model class
+    with its arguments bound, e.g. functools.partial(BasisGRU, 2, nx,
+    ny)); member m is the m-th draw of one CPU generator seeded with
+    `seed`, as EnsembleTrainer draws them;
+  - params are {JAX key path: tensor} with a leading model axis;
+  - `tx` is what `train/optim.py::Adam` reads (`optim.adam(lr)`, or a
+    TrainConfig), and the optimizer state is one `Adam` a member;
+  - with a mesh (the port's one-dim 'ensemble' mesh), each rank holds its
+    contiguous share of the members and the step makes no collective.
+
+`EnsembleTrainer` serves the families of `ENSEMBLE_MODELS`, 2D and 3D. Its
+checkpoint is the JAX one: every params and opt_state leaf carries a
+leading model axis (counts (n_models,) int32), as `init_ensemble` and
+`jax.vmap(tx.init)` lay it out, and meta holds `n_models`. The JAX rules
+stay: no input noise, no minibatch, n_models >= 2, one trajectory for the
+basis families. Its mesh argument is accepted and every member runs on
+`device` (`ensemble_mesh` and the trainer's mesh are not ported yet).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ns_tpu_torch.core.device import resolve_device
+from ns_tpu_torch.parallel.mesh import member_range, mesh_device
 from ns_tpu_torch.train.checkpoint import (jax_key, load_checkpoint,
-                                           load_meta, params_from_jax,
-                                           save_checkpoint)
+                                           load_meta, save_checkpoint)
 from ns_tpu_torch.train.metrics import l2_loss
-from ns_tpu_torch.train.optim import Adam
+from ns_tpu_torch.train.optim import Adam, adam
 from ns_tpu_torch.train.trainer import (build_forward, build_model,
                                         check_data, extrapolate_model,
                                         grid_meta, grid_of, load_obs,
@@ -46,6 +62,134 @@ def _map(fn, *trees):
     if isinstance(trees[0], (list, tuple)):
         return [_map(fn, *z) for z in zip(*trees)]
     return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
+# The functional API
+# ---------------------------------------------------------------------------
+
+def _members(model, n_models: int, seed: int) -> list:
+    if isinstance(model, nn.Module):
+        raise TypeError("pass the model's builder (a class with its "
+                        "arguments bound, called with generator=), not a "
+                        "built module: each member is drawn anew")
+    gen = torch.Generator().manual_seed(seed)
+    return [model(generator=gen) for _ in range(n_models)]
+
+
+def init_ensemble(model, n_models: int, seed: int = 0, device=None) -> dict:
+    """Stacked parameters {JAX key path: (n_models, ...)} of n_models
+    members drawn from one generator seeded with `seed`, on `device` (the
+    card unless "cpu")."""
+    dev = resolve_device(device)
+    flat = [{jax_key(n): p.detach() for n, p in m.named_parameters()}
+            for m in _members(model, n_models, seed)]
+    return _map(lambda *x: torch.stack(x).to(dev), *flat)
+
+
+def init_opt_state(tx, params: dict) -> list:
+    """The optimizer state of stacked params (jax.vmap(tx.init)): one
+    `Adam` of `tx` a member."""
+    n = len(next(iter(params.values())))
+    return [Adam(tx, {k: v[m] for k, v in params.items()}) for m in range(n)]
+
+
+def _architecture(model, device):
+    """One built copy of the model on `device` and its (JAX key path,
+    parameter) pairs: the members take turns in it."""
+    net = _members(model, 1, 0)[0].to(device)
+    return net, [(jax_key(n), p) for n, p in net.named_parameters()]
+
+
+@torch.no_grad()
+def _load_member(named, params: dict, m: int) -> None:
+    """Copy member m of the stacked params into the built copy."""
+    for k, p in named:
+        p.copy_(params[k][m])
+
+
+def raw_ensemble_step(model, tx, obs, nt: int, forward=None):
+    """The N-model train step: step(params, opt_state, frames=None) ->
+    (params, opt_state, losses (n,)). Each member's tensors are copied
+    into one built copy of the model (so a recompute in the backward pass,
+    `odeint_checkpoint`'s, sees them too), its loss and gradient taken,
+    and its Adam applied to its slice of params in place (params are also
+    returned). EnsembleTrainer's iterations are this step.
+
+    forward(model, frames) -> (pred, target) overrides the default
+    basis-family objective (the whole trajectory obs (nt, 1, 3, nx, ny)
+    from obs[0]); frames=None means the build-time obs."""
+    built: dict = {}
+
+    def loss_of(net, frames):
+        if forward is not None:
+            return l2_loss(*forward(net, frames))
+        target = built["obs"]
+        return l2_loss(net(target[0], nt), target)
+
+    def step(params, opt_state, frames=None):
+        first = next(iter(params.values()))
+        if not built:  # the architecture; its values are the members'
+            net, named = _architecture(model, first.device)
+            built.update(net=net, named=named,
+                         obs=torch.as_tensor(obs, device=first.device))
+        named = built["named"]
+        for k, p in named:
+            if p.dtype != params[k].dtype:
+                raise ValueError(f"{k}: the model builds {p.dtype}, params "
+                                 f"hold {params[k].dtype}")
+        losses = []
+        for m, opt in enumerate(opt_state):
+            _load_member(named, params, m)
+            loss = loss_of(built["net"], frames)
+            grads = torch.autograd.grad(loss, [p for _, p in named],
+                                        materialize_grads=True)
+            opt.params = [params[k][m] for k in opt.names]
+            opt.step({k: g for (k, _), g in zip(named, grads)})
+            losses.append(loss.detach())
+        return params, opt_state, torch.stack(losses)
+
+    return step
+
+
+def make_ensemble_train_step(model, tx, obs, nt: int, mesh=None,
+                             axis: str = "ensemble"):
+    """(step, shard_tree): obs is shared; params and opt_state carry a
+    leading model axis. With a mesh, shard_tree keeps this rank's
+    contiguous share of a tree's members (a view: the step's in-place
+    updates reach it), and the step runs only those."""
+    step = raw_ensemble_step(model, tx, obs, nt)
+    if mesh is None:
+        return step, lambda tree: tree
+
+    def shard_tree(tree):
+        if isinstance(tree, dict):
+            lo, hi = member_range(len(next(iter(tree.values()))), mesh, axis)
+            return {k: v[lo:hi] for k, v in tree.items()}
+        lo, hi = member_range(len(tree), mesh, axis)
+        return tree[lo:hi]
+
+    return step, shard_tree
+
+
+def train_ensemble(model, obs, nt: int, n_models: int, n_iters: int,
+                   lr: float = 1e-3, seed: int = 0, mesh=None, device=None):
+    """Returns (final params with a leading model axis, the per-model loss
+    history (n_iters, n_models)); with a mesh, the rank's share of both.
+    Runs on the mesh's device, else `device` (the card unless "cpu")."""
+    if mesh is not None:
+        device = mesh_device(mesh)
+    tx = adam(lr)
+    params = init_ensemble(model, n_models, seed, device=device)
+    opt_state = init_opt_state(tx, params)
+    step, shard_tree = make_ensemble_train_step(model, tx, obs, nt, mesh)
+    params = shard_tree(params)
+    opt_state = shard_tree(opt_state)
+    history = []
+    for _ in range(n_iters):
+        params, opt_state, losses = step(params, opt_state)
+        history.append(losses)
+    return params, torch.stack(history)
 
 
 class EnsembleTrainer:
@@ -74,54 +218,46 @@ class EnsembleTrainer:
         check_data(cfg, obs, operator_only=True)
         self.nt = obs.shape[0]
         self.nx, self.ny, self.nz = grid_of(obs)
-        gen = torch.Generator().manual_seed(cfg.seed)
-        self.models = [build_model(cfg, self.nx, self.ny, self.nz,
-                                   generator=gen).to(self.device)
-                       for _ in range(n_models)]
+        self.builder = functools.partial(build_model, cfg, self.nx, self.ny,
+                                         self.nz)
+        # {JAX key path: (n_models, ...)}, as init_ensemble stacks them
+        self.params = init_ensemble(self.builder, n_models, cfg.seed,
+                                    device=self.device)
+        self.opts = init_opt_state(cfg, self.params)
         self.obs = torch.as_tensor(obs, device=self.device)
         self.frames, _ = training_tensors(cfg, self.obs)
-        self.params = [{jax_key(n): p for n, p in m.named_parameters()}
-                       for m in self.models]
-        self.opts = [Adam(cfg, p) for p in self.params]
         self.losses: list = []   # one list of per-model losses an iteration
         self.start_iter = 1
         if cfg.resume:
             self._resume(cfg.resume)
         self._forward = build_forward(cfg, self.frames)
+        self._step = raw_ensemble_step(
+            self.builder, cfg, self.obs, self.nt,
+            forward=lambda net, frames: self._forward(net))
 
     def _state(self) -> dict:
         """The checkpoint state: every leaf stacked on a leading model axis."""
-        return {"params": _map(lambda *x: torch.stack(x), *self.params),
+        return {"params": self.params,
                 "opt_state": _map(lambda *x: torch.stack(x),
                                   *(o.state_tree() for o in self.opts))}
 
+    @torch.no_grad()
     def _resume(self, path: str) -> None:
         state = load_checkpoint(path, self._state())
-        for m, (model, opt) in enumerate(zip(self.models, self.opts)):
-            member = _map(lambda x: x[m], state)
-            params_from_jax(model, member["params"],
-                            what=f"checkpoint {path}")
-            opt.load_state_tree(member["opt_state"])
+        for k, v in self.params.items():
+            v.copy_(torch.as_tensor(state["params"][k]))
+        for m, opt in enumerate(self.opts):
+            opt.load_state_tree(_map(lambda x: x[m], state["opt_state"]))
         meta = load_meta(path)
         self.losses = [list(map(float, row))
                        for row in meta.get("losses", [])]
         self.start_iter = int(meta.get("iter", 0)) + 1
 
     def train_chunk(self, n: int) -> torch.Tensor:
-        """n steps of every member; the losses (n, n_models) stay on the
-        device."""
-        rows = []
-        for _ in range(n):
-            row = []
-            for model, params, opt in zip(self.models, self.params,
-                                          self.opts):
-                loss = l2_loss(*self._forward(model))
-                grads = torch.autograd.grad(loss, list(params.values()),
-                                            materialize_grads=True)
-                opt.step(dict(zip(params, grads)))
-                row.append(loss.detach())
-            rows.append(torch.stack(row))
-        return torch.stack(rows)
+        """n steps of every member (raw_ensemble_step); the losses
+        (n, n_models) stay on the device."""
+        return torch.stack([self._step(self.params, self.opts)[2]
+                            for _ in range(n)])
 
     def train(self, progress: bool = True) -> list:
         cfg = self.cfg
@@ -151,5 +287,9 @@ class EnsembleTrainer:
         from frame 0, frame-aligned like Trainer.extrapolate."""
         obs = torch.as_tensor(load_obs(npz_path or self.cfg.npz_path, None),
                               device=self.device)
-        return torch.stack([extrapolate_model(self.cfg, m, obs)
-                            for m in self.models]).cpu().numpy()
+        net, named = _architecture(self.builder, self.device)
+        out = []
+        for m in range(self.n_models):
+            _load_member(named, self.params, m)
+            out.append(extrapolate_model(self.cfg, net, obs))
+        return torch.stack(out).cpu().numpy()

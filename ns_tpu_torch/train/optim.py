@@ -29,7 +29,9 @@ where adam = {".count": count, ".mu": {path: mu}, ".nu": {path: nu}} and
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -101,6 +103,24 @@ def make_schedule(cfg):
     if cfg.warmup_iters > 0:
         return linear_schedule(0.0, cfg.lr, cfg.warmup_iters)
     return None
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamSpec:
+    """The fields of a TrainConfig that `Adam` reads, for `optax.adam(lr)`:
+    a constant rate, no clipping (train/ensemble.py's functional API)."""
+
+    lr: float = 1e-3
+    grad_clip: float = 0.0
+    lr_schedule: str = "constant"
+    warmup_iters: int = 0
+    schedule_horizon: Optional[int] = None
+    n_iters: int = 0
+
+
+def adam(lr: float) -> AdamSpec:
+    """The optimizer `optax.adam(lr)` names, for `Adam(adam(lr), params)`."""
+    return AdamSpec(lr=lr)
 
 
 def _tree_order(path: str):

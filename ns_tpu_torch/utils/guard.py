@@ -16,6 +16,11 @@ after a trip; the frames and `first_bad_step` are JAX's.
 
 A state is a tensor, or a tuple, list, dict or dataclass (FlowState) of
 them; None fields are left alone.
+
+Debug tools, ported from the same JAX module: `enable_nan_checks` (the
+counterpart of jax_debug_nans: raise at the first op that makes a NaN) and
+`shadow_check` (a float64 shadow run of a function, with each output's
+deviation).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 class GuardedCarry(NamedTuple):
@@ -98,3 +104,74 @@ def guarded_rollout(step_fn: Callable, state0, nt: int,
     stacked = (_map(lambda *a: torch.stack(a), *frames)
                if collect and frames else None)
     return GuardedCarry(state, bad, first), stacked
+
+
+# ---------------------------------------------------------------------------
+# Debug tripwires
+# ---------------------------------------------------------------------------
+
+class _NaNMode(TorchDispatchMode):
+    """Raise FloatingPointError at the first op whose floating output holds
+    a NaN (the port's jax_debug_nans)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _leaves(out):
+            if ((t.is_floating_point() or t.is_complex())
+                    and bool(torch.isnan(t).any())):
+                raise FloatingPointError(
+                    f"NaN produced by {func} (enable_nan_checks)")
+        return out
+
+
+_nan_state: dict = {}
+
+
+def enable_nan_checks(enable: bool = True) -> None:
+    """Debug-mode NaN tripwire, the counterpart of JAX's jax_debug_nans:
+    every op whose floating output holds a NaN raises FloatingPointError
+    naming the op, and autograd's anomaly mode is on (a backward op that
+    makes a NaN raises too, with the forward op's trace). A debug tool: it
+    reads every op's output on the host, so it synchronizes the device
+    after every op. enable_nan_checks(False) restores both."""
+    if enable and "mode" not in _nan_state:
+        _nan_state["anomaly"] = torch.is_anomaly_enabled()
+        torch.autograd.set_detect_anomaly(True)
+        mode = _NaNMode()
+        mode.__enter__()
+        _nan_state["mode"] = mode
+    elif not enable and "mode" in _nan_state:
+        _nan_state.pop("mode").__exit__(None, None, None)
+        torch.autograd.set_detect_anomaly(_nan_state.pop("anomaly"))
+
+
+def shadow_check(fn: Callable, *args, rtol: float = 1e-4,
+                 atol: float = 1e-5):
+    """Numerics validation by a dtype shadow run: fn on the args as given,
+    then again with every float tensor upcast to float64 and every complex
+    one to complex128. Returns (lo, hi, devs): the two results and, in the
+    result's structure, each tensor's max abs deviation as a Python float
+    (a complex deviation is |a - b| over both components). All deviations
+    are reduced on the device and read back in one copy. rtol and atol are
+    accepted for signature parity with the JAX function, which also leaves
+    the judgement to the caller."""
+    def upcast(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_complex():
+                return x.to(torch.complex128)
+            if x.is_floating_point():
+                return x.to(torch.float64)
+        return x
+
+    lo = fn(*args)
+    hi = fn(*_map(upcast, list(args)))
+
+    def dev(a, b):
+        up = torch.complex128 if a.is_complex() else torch.float64
+        return (a.to(up) - b.to(up).to(a.device)).abs().max()
+
+    flat = [dev(a, b) for a, b in zip(_leaves(lo), _leaves(hi))]
+    values = iter(torch.stack([d.to(flat[0].device) for d in flat]).tolist()
+                  if flat else [])
+    devs = _map(lambda _: next(values), lo)
+    return lo, hi, devs

@@ -177,13 +177,20 @@ def test_cli_stream_dir_as_the_jax_cli(tmp_path, capsys, argv):
     ["direct_fd", "--pallas-momentum"],
     ["chorin_fd", "--pallas-momentum"],
 ])
-def test_cli_rejects_what_is_not_ported(argv, capsys):
+def test_cli_rejects_what_is_not_ported(argv, capsys, monkeypatch):
+    """Flag combinations the CLI refuses before any compute: --dist for
+    the cavity families (the JAX CLI's text), --dist outside a launched
+    process group, and the JAX CLI's other flag rules."""
+    for var in ("NS_TPU_COORDINATOR", "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit) as e:
         t_cli.main(argv + ["--device", "cpu", "--nt", "1"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    if "--pallas-momentum" not in argv and "cg" not in argv:
-        assert "not yet ported" in err and "ROADMAP.md" in err
+    if argv[0] == "taylor_green":
+        assert "python -m ns_tpu_torch.launch" in err
+    elif "--dist" in argv:
+        assert "--dist currently supports the periodic families" in err
 
 
 _NO_JAX = """

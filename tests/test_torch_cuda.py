@@ -1346,3 +1346,163 @@ def test_native_writer_builds_from_the_port(tmp_path):
     np.testing.assert_array_equal(np.load(tmp_path / "n.npy"), data)
     assert build._SO.endswith(os.path.join("ns_tpu_torch", "_build",
                                            "_ns_native.so"))
+
+
+# --- scale-out: ensembles and the sharded solver on the card ------------------
+
+
+@pytest.mark.parametrize("family", ["chorin_fd", "direct_fd"])
+def test_fd_ensemble_members_are_their_single_rollouts(cuda, family):
+    """ensemble_fd_rollout steps each member through the same kernels (K1
+    and K3, or K2) as its own rollout: bitwise equal on the card."""
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.core.state import FlowState
+    from ns_tpu_torch.parallel.ensemble import ensemble_fd_rollout
+    from ns_tpu_torch.solvers import chorin_fd, direct_fd
+
+    rng = np.random.default_rng(0)
+    if family == "chorin_fd":
+        cfg = chorin_fd.ChorinFDConfig(nt=10, nit=200, nx=51, ny=51,
+                                       dt=0.001, rho=1.0, nu=0.1,
+                                       method="explicit")
+        bc = cavity_bcs(cfg.dx, cfg.dy)
+        z = np.zeros((51, 51))
+        step = chorin_fd.make_step(cfg, *bc, device=cuda)
+        members = [chorin_fd.init_state(cfg, 0.01 * rng.normal(size=(51, 51)),
+                                        z, z, *bc, device=cuda)
+                   for _ in range(4)]
+        want = {"sor_redblack_fused", "momentum_explicit_fused"}
+    else:
+        cfg = direct_fd.DirectFDConfig(nt=10, nit=50, nx=50, ny=50)
+        step = direct_fd.make_step(cfg, *cavity_bcs(cfg.dx, cfg.dy))
+        members = [FlowState(*(torch.as_tensor(
+            0.01 * rng.normal(size=(50, 50)), dtype=torch.float32,
+            device=cuda) for _ in range(3))) for _ in range(4)]
+        want = {"jacobi_fused"}
+    fields = [f for f in ("u", "v", "p", "u_prev", "v_prev")
+              if getattr(members[0], f) is not None]
+    batch = FlowState(**{f: torch.stack([getattr(s, f) for s in members])
+                         for f in fields})
+    kernels.reset_launch_counts()
+    got = ensemble_fd_rollout(step, batch, cfg.nt)
+    torch.cuda.synchronize()
+    assert want <= {k for k, v in kernels.launch_counts().items() if v}
+    for i, s in enumerate(members):
+        for _ in range(cfg.nt):
+            s = step(s)
+        for f in fields:
+            assert torch.equal(getattr(got, f)[i], getattr(s, f)), (i, f)
+
+
+@pytest.mark.parametrize("engine", ["fft64", "compact_high",
+                                    "compact_default"])
+def test_spectral_ensemble_matches_single_rollouts(cuda, engine):
+    """B = 8 through ensemble_init + ensemble_rollout_final against each
+    member's own rollout on the card: float64 fft <= 1e-10 and float32
+    compact 'high' <= 1e-5 of max|w|; compact 'default', whose batched bf16
+    GEMMs sum in another order than the single ones and round the sums to
+    bf16 at the next stage, within DEFAULT_CARD_VS_CPU_2D (w_hat 1e-4,
+    N_prev 2e-3 of their max: the bounds of the same engine summed in
+    another order, card against CPU, chip_smoke.py's phase 5; its B = 64
+    1024^2 ensemble, 20 steps, is held to 5e-4 and 4e-3). Prints each
+    engine's largest error (PERF.md records the readings)."""
+    from ns_tpu_torch.parallel.ensemble import (ensemble_energy,
+                                                ensemble_init,
+                                                ensemble_rollout_final)
+    if engine == "fft64":
+        cfg = sp.SpectralPeriodicConfig(nt=10, nx=64, ny=64, dt=0.005,
+                                        nu=1e-3, dtype="float64")
+    else:
+        cfg = sp.SpectralPeriodicConfig(
+            nt=10, nx=128, ny=128, dt=5e-4, nu=1e-4, transform="matmul",
+            matmul_precision=engine.split("_")[1], compact_spectrum=True)
+    w0 = np.stack([sp.decaying_turbulence_vorticity(cfg, seed=s)
+                   for s in range(8)])
+    final = ensemble_rollout_final(cfg, ensemble_init(cfg, w0, device=cuda))
+    worst = {}
+    for b in range(8):
+        one = sp.rollout_final(cfg, sp.init_from_vorticity(cfg, w0[b], cuda))
+        if engine == "compact_default":
+            for part, got, want in zip(DEFAULT_CARD_VS_CPU_2D, final, one):
+                err = float((got[b] - want).abs().max() / want.abs().max())
+                worst[part] = max(worst.get(part, 0.0), err)
+                assert err <= DEFAULT_CARD_VS_CPU_2D[part]
+            continue
+        got = sp.physical_from_carry(cfg, final[0][b])
+        want = sp.physical_from_carry(cfg, one[0])
+        bound = 1e-10 if engine == "fft64" else 1e-5
+        err = float((got - want).abs().max() / want.abs().max())
+        worst["w"] = max(worst.get("w", 0.0), err)
+        assert err <= bound
+    print(f"ensemble B=8 {engine}: largest error of max {worst}")
+    assert float(ensemble_energy(cfg, final[0])) > 0
+
+
+def test_sharded_spectral_on_a_world_of_one_nccl(cuda, tmp_path):
+    """A world of 1 on NCCL, the all_to_all path not skipped: the sharded
+    compact and fft rollouts against the single-device port in float64
+    (<= 1e-11), with one all_to_all a transform counted; the compact one
+    at float32 'default' is the single-device engine bitwise (its own GEMM
+    stages, nonlinear term and step)."""
+    from ns_tpu_torch.parallel import distributed as dist
+    from ns_tpu_torch.parallel.collectives import COUNTS, reset_counts
+    from ns_tpu_torch.parallel.mesh import shard
+    from ns_tpu_torch.parallel.spectral_sharded import (
+        make_sharded_compact_rollout, make_sharded_rollout)
+
+    dist.initialize("file://" + str(tmp_path / "init"), 1, 0, "cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = dist.make_global_mesh({"x": 1})
+        for make, kw in ((make_sharded_compact_rollout,
+                          dict(transform="matmul", matmul_precision="highest",
+                               compact_spectrum=True)),
+                         (make_sharded_rollout, {})):
+            cfg = sp.SpectralPeriodicConfig(nt=8, nx=64, ny=64, dt=0.005,
+                                            nu=1e-3, dtype="float64", **kw)
+            w0 = sp.decaying_turbulence_vorticity(cfg, seed=1)
+            roll, sharding = make(cfg, mesh)
+            reset_counts()
+            got = roll(shard(sharding, w0)).local
+            assert COUNTS["all_to_all@x"] > 0
+            carry = sp.init_from_vorticity(cfg, w0, cuda)
+            want = sp.physical_from_carry(cfg, sp.rollout_final(cfg,
+                                                                carry)[0])
+            assert float((got - want).abs().max()) <= 1e-11
+        cfg = sp.SpectralPeriodicConfig(nt=8, nx=256, ny=256, dt=5e-4,
+                                        nu=1e-4, transform="matmul",
+                                        matmul_precision="default",
+                                        compact_spectrum=True)
+        w0 = sp.decaying_turbulence_vorticity(cfg, seed=1)
+        roll, sharding = make_sharded_compact_rollout(cfg, mesh)
+        want = sp.physical_from_carry(cfg, sp.rollout_final(
+            cfg, sp.init_from_vorticity(cfg, w0, cuda))[0])
+        assert torch.equal(roll(shard(sharding, w0)).local, want)
+    finally:
+        dist.shutdown()
+
+
+def test_world_of_one_mesh_without_a_process_group(cuda):
+    """The single-card path: a mesh of one rank with no process group on
+    the card (this machine's torch builds it without a backend), its
+    collectives the identity, the sharded compact rollout equal to the
+    single-device one (float64)."""
+    from ns_tpu_torch.parallel import make_mesh
+    from ns_tpu_torch.parallel.mesh import axis_index, member_range, shard
+    from ns_tpu_torch.parallel.spectral_sharded import (
+        make_sharded_compact_rollout)
+
+    assert not torch.distributed.is_initialized()
+    mesh = make_mesh({"x": 1})
+    assert mesh.device_type == "cuda" and axis_index(mesh, "x") == 0
+    assert member_range(4, make_mesh(), "ensemble") == (0, 4)
+    cfg = sp.SpectralPeriodicConfig(nt=4, nx=64, ny=64, dt=0.005, nu=1e-3,
+                                    dtype="float64", transform="matmul",
+                                    matmul_precision="highest",
+                                    compact_spectrum=True)
+    w0 = sp.decaying_turbulence_vorticity(cfg, seed=2)
+    roll, sharding = make_sharded_compact_rollout(cfg, mesh)
+    got = roll(shard(sharding, w0)).local
+    want = sp.physical_from_carry(cfg, sp.rollout_final(
+        cfg, sp.init_from_vorticity(cfg, w0, cuda))[0])
+    assert float((got - want).abs().max()) <= 1e-11

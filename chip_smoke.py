@@ -213,14 +213,39 @@ Phases (any failure exits non-zero, and no result line is printed):
                utils/profiling's timed and trace there (the trace holds
                chorin_fd.pressure); its "[... s]" line says whether it
                kept its 90 s budget
+  4/5, the sharded solvers and data-parallel training (no kernel on
+               these paths), last: tools/torch_sharded_solvers.py under
+               `python -m ns_tpu_torch.launch --nprocs 1 --platform cuda`
+               (NCCL, world of 1): the sharded chorin_fd at 1024^2 float32
+               (explicit and corrected semi-implicit red-black, nit 200,
+               nt 10, against the single-device plain route, whose SOR
+               gates every sweep as the sharded one does, <= 1e-3 of max,
+               the error against the kernel route, gated every 8 sweeps,
+               beside it; dst nt 20 and helmholtz + dst nt 10, <= 1e-4) and at
+               256^2 float64 (64 sweeps, <= 1e-10), chorin_spectral
+               corrected 1024^2 float64 (dense engine, nt 10, <= 1e-10 of
+               max, both set-ups timed) and spectral3d Taylor-Green 256^3
+               (rollout nt 8, simulate nt 4, 'highest' <= 1e-5 and 'default'
+               <= 2e-3 of max|u|, and whether bitwise), each against the
+               single-device port on the card, its steps/s beside the
+               single device's, no kernel launched by a sharded run, the
+               collectives a step equal to the JAX budgets (24 + 1, 22 +
+               2, 10 + 8, 6); cli.train --dist --dp 1 under the launcher
+               and the plain cli.train on the train phase's fno_w
+               configuration, 10 iterations: metrics.jsonl and checkpoint
+               bitwise equal, 2 all-reduces an iteration and no other
+               collective, both it/s; cli.train --n-models 2 --mesh auto
+               --dist under the launcher: ensemble_mesh None at a world of
+               1, its checkpoint bitwise the plain run's; its "[... s]"
+               line says whether it kept its 90 s budget
 After every phase the script checks that neither jax nor the JAX package
 was imported. The line before the kernels line carries the card, the main
 runs' and bench.py rollout's rates, the Chebyshev step loop, the
 surrogate phase's rates, profiles and check values, the training
 phase's rates, memory, losses and check values, the 3D surrogate
 phase's (`surrogate3d`), the serving and runtime phase's
-(`serve_runtime`) and the scale-out phase's (`scale_out`). The line before
-the last is {"kernels": [...]}
+(`serve_runtime`), the scale-out phase's (`scale_out`) and the sharded
+phase's (`sharded`). The line before the last is {"kernels": [...]}
 with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
 calls there and launches per call (K2mb, K4 and K5 also their resident
@@ -254,6 +279,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3666,6 +3692,227 @@ def phase_scale_out(tmp, card: str) -> dict:
     return out
 
 
+# --- the sharded solvers and data-parallel training ---------------------------
+# The last modules of the JAX package (parallel/chorin_fd_sharded.py,
+# chorin_spectral_sharded.py, spectral3d_sharded.py; TrainConfig.dp and the
+# ensemble mesh) in one launched child, one rank on NCCL (`sharded_child`).
+# No kernel lies on these paths in either package. The solvers' runs,
+# bounds and budgets are tools/torch_sharded_solvers.py's (its docstring).
+# Then, in the same child, each joining the process group anew from the
+# launcher's variables: cli.train --dist --dp 1 on the train phase's fno_w
+# configuration and npz (TRAIN), 10 iterations, held bitwise to the plain
+# cli.train run here (metrics.jsonl and checkpoint), all-reduces only
+# (tests/test_collectives.py:224); and cli.train --n-models 2 --mesh auto
+# --dist on two fno_w members (the train phase's ensemble_check
+# configuration), whose ensemble_mesh is None at a world of 1, its
+# checkpoint bitwise the plain run's. Iterations/s: the median of
+# iterations 2-10, each timed to a synchronize (`step_timer`): a warm
+# rate, as the train phase's profiled chunk gives one.
+SHARDED_BUDGET_S = 90
+SHARDED_TIMEOUT = 300
+
+
+@contextlib.contextmanager
+def step_timer(times: list):
+    """Each Trainer iteration's seconds, to a synchronize, into `times`."""
+    from ns_tpu_torch.train.trainer import Trainer
+    step = Trainer._step
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+
+    def timed_step(self):
+        sync()
+        t0 = time.perf_counter()
+        out = step(self)
+        sync()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    Trainer._step = timed_step
+    try:
+        yield
+    finally:
+        Trainer._step = step
+
+
+def cli_train_report(argv) -> dict:
+    """cli.train.main(argv) in this process: the collectives it counted,
+    the trainer's mesh, its iterations' seconds."""
+    from ns_tpu_torch.cli import train
+    from ns_tpu_torch.parallel.collectives import COUNTS, reset_counts
+
+    times = []
+    reset_counts()
+    with step_timer(times), contextlib.redirect_stdout(io.StringIO()):
+        tr = train.main(argv)
+    mesh = getattr(tr, "mesh", None)
+    return {"counts": dict(COUNTS), "step_s": times,
+            "mesh": None if mesh is None else dict(zip(
+                mesh.mesh_dim_names, mesh.shape))}
+
+
+def sharded_child(spec: dict):
+    """The launched child of phase_sharded (one rank): the sharded solvers
+    (tools/torch_sharded_solvers.py, its own process group), then each
+    cli.train command of spec, one line "CHILD <label> <json>" each."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_sharded_solvers
+    torch_sharded_solvers.main()
+    for label, argv in spec.items():
+        report = cli_train_report(argv)
+        report["jax"] = sorted(m for m in sys.modules
+                               if m.split(".")[0] in ("jax", "ns_tpu"))
+        print(f"CHILD {label} " + json.dumps(report), flush=True)
+
+
+def _child_json(stdout: str, key: str) -> dict:
+    """The JSON object a child printed after `key` (the launcher prefixes
+    its lines with [p0])."""
+    for line in stdout.splitlines():
+        if key in line:
+            return json.loads(line[line.index(key) + len(key):])
+    fail(f"no {key!r} line in:\n{stdout[-3000:]}")
+
+
+def sharded_solvers(r: dict, card: str) -> None:
+    """The solvers' line: every run within its bound, no kernel launched
+    by a sharded run, the collectives a step equal to the JAX budgets."""
+    budgets = r["budgets"]
+    runs = dict(r["chorin_fd"])
+    counts = {label: runs.pop(label + " counts a step")
+              for label in ("chorin_fd redblack", "chorin_fd dst")}
+    counts["chorin_spectral"] = r["chorin_spectral"]["counts_a_step"]
+    runs["chorin_spectral 1024^2 float64"] = r["chorin_spectral"]
+    for label, run in r["spectral3d"].items():
+        runs[f"spectral3d 256^3 {label}"] = run
+    for label, run in runs.items():
+        more = "".join(f", {k} {run[k]}" for k in (
+            "bitwise", "err_vs_kernel_route", "plain_route_steps_per_s")
+            if k in run)
+        print(f"  sharded {label}: err {run['err']:.3e} (bound "
+              f"{run['bound']}{more}); {run['steps_per_s']:.2f} steps/s "
+              f"against the single device's "
+              f"{run['single_device_steps_per_s']:.2f}; {card}")
+    c = r["chorin_spectral"]
+    print(f"  chorin_spectral 1024^2 dense set-up: sharded {c['setup_s']:.1f}"
+          f" s, single-device {c['single_device_setup_s']:.1f} s; "
+          f"collectives a step {counts}; process group "
+          f"{r['process_group_init_s']:.2f} s; parts {r['seconds']}")
+    require(r["world"] == 1 and r["backend"] == "nccl",
+            f"sharded solvers ran on {r['world']} ranks, {r['backend']}")
+    for label, got in counts.items():
+        require(got == budgets[label],
+                f"{label}: {got} collectives a step, JAX {budgets[label]}")
+    for label, run in r["spectral3d"].items():
+        want = budgets["spectral3d " + label.split()[0]]["all_to_all"]
+        require(run["sites"] == want and set(run["counts"]) == {"all_to_all"},
+                f"spectral3d {label}: {run['counts']}, {run['sites']} "
+                f"sites, JAX {want}")
+    for label, run in runs.items():
+        require(run["err"] <= run["bound"],
+                f"sharded {label}: {run['err']:.3e} > {run['bound']}")
+        require(not run["kernels_launched"],
+                f"sharded {label} launched {run['kernels_launched']}")
+
+
+def _same_run(a: str, b: str, label: str) -> None:
+    """Two cli.train output folders: metrics.jsonl's losses (where the
+    trainer writes one: the ensemble writes none, as in the JAX package)
+    and every checkpoint array bitwise equal."""
+    def losses(folder):
+        path = os.path.join(folder, "metrics.jsonl")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return [{k: v for k, v in json.loads(x).items() if k != "time"}
+                    for x in f]
+    require(losses(a) == losses(b),
+            f"{label}: metrics.jsonl {losses(a)} vs {losses(b)}")
+    with np.load(os.path.join(a, "checkpoint.npz")) as x, \
+            np.load(os.path.join(b, "checkpoint.npz")) as y:
+        require(sorted(x.files) == sorted(y.files),
+                f"{label}: checkpoint keys differ")
+        for k in y.files:
+            require(np.array_equal(x[k], y[k]),
+                    f"{label}: checkpoint {k} differs")
+    ma, mb = (json.load(open(os.path.join(f, "checkpoint.npz.meta.json")))
+              for f in (a, b))
+    require(ma["losses"] == mb["losses"] and ma.get("torch_generator")
+            == mb.get("torch_generator"), f"{label}: meta differs")
+
+
+def _it_per_s(step_s: list) -> float:
+    """1 / the median of iterations 2.. (the first builds tables and
+    plans)."""
+    import statistics
+    return 1.0 / statistics.median(step_s[1:])
+
+
+def phase_sharded(tmp, card: str) -> dict:
+    """The launched child (module comment above), then the plain cli.train
+    runs here, and the checks."""
+    print("phase 4/5: the sharded solvers and data-parallel training "
+          "(launch, one rank on NCCL)")
+    t0 = time.perf_counter()
+    npz = os.path.join(tmp, "turbulence_128.npz")
+    if not os.path.exists(npz):
+        npz = training_data(tmp)
+    dp = ["--model", "fno_w", "--npz-path", npz, "--n-frames",
+          str(TRAIN["frames"]), "--fno-width", str(TRAIN["width"]),
+          "--fno-modes", str(TRAIN["modes"]), "--n-iters", "10",
+          "--ckpt-every", "10", "--device", DEVICE]
+    ens = ["--model", "fno_w", "--npz-path", npz, "--n-frames", "20",
+           "--fno-width", "16", "--fno-modes", "12", "--n-iters", "4",
+           "--ckpt-every", "2", "--n-models", "2", "--mesh", "auto",
+           "--device", DEVICE]
+    out_dir = lambda name: os.path.join(tmp, f"sharded_{name}")  # noqa: E731
+    spec = {"dp": dp + ["--dist", "--dp", "1", "--out-dir", out_dir("dp")],
+            "ensemble": ens + ["--dist", "--out-dir", out_dir("ens")]}
+    stdout = _launch(["--nprocs", "1", "--platform", "cuda", "--",
+                      sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                      "--sharded-child", json.dumps(spec)], SHARDED_TIMEOUT)
+    child_s = time.perf_counter() - t0
+    out = {"solvers": _child_json(stdout, "SHARDED ")}
+    sharded_solvers(out["solvers"], card)
+    child = {k: _child_json(stdout, f"CHILD {k} ") for k in spec}
+    for label, rep in child.items():
+        require(not rep["jax"], f"the child's {label} imported {rep['jax']}")
+    plain = {"dp": cli_train_report(dp + ["--out-dir", out_dir("dp_plain")]),
+             "ensemble": cli_train_report(ens + ["--out-dir",
+                                                 out_dir("ens_plain")])}
+    _same_run(out_dir("dp_10"), out_dir("dp_plain_10"),
+              "cli.train --dist --dp 1")
+    _same_run(out_dir("ens_10"), out_dir("ens_plain_10"),
+              "cli.train --n-models 2 --mesh auto --dist")
+    d, e = child["dp"], child["ensemble"]
+    require(d["mesh"] == {"data": 1} and d["counts"] == {
+        "all_reduce": 20, "all_reduce@data": 20},
+        f"--dist --dp 1: mesh {d['mesh']}, collectives {d['counts']}")
+    require(plain["dp"]["mesh"] is None and not plain["dp"]["counts"],
+            f"plain cli.train: {plain['dp']}")
+    require(e["mesh"] is None and not e["counts"],
+            f"--n-models 2 --mesh auto on a world of 1: {e}")
+    for name in ("dp_10", "dp_plain_10"):
+        shutil.rmtree(out_dir(name))
+    out["dp_training"] = {
+        "dist_dp1_it_per_s": _it_per_s(d["step_s"]),
+        "plain_it_per_s": _it_per_s(plain["dp"]["step_s"]),
+        "dist_dp1_step_s": d["step_s"], "plain_step_s": plain["dp"]["step_s"],
+        "counts": d["counts"], "ensemble_mesh": e["mesh"]}
+    out["seconds"] = {"child": child_s,
+                      "plain_and_checks": time.perf_counter() - t0 - child_s}
+    r = out["dp_training"]
+    print(f"  cli.train fno_w 128^2 w64 m43, 10 iterations: --dist --dp 1 "
+          f"(launch, NCCL) {r['dist_dp1_it_per_s']:.2f} it/s, plain "
+          f"{r['plain_it_per_s']:.2f} it/s (median of iterations 2-10); "
+          f"losses and checkpoint bitwise equal; 2 all-reduces an "
+          f"iteration, no all_gather, no all_to_all; --n-models 2 --mesh "
+          f"auto --dist: ensemble_mesh None at a world of 1, checkpoint "
+          f"bitwise the plain run's; seconds {out['seconds']}; {card}")
+    return out
+
+
 # --- report ------------------------------------------------------------------
 
 KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
@@ -3796,6 +4043,9 @@ def main():
                               card, budget_s=SERVE_BUDGET_S)
         scale_out = timed_phase("scale-out", phase_scale_out, tmp, card,
                                 budget_s=SCALE_BUDGET_S)
+        sharded = timed_phase("sharded solvers and dp training",
+                              phase_sharded, tmp, card,
+                              budget_s=SHARDED_BUDGET_S)
     require_no_jax()
     kernels = report(res, main_path, serving["runtime"]["launches_replayed"])
     print(json.dumps({"card": card,
@@ -3814,7 +4064,7 @@ def main():
                               for prec, r in cheb["profile"].items()}},
                       "surrogate": surrogate, "train": training,
                       "surrogate3d": surrogate3d, "serve_runtime": serving,
-                      "scale_out": scale_out}))
+                      "scale_out": scale_out, "sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3822,4 +4072,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-child"]:
+        sharded_child(json.loads(sys.argv[2]))
+    else:
+        main()

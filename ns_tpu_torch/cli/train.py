@@ -6,10 +6,14 @@ output directory gets the _{n_coeffs} suffix), --model, --resume and the
 operator families' and schedule's knobs, plus --device. Training runs on
 the card unless given --device cpu (without a card the command exits with
 an error); --gpu-device is accepted and ignored. --n-models > 1 trains an
-ensemble, on the one card whatever --mesh says. --dp > 1 and --dist are
-not yet ported and exit with an error. Writes
-checkpoint.npz (+ .meta.json) every --ckpt-every iterations,
-metrics.jsonl, and extrapolation.npy at the end.
+ensemble, its members sharded over an 'ensemble' mesh of the process
+group's ranks with --mesh auto (`train/ensemble.py::ensemble_mesh`; one
+rank: every member on it). --dist joins the process group from the
+NS_TPU_* variables that `python -m ns_tpu_torch.launch` sets, and then
+trains data-parallel over a {'data': world} mesh, at a world of 1 too;
+--dp (the mesh's size) must equal the world size (one device a rank).
+The coordinator writes checkpoint.npz (+ .meta.json) every --ckpt-every
+iterations, metrics.jsonl, and extrapolation.npy at the end.
 
 Examples:
   python -m ns_tpu_torch.cli.train --model basis_ode \\
@@ -19,6 +23,9 @@ Examples:
   python -m ns_tpu_torch.cli.train --model fno3d_a --npz-path turb3d.npz \
       --fno-width 24 --fno-modes 16 --fno-rollout-steps 4 --fno-remat \
       --batch-size 4 --lr-schedule cosine --warmup-iters 100 --grad-clip 1
+  python -m ns_tpu_torch.launch --nprocs 2 --platform cpu -- \
+      python -m ns_tpu_torch.cli.train --model fno_w --npz-path turb.npz \
+      --dist --dp 2 --device cpu
 """
 
 import argparse
@@ -26,9 +33,12 @@ import os
 
 import numpy as np
 
+import torch
+
 from ns_tpu_torch.core.device import resolve_device
-from ns_tpu_torch.train.trainer import (MODELS, NOT_PORTED, TrainConfig,
-                                        Trainer)
+from ns_tpu_torch.parallel import distributed
+from ns_tpu_torch.train.trainer import (MODELS, TrainConfig, Trainer,
+                                        make_dp_mesh)
 
 
 def main(argv=None):
@@ -80,7 +90,9 @@ def main(argv=None):
                    help=">1 trains an ensemble of independently drawn models")
     p.add_argument("--mesh", type=str, default="auto",
                    choices=["auto", "none"],
-                   help="accepted; an ensemble runs on the one card")
+                   help="ensemble mesh: 'auto' (the largest usable rank "
+                        "count), 'none' (every member on this rank); only "
+                        "with --n-models > 1")
     p.add_argument("--batch-size", type=int, default=0,
                    help="fno families: sample this many training windows "
                         "per step (with replacement); 0 = full batch")
@@ -95,9 +107,15 @@ def main(argv=None):
     p.add_argument("--grad-clip", type=float, default=0.0,
                    help="global-norm gradient clip (0 disables)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel devices (not yet ported: 1 only)")
+                   help="data-parallel devices for single-model training "
+                        "(fno families shard the training windows, rnn the "
+                        "trajectories; params replicated, gradients "
+                        "all-reduced); one rank a device, so it equals the "
+                        "--dist world size; not with --n-models > 1")
     p.add_argument("--dist", action="store_true",
-                   help="multi-process training (not yet ported)")
+                   help="join the process group from the NS_TPU_* "
+                        "variables (python -m ns_tpu_torch.launch sets "
+                        "them) and train over its ranks")
     p.add_argument("--gpu-device", type=int, default=0,
                    help="accepted for reference-CLI compatibility; ignored")
     p.add_argument("--device", default="cuda",
@@ -107,12 +125,20 @@ def main(argv=None):
     if args.dp > 1 and args.n_models > 1:
         p.error("--dp shards single-model training; --n-models > 1 "
                 "ensembles shard the 'ensemble' axis instead (use --mesh)")
-    if args.dist or args.dp > 1:
-        p.error(f"--dist and --dp > 1 (data-parallel training) {NOT_PORTED}")
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        p.error(str(e))
+    if args.dist:
+        if not ("NS_TPU_COORDINATOR" in os.environ
+                or "MASTER_ADDR" in os.environ):
+            p.error("--dist needs a process group: run under `python -m "
+                    "ns_tpu_torch.launch --nprocs N [--platform cpu] -- "
+                    "python -m ns_tpu_torch.cli.train ... --dist`")
+        platform = os.environ.get("NS_TPU_PLATFORM") or torch.device(
+            args.device).type
+        device = distributed.initialize(platform=platform)
+    else:
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as e:
+            p.error(str(e))
 
     out_dir = args.out_dir or f"./checkpoints/{args.model}"
     out_dir = f"{out_dir}_{args.n_coeffs}"  # the reference's suffix
@@ -137,15 +163,23 @@ def main(argv=None):
                       batch_size=args.batch_size)
     if args.n_models > 1:
         from ns_tpu_torch.train.ensemble import EnsembleTrainer
-        tr = EnsembleTrainer(cfg, args.n_models, mesh=args.mesh,
+        tr = EnsembleTrainer(cfg, args.n_models,
+                             mesh="auto" if args.mesh == "auto" else None,
                              device=device)
     else:
-        tr = Trainer(cfg, device=device)
+        # under --dist the data mesh spans the world, a world of 1 too
+        tr = Trainer(cfg, device=device,
+                     mesh=make_dp_mesh(cfg) if args.dist else None)
     tr.train()
-    extrap = tr.extrapolate()
-    out = os.path.join(out_dir, "extrapolation.npy")
-    np.save(out, extrap)
-    print(f"saved {out} shape={extrap.shape}")
+    if distributed.is_coordinator():
+        # the state is replicated (or gathered): one writer
+        extrap = tr.extrapolate()
+        out = os.path.join(out_dir, "extrapolation.npy")
+        np.save(out, extrap)
+        print(f"saved {out} shape={extrap.shape}")
+    if args.dist:
+        distributed.barrier("train_done")
+        distributed.shutdown()
     return tr
 
 

@@ -15,7 +15,13 @@ and the collective is the identity.
     blocks are joined along concat_dim in coordinate order. One
     `dist.all_to_all_single` on one contiguous buffer (complex tensors as
     their real view).
+  - `all_gather(a, mesh, axis, dim)`: JAX's lax.all_gather(...,
+    tiled=True): every rank's block, joined along dim in coordinate
+    order. One `dist.all_gather_into_tensor` on one contiguous buffer
+    (complex tensors as their real view).
   - `all_reduce_sum(t, mesh, axis)`: the sum over the axis (JAX's psum).
+  - `all_reduce_max(t, mesh, axis)`: the maximum over the axis (JAX's
+    pmax), counted as an all_reduce, as JAX lowers pmax to one.
   - `permute_edges(send_lo, send_hi, mesh, axis)`: one
     `dist.batch_isend_irecv` that sends send_lo to the lower neighbour and
     send_hi to the upper one, and returns what they sent (zeros at the
@@ -74,15 +80,50 @@ def all_to_all(a: torch.Tensor, mesh: DeviceMesh, axis: str,
     return buf.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
 
 
-def all_reduce_sum(t: torch.Tensor, mesh: DeviceMesh,
-                   axis: str) -> torch.Tensor:
-    """The sum of `t` over the ranks of `axis` (a new tensor)."""
+def all_gather(a: torch.Tensor, mesh: DeviceMesh, axis: str,
+               dim: int) -> torch.Tensor:
+    """JAX's tiled all_gather of `a` over the mesh dim `axis`: the n
+    blocks joined along `dim` in coordinate order."""
+    _count("all_gather", axis)
+    group = _group(mesh, axis)
+    dim %= a.dim()
+    if group is None:
+        return a.clone()
+    n = axis_size(mesh, axis)
+    src = a.contiguous()
+    real = torch.view_as_real(src) if src.is_complex() else src
+    # the blocks concatenated along dim 0, then viewed as (n, *shape)
+    out = real.new_empty((n * real.shape[0], *real.shape[1:]))
+    # all_gather_single where torch has it (all_gather_into_tensor's
+    # successor)
+    getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
+        out, real, group=group)
+    out = out.view(n, *real.shape)
+    buf = torch.view_as_complex(out) if src.is_complex() else out
+    # block j came from coordinate j: join the blocks along dim
+    return buf.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _all_reduce(t: torch.Tensor, mesh: DeviceMesh, axis: str,
+                op) -> torch.Tensor:
     _count("all_reduce", axis)
     out = t.clone()
     group = _group(mesh, axis)
     if group is not None:
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(out, op=op, group=group)
     return out
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: DeviceMesh,
+                   axis: str) -> torch.Tensor:
+    """The sum of `t` over the ranks of `axis` (a new tensor)."""
+    return _all_reduce(t, mesh, axis, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(t: torch.Tensor, mesh: DeviceMesh,
+                   axis: str) -> torch.Tensor:
+    """The maximum of `t` over the ranks of `axis` (a new tensor)."""
+    return _all_reduce(t, mesh, axis, dist.ReduceOp.MAX)
 
 
 def permute_edges(send_lo: torch.Tensor, send_hi: torch.Tensor,

@@ -26,6 +26,7 @@ Axis vocabulary, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -89,15 +90,24 @@ def make_mesh(axes: Mapping[str, int] | str | None = None,
 
 def axis_sizes(mesh: DeviceMesh) -> dict[str, int]:
     """{axis name: size} of a mesh (JAX's `mesh.shape`)."""
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return axis_sizes(mesh)[axis]
 
 
+# The rank layout and coordinates of a mesh, once a mesh: DeviceMesh.mesh
+# builds its tensor anew on every access (~45-150 us of host in torch 2.13),
+# and a sharded step asks for coordinates at every collective.
+@functools.lru_cache(maxsize=64)
+def _layout(mesh: DeviceMesh) -> torch.Tensor:
+    return mesh.mesh
+
+
+@functools.lru_cache(maxsize=256)
 def _coordinate(mesh: DeviceMesh, rank: int) -> Optional[tuple]:
-    hit = (mesh.mesh == rank).nonzero()
+    hit = (_layout(mesh) == rank).nonzero()
     return tuple(int(c) for c in hit[0]) if len(hit) else None
 
 
@@ -118,7 +128,7 @@ def axis_peer(mesh: DeviceMesh, axis: str, index: int) -> int:
     rank = dist.get_rank() if dist.is_initialized() else 0
     coord = list(_coordinate(mesh, rank))
     coord[mesh.mesh_dim_names.index(axis)] = index
-    return int(mesh.mesh[tuple(coord)])
+    return int(_layout(mesh)[tuple(coord)])
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:

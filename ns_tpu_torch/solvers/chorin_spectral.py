@@ -447,8 +447,11 @@ def make_step(cfg: ChorinSpectralConfig, u_bc, v_bc, dtype=torch.float64,
             return p_solve(H, p_recips)
     else:
         try:
+            # with identical operators v's solve is u's: one set of
+            # eigendecompositions serves both
             u_ops.build_dense_eig()
-            v_ops.build_dense_eig()
+            if not same_ops:
+                v_ops.build_dense_eig()
             _add_dense_pressure_eig(C, host, dtype, device, prec)
         except ValueError as e:
             if cfg.quirk_compat:
@@ -463,8 +466,9 @@ def make_step(cfg: ChorinSpectralConfig, u_bc, v_bc, dtype=torch.float64,
             dpx_l = lambda X: mm(DPx, X)
             dpy_r = lambda X: mm(X, DPy.T)
         # the eigenvalue grids, once (the JAX step forms the same values)
-        u_den = 2.0 - dt_eff * u_ops.lamx[:, None] - dt_eff * u_ops.lamy[None, :]
-        v_den = 2.0 - dt_eff * v_ops.lamx[:, None] - dt_eff * v_ops.lamy[None, :]
+        den = lambda o: 2.0 - dt_eff * o.lamx[:, None] - dt_eff * o.lamy[None, :]  # noqa: E731
+        u_den = den(u_ops)
+        v_den = u_den if same_ops else den(v_ops)
         p_den = C["p_lamx"][:, None] + C["p_lamy"][None, :]
         if cfg.deflate_pressure_nullspace:
             p_keep = p_den.abs() > 1e-8 * p_den.abs().max()

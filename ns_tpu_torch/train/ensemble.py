@@ -24,8 +24,12 @@ checkpoint is the JAX one: every params and opt_state leaf carries a
 leading model axis (counts (n_models,) int32), as `init_ensemble` and
 `jax.vmap(tx.init)` lay it out, and meta holds `n_models`. The JAX rules
 stay: no input noise, no minibatch, n_models >= 2, one trajectory for the
-basis families. Its mesh argument is accepted and every member runs on
-`device` (`ensemble_mesh` and the trainer's mesh are not ported yet).
+basis families. With an 'ensemble' mesh (`ensemble_mesh`, the default
+"auto"), each rank trains its contiguous share of the members; the
+losses are gathered for the metrics (one all_gather a chunk), and before
+a checkpoint every rank gathers the members' params and Adam state (one
+all_gather), so the coordinator alone writes the whole model axis, which
+the single-device port and ns_tpu resume as before.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 from torch import nn
 
 from ns_tpu_torch.core.device import resolve_device
-from ns_tpu_torch.parallel.mesh import member_range, mesh_device
+from ns_tpu_torch.parallel.mesh import make_mesh, member_range, mesh_device
 from ns_tpu_torch.train.checkpoint import (jax_key, load_checkpoint,
                                            load_meta, save_checkpoint)
 from ns_tpu_torch.train.metrics import l2_loss
@@ -192,13 +196,29 @@ def train_ensemble(model, obs, nt: int, n_models: int, n_iters: int,
     return params, torch.stack(history)
 
 
+def ensemble_mesh(n_models: int):
+    """The largest usable 'ensemble' mesh: the first k ranks of the
+    process group (one device a rank), k the largest count <= the world
+    with k | n_models; None if only one device is usable (a world of 1,
+    or no process group)."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    k = min(n_models, world)
+    while k > 1 and n_models % k:
+        k -= 1
+    if k <= 1:
+        return None
+    return make_mesh({"ensemble": k}, devices=range(k))
+
+
 class EnsembleTrainer:
     """Train `n_models` surrogates of `cfg` on `device` (the card unless
     "cpu"). Member m's parameters are the m-th draw of one CPU generator
-    seeded with cfg.seed."""
+    seeded with cfg.seed. `mesh` is an 'ensemble' mesh, None (every member
+    on this rank) or "auto" (`ensemble_mesh`); a rank outside the mesh
+    holds no member."""
 
     def __init__(self, cfg, n_models: int, mesh="auto", device=None):
-        del mesh  # one card: every member runs on `device`
         if cfg.model not in ENSEMBLE_MODELS:
             raise ValueError(f"ensemble training supports {ENSEMBLE_MODELS}, "
                              f"got {cfg.model!r}")
@@ -230,6 +250,14 @@ class EnsembleTrainer:
         self.start_iter = 1
         if cfg.resume:
             self._resume(cfg.resume)
+        self.mesh = ensemble_mesh(n_models) if mesh == "auto" else mesh
+        self._share = (0, n_models)
+        if self.mesh is not None:
+            import torch.distributed as dist
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            self._share = (member_range(n_models, self.mesh)
+                           if bool((self.mesh.mesh == rank).any())
+                           else (0, 0))
         self._forward = build_forward(cfg, self.frames)
         self._step = raw_ensemble_step(
             self.builder, cfg, self.obs, self.nt,
@@ -253,29 +281,70 @@ class EnsembleTrainer:
                        for row in meta.get("losses", [])]
         self.start_iter = int(meta.get("iter", 0)) + 1
 
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The members' rows of every rank's share (dim 0 of t)."""
+        from ns_tpu_torch.parallel.collectives import all_gather
+        return all_gather(t, self.mesh, "ensemble", dim=0)
+
     def train_chunk(self, n: int) -> torch.Tensor:
-        """n steps of every member (raw_ensemble_step); the losses
-        (n, n_models) stay on the device."""
-        return torch.stack([self._step(self.params, self.opts)[2]
-                            for _ in range(n)])
+        """n steps of this rank's members (raw_ensemble_step); the losses
+        of every member (n, n_models) stay on the device."""
+        lo, hi = self._share
+        params = {k: v[lo:hi] for k, v in self.params.items()}
+        losses = torch.stack([self._step(params, self.opts[lo:hi])[2]
+                              for _ in range(n)])
+        if self.mesh is None:
+            return losses
+        return self._gather(losses.T.contiguous()).T
+
+    @torch.no_grad()
+    def _sync_members(self) -> None:
+        """Every member's params and Adam state from the rank that trains
+        it, in one flat buffer (a no-op without a mesh)."""
+        if self.mesh is None:
+            return
+        lo, hi = self._share
+        ref = self.opts[lo]
+        leaves = lambda m: ([self.params[k][m] for k in ref.names]  # noqa: E731
+                            + list(self.opts[m].mu) + list(self.opts[m].nu))
+        sizes = [t.numel() for t in leaves(lo)]
+        mine = torch.stack([torch.cat([t.reshape(-1) for t in leaves(m)])
+                            for m in range(lo, hi)])
+        full = self._gather(mine)
+        for m in range(self.n_models):
+            for dst, src in zip(leaves(m), full[m].split(sizes)):
+                dst.copy_(src.view_as(dst))
+            self.opts[m].count = ref.count
+            self.opts[m].schedule_count = ref.schedule_count
 
     def train(self, progress: bool = True) -> list:
+        from ns_tpu_torch.parallel.distributed import barrier, is_coordinator
         cfg = self.cfg
-        os.makedirs(cfg.out_dir, exist_ok=True)
+        writer = is_coordinator()
+        if writer:
+            os.makedirs(cfg.out_dir, exist_ok=True)
         it = self.start_iter - 1
+        if self._share[0] == self._share[1]:  # a rank outside the mesh
+            it = cfg.n_iters
         while it < cfg.n_iters:
             n = min(cfg.ckpt_every - it % cfg.ckpt_every, cfg.n_iters - it)
             rows = self.train_chunk(n).tolist()      # one host read a chunk
             self.losses.extend(rows)
             it += n
             if it % cfg.ckpt_every == 0 or it == cfg.n_iters:
-                self.save(it)
-            if progress:
+                self._sync_members()
+                if writer:
+                    self.save(it)
+            if progress and writer:
                 print(f"[{it}/{cfg.n_iters}] mean loss "
                       f"{np.mean(rows[-1]):.4f}", flush=True)
+        if self.mesh is not None:
+            barrier("ensemble_done")  # the coordinator's files are written
         return self.losses
 
     def save(self, it: int) -> str:
+        """The checkpoint of every member (after `_sync_members` under a
+        mesh), written by the caller's rank."""
         meta = {"iter": it, "losses": self.losses,
                 "grid": grid_meta(self.nx, self.ny, self.nz),
                 "n_models": self.n_models,

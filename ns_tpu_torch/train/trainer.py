@@ -18,6 +18,19 @@ objective) and `Trainer`, the reference's training protocol:
     package's format (each package resumes the other's checkpoints), and a
     full-horizon extrapolation at the end.
 
+Data-parallel training (`TrainConfig.dp`): a device is a rank, so dp is
+the size of a {'data': dp} mesh over the process group (`make_dp_mesh`;
+dp must equal the world size). The operator families shard the
+training-window batch and rnn its trajectories, each rank taking a
+contiguous share (shares differ by one where the batch does not divide);
+params and Adam state are replicated. The loss is the global L2 norm: each
+rank's sum of squares is all-reduced in the forward pass (the backward
+passes the gradient through), and the parameter gradients are summed once
+over the ranks in one flat buffer, so every rank applies the same update.
+Every rank draws the whole batch's windows and noise from its generator
+and keeps its share, so the generator state, and resume, do not depend on
+dp. Only the coordinator writes the checkpoint and the metrics.
+
 Steps run in chunks of up to `ckpt_every` iterations whose losses stay on
 the device: a chunk reads nothing back to the host, and `train` reads the
 chunk's losses (and the penalty) once. Every entry point runs on the card
@@ -36,6 +49,7 @@ generator from its two words.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -66,7 +80,8 @@ FNO_FAMILIES = ("fno", "fno_w", "fno_psi", "fno3d", "fno3d_w",
 # prediction is exactly divergence-free
 W_FAMILIES = ("fno_w", "fno3d_w", "fno3d_a")
 
-NOT_PORTED = "is not yet ported to ns_tpu_torch, see ROADMAP.md"
+# the data-parallel mesh axis
+DATA_AXIS = "data"
 
 
 @dataclasses.dataclass
@@ -298,8 +313,16 @@ def state_of_fields(cfg: TrainConfig, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def batch_share(n: int, index: int, size: int) -> tuple[int, int]:
+    """[lo, hi) of a batch of n that rank `index` of `size` takes: the
+    contiguous shares of np.array_split, sizes differing by one."""
+    q, r = divmod(n, size)
+    lo = index * q + min(index, r)
+    return lo, lo + q + (index < r)
+
+
 def build_forward(cfg: TrainConfig, frames: torch.Tensor,
-                  data_scale: float = 1.0):
+                  data_scale: float = 1.0, share=None):
     """forward(model, gen=None) -> (pred, target): the per-family training
     objective, shared by Trainer and EnsembleTrainer.
 
@@ -317,13 +340,21 @@ def build_forward(cfg: TrainConfig, frames: torch.Tensor,
         first input only, each step rematerialised in the backward pass
         when fno_remat;
       - the basis families: the whole trajectory from frame 0.
+    share=(index, size) keeps rank `index`'s share of the batch axis
+    (`batch_share`): rnn's trajectories, the FNO families' windows; the
+    windows and the noise are drawn for the whole batch first.
     """
     nt = frames.shape[0]
+
+    def mine(t):
+        if share is None:
+            return t
+        return t[slice(*batch_share(t.shape[0], *share))]
 
     def forward(model, gen=None):
         if cfg.model == "rnn":
             m = frames.shape[1]
-            seq = frames.transpose(0, 1).reshape(m, nt, -1)
+            seq = mine(frames.transpose(0, 1).reshape(m, nt, -1))
             return model(seq[:, :-1]), seq[:, 1:]
         if cfg.model not in FNO_FAMILIES:
             return model(frames[0], nt), frames
@@ -336,13 +367,14 @@ def build_forward(cfg: TrainConfig, frames: torch.Tensor,
 
         def window(j):
             if idx is None:
-                return frames[j:n_win + j]
-            return torch.index_select(frames, 0, idx + j)
+                return mine(frames[j:n_win + j])
+            return torch.index_select(frames, 0, mine(idx) + j)
 
         x = window(0)
         if cfg.input_noise > 0 and gen is not None:
-            x = x + cfg.input_noise * data_scale * torch.randn(
-                x.shape, generator=gen, device=x.device, dtype=x.dtype)
+            shape = (n_win if idx is None else len(idx), *x.shape[1:])
+            x = x + cfg.input_noise * data_scale * mine(torch.randn(
+                shape, generator=gen, device=x.device, dtype=x.dtype))
         if k == 1:
             return model(x), window(1)
         if cfg.fno_remat:
@@ -434,10 +466,56 @@ def training_tensors(cfg: TrainConfig, obs: torch.Tensor):
     return frames, scale
 
 
-class Trainer:
-    """Train one surrogate of `cfg` on `device` (the card unless "cpu")."""
+def make_dp_mesh(cfg: TrainConfig):
+    """The {'data': dp} mesh of data-parallel training over every rank of
+    the process group (one device a rank): dp must equal the world size,
+    and dp > 1 needs a process group. None for a family without a batch
+    axis at dp 1. The JAX package's errors: such a family at dp > 1, and
+    more devices than there are."""
+    import torch.distributed as dist
 
-    def __init__(self, cfg: TrainConfig, device=None):
+    from ns_tpu_torch.parallel.mesh import make_mesh
+    if cfg.model not in FNO_FAMILIES + ("rnn",):
+        if cfg.dp == 1:
+            return None
+        raise ValueError(
+            f"dp={cfg.dp} needs a batched objective (fno/fno_w/fno3d "
+            f"shard training windows, rnn shards trajectories); "
+            f"{cfg.model!r} learns one coefficient trajectory with no "
+            "batch axis (reference semantics)")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if cfg.dp > world:
+        raise ValueError(f"dp={cfg.dp} > {world} available devices (the "
+                         "port runs one device a rank: launch dp ranks "
+                         "with python -m ns_tpu_torch.launch)")
+    if cfg.dp < world:
+        raise ValueError(f"dp={cfg.dp} < {world} devices of the process "
+                         "group: the data mesh spans every rank")
+    return make_mesh({DATA_AXIS: cfg.dp})
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The all-reduced sum of a rank's partial sum; the backward passes
+    the gradient through, so each rank's parameter gradient is its share
+    of the global one (summed once, in `Trainer._sync`)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        from ns_tpu_torch.parallel.collectives import all_reduce_sum
+        return all_reduce_sum(t, mesh, DATA_AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class Trainer:
+    """Train one surrogate of `cfg` on `device` (the card unless "cpu").
+    `mesh` (default: `make_dp_mesh` when cfg.dp > 1) is the {'data': dp}
+    mesh of data-parallel training; cli.train --dist passes it at dp 1
+    too, so a world of one rank runs the same collectives."""
+
+    def __init__(self, cfg: TrainConfig, device=None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         obs = load_obs(cfg.npz_path, cfg.n_frames)
@@ -447,9 +525,17 @@ class Trainer:
         if cfg.model in FNO_FAMILIES and cfg.input_noise < 0:
             raise ValueError(
                 f"input_noise must be >= 0; got {cfg.input_noise}")
-        if cfg.dp > 1:
-            raise NotImplementedError(f"data-parallel training (dp="
-                                      f"{cfg.dp}) {NOT_PORTED}")
+        if mesh is None and cfg.dp > 1:
+            mesh = make_dp_mesh(cfg)
+        self.mesh = mesh
+        share = None
+        if mesh is not None:
+            from ns_tpu_torch.parallel.mesh import axis_index, axis_size
+            share = (axis_index(mesh, DATA_AXIS),
+                     axis_size(mesh, DATA_AXIS))
+            if share[1] != cfg.dp:
+                raise ValueError(f"dp={cfg.dp}, but the mesh's "
+                                 f"{DATA_AXIS!r} axis has {share[1]} ranks")
         self.model = build_model(
             cfg, self.nx, self.ny, self.nz,
             generator=torch.Generator().manual_seed(cfg.seed)).to(self.device)
@@ -464,7 +550,8 @@ class Trainer:
         self.start_iter = 1
         if cfg.resume:
             self._resume(cfg.resume)
-        self._forward = build_forward(cfg, self.frames, self._data_scale)
+        self._forward = build_forward(cfg, self.frames, self._data_scale,
+                                      share)
 
     def _resume(self, path: str) -> None:
         state = load_checkpoint(path, {"params": self.params,
@@ -485,11 +572,31 @@ class Trainer:
 
     # -- steps ----------------------------------------------------------------
 
+    def _loss(self) -> torch.Tensor:
+        pred, target = self._forward(self.model, self.gen)
+        if self.mesh is None:
+            return l2_loss(pred, target)
+        # l2_loss over the whole batch: this rank's sum of squares, summed
+        # over the ranks
+        diff = pred - target
+        return torch.sqrt(_SumOverRanks.apply(torch.sum(diff * diff),
+                                              self.mesh))
+
+    def _sync(self, grads) -> list:
+        """The gradients summed over the data ranks, one flat buffer."""
+        if self.mesh is None:
+            return grads
+        from ns_tpu_torch.parallel.collectives import all_reduce_sum
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                              self.mesh, DATA_AXIS)
+        return [f.view_as(g) for f, g in
+                zip(flat.split([g.numel() for g in grads]), grads)]
+
     def _step(self) -> torch.Tensor:
-        loss = l2_loss(*self._forward(self.model, self.gen))
+        loss = self._loss()
         grads = torch.autograd.grad(loss, list(self.params.values()),
                                     materialize_grads=True)
-        self.opt.step(dict(zip(self.params, grads)))
+        self.opt.step(dict(zip(self.params, self._sync(grads))))
         return loss.detach()
 
     def train_chunk(self, n: int) -> torch.Tensor:
@@ -506,11 +613,16 @@ class Trainer:
 
     def train(self, log_every: int = 50, progress: bool = True) -> list:
         cfg = self.cfg
-        os.makedirs(cfg.out_dir, exist_ok=True)
+        from ns_tpu_torch.parallel.distributed import is_coordinator
+        writer = is_coordinator()
+        if writer:
+            os.makedirs(cfg.out_dir, exist_ok=True)
         from ns_tpu_torch.utils.jsonl import JSONLLogger
         loss_meter = AverageMeter()
         t0 = time.perf_counter()
-        with JSONLLogger(os.path.join(cfg.out_dir, "metrics.jsonl")) as jlog:
+        log_path = os.path.join(cfg.out_dir, "metrics.jsonl")
+        with (JSONLLogger(log_path) if writer
+              else contextlib.nullcontext()) as jlog:
             it = self.start_iter - 1  # completed iterations
             while it < cfg.n_iters:
                 n = min(cfg.ckpt_every - it % cfg.ckpt_every,
@@ -526,15 +638,19 @@ class Trainer:
                     loss_meter.update(v)
                 self.losses.extend(vals)
                 it += n
-                if it % cfg.ckpt_every == 0 or it == cfg.n_iters:
+                if (it % cfg.ckpt_every == 0 or it == cfg.n_iters) and writer:
                     self.save(it)
                     jlog.log({"loss": vals[-1], "loss_avg": loss_meter.avg},
                              iter=it)
-                if progress and (it % log_every < n or it == cfg.n_iters):
+                if progress and writer and (it % log_every < n
+                                            or it == cfg.n_iters):
                     rate = (it - self.start_iter + 1) / (time.perf_counter()
                                                          - t0)
                     print(f"[{it}/{cfg.n_iters}] loss {loss_meter.avg:.4f} "
                           f"({rate:.1f} it/s)", flush=True)
+        if self.mesh is not None:
+            from ns_tpu_torch.parallel.distributed import barrier
+            barrier("train_done")  # the coordinator's files are written
         return self.losses
 
     def save(self, it: int, is_best: bool = False) -> str:

@@ -1506,3 +1506,118 @@ def test_world_of_one_mesh_without_a_process_group(cuda):
     want = sp.physical_from_carry(cfg, sp.rollout_final(
         cfg, sp.init_from_vorticity(cfg, w0, cuda))[0])
     assert float((got - want).abs().max()) <= 1e-11
+
+
+def _sharded_cases(cuda):
+    """(label, sharded result, single-device result, bound) of the three
+    sharded solvers in float64 on a mesh of one rank: chorin_fd explicit
+    (redblack at a fixed sweep count, against K1 and K3) and dst,
+    chorin_spectral's corrected mode (against the dense engine) and the
+    3D compact rollout (against the plain compact route)."""
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.parallel import (chorin_fd_sharded,
+                                       chorin_spectral_sharded,
+                                       make_mesh, spectral3d_sharded)
+    from ns_tpu_torch.parallel.mesh import shard
+    from ns_tpu_torch.solvers import chorin_fd, chorin_spectral
+
+    mesh = make_mesh({"x": 1})
+    out = []
+    for method, mode in (("explicit", "redblack"), ("semi_implicit", "dst")):
+        cfg = chorin_fd.ChorinFDConfig(nt=5, nit=41, nx=64, ny=64, dt=1e-3,
+                                       nu=0.1, method=method,
+                                       pressure_mode=mode, sor_tol=0.0)
+        bcs = cavity_bcs(cfg.dx, cfg.dy)
+        z = np.zeros((64, 64))
+        s0 = chorin_fd.init_state(cfg, z, z, z, *bcs, dtype=torch.float64,
+                                  device=cuda)
+        got = chorin_fd_sharded.simulate(cfg, s0, *bcs, mesh,
+                                         dtype=torch.float64)
+        want = chorin_fd.simulate(cfg, s0, *bcs)
+        out.append((f"chorin_fd {mode}", got[2].local, want[2], 1e-10))
+    cfg = chorin_spectral.ChorinSpectralConfig(
+        nt=5, nx=32, ny=32, dt=1e-3, nu=0.1, quirk_compat=False,
+        deflate_pressure_nullspace=True)
+    bc = cavity_bcs(0.1, 0.1)[0]
+    x = np.cos(np.pi * np.arange(32) / 31)
+    u0 = np.outer(1 - x**2, 1 - x**2)
+    z = np.zeros((32, 32))
+    s0 = chorin_spectral.init_state(cfg, u0, z, z, bc, bc, device=cuda)
+    got = chorin_spectral_sharded.simulate(cfg, s0, bc, bc, mesh)
+    want = chorin_spectral.simulate(
+        cfg, s0, chorin_spectral.make_step(cfg, bc, bc, device=cuda))
+    out.append(("chorin_spectral", got[0].local, want[0], 1e-12))
+    cfg = s3.Spectral3DConfig(nt=5, nx=16, ny=12, nz=12, dt=1e-3, nu=1e-3,
+                              dtype="float64", transform="matmul",
+                              matmul_precision="highest")
+    u0 = s3.random_solenoidal_velocity(cfg, seed=0, k_peak=2.0)
+    roll, sharding = spectral3d_sharded.make_sharded_rollout3d(cfg, mesh)
+    got = roll(shard(sharding, u0)).local
+    want = s3.fields_from_hat(cfg, s3.rollout_final(
+        cfg, s3.init_from_velocity(cfg, u0, device=cuda))[0])
+    out.append(("spectral3d", got, want, 1e-12 * float(want.abs().max())))
+    return out
+
+
+def test_sharded_solvers_on_a_world_of_one_card(cuda):
+    """The sharded chorin_fd, chorin_spectral and spectral3d solvers on a
+    mesh of one rank with no process group, against the single-device
+    routes on the card, float64."""
+    assert not torch.distributed.is_initialized()
+    for label, got, want, bound in _sharded_cases(cuda):
+        err = float((got - want).abs().max())
+        print(f"{label}: sharded vs single-device {err:.3e}")
+        assert err <= bound, label
+
+
+def test_sharded_solvers_on_a_world_of_one_nccl(cuda, tmp_path):
+    """The same on a world of 1 on NCCL: the SOR gate's all-reduce, the
+    Chebyshev all_gathers and the 3D all_to_all go through NCCL."""
+    from ns_tpu_torch.parallel import distributed as dist
+    from ns_tpu_torch.parallel.collectives import COUNTS, reset_counts
+
+    dist.initialize("file://" + str(tmp_path / "init"), 1, 0, "cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        reset_counts()
+        for label, got, want, bound in _sharded_cases(cuda):
+            assert float((got - want).abs().max()) <= bound, label
+        for kind in ("all_reduce", "all_gather", "all_to_all"):
+            assert COUNTS[f"{kind}@x"] > 0, kind
+    finally:
+        dist.shutdown()
+
+
+def test_dp_one_under_a_world_of_one_mesh_is_the_plain_trainer(cuda,
+                                                                 tmp_path):
+    """cli.train --dist --dp 1 on the one card: the {'data': 1} mesh over
+    NCCL runs the loss and gradient all-reduces, and its losses and
+    checkpoint equal the plain Trainer's, bitwise."""
+    from ns_tpu_torch.parallel import distributed as dist
+    from ns_tpu_torch.parallel.collectives import COUNTS, reset_counts
+    from ns_tpu_torch.train.trainer import TrainConfig, Trainer, make_dp_mesh
+
+    rng = np.random.default_rng(7)
+    path = str(tmp_path / "d.npz")
+    np.savez(path, **{k: rng.normal(size=(10, 32, 32)) for k in "uvp"})
+    kw = dict(model="fno_w", npz_path=path, n_iters=4, n_frames=10,
+              ckpt_every=2, fno_modes=6, fno_width=8)
+    plain = Trainer(TrainConfig(out_dir=str(tmp_path / "plain"), **kw),
+                    device=cuda)
+    want = plain.train(progress=False)
+    dist.initialize("file://" + str(tmp_path / "init"), 1, 0, "cuda")
+    try:
+        cfg = TrainConfig(out_dir=str(tmp_path / "dp"), **kw)
+        tr = Trainer(cfg, device=cuda, mesh=make_dp_mesh(cfg))
+        reset_counts()
+        got = tr.train(progress=False)
+        assert COUNTS["all_reduce@data"] == 2 * 4
+        assert set(COUNTS) == {"all_reduce", "all_reduce@data"}
+    finally:
+        dist.shutdown()
+    assert got == want
+    with np.load(tmp_path / "dp" / "checkpoint.npz") as a, \
+            np.load(tmp_path / "plain" / "checkpoint.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            np.testing.assert_array_equal(a[k], b[k])

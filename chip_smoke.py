@@ -19,7 +19,11 @@ Phases (any failure exits non-zero, and no result line is printed):
                kernels, K4 also at 4096^2, where it keeps one launch a gate
                group; the 3D transform
                kernels K6-K8 float32 only, each at 'default', its
-               tensor-core kernel, and at 'highest', its fp32 kernel), with
+               tensor-core kernel, and at 'highest', its fp32 kernel; the
+               batched routes of K1, K2 and K3, one launch for a batch of
+               members, against their batched twins at B = 5, K1's batch
+               with members that close their gates at different sweeps,
+               and timed at B = 8, 64 and 512 beside the batch's bound), with
                its time beside the twin's (measured in turns: twin, kernel,
                kernel, twin; K6-K8 at both precisions), the FD kernels'
                profiler device time too, K6's and K7's beside
@@ -193,10 +197,16 @@ Phases (any failure exits non-zero, and no result line is printed):
                bf16 GEMMs sum in another order; a control with bf16 GEMM
                outputs must exceed both), the same ensemble at 'high' with
                member 3 within 1e-5 of max|w| of its own rollout (both:
-               whether bitwise); ensemble_fd_rollout
-               of chorin_fd explicit 51^2 (K1, K3) and direct_fd 50^2
-               (K2), B = 8, nt 50, counts set to 0 just before and read
-               just after, every member bitwise its single rollout;
+               whether bitwise); ensemble_fd_rollout (batched steps:
+               one call a time step on the whole batch) of chorin_fd
+               explicit 51^2 (K1, K3) and direct_fd 50^2 (K2) at B = 8,
+               64 and 512 and chorin_fd semi_implicit 51^2 (K1, its ADI
+               GEMMs member by member) at B = 8, nt 50,
+               member-steps/s (median of 5 and the runs), the counts set
+               to 0 just before each run and read just after: each kernel
+               launched exactly nt times (one launch a step for the
+               batch) and no other; every member bitwise its single
+               rollout at B = 8 and 64, members 0, 1, 255 and 511 at 512;
                `python -m ns_tpu_torch.launch --nprocs 1 --platform cuda
                -- python -m ns_tpu_torch.cli.run_solver
                decaying_turbulence --dist` at 1024^2 (NCCL, world of 1,
@@ -256,7 +266,9 @@ twin's (the FD kernels also the profiler's device time a call,
 `device_ms`), its bound (`bound_ms`, `bound_by`: the larger of the call's bytes
 over 3.35 TB/s and its operations over the peak of their type) and the
 library call's time (`library_ms`, null where no one PyTorch call
-computes the function); K6, K7 and K8 add both precisions' times
+computes the function); K1, K2 and K3 their batched route (`batched`:
+launches in each FD ensemble run, errors against the batched twin, times
+and bounds at B = 8, 64 and 512); K6, K7 and K8 add both precisions' times
 (`ms_default`, `ms_highest`), the 'highest' route's twin time and bound,
 and their tensor-core launches; K1, K2, K2mb, K3, K4, K6 and K8 their
 launches in one replayed call of each runtime engine (`launches_replayed`,
@@ -407,6 +419,8 @@ class Results:
         # K6-K8: each precision's kernel time, the 'highest' route's twin
         # time and bound
         self.extra = {}
+        # K1-K3's batched routes: times and bounds per batch size
+        self.batched = {}
 
     def compare(self, name, label, got, want, dtype, converged=False,
                 rel_bound=None):
@@ -431,18 +445,26 @@ class Results:
         require(ok and ok_finite, f"{name} {label} disagrees with its twin")
 
 
-def sor_sweeps(p, c, h, beta, tol, max_iter) -> int:
-    """Sweeps that poisson.sor_redblack runs on these inputs (its loop,
-    counted): the work of a gated SOR solve depends on the data."""
+def sor_sweeps(p, c, h, beta, tol, max_iter) -> list:
+    """Each member's sweeps that `ops.poisson.sor_redblack` runs on a (B,
+    nx, ny) batch (every member its own gate), counted: the work of a gated
+    SOR solve depends on the data."""
     from ns_tpu_torch.ops import poisson
-    masks = poisson.checkerboard(*p.shape, device=p.device)
+    masks = poisson.checkerboard(*p.shape[-2:], device=p.device)
     tol = poisson.dtype_float(tol, p.dtype)
-    err, it = 1.0, 1
-    while err > tol and it < max_iter:
+    err = torch.ones(p.shape[0], dtype=p.dtype, device=p.device)
+    sweeps = torch.zeros(p.shape[0], dtype=torch.int64, device=p.device)
+    it = 1
+    while it < max_iter:
+        open_ = err > tol
+        if not bool(open_.any()):
+            break
         q = poisson.redblack_sweep(p, c, h, h, beta, masks)
-        err = float((q - p).abs().max())
-        p, it = q, it + 1
-    return it - 1
+        err = torch.where(open_, (q - p).abs().amax(dim=(-2, -1)), err)
+        p = torch.where(open_[:, None, None], q, p)
+        sweeps += open_.long()
+        it += 1
+    return sweeps.tolist()
 
 
 def tiled_sweeps(p, c, h, beta, tol, max_iter) -> int:
@@ -662,7 +684,7 @@ def phase_kernels(res: Results, dev):
     # K1 at 170^2 first: the last entry of a name is its main-path entry
     hb = 2.0 / 169
     qb, cb = rand(170, 170, f32), rand(170, 170, f32, hb * hb)
-    sweeps_b = sor_sweeps(qb, cb, hb, 1.25, 5e-6, 200)
+    sweeps_b = sor_sweeps(qb[None], cb[None], hb, 1.25, 5e-6, 200)[0]
     timed.append(("sor_redblack_fused", "170x170 nit=200 tol=5e-06", 10, 2,
                   lambda: kernels.sor_redblack_fused(qb, cb, hb, hb, 1.25,
                                                      5e-6, 200),
@@ -671,7 +693,7 @@ def phase_kernels(res: Results, dev):
                   (3 * 170 * 170 * 4, 10 * 168 * 168 * sweeps_b)))
     h1 = 2.0 / 50
     q1, c1 = rand(51, 51, f32), rand(51, 51, f32, h1 * h1)
-    sweeps1 = sor_sweeps(q1, c1, h1, 1.25, 5e-6, 200)
+    sweeps1 = sor_sweeps(q1[None], c1[None], h1, 1.25, 5e-6, 200)[0]
     timed.append(("sor_redblack_fused", "51x51 nit=200 tol=5e-06", 20, 2,
                   lambda: kernels.sor_redblack_fused(q1, c1, h1, h1, 1.25,
                                                      5e-6, 200),
@@ -750,7 +772,123 @@ def phase_kernels(res: Results, dev):
         print(f"  {name:26s} {f'{n}x{n} nit=200 tol=5e-06':30s} resident "
               f"{ms_r:.4f} ms  colour groups {ms_g:.4f} ms "
               f"({ms_g / ms_r:.2f}x)")
+    phase_kernels_batched(res, dev)
     phase_kernels_3d(res, dev)
+
+
+# the batch sizes the batched K1, K2 and K3 are timed at: the FD
+# ensemble's (SCALE["fd_B"]); 512 members run in waves (one 1024-thread
+# block a member on 132 SMs)
+BATCHED = {"sor_redblack_fused": "K1: one launch a batch, blockIdx.x a "
+                                 "member, each member's own gate",
+           "jacobi_fused": "K2: one launch a batch, blockIdx.x a member",
+           "momentum_explicit_fused": "K3: one launch a batch, blockIdx.z a "
+                                      "member"}
+
+
+def phase_kernels_batched(res: Results, dev):
+    """The batched routes of K1, K2 and K3 (the FD ensemble's: one launch
+    for a (B, nx, ny) batch) against their batched twins at B = 5 (odd
+    members of a 51^2 float32 batch sit 4 bytes off a 16-byte boundary;
+    K1's batch holds a member at rest, whose gate closes after one sweep,
+    a member started at its own solution and random ones), both dtypes;
+    then timed at the ensemble's batch sizes in float32 beside a bound of
+    the batch's bytes or operations (B times a member's; K1's operations
+    count each member's own sweeps)."""
+    from ns_tpu_torch.core.bc import apply_bcs, dirichlet, neumann
+    from ns_tpu_torch.ops import kernels, poisson
+
+    gen = torch.Generator().manual_seed(4321)
+
+    def rand(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen,
+                                    dtype=torch.float64)).to(dev, dtype)
+
+    def tag(name):
+        return f"{name}[batched]"
+
+    print("  batched routes (K1, K2, K3 with a member axis) against their "
+          "batched twins:")
+    cav_u = [dirichlet(0, "left"), dirichlet(1, "right"), dirichlet(0, "top"),
+             dirichlet(0, "bottom")]
+    cav_v = [dirichlet(0, s) for s in ("left", "right", "top", "bottom")]
+    for dt_ in (torch.float32, torch.float64):
+        h = 2.0 / 50
+        p, c = rand((5, 51, 51), dt_), rand((5, 51, 51), dt_, h * h)
+        p[1], c[1] = 0.0, 0.0
+        p[2] = poisson.sor_redblack(p[2], c[2], h, h, 1.25, 5e-6, 200)
+        k1 = kernels.sor_redblack_fused
+        for tol in (0.0, 5e-6):
+            n0 = k1.launches
+            got = k1(p, c, h, h, 1.25, tol, 200)
+            torch.cuda.synchronize()
+            require(k1.launches == n0 + 1, "batched K1: not one launch")
+            sw = sor_sweeps(p, c, h, 1.25, tol, 200)
+            res.compare(tag("sor_redblack_fused"),
+                        f"5x51x51 nit=200 tol={tol:g} {dt_} sweeps {sw}",
+                        [got], [poisson.sor_redblack(p, c, h, h, 1.25, tol,
+                                                     200)],
+                        dt_, converged=tol > 0)
+        h = 2.0 / 49
+        p, b = rand((5, 50, 50), dt_), rand((5, 50, 50), dt_, 10.0)
+        bcs = [dirichlet(0, "top"), neumann(0, "bottom", h, h),
+               neumann(0, "left", h, h), neumann(0, "right", h, h)]
+        n0 = kernels.jacobi_fused.launches
+        got = kernels.jacobi_fused(p, b, h, h, 50, bcs)
+        torch.cuda.synchronize()
+        require(kernels.jacobi_fused.launches == n0 + 1,
+                "batched K2: not one launch")
+        res.compare(tag("jacobi_fused"), f"5x50x50 nit=50 cavity {dt_}",
+                    [got], [poisson.jacobi(p, b, h, h, 50, bc_fn=lambda q:
+                                           apply_bcs(q, bcs))], dt_)
+        for shape in ((5, 51, 51), (3, 1024, 1024)):
+            h = 2.0 / (shape[1] - 1)
+            f = [rand(shape, dt_) for _ in range(4)]
+            args = (*f, 1e-3, h, h, 0.1, cav_u, cav_v, True)
+            n0 = kernels.momentum_explicit_fused.launches
+            got = kernels.momentum_explicit_fused(*args)
+            torch.cuda.synchronize()
+            require(kernels.momentum_explicit_fused.launches == n0 + 1,
+                    "batched K3: not one launch")
+            res.compare(tag("momentum_explicit_fused"),
+                        f"{'x'.join(map(str, shape))} {dt_}", got,
+                        kernels.momentum_explicit(*args), dt_)
+
+    print("  batched times (ms per call, float32; bound of the batch):")
+    f32 = torch.float32
+    for B in SCALE["fd_B"]:
+        h1 = 2.0 / 50
+        q, c = rand((B, 51, 51), f32), rand((B, 51, 51), f32, h1 * h1)
+        sweeps = sum(sor_sweeps(q, c, h1, 1.25, 5e-6, 200))
+        h2 = 2.0 / 49
+        p, b = rand((B, 50, 50), f32), rand((B, 50, 50), f32, 10.0)
+        bcs = [dirichlet(0, "top"), neumann(0, "bottom", h2, h2),
+               neumann(0, "left", h2, h2), neumann(0, "right", h2, h2)]
+        f = [rand((B, 51, 51), f32) for _ in range(4)]
+        cases = [
+            ("sor_redblack_fused", lambda: kernels.sor_redblack_fused(
+                q, c, h1, h1, 1.25, 5e-6, 200),
+             (3 * B * 51 * 51 * 4, 10 * 49 * 49 * sweeps)),
+            ("jacobi_fused", lambda: kernels.jacobi_fused(
+                p, b, h2, h2, 50, bcs),
+             (3 * B * 50 * 50 * 4, 8 * 48 * 48 * 50 * B)),
+            ("momentum_explicit_fused",
+             lambda: kernels.momentum_explicit_fused(
+                 *f, 1e-5, h1, h1, 0.01, cav_u, cav_v, True),
+             (6 * B * 51 * 51 * 4, 80 * 49 * 49 * B))]
+        for name, call, (nbytes, flops) in cases:
+            reps = max(5, 2000 // B)
+            ms = (time_ms(call, reps) + time_ms(call, reps)) / 2
+            dev_ms = device_ms(call, min(reps, 20))
+            bound_ms, bound_by = bound(nbytes, flops, FP32_FLOPS)
+            row = res.batched.setdefault(name, {})
+            row.update({f"ms_B{B}": ms, f"device_ms_B{B}": dev_ms,
+                        f"bound_ms_B{B}": bound_ms,
+                        f"bound_by_B{B}": bound_by})
+            print(f"  {name:26s} B={B:<4d} kernel {ms:.4f} ms (device "
+                  f"{dev_ms:.4f}; {ms / B * 1e3:.2f} us a member); bound "
+                  f"{bound_ms:.5f} ms ({bound_by})"
+                  + (f"; {sweeps} sweeps in all" if "sor" in name else ""))
 
 
 def phase_kernels_3d(res: Results, dev):
@@ -3281,8 +3419,9 @@ def phase_serve_runtime(tmp, card: str) -> dict:
 # bench.py's physics and engine (1024^2 decaying turbulence, compact
 # matmul-DFT at 'default', dt 5e-4, nu 1e-4, k_peak 30), as the B = 64
 # ensemble of the JAX package's scale-out record (BASELINE.md:62), 20 steps
-SCALE = dict(B=64, n=N2D, nt=20, member=3, repeats=5, fd_B=8, fd_nt=50,
-             dist_n=N2D, gang_timeout=300)
+SCALE = dict(B=64, n=N2D, nt=20, member=3, repeats=5, fd_B=(8, 64, 512),
+             fd_nt=50, fd_check=(0, 1, 255, 511), dist_n=N2D,
+             gang_timeout=300)
 SCALE_BUDGET_S = 90
 # member 3 of the B = 64 ensemble against its own single rollout, each
 # carry part of its max. At 'default' the batched bf16 GEMMs (cuBLAS bmm)
@@ -3437,66 +3576,114 @@ def scale_ensemble(card: str) -> dict:
     return out
 
 
-def scale_fd_ensembles(card: str) -> dict:
-    """ensemble_fd_rollout of chorin_fd explicit 51^2 (K1 + K3) and
-    direct_fd 50^2 (K2), B = 8: the kernels counted over the ensemble runs
-    (counts set to 0 just before, read just after), every member bitwise
-    equal to its own single rollout on the card."""
+def fd_ensemble_runs():
+    """The FD ensembles of the scale-out phase: label -> (make_batch(B),
+    step, the kernels it launches, the batch sizes run, the largest batch
+    whose every member is checked). chorin_fd explicit 51^2 (K1 + K3) and
+    direct_fd 50^2 (K2) at every SCALE["fd_B"], every member checked up to
+    B = 64; semi_implicit 51^2 (K1; its ADI GEMMs member by member, ~2.7
+    ms a single step and 0.2-0.3 ms a member in the batch) at B = 8, every
+    member checked (the phase's budget: at B = 64 its runs took ~6 s).
+    Initial velocities 0.01 N(0, 1) from np.random.default_rng(B)."""
     from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.core.state import FlowState
+    from ns_tpu_torch.solvers import chorin_fd, direct_fd
+
+    runs = {}
+    for method in ("explicit", "semi_implicit"):
+        c = chorin_fd.ChorinFDConfig(nt=SCALE["fd_nt"], nit=200, nx=51,
+                                     ny=51, dt=0.001, rho=1.0, nu=0.1,
+                                     beta=1.25, method=method)
+        bc = cavity_bcs(c.dx, c.dy)
+
+        def chorin_batch(B, c=c, bc=bc):
+            u0 = 0.01 * np.random.default_rng(B).normal(size=(B, 51, 51))
+            z = np.zeros((B, 51, 51))
+            return chorin_fd.init_state(c, u0, z, z, *bc, device=DEVICE)
+
+        want = {"sor_redblack_fused"}
+        if method == "explicit":
+            want.add("momentum_explicit_fused")
+        runs[f"chorin_fd {method} 51^2"] = (
+            chorin_batch, chorin_fd.make_step(c, *bc, device=DEVICE), want,
+            *((SCALE["fd_B"], 64) if method == "explicit"
+              else (SCALE["fd_B"][:1], 8)))
+    d = direct_fd.DirectFDConfig(nt=SCALE["fd_nt"], nit=50, nx=50, ny=50)
+
+    def direct_batch(B):
+        rng = np.random.default_rng(B)
+        return FlowState(*(torch.as_tensor(0.01 * rng.normal(size=(B, 50, 50)),
+                                           dtype=torch.float32, device=DEVICE)
+                           for _ in range(3)))
+
+    runs["direct_fd 50^2"] = (direct_batch, direct_fd.make_step(
+        d, *cavity_bcs(d.dx, d.dy)), {"jacobi_fused"}, SCALE["fd_B"], 64)
+    return runs
+
+
+def scale_fd_ensembles(card: str) -> dict:
+    """ensemble_fd_rollout of chorin_fd explicit 51^2 (K1 + K3), direct_fd
+    50^2 (K2) and chorin_fd semi_implicit 51^2 (K1) at the batch sizes of
+    `fd_ensemble_runs`, nt 50: member-steps/s (the median of
+    SCALE["repeats"] runs and the runs); around each run the counts set to
+    0 just before and read just after, each kernel of the step launched
+    exactly nt times (one launch a step for the whole batch) and no other;
+    every member bitwise its own single rollout up to the run's checked
+    size, beyond it the members SCALE["fd_check"] (at B = 512 odd members
+    sit 4 bytes off a 16-byte boundary)."""
+    import statistics
+
     from ns_tpu_torch.core.state import FlowState
     from ns_tpu_torch.ops import kernels
     from ns_tpu_torch.parallel.ensemble import ensemble_fd_rollout
-    from ns_tpu_torch.solvers import chorin_fd, direct_fd
 
-    B, nt = SCALE["fd_B"], SCALE["fd_nt"]
-    rng = np.random.default_rng(0)
-    runs = {}
-    c = chorin_fd.ChorinFDConfig(nt=nt, nit=200, nx=51, ny=51, dt=0.001,
-                                 rho=1.0, nu=0.1, beta=1.25,
-                                 method="explicit")
-    bc = cavity_bcs(c.dx, c.dy)
-    z = np.zeros((51, 51))
-    runs["chorin_fd explicit 51^2"] = (
-        chorin_fd.make_step(c, *bc, device=DEVICE),
-        [chorin_fd.init_state(c, 0.01 * rng.normal(size=(51, 51)), z, z,
-                              *bc, device=DEVICE) for _ in range(B)],
-        {"sor_redblack_fused", "momentum_explicit_fused"})
-    d = direct_fd.DirectFDConfig(nt=nt, nit=50, nx=50, ny=50)
-    bd = cavity_bcs(d.dx, d.dy)
-    runs["direct_fd 50^2"] = (
-        direct_fd.make_step(d, *bd),
-        [FlowState(*(torch.as_tensor(0.01 * rng.normal(size=(50, 50)),
-                                     dtype=torch.float32, device=DEVICE)
-                     for _ in range(3))) for _ in range(B)],
-        {"jacobi_fused"})
+    nt = SCALE["fd_nt"]
     out = {}
-    for label, (step, members, want) in runs.items():
-        fields = [f for f in ("u", "v", "p", "u_prev", "v_prev")
-                  if getattr(members[0], f) is not None]
-        batch = FlowState(**{f: torch.stack([getattr(s, f) for s in members])
-                             for f in fields})
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        got = ensemble_fd_rollout(step, batch, nt)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = {k: v for k, v in kernels.launch_counts().items() if v}
-        missing = want - set(launches)
-        require(not missing, f"FD ensemble {label}: {missing} not launched")
-        for i, s in enumerate(members):
-            for _ in range(nt):
-                s = step(s)
-            for f in fields:
-                require(torch.equal(getattr(got, f)[i], getattr(s, f)),
-                        f"FD ensemble {label}: member {i} field {f} is not "
-                        "its single rollout bitwise")
-        out[label] = {"B": B, "nt": nt, "launches": launches,
-                      "member_steps_per_s": B * nt / seconds,
-                      "bitwise": True}
-        print(f"  FD ensemble {label} B={B} nt={nt}: launches {launches}, "
-              f"{B * nt / seconds:.1f} member-steps/s, every member "
-              f"bitwise its single rollout; {card}")
+    for label, (make_batch, step, want, sizes,
+                every) in fd_ensemble_runs().items():
+        require(getattr(step, "batch_polymorphic", False),
+                f"{label}: the step does not take a batch")
+        for B in sizes:
+            batch = make_batch(B)
+            fields = [f for f in ("u", "v", "p", "u_prev", "v_prev")
+                      if getattr(batch, f) is not None]
+            got, rates = None, []
+            for _ in range(SCALE["repeats"] + 1):  # the first a warm-up
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                got = ensemble_fd_rollout(step, batch, nt)
+                torch.cuda.synchronize()
+                rates.append(B * nt / (time.perf_counter() - t0))
+                launches = {k: v for k, v in kernels.launch_counts().items()
+                            if v}
+                calls = {k: v for k, v in kernels.call_counts().items() if v}
+                require(launches == {k: nt for k in want} == calls,
+                        f"FD ensemble {label} B={B}: launches {launches}, "
+                        f"calls {calls}; want {nt} of each of {sorted(want)}")
+            rates = rates[1:]
+            checked = (range(B) if B <= every else
+                       [m for m in SCALE["fd_check"] if m < B])
+            for m in checked:
+                s = FlowState(**{f: getattr(batch, f)[m].clone()
+                                 for f in fields})
+                for _ in range(nt):
+                    s = step(s)
+                for f in fields:
+                    require(torch.equal(getattr(got, f)[m], getattr(s, f)),
+                            f"FD ensemble {label} B={B}: member {m} field "
+                            f"{f} is not its single rollout bitwise")
+            rate = statistics.median(rates)
+            out[f"{label} B={B}"] = {
+                "B": B, "nt": nt, "launches": launches,
+                "member_steps_per_s_median": rate,
+                "member_steps_per_s": rates,
+                "members_checked_bitwise": len(checked), "card": card}
+            runs = ", ".join(f"{r:.1f}" for r in rates)
+            print(f"  FD ensemble {label} B={B} nt={nt}: {rate:.1f} "
+                  f"member-steps/s (runs {runs}), launches {launches} a "
+                  f"run, {len(checked)} members "
+                  f"bitwise their single rollouts; {card}")
     return out
 
 
@@ -3937,14 +4124,18 @@ KERNELS = [  # wrapper name, CUDA source, the TPU kernel it replaces
 ]
 
 
-def report(res: Results, main_path: dict, replayed: dict) -> list:
+def report(res: Results, main_path: dict, replayed: dict,
+           fd_ensemble: dict) -> list:
     """The kernels line: every number measured or computed in this run.
     `ms`/`plain_ms` are at the main path's precision; K6, K7 and K8 also
     give both precisions' kernel times (ms_default, ms_highest), the
     'highest' route's twin time and bound, and their tensor-core launches
     on the main path; the kernels the runtime engines replay
     (KERNEL_SYMBOLS) their launches in one replayed call of each engine
-    (`launches_replayed`, the profiler's device records)."""
+    (`launches_replayed`, the profiler's device records); K1, K2 and K3
+    their batched route (`batched`: its launches in each FD ensemble run,
+    its errors against the batched twin, its times and bounds at the
+    ensemble's batch sizes)."""
     rows = []
     launches = main_path["launches"]
     for name, src, rep in KERNELS:
@@ -3996,6 +4187,24 @@ def report(res: Results, main_path: dict, replayed: dict) -> list:
             row["launches_replayed"] = replayed[name]
             require(replayed[name] > 0,
                     f"{name}: no launch in the replayed CUDA graphs")
+        if name in BATCHED:
+            tag = f"{name}[batched]"
+            ens = {run: r["launches"][name] for run, r in fd_ensemble.items()
+                   if name in r["launches"]}
+            require(ens and all(n == SCALE["fd_nt"] for n in ens.values()),
+                    f"{name}: batched launches in the FD ensembles {ens}")
+            batched = {"route": BATCHED[name], "launches_ensemble": ens,
+                       "max_abs_err": res.err64.get(tag),
+                       "max_abs_err_dtype": "float64",
+                       "max_rel_err_f32": res.rel32.get(tag),
+                       **res.batched.get(name, {})}
+            for key in ["max_abs_err", "max_rel_err_f32"] + [
+                    f"{k}_B{B}" for B in SCALE["fd_B"]
+                    for k in ("ms", "device_ms", "bound_ms")]:
+                require(batched.get(key) is not None
+                        and math.isfinite(batched[key]),
+                        f"{name}: no batched {key}")
+            row["batched"] = batched
         rows.append(row)
     return rows
 
@@ -4047,7 +4256,8 @@ def main():
                               phase_sharded, tmp, card,
                               budget_s=SHARDED_BUDGET_S)
     require_no_jax()
-    kernels = report(res, main_path, serving["runtime"]["launches_replayed"])
+    kernels = report(res, main_path, serving["runtime"]["launches_replayed"],
+                     scale_out["fd_ensemble"])
     print(json.dumps({"card": card,
                       "main_path_steps_per_s": main_path["steps_per_s"],
                       "bench_2d": main_path["bench_2d"],

@@ -12,7 +12,9 @@ shared corner, and a Neumann edge reads whatever its inner neighbour holds at
 that moment, so `apply_bcs` preserves the order.
 
 `apply_bc`/`apply_bcs` return a new tensor and leave their input untouched,
-as the JAX package's functional updates do.
+as the JAX package's functional updates do. They act on the last two axes,
+so a (B, nx, ny) batch of members takes the list on every member (the JAX
+package's FD ensemble applies it under vmap).
 """
 
 from __future__ import annotations
@@ -85,17 +87,18 @@ def neumann(value: float, side: str, dx: float, dy: float) -> BC:
 def _apply_in_place(A: torch.Tensor, bc: BC) -> None:
     t = bc.edge_term()
     if bc.side == "left":
-        A[0, :] = t if bc.kind == "dirichlet" else A[1, :] + t
+        A[..., 0, :] = t if bc.kind == "dirichlet" else A[..., 1, :] + t
     elif bc.side == "right":
-        A[-1, :] = t if bc.kind == "dirichlet" else A[-2, :] + t
+        A[..., -1, :] = t if bc.kind == "dirichlet" else A[..., -2, :] + t
     elif bc.side == "bottom":
-        A[:, 0] = t if bc.kind == "dirichlet" else A[:, 1] + t
+        A[..., :, 0] = t if bc.kind == "dirichlet" else A[..., :, 1] + t
     else:
-        A[:, -1] = t if bc.kind == "dirichlet" else A[:, -2] + t
+        A[..., :, -1] = t if bc.kind == "dirichlet" else A[..., :, -2] + t
 
 
 def apply_bc(A: torch.Tensor, bc: BC) -> torch.Tensor:
-    """Apply a single BC to a 2D field, returning a new tensor."""
+    """Apply a single BC to a 2D field (or a batch of them), returning a
+    new tensor."""
     out = A.clone()
     _apply_in_place(out, bc)
     return out

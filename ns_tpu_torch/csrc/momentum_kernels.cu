@@ -27,6 +27,15 @@
 // rows or columns are shifted back to end at the grid's edge (the overlap
 // is written twice with the same values), so every tile holds the interior
 // cells its edge cells read.
+//
+// A batch of members (the FD ensemble, run by the JAX package under vmap,
+// which gives the TPU kernel's grid a member axis) is one launch with the
+// members on blockIdx.z, each at its base, a member stride apart; batches
+// beyond 65535 members take one launch per 65535. The 16-byte vectors need
+// every member's rows on 16-byte boundaries, so V is chosen from the base
+// pointers and the stride together: a (B, 51, 51) float32 batch has odd
+// members at 4-byte offsets and runs with V = 1, as its single launch does
+// (ny = 51 is not a multiple of 4).
 
 #include "common.cuh"
 
@@ -167,13 +176,21 @@ __global__ void __launch_bounds__(kK3Threads)
 momentum_kernel(const T* __restrict__ un, const T* __restrict__ vn,
                 const T* __restrict__ un1, const T* __restrict__ vn1,
                 T* __restrict__ uo, T* __restrict__ vo, int nx, int ny,
-                K3Coeffs<T> k, EdgePlan pu, EdgePlan pv) {
+                K3Coeffs<T> k, EdgePlan pu, EdgePlan pv, long long stride) {
   constexpr int TC = 32 * V;           // output columns of a tile
   constexpr int SR = kK3Rows + 2;      // staged rows: one halo row a side
   constexpr int SC = TC + 2 * V;       // staged columns: one vector a side
   constexpr int P = SR * SC;
   constexpr int NV = SC / V;           // staged vectors a row
   __shared__ __align__(16) T s[4 * P];
+  // member blockIdx.z of the batch
+  const long long member = static_cast<long long>(blockIdx.z) * stride;
+  un += member;
+  vn += member;
+  un1 += member;
+  vn1 += member;
+  uo += member;
+  vo += member;
   // tiles past the grid's last full tile end at its edge
   const int i0 = min(static_cast<int>(blockIdx.y) * kK3Rows,
                      max(nx - kK3Rows, 0));
@@ -224,34 +241,52 @@ momentum_kernel(const T* __restrict__ un, const T* __restrict__ vn,
   *reinterpret_cast<Vec<T, V>*>(vo + g) = ov;
 }
 
+// the most members one launch takes (gridDim.z)
+constexpr int kK3MaxMembers = 65535;
+
+// One launch per kK3MaxMembers members, as the wrapper counts them
+// (momentum_kernels.py::K3_MAX_MEMBERS).
 template <typename T, int V>
 cudaError_t launch_momentum(const T* un, const T* vn, const T* un1,
                             const T* vn1, T* uo, T* vo, int nx, int ny,
                             const K3Coeffs<T>& k, int quirk,
-                            const EdgePlan& pu, const EdgePlan& pv,
-                            cudaStream_t s) {
-  const dim3 grid((ny + 32 * V - 1) / (32 * V),
-                  (nx + kK3Rows - 1) / kK3Rows);
-  if (!quirk)
-    momentum_kernel<T, V, kQuirkOff><<<grid, kK3Threads, 0, s>>>(
-        un, vn, un1, vn1, uo, vo, nx, ny, k, pu, pv);
-  else if (k.twodx == k.twody)
-    momentum_kernel<T, V, kQuirkSame><<<grid, kK3Threads, 0, s>>>(
-        un, vn, un1, vn1, uo, vo, nx, ny, k, pu, pv);
-  else
-    momentum_kernel<T, V, kQuirkOn><<<grid, kK3Threads, 0, s>>>(
-        un, vn, un1, vn1, uo, vo, nx, ny, k, pu, pv);
-  return cudaGetLastError();
+                            const EdgePlan& pu, const EdgePlan& pv, int batch,
+                            long long stride, cudaStream_t s) {
+  for (int m0 = 0; m0 < batch; m0 += kK3MaxMembers) {
+    const long long o = static_cast<long long>(m0) * stride;
+    const dim3 grid((ny + 32 * V - 1) / (32 * V),
+                    (nx + kK3Rows - 1) / kK3Rows,
+                    min(batch - m0, kK3MaxMembers));
+    if (!quirk)
+      momentum_kernel<T, V, kQuirkOff><<<grid, kK3Threads, 0, s>>>(
+          un + o, vn + o, un1 + o, vn1 + o, uo + o, vo + o, nx, ny, k, pu, pv,
+          stride);
+    else if (k.twodx == k.twody)
+      momentum_kernel<T, V, kQuirkSame><<<grid, kK3Threads, 0, s>>>(
+          un + o, vn + o, un1 + o, vn1 + o, uo + o, vo + o, nx, ny, k, pu, pv,
+          stride);
+    else
+      momentum_kernel<T, V, kQuirkOn><<<grid, kK3Threads, 0, s>>>(
+          un + o, vn + o, un1 + o, vn1 + o, uo + o, vo + o, nx, ny, k, pu, pv,
+          stride);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // plan_spec: the edge plans of u_bc and v_bc, 12 doubles each (as K2's).
+// batch members, `stride` elements apart (batch 1: the single call).
 template <typename T>
 int momentum_explicit(const void* un, const void* vn, const void* un1,
                       const void* vn1, void* uo, void* vo, int nx, int ny,
                       double dt, double dtnu, double twodx, double twody,
                       double dx2, double dy2, int quirk,
-                      const double* plan_spec, void* stream) {
-  if (nx < 3 || ny < 3) return cudaErrorInvalidValue;
+                      const double* plan_spec, int batch, long long stride,
+                      void* stream) {
+  if (nx < 3 || ny < 3 || batch < 1 ||
+      (batch > 1 && stride < static_cast<long long>(nx) * ny))
+    return cudaErrorInvalidValue;
   EdgePlan pu, pv;
   cudaError_t e = make_plan(plan_spec, &pu);
   if (e == cudaSuccess) e = make_plan(plan_spec + 12, &pv);
@@ -264,19 +299,22 @@ int momentum_explicit(const void* un, const void* vn, const void* un1,
   T* ou = static_cast<T*>(uo);
   T* ov = static_cast<T*>(vo);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte vectors where every row starts on a 16-byte boundary
+  // 16-byte vectors where every row of every member starts on a 16-byte
+  // boundary: the bases, and the member stride in bytes
   constexpr int V = 16 / sizeof(T);
   const uintptr_t any = reinterpret_cast<uintptr_t>(a) |
                         reinterpret_cast<uintptr_t>(b) |
                         reinterpret_cast<uintptr_t>(c) |
                         reinterpret_cast<uintptr_t>(d) |
                         reinterpret_cast<uintptr_t>(ou) |
-                        reinterpret_cast<uintptr_t>(ov);
+                        reinterpret_cast<uintptr_t>(ov) |
+                        (batch > 1 ? static_cast<uintptr_t>(stride) * sizeof(T)
+                                   : 0);
   if (ny % V == 0 && any % 16 == 0)
     return launch_momentum<T, V>(a, b, c, d, ou, ov, nx, ny, k, quirk, pu, pv,
-                                 s);
+                                 batch, stride, s);
   return launch_momentum<T, 1>(a, b, c, d, ou, ov, nx, ny, k, quirk, pu, pv,
-                               s);
+                               batch, stride, s);
 }
 
 }  // namespace ns
@@ -288,10 +326,10 @@ extern "C" {
       const void* un, const void* vn, const void* un1, const void* vn1,      \
       void* uo, void* vo, int nx, int ny, double dt, double dtnu,            \
       double twodx, double twody, double dx2, double dy2, int quirk,         \
-      const double* plan_spec, void* stream) {                               \
+      const double* plan_spec, int batch, long long stride, void* stream) {  \
     return ns::momentum_explicit<T>(un, vn, un1, vn1, uo, vo, nx, ny, dt,    \
                                     dtnu, twodx, twody, dx2, dy2, quirk,     \
-                                    plan_spec, stream);                      \
+                                    plan_spec, batch, stride, stream);       \
   }
 NS_MOMENTUM(f32, float)
 NS_MOMENTUM(f64, double)

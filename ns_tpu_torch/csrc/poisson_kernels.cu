@@ -36,6 +36,14 @@
 // cell; corners once at the end): one barrier a sweep instead of 1 + the
 // number of BCs.
 //
+// A batch of members (the FD ensemble, which the JAX package runs under
+// vmap: Pallas then gives each kernel's grid a member axis) is one launch
+// of K1 or K2 with one block a member on blockIdx.x, each at its member's
+// base (a member stride apart) with its own cells, plan and, in K1, its
+// own gate; at 50^2 and 51^2 a block holds an SM, so up to 132 members run
+// at once and larger batches run in waves. A batch of one is the single
+// launch.
+//
 // K4 and K5, beyond one block (1024^2, 1025^2): the TPU kernels reload a
 // strip per gate group and their while_loop reads the gate on the device.
 // Both keep each block's tile of the packed colour planes (R, B of shape
@@ -110,13 +118,21 @@ __device__ __forceinline__ T jacobi_cell(const T* __restrict__ c, int k,
 // MAXC: interior list entries a thread owns (at most). Each entry's code is
 // its flat offset (15 bits: nx * ny < 32768 for every grid that fits) and,
 // above it, a flag per side whose edge cell next to it this thread writes.
+// Block m solves member m of a batch, `stride` elements after member m - 1
+// (the batched form of the TPU kernel under vmap, whose grid gains a member
+// axis): the member's base moves the three pointers, the codes and the
+// plan are every member's own.
 template <typename T, int MAXC, bool B_REG>
 __global__ void __launch_bounds__(1024)
 jacobi_fused_kernel(const T* __restrict__ p_in, const T* __restrict__ b,
                     T* __restrict__ p_out, int nx, int ny, int n_iter, T dx2,
-                    T dy2, T denom, T cb, EdgePlan plan) {
+                    T dy2, T denom, T cb, EdgePlan plan, long long stride) {
   constexpr int NT = 1024;
   extern __shared__ __align__(16) unsigned char smem[];
+  const long long member = static_cast<long long>(blockIdx.x) * stride;
+  p_in += member;
+  b += member;
+  p_out += member;
   const int tid = threadIdx.x, n = nx * ny, w = ny - 2;
   const int count = (nx - 2) * w;
   T* cur = reinterpret_cast<T*>(smem);
@@ -243,17 +259,26 @@ __host__ __device__ __forceinline__ int k1_count(int nx, int ny, int c) {
 // MAXC: list entries a thread owns per colour (at most); RHS_REG: rhs_c in
 // registers, else in shared memory in list order. Each thread's offsets
 // sit in MAXC registers, red in the low 16 bits, black in the high
-// (2 * nx * W < 65536 for every grid that fits).
+// (2 * nx * W < 65536 for every grid that fits). Block m solves member m
+// of a batch, `stride` elements after member m - 1, with its own gate (err,
+// it and the slots are the block's): each member stops at its own sweep,
+// as under the TPU kernel's vmap, whose select keeps a member once its
+// gate has closed. The member's base moves the pointers; the plane
+// offsets and codes are every member's own.
 template <typename T, int MAXC, bool RHS_REG>
 __global__ void __launch_bounds__(1024)
 sor_redblack_fused_kernel(const T* __restrict__ p_in,
                           const T* __restrict__ rhs, T* __restrict__ p_out,
                           int nx, int ny, T dx2, T dy2, T denom, T beta, T tol,
-                          int max_iter) {
+                          int max_iter, long long stride) {
   using U = typename Bits<T>::U;
   constexpr int NT = 1024;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ U slot[2];
+  const long long member = static_cast<long long>(blockIdx.x) * stride;
+  p_in += member;
+  rhs += member;
+  p_out += member;
   const int tid = threadIdx.x;
   const int W = (ny + 1) / 2, plane = nx * W, n = nx * ny;
   T* planes = reinterpret_cast<T*>(smem);
@@ -885,26 +910,30 @@ jacobi_tiled_kernel(const T* __restrict__ p_in, const T* __restrict__ b,
 template <typename T, int MAXC>
 cudaError_t launch_jacobi_fused(const T* p, const T* b, T* out, int nx,
                                 int ny, int n_iter, T dx2, T dy2, T denom,
-                                T cb, const EdgePlan& plan, cudaStream_t s) {
+                                T cb, const EdgePlan& plan, int batch,
+                                long long stride, cudaStream_t s) {
   // cb * b in registers while a thread's share is at most 16 words
   constexpr bool kBReg = MAXC * sizeof(T) <= 64;
   auto kernel = jacobi_fused_kernel<T, MAXC, kBReg>;
   const size_t smem = 2 * static_cast<size_t>(nx) * ny * sizeof(T);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<1, 1024, smem, s>>>(p, b, out, nx, ny, n_iter, dx2, dy2, denom, cb,
-                               plan);
+  kernel<<<batch, 1024, smem, s>>>(p, b, out, nx, ny, n_iter, dx2, dy2,
+                                   denom, cb, plan, stride);
   return cudaGetLastError();
 }
 
 // K2's entry. plan_spec: the edge plan as 12 doubles, kind[4], corner[4],
-// term[4] (poisson_kernels.py::k2_edge_plan). Picks the instance whose MAXC
-// covers this grid's interior cells per thread.
+// term[4] (poisson_kernels.py::k2_edge_plan). batch members, one block
+// each, `stride` elements apart (batch 1: the single solve). Picks the
+// instance whose MAXC covers this grid's interior cells per thread.
 template <typename T>
 int jacobi_fused(const void* p, const void* b, void* out, int nx, int ny,
                  int n_iter, double dx2, double dy2, double denom, double cb,
-                 const double* plan_spec, void* stream) {
-  if (nx < 3 || ny < 3 || nx * ny >= (1 << 15) || n_iter < 0)
+                 const double* plan_spec, int batch, long long stride,
+                 void* stream) {
+  if (nx < 3 || ny < 3 || nx * ny >= (1 << 15) || n_iter < 0 || batch < 1 ||
+      (batch > 1 && stride < static_cast<long long>(nx) * ny))
     return cudaErrorInvalidValue;
   EdgePlan plan;
   const cudaError_t e = make_plan(plan_spec, &plan);
@@ -917,7 +946,8 @@ int jacobi_fused(const void* p, const void* b, void* out, int nx, int ny,
 #define NS_K2(M)                                                             \
   if (per_thread <= M)                                                       \
     return launch_jacobi_fused<T, M>(pp, bb, o, nx, ny, n_iter, T(dx2),      \
-                                     T(dy2), T(denom), T(cb), plan, s);
+                                     T(dy2), T(denom), T(cb), plan, batch,   \
+                                     stride, s);
   NS_K2(1)
   NS_K2(2)
   NS_K2(4)
@@ -1019,7 +1049,8 @@ int jacobi_multiblock(const void* p, const void* b, void* out, void* scratch,
 template <typename T, int MAXC>
 cudaError_t launch_sor_fused(const T* p, const T* rhs, T* out, int nx, int ny,
                              T dx2, T dy2, T denom, T beta, T tol,
-                             int max_iter, cudaStream_t s) {
+                             int max_iter, int batch, long long stride,
+                             cudaStream_t s) {
   // rhs_c in registers while a thread's share of both colours is at most
   // 16 words (64 registers a thread at 1024 threads); else in shared memory
   constexpr bool kRhsReg = 2 * MAXC * sizeof(T) <= 64;
@@ -1029,18 +1060,22 @@ cudaError_t launch_sor_fused(const T* p, const T* rhs, T* out, int nx, int ny,
                        (kRhsReg ? 0 : cells)) * sizeof(T);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<1, 1024, smem, s>>>(p, rhs, out, nx, ny, dx2, dy2, denom, beta,
-                               tol, max_iter);
+  kernel<<<batch, 1024, smem, s>>>(p, rhs, out, nx, ny, dx2, dy2, denom,
+                                   beta, tol, max_iter, stride);
   return cudaGetLastError();
 }
 
-// K1's entry: picks the instance whose MAXC covers this grid's cells per
-// thread (poisson_kernels.py::k1_layout mirrors the choice).
+// K1's entry: batch members, one block each, `stride` elements apart
+// (batch 1: the single solve); picks the instance whose MAXC covers this
+// grid's cells per thread (poisson_kernels.py::k1_layout mirrors the
+// choice).
 template <typename T>
 int sor_redblack_fused(const void* p, const void* rhs, void* out, int nx,
                        int ny, double dx2, double dy2, double denom,
-                       double beta, double tol, int max_iter, void* stream) {
-  if (nx < 3 || ny < 3 || 2 * nx * ((ny + 1) / 2) > 65535)
+                       double beta, double tol, int max_iter, int batch,
+                       long long stride, void* stream) {
+  if (nx < 3 || ny < 3 || 2 * nx * ((ny + 1) / 2) > 65535 || batch < 1 ||
+      (batch > 1 && stride < static_cast<long long>(nx) * ny))
     return cudaErrorInvalidValue;
   const int most = max(k1_count(nx, ny, 0), k1_count(nx, ny, 1));
   const int per_thread = (most + 1023) / 1024;
@@ -1051,7 +1086,8 @@ int sor_redblack_fused(const void* p, const void* rhs, void* out, int nx,
 #define NS_K1(M)                                                             \
   if (per_thread <= M)                                                       \
     return launch_sor_fused<T, M>(pp, cc, o, nx, ny, T(dx2), T(dy2),         \
-                                  T(denom), T(beta), T(tol), max_iter, s);
+                                  T(denom), T(beta), T(tol), max_iter,      \
+                                  batch, stride, s);
   NS_K1(1)
   NS_K1(2)
   NS_K1(4)
@@ -1196,9 +1232,10 @@ const char* ns_error_string(int code) {
   int ns_jacobi_fused_##SUFFIX(const void* p, const void* b, void* out,      \
                                int nx, int ny, int n_iter, double dx2,       \
                                double dy2, double denom, double cb,          \
-                               const double* plan_spec, void* stream) {      \
+                               const double* plan_spec, int batch,           \
+                               long long stride, void* stream) {             \
     return ns::jacobi_fused<T>(p, b, out, nx, ny, n_iter, dx2, dy2, denom,   \
-                               cb, plan_spec, stream);                       \
+                               cb, plan_spec, batch, stride, stream);        \
   }
 NS_JACOBI(f32, float)
 NS_JACOBI(f64, double)
@@ -1227,10 +1264,11 @@ NS_JACOBI_MB(f64, double)
   int ns_sor_redblack_fused_##SUFFIX(const void* p, const void* rhs,         \
                                      void* out, int nx, int ny, double dx2,  \
                                      double dy2, double denom, double beta,  \
-                                     double tol, int max_iter,               \
-                                     void* stream) {                         \
+                                     double tol, int max_iter, int batch,    \
+                                     long long stride, void* stream) {       \
     return ns::sor_redblack_fused<T>(p, rhs, out, nx, ny, dx2, dy2, denom,   \
-                                     beta, tol, max_iter, stream);           \
+                                     beta, tol, max_iter, batch, stride,     \
+                                     stream);                                \
   }
 NS_SOR_FUSED(f32, float)
 NS_SOR_FUSED(f64, double)

@@ -21,6 +21,12 @@ device (mixed-BC, whose dtype may follow b's); the GEMMs run through
 `ops.gemm.matmul` at the precision asked for ('highest' by default: fp32
 with TF32 off on the card). These are plain torch on every device: the JAX
 package runs them as XLA GEMMs, outside any Pallas kernel.
+
+Every solve acts on the last two axes: a (B, nx, ny) batch of members (the
+FD ensemble, which the JAX package runs under vmap) has its boundary lifts
+and rebuilds done on the whole batch, and its GEMM chain run member by
+member (`ops.gemm.each_member`), so each member keeps its single solve's
+bits.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 
 from ns_tpu_torch.core.bc import apply_bcs
-from ns_tpu_torch.ops.gemm import matmul
+from ns_tpu_torch.ops.gemm import each_member, matmul
 
 
 def _dst_basis(m: int, h: float) -> tuple[np.ndarray, np.ndarray]:
@@ -160,14 +166,14 @@ def make_dst_poisson(nx: int, ny: int, dx: float, dy: float,
 
     def solve(p: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         p = p.to(dtype)
-        fi = f.to(dtype)[1:-1, 1:-1].clone()
+        fi = f.to(dtype)[..., 1:-1, 1:-1].clone()
         # lift the fixed boundary values onto the interior RHS
-        fi[0, :] += -p[0, 1:-1] * inv_dx2
-        fi[-1, :] += -p[-1, 1:-1] * inv_dx2
-        fi[:, 0] += -p[1:-1, 0] * inv_dy2
-        fi[:, -1] += -p[1:-1, -1] * inv_dy2
+        fi[..., 0, :] += -p[..., 0, 1:-1] * inv_dx2
+        fi[..., -1, :] += -p[..., -1, 1:-1] * inv_dx2
+        fi[..., :, 0] += -p[..., 1:-1, 0] * inv_dy2
+        fi[..., :, -1] += -p[..., 1:-1, -1] * inv_dy2
         out = p.clone()
-        out[1:-1, 1:-1] = apply(fi)
+        out[..., 1:-1, 1:-1] = each_member(apply, fi)
         return out
 
     return solve
@@ -197,12 +203,12 @@ def make_dst_helmholtz(nx: int, ny: int, dx: float, dy: float, coeff: float,
         rhs = rhs_int.to(dtype).clone()
         # (I - coeff*lap) couples boundary-adjacent interior cells to the
         # fixed ring: -coeff*w_b/h^2 moves to the RHS as +coeff*w_b/h^2
-        rhs[0, :] += cx * ring[0, 1:-1]
-        rhs[-1, :] += cx * ring[-1, 1:-1]
-        rhs[:, 0] += cy * ring[1:-1, 0]
-        rhs[:, -1] += cy * ring[1:-1, -1]
+        rhs[..., 0, :] += cx * ring[..., 0, 1:-1]
+        rhs[..., -1, :] += cx * ring[..., -1, 1:-1]
+        rhs[..., :, 0] += cy * ring[..., 1:-1, 0]
+        rhs[..., :, -1] += cy * ring[..., 1:-1, -1]
         out = ring.clone()
-        out[1:-1, 1:-1] = apply(rhs)
+        out[..., 1:-1, 1:-1] = each_member(apply, rhs)
         return out
 
     return solve
@@ -292,10 +298,14 @@ def make_mixed_poisson(nx: int, ny: int, h0: float, h1: float, p_bc,
     def solve(b: torch.Tensor) -> torch.Tensor:
         dt_ = dtype or b.dtype
         V0t, V0, V1, V1t, inv_den, lift = constants(dt_, b.device)
-        rhs = b.to(dt_)[1:-1, 1:-1] + lift
-        G = mm(mm(V0t, rhs), V1) * inv_den
+        rhs = b.to(dt_)[..., 1:-1, 1:-1] + lift
+
+        def chain(r):
+            G = mm(mm(V0t, r), V1) * inv_den
+            return mm(mm(V0, G), V1t)
+
         p = torch.zeros(b.shape, dtype=dt_, device=b.device)
-        p[1:-1, 1:-1] = mm(mm(V0, G), V1t)
+        p[..., 1:-1, 1:-1] = each_member(chain, rhs)
         return apply_bcs(p, bcs)
 
     return solve
@@ -313,6 +323,6 @@ def poisson_dst(p: torch.Tensor, f: torch.Tensor, dx: float, dy: float,
     """One-shot `make_dst_poisson` solve. The solver (bases on p's device)
     is memoised on (shape, spacing, dtype, precision, device), so repeated
     calls in a loop build it once."""
-    solve = _cached_dst_solver(p.shape[0], p.shape[1], float(dx), float(dy),
-                               p.dtype, precision, str(p.device))
+    solve = _cached_dst_solver(p.shape[-2], p.shape[-1], float(dx),
+                               float(dy), p.dtype, precision, str(p.device))
     return solve(p, f)

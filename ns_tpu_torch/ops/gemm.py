@@ -171,3 +171,17 @@ def cmatmul(a: torch.Tensor, b: torch.Tensor, precision: str | None):
     else:
         im = mm(ar, bi) + mm(ai, br)
     return torch.complex(re, im)
+
+
+def each_member(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for one (m, n) operand; for a (B, m, n) batch of members, fn on
+    each member in turn, stacked. The FD ensemble's GEMM stages (the ADI
+    sweeps, the dst, Helmholtz and mixed-BC solves) run so, to keep each
+    member its single rollout's bits: a batched product (cuBLAS's bmm, a
+    CPU library's batched GEMM) picks its kernel by the batch's shapes, and
+    a member's slice of a batch may sit at an alignment that steers the
+    library to another kernel, so each member runs on a copy of its own,
+    laid out as a single call's operand is."""
+    if x.dim() == 2:
+        return fn(x)
+    return torch.stack([fn(m.clone()) for m in x])

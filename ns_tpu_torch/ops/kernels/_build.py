@@ -39,18 +39,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_L = ctypes.c_longlong
 _BOTH, _F32 = ("f32", "f64"), ("f32",)
 # C entry points: name -> (argtypes, the dtype suffixes it is built for);
 # every one returns a cudaError_t as int
 _ENTRIES = {
-    "ns_jacobi_fused": ([_P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _P, _P],
-                        _BOTH),
+    "ns_jacobi_fused": ([_P, _P, _P, _I, _I, _I, _D, _D, _D, _D, _P, _I, _L,
+                         _P], _BOTH),
     "ns_jacobi_multiblock": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _D, _D, _D, _D, _P, _P], _BOTH),
     "ns_jacobi_resident_occupancy": ([_I, _I, _I, _I, ctypes.POINTER(_I)],
                                      _BOTH),
     "ns_sor_redblack_fused": ([_P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _I,
-                               _P], _BOTH),
+                               _I, _L, _P], _BOTH),
     "ns_sor_redblack_tiled_group": ([_P, _P, _P, _I, _I, _D, _D, _D, _D, _I,
                                      _P], _BOTH),
     "ns_sor_redblack_packed_group": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -61,7 +62,7 @@ _ENTRIES = {
     "ns_sor_packed_resident_occupancy": ([_I, _I, _I, _I, _I,
                                           ctypes.POINTER(_I)], _BOTH),
     "ns_momentum_explicit": ([_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D,
-                              _D, _D, _I, _P, _P], _BOTH),
+                              _D, _D, _I, _P, _I, _L, _P], _BOTH),
     "ns_fused_zy_forward": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                             _F32),
     "ns_fused_zy_forward_bf16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -176,17 +177,22 @@ def entry(name: str, dtype: torch.dtype):
     return getattr(library(), f"{name}_{suffix}")
 
 
-def check_inputs(what: str, *tensors: torch.Tensor) -> tuple[int, int]:
+def check_inputs(what: str, *tensors: torch.Tensor,
+                 members: bool = False) -> tuple[int, ...]:
     """Validate the kernel inputs: CUDA, one device, float32/float64 alike,
-    2D of one shape, C-contiguous. Returns the shape."""
+    2D of one shape, C-contiguous. Returns the shape. With `members` (the
+    kernels that take a batch: K1, K2, K3) a (B, nx, ny) batch is taken
+    too, and the return is (B, nx, ny), B = 1 for one field."""
     t0 = tensors[0]
     if t0.device.type != "cuda":
         raise ValueError(f"{what}: expected CUDA tensors, got {t0.device}")
     if t0.dtype not in _SUFFIX:
         raise TypeError(f"{what}: dtype must be float32|float64, got "
                         f"{t0.dtype}")
-    if t0.dim() != 2:
-        raise ValueError(f"{what}: expected 2D fields, got {tuple(t0.shape)}")
+    if t0.dim() not in ((2, 3) if members else (2,)):
+        raise ValueError(f"{what}: expected 2D fields"
+                         f"{' or a (B, nx, ny) batch' if members else ''}, "
+                         f"got {tuple(t0.shape)}")
     for t in tensors:
         if (t.device != t0.device or t.dtype != t0.dtype
                 or t.shape != t0.shape):
@@ -195,10 +201,14 @@ def check_inputs(what: str, *tensors: torch.Tensor) -> tuple[int, int]:
                              f"vs {t0.device}/{t0.dtype}/{tuple(t0.shape)})")
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
-    nx, ny = t0.shape
+    nx, ny = t0.shape[-2:]
     if nx < 3 or ny < 3:
         raise ValueError(f"{what}: grid must be at least 3x3, got {nx}x{ny}")
-    return nx, ny
+    if not members:
+        return nx, ny
+    if t0.numel() == 0:
+        raise ValueError(f"{what}: an empty batch {tuple(t0.shape)}")
+    return (t0.shape[0] if t0.dim() == 3 else 1), nx, ny
 
 
 def check_fields(what: str, t: torch.Tensor, dtype: torch.dtype,

@@ -27,6 +27,15 @@ launched in `calls` (the group routes of K2mb, K4 and K5 launch once per
 group; their resident routes count their solves in `launches_resident`
 too).
 
+Every wrapper takes one (nx, ny) field or a (B, nx, ny) batch of members,
+as the JAX package's FD ensemble gives its kernels under vmap. K1 and K2
+run a batch in one launch, one block a member, K1 with each member's own
+gate (one launch and one call a batch). K2mb, K4 and K5 already fill the
+card with one member's tiles, so they solve the members in turn, each
+member's launches counted, one call a batch. Their twins take the same
+shapes: `ops.poisson.sor_redblack` gates each member on its own, the
+tiled twins solve the members in turn.
+
 What bounds each kernel on the H100, and how the design answers it, is in
 the CUDA source's header. In short:
 - K1 and K2 keep the whole grid in one block's shared memory and run every
@@ -137,11 +146,12 @@ def jacobi_fused(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
                  n_iter: int, p_bc) -> torch.Tensor:
     """All `n_iter` Jacobi sweeps, each followed by the p BC list in list
     order (direct_fd's pressure), in one launch of one block (K2), which
-    applies the list as its edge plan (`k2_edge_plan`)."""
+    applies the list as its edge plan (`k2_edge_plan`). A (B, nx, ny)
+    batch is one launch, one block a member."""
     if p.device.type == "cpu":
         return poisson.jacobi(p, b, dx, dy, n_iter,
                               bc_fn=lambda q: apply_bcs(q, p_bc))
-    nx, ny = _build.check_inputs("jacobi_fused", p, b)
+    n, nx, ny = _build.check_inputs("jacobi_fused", p, b, members=True)
     if not smem_fits(nx, ny, 2, p.element_size()):
         raise ValueError(f"jacobi_fused: a {nx}x{ny} {p.dtype} grid does not "
                          "fit one block's shared memory")
@@ -151,8 +161,8 @@ def jacobi_fused(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
     fn = _build.entry("ns_jacobi_fused", p.dtype)
     with torch.cuda.device(p.device):
         code = fn(p.data_ptr(), b.data_ptr(), out.data_ptr(), nx, ny,
-                  int(n_iter), dx2, dy2, denom, dx2 * dy2 / denom, spec,
-                  _build.stream(p.device))
+                  int(n_iter), dx2, dy2, denom, dx2 * dy2 / denom, spec, n,
+                  nx * ny, _build.stream(p.device))
     _build.check(code, "jacobi_fused")
     jacobi_fused.launches += 1
     jacobi_fused.calls += 1
@@ -311,13 +321,24 @@ def jacobi_multiblock(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
 
     Group route, for grids too large for the card's shared memory: one
     launch per group of k sweeps (`jacobi_groups`), between two device
-    buffers. Neither route syncs with the host: nit is fixed."""
+    buffers. Neither route syncs with the host: nit is fixed.
+
+    A (B, nx, ny) batch: the members in turn, one call."""
     if p.device.type == "cpu":
         return poisson.jacobi(p, b, dx, dy, n_iter,
                               bc_fn=lambda q: apply_bcs(q, p_bc))
-    nx, ny = _build.check_inputs("jacobi_multiblock", p, b)
+    _build.check_inputs("jacobi_multiblock", p, b, members=True)
     if n_iter < 0:
         raise ValueError(f"jacobi_multiblock: n_iter={n_iter}")
+    out = poisson.solve_members(_jacobi_multiblock, p, b, dx, dy, n_iter,
+                                p_bc)
+    jacobi_multiblock.calls += 1
+    return out
+
+
+def _jacobi_multiblock(p, b, dx, dy, n_iter, p_bc) -> torch.Tensor:
+    """One member's K2mb solve; counts its launches."""
+    nx, ny = p.shape
     plan = _jacobi_card_plan(p.device, nx, ny, p.dtype)
     dx2, dy2, denom = _consts(dx, dy)
     out = torch.empty_like(p)
@@ -342,7 +363,6 @@ def jacobi_multiblock(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
         jacobi_multiblock.launches_resident += 1
     else:
         jacobi_multiblock.launches += jacobi_groups(int(n_iter), plan.k)
-    jacobi_multiblock.calls += 1
     return out
 
 
@@ -410,10 +430,12 @@ def sor_redblack_fused(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
     """Red-black SOR to tolerance with the gate on the device: the whole
     chorin_fd pressure solve in one launch of one block (K1), p as packed
     colour planes in shared memory, each thread on fixed cells of each
-    colour (`k1_layout`)."""
+    colour (`k1_layout`). A (B, nx, ny) batch is one launch, one block a
+    member, each member stopped by its own gate."""
     if p.device.type == "cpu":
         return poisson.sor_redblack(p, rhs_c, dx, dy, beta, tol, max_iter)
-    nx, ny = _build.check_inputs("sor_redblack_fused", p, rhs_c)
+    n, nx, ny = _build.check_inputs("sor_redblack_fused", p, rhs_c,
+                                    members=True)
     if not smem_fits(nx, ny, 2, p.element_size()):
         raise ValueError(f"sor_redblack_fused: a {nx}x{ny} {p.dtype} grid "
                          "does not fit one block's shared memory; use "
@@ -423,8 +445,8 @@ def sor_redblack_fused(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
     fn = _build.entry("ns_sor_redblack_fused", p.dtype)
     with torch.cuda.device(p.device):
         code = fn(p.data_ptr(), rhs_c.data_ptr(), out.data_ptr(), nx, ny,
-                  dx2, dy2, denom, float(beta), float(tol), int(max_iter),
-                  _build.stream(p.device))
+                  dx2, dy2, denom, float(beta), float(tol), int(max_iter), n,
+                  nx * ny, _build.stream(p.device))
     _build.check(code, "sor_redblack_fused")
     sor_redblack_fused.launches += 1
     sor_redblack_fused.calls += 1
@@ -441,7 +463,11 @@ def sor_redblack_tiled(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
     """Plain twin of K5: the TPU tiled kernels' gate semantics on full-grid
     red-black sweeps. Groups of k sweeps run between gates; the gate reads
     the last sweep's max|dp|; err starts at inf and it at 1 and goes up by
-    k, so the solve may run up to k-1 sweeps past `sor_redblack`'s stop."""
+    k, so the solve may run up to k-1 sweeps past `sor_redblack`'s stop.
+    A (B, nx, ny) batch: the members in turn."""
+    if p.dim() == 3:
+        return poisson.solve_members(sor_redblack_tiled, p, rhs_c, dx, dy,
+                                     beta, tol, max_iter, k)
     masks = poisson.checkerboard(*p.shape, device=p.device)
     tol = poisson.dtype_float(tol, p.dtype)
     err, it = math.inf, 1
@@ -466,20 +492,29 @@ def sor_redblack_multiblock(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
     device. Counted in `launches` and `launches_resident`.
 
     Beyond the card's shared memory: `_color_groups`, one launch per gate
-    group and the gate read on the host."""
+    group and the gate read on the host.
+
+    A (B, nx, ny) batch: the members in turn, one call."""
     if p.device.type == "cpu":
         return sor_redblack_tiled(p, rhs_c, dx, dy, beta, tol, max_iter, k)
-    nx, ny = _build.check_inputs("sor_redblack_multiblock", p, rhs_c)
+    _build.check_inputs("sor_redblack_multiblock", p, rhs_c, members=True)
     if k < 1:
         raise ValueError(f"sor_redblack_multiblock: k={k}")
+    out = poisson.solve_members(_sor_multiblock, p, rhs_c, dx, dy, beta,
+                                tol, max_iter, k)
+    sor_redblack_multiblock.calls += 1
+    return out
+
+
+def _sor_multiblock(p, rhs_c, dx, dy, beta, tol, max_iter, k):
+    """One member's K5 solve; counts its launches."""
+    nx, ny = p.shape
     plan = _card_plan(p.device, nx, ny, p.dtype, k)
     if plan is None:
-        out = _color_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k)
-    else:
-        out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter)
-        sor_redblack_multiblock.launches += 1
-        sor_redblack_multiblock.launches_resident += 1
-    sor_redblack_multiblock.calls += 1
+        return _color_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k)
+    out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter)
+    sor_redblack_multiblock.launches += 1
+    sor_redblack_multiblock.launches_resident += 1
     return out
 
 
@@ -586,7 +621,10 @@ def sor_redblack_packed_tiled(p: torch.Tensor, rhs_c: torch.Tensor,
     planes, with the TPU tiled kernels' gate (err starts at inf and it at
     1; each group runs k sweeps, it += k; the gate reads the last sweep's
     max|dp|). The iterate sequence is `sor_redblack_tiled`'s; ny must be
-    even."""
+    even. A (B, nx, ny) batch: the members in turn."""
+    if p.dim() == 3:
+        return poisson.solve_members(sor_redblack_packed_tiled, p, rhs_c,
+                                     dx, dy, beta, tol, max_iter, k)
     nx, ny = p.shape
     R, B = pack_redblack(p)
     cR, cB = pack_redblack(rhs_c)
@@ -736,23 +774,33 @@ def sor_redblack_packed_multiblock(p: torch.Tensor, rhs_c: torch.Tensor,
     Group route, for grids too large for the card's shared memory: each
     launch runs one gate group on 64x64 tiles of the packed planes
     (`pack_redblack` here) into the other buffers of a ping-pong pair, and
-    the host reads the gate once per group."""
+    the host reads the gate once per group.
+
+    A (B, nx, ny) batch: the members in turn, one call."""
     if p.device.type == "cpu":
         return sor_redblack_packed_tiled(p, rhs_c, dx, dy, beta, tol,
                                          max_iter, k)
-    nx, ny = _build.check_inputs("sor_redblack_packed_multiblock", p, rhs_c)
+    _, _, ny = _build.check_inputs("sor_redblack_packed_multiblock", p, rhs_c,
+                                   members=True)
     if ny % 2:
         raise ValueError(f"packed red-black planes need an even ny, got {ny}")
     if k < 1:
         raise ValueError(f"sor_redblack_packed_multiblock: k={k}")
+    out = poisson.solve_members(_packed_multiblock, p, rhs_c, dx, dy, beta,
+                                tol, max_iter, k)
+    sor_redblack_packed_multiblock.calls += 1
+    return out
+
+
+def _packed_multiblock(p, rhs_c, dx, dy, beta, tol, max_iter, k):
+    """One member's K4 solve; counts its launches."""
+    nx, ny = p.shape
     plan = _card_plan(p.device, nx, ny, p.dtype, k)
     if plan is None:
-        out = _packed_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k)
-    else:
-        out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter)
-        sor_redblack_packed_multiblock.launches += 1
-        sor_redblack_packed_multiblock.launches_resident += 1
-    sor_redblack_packed_multiblock.calls += 1
+        return _packed_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k)
+    out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter)
+    sor_redblack_packed_multiblock.launches += 1
+    sor_redblack_packed_multiblock.launches_resident += 1
     return out
 
 

@@ -16,6 +16,10 @@ a strided slice: the JAX package's reshape form (`_every2`, `_interleave`)
 exists to dodge a slow TPU gather and computes the same values. The CG
 inner products are `torch.sum(a * b)`, which sums in another order than
 XLA's `vdot`.
+
+Every function acts on the last two axes: a (B, nx, ny) batch of members
+(the FD ensemble, which the JAX package runs under vmap) is solved in one
+call, each member with its own CG scalars.
 """
 
 from __future__ import annotations
@@ -50,8 +54,8 @@ def _smooth(p, f, hx2: float, hy2: float, mask, n_sweeps: int):
     denom = 2.0 / hx2 + 2.0 / hy2
 
     def gs(p):
-        nbr = ((torch.roll(p, -1, 0) + torch.roll(p, 1, 0)) / hx2
-               + (torch.roll(p, -1, 1) + torch.roll(p, 1, 1)) / hy2)
+        nbr = ((torch.roll(p, -1, -2) + torch.roll(p, 1, -2)) / hx2
+               + (torch.roll(p, -1, -1) + torch.roll(p, 1, -1)) / hy2)
         return (nbr - f) / denom
 
     for _ in range(n_sweeps):
@@ -70,36 +74,37 @@ def _restrict(r: torch.Tensor) -> torch.Tensor:
     # 3x3 stencil [1 2 1; 2 4 2; 1 2 1]/16 applied at even fine vertices
     roll = torch.roll
     w = (4.0 * r
-         + 2.0 * (roll(r, 1, 0) + roll(r, -1, 0) + roll(r, 1, 1)
-                  + roll(r, -1, 1))
-         + (roll(roll(r, 1, 0), 1, 1) + roll(roll(r, 1, 0), -1, 1)
-            + roll(roll(r, -1, 0), 1, 1) + roll(roll(r, -1, 0), -1, 1))
+         + 2.0 * (roll(r, 1, -2) + roll(r, -1, -2) + roll(r, 1, -1)
+                  + roll(r, -1, -1))
+         + (roll(roll(r, 1, -2), 1, -1) + roll(roll(r, 1, -2), -1, -1)
+            + roll(roll(r, -1, -2), 1, -1) + roll(roll(r, -1, -2), -1, -1))
          ) / 16.0
-    return w[::2, ::2]
+    return w[..., ::2, ::2]
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
-    """[a0 b0 a1 b1 ... b_{m-1} a_m] along `dim` (a has one more entry)."""
+    """[a0 b0 a1 b1 ... b_{m-1} a_m] along `dim` (-2 or -1; a has one more
+    entry)."""
     shape = list(a.shape)
     shape[dim] = a.shape[dim] + b.shape[dim]
     out = a.new_empty(shape)
-    if dim == 0:
-        out[0::2], out[1::2] = a, b
+    if dim == -2:
+        out[..., 0::2, :], out[..., 1::2, :] = a, b
     else:
-        out[:, 0::2], out[:, 1::2] = a, b
+        out[..., 0::2], out[..., 1::2] = a, b
     return out
 
 
 def _prolong(e: torch.Tensor) -> torch.Tensor:
     """Bilinear prolongation from the coarse vertex grid to the fine one."""
-    full_rows = _interleave(e, 0.5 * (e[:-1, :] + e[1:, :]), 0)
-    return _interleave(full_rows,
-                       0.5 * (full_rows[:, :-1] + full_rows[:, 1:]), 1)
+    full_rows = _interleave(e, 0.5 * (e[..., :-1, :] + e[..., 1:, :]), -2)
+    return _interleave(full_rows, 0.5 * (full_rows[..., :-1]
+                                         + full_rows[..., 1:]), -1)
 
 
 def _vcycle(p, f, hx: float, hy: float, mask, pre: int, post: int,
             min_n: int):
-    nx, ny = p.shape
+    nx, ny = p.shape[-2:]
     hx2, hy2 = hx * hx, hy * hy
     if min(nx, ny) <= min_n:
         return _smooth(p, f, hx2, hy2, mask, 50)  # coarsest: smooth to death
@@ -119,17 +124,17 @@ def _vcycle(p, f, hx: float, hy: float, mask, pre: int, post: int,
 def _embed(p0: torch.Tensor, f: torch.Tensor):
     """(p_pad, f_pad, mask, exact): an arbitrary grid embedded in the next
     2^k+1 grid; mask marks the ORIGINAL interior (the solved cells)."""
-    nx, ny = p0.shape
+    nx, ny = p0.shape[-2:]
     exact = _is_pow2_plus1(nx) and _is_pow2_plus1(ny)
     if exact:
         NX, NY = nx, ny
         p_pad, f_pad = p0, f
     else:
         NX, NY = _next_pow2_plus1(nx), _next_pow2_plus1(ny)
-        p_pad = p0.new_zeros((NX, NY))
-        p_pad[:nx, :ny] = p0
-        f_pad = f.new_zeros((NX, NY))
-        f_pad[:nx, :ny] = f
+        p_pad = p0.new_zeros((*p0.shape[:-2], NX, NY))
+        p_pad[..., :nx, :ny] = p0
+        f_pad = f.new_zeros((*f.shape[:-2], NX, NY))
+        f_pad[..., :nx, :ny] = f
     ii = torch.arange(NX, device=p0.device)[:, None]
     jj = torch.arange(NY, device=p0.device)[None, :]
     mask = (ii > 0) & (ii < nx - 1) & (jj > 0) & (jj < ny - 1)
@@ -137,7 +142,11 @@ def _embed(p0: torch.Tensor, f: torch.Tensor):
 
 
 def _dot(a, b):
-    return torch.sum(a * b)
+    """The inner product of each member's grids (kept as (..., 1, 1) so that
+    it scales its member)."""
+    if a.dim() == 2:
+        return torch.sum(a * b)
+    return torch.sum(a * b, dim=(-2, -1), keepdim=True)
 
 
 def poisson_mgcg(p0: torch.Tensor, f: torch.Tensor, dx: float, dy: float,
@@ -147,7 +156,7 @@ def poisson_mgcg(p0: torch.Tensor, f: torch.Tensor, dx: float, dy: float,
     the boundary of p0 held fixed, on ANY grid size: n_iters CG
     iterations, each one V(pre, post) cycle plus one operator apply. The
     scalars stay on the device (no host sync)."""
-    nx, ny = p0.shape
+    nx, ny = p0.shape[-2:]
     p_pad, f_pad, mask, exact = _embed(p0, f)
     dx2, dy2 = dx * dx, dy * dy
 
@@ -172,7 +181,7 @@ def poisson_mgcg(p0: torch.Tensor, f: torch.Tensor, dx: float, dy: float,
         rz_new = _dot(r, z)
         d = z + (rz_new / rz) * d
         rz = rz_new
-    return p if exact else p[:nx, :ny]
+    return p if exact else p[..., :nx, :ny]
 
 
 def poisson_multigrid(p0: torch.Tensor, f: torch.Tensor, dx: float,

@@ -9,6 +9,13 @@ The convergence gates are Python loops, so every tolerance check reads one
 scalar back to the host; K1 keeps that gate on the device instead. Gate
 semantics follow the reference: err=1, it=1, loop while err > tol and
 it < max_iter, with the comparison made in the field's dtype.
+
+The grid is the last two axes, so a (B, nx, ny) batch of members is one
+call, as the JAX package's FD ensemble runs these under vmap: `jacobi`
+and the red-black sweep act on every member, and `sor_redblack` gates
+each member on its own (JAX's vmapped while_loop: the loop runs while
+any member's gate is open, and a member whose gate has closed is kept as
+it was). `sor_wavefront` and `cg_poisson` solve a batch's members in turn.
 """
 
 from __future__ import annotations
@@ -22,8 +29,19 @@ def dtype_float(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=dtype))
 
 
+def solve_members(solve, p: torch.Tensor, rhs: torch.Tensor, *args):
+    """`solve(p, rhs, *args)` on one field, or on each member of a (B, nx,
+    ny) batch in turn, stacked: the host-gated solves (each member's gate
+    read on its own) and the kernel routes that take a batch's members one
+    after another."""
+    if p.dim() == 2:
+        return solve(p, rhs, *args)
+    return torch.stack([solve(pm, cm, *args) for pm, cm in zip(p, rhs)])
+
+
 def checkerboard(nx: int, ny: int, device=None):
-    """Interior red ((i+j) even) and black ((i+j) odd) cell masks."""
+    """Interior red ((i+j) even) and black ((i+j) odd) cell masks (of one
+    grid; they broadcast over a batch)."""
     ii = torch.arange(nx, device=device)[:, None]
     jj = torch.arange(ny, device=device)[None, :]
     interior = (ii > 0) & (ii < nx - 1) & (jj > 0) & (jj < ny - 1)
@@ -32,10 +50,10 @@ def checkerboard(nx: int, ny: int, device=None):
 
 
 def _gs_update(p, rhs_c, dx2, dy2, denom, beta):
-    up = torch.roll(p, -1, 0)     # p[i+1, j]
-    down = torch.roll(p, 1, 0)    # p[i-1, j]
-    right = torch.roll(p, -1, 1)  # p[i, j+1]
-    left = torch.roll(p, 1, 1)    # p[i, j-1]
+    up = torch.roll(p, -1, -2)     # p[i+1, j]
+    down = torch.roll(p, 1, -2)    # p[i-1, j]
+    right = torch.roll(p, -1, -1)  # p[i, j+1]
+    left = torch.roll(p, 1, -1)    # p[i, j-1]
     return beta * (dy2 * (up + down) + dx2 * (right + left) - rhs_c) / denom \
         + (1.0 - beta) * p
 
@@ -60,14 +78,23 @@ def sor_redblack(p: torch.Tensor, rhs_c: torch.Tensor, dx: float, dy: float,
     with the boundary of `p` held fixed, err = max|p - p_prev_sweep|, and
     the reference cap semantics (err=1, it=1; loop while err > tol and
     it < max_iter).
+
+    A (B, nx, ny) batch gates each member on its own: err is per member,
+    the sweep runs while any member's gate is open, and a member whose
+    gate has closed keeps its p (and err), so it stops at its own sweep
+    count with its single solve's bits.
     """
-    masks = checkerboard(*p.shape, device=p.device)
+    masks = checkerboard(*p.shape[-2:], device=p.device)
     tol = dtype_float(tol, p.dtype)
-    err, it = 1.0, 1
-    while err > tol and it < max_iter:
+    err = torch.ones(p.shape[:-2], dtype=p.dtype, device=p.device)
+    it = 1
+    while it < max_iter:
+        open_ = err > tol
+        if not bool(open_.any()):
+            break
         p_new = redblack_sweep(p, rhs_c, dx, dy, beta, masks)
-        err = float((p_new - p).abs().max())
-        p, it = p_new, it + 1
+        err = torch.where(open_, (p_new - p).abs().amax(dim=(-2, -1)), err)
+        p, it = torch.where(open_[..., None, None], p_new, p), it + 1
     return p
 
 
@@ -79,8 +106,12 @@ def sor_wavefront(p: torch.Tensor, rhs_c: torch.Tensor, dx: float, dy: float,
     already-updated p[i-1,j], p[i,j-1] and the old p[i+1,j], p[i,j+1]; cells
     on one anti-diagonal i+j=d are independent, so updating diagonal by
     diagonal reproduces the reference iterate sequence. Each stage gathers
-    its diagonal's cells and scatters their update back.
+    its diagonal's cells and scatters their update back. A (B, nx, ny)
+    batch: the members in turn, each with its own gate.
     """
+    if p.dim() == 3:
+        return solve_members(sor_wavefront, p, rhs_c, dx, dy, beta, tol,
+                             max_iter)
     nx, ny = p.shape
     dx2, dy2 = dx * dx, dy * dy
     denom = 2.0 * (dx2 + dy2)
@@ -109,32 +140,37 @@ def jacobi(p: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
            n_iter: int, bc_fn=None) -> torch.Tensor:
     """Plain Jacobi sweeps for laplace(p) = rhs with optional per-sweep BC
     re-application (the direct_fd pattern; the plain twin of K2,
-    `ops/kernels/poisson_kernels.py::jacobi_fused`)."""
+    `ops/kernels/poisson_kernels.py::jacobi_fused`), on the last two axes
+    (a leading member axis is a batch)."""
     dx2, dy2 = dx * dx, dy * dy
     denom = 2.0 * (dx2 + dy2)
     for _ in range(n_iter):
         interior = (
-            ((p[1:-1, 2:] + p[1:-1, :-2]) * dy2
-             + (p[2:, 1:-1] + p[:-2, 1:-1]) * dx2) / denom
-            - dx2 * dy2 / denom * rhs[1:-1, 1:-1]
+            ((p[..., 1:-1, 2:] + p[..., 1:-1, :-2]) * dy2
+             + (p[..., 2:, 1:-1] + p[..., :-2, 1:-1]) * dx2) / denom
+            - dx2 * dy2 / denom * rhs[..., 1:-1, 1:-1]
         )
         p = p.clone()
-        p[1:-1, 1:-1] = interior
+        p[..., 1:-1, 1:-1] = interior
         if bc_fn is not None:
             p = bc_fn(p)
     return p
 
 
 def laplace_full(x: torch.Tensor, dx2: float, dy2: float) -> torch.Tensor:
-    """5-point Laplacian including boundary wrap cells (callers mask)."""
-    return ((torch.roll(x, -1, 0) - 2 * x + torch.roll(x, 1, 0)) / dx2
-            + (torch.roll(x, -1, 1) - 2 * x + torch.roll(x, 1, 1)) / dy2)
+    """5-point Laplacian including boundary wrap cells (callers mask), on
+    the last two axes."""
+    return ((torch.roll(x, -1, -2) - 2 * x + torch.roll(x, 1, -2)) / dx2
+            + (torch.roll(x, -1, -1) - 2 * x + torch.roll(x, 1, -1)) / dy2)
 
 
 def cg_poisson(p0: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
                tol: float = 1e-8, max_iter: int = 500) -> torch.Tensor:
     """Conjugate gradient for the interior Dirichlet-frame Poisson problem
-    (boundary of p0 held fixed)."""
+    (boundary of p0 held fixed). A (B, nx, ny) batch: the members in turn,
+    each with its own gate."""
+    if p0.dim() == 3:
+        return solve_members(cg_poisson, p0, rhs, dx, dy, tol, max_iter)
     dx2, dy2 = dx * dx, dy * dy
     boundary = torch.ones_like(p0, dtype=torch.bool)
     boundary[1:-1, 1:-1] = False

@@ -3,9 +3,15 @@
 Port of `ns_tpu/parallel/ensemble.py`. The spectral step is
 batch-polymorphic (transforms act on the trailing two axes, constants
 broadcast), so a (B, nx, ny) batch of vorticities rolls out as one carry.
-The FD kernels K1-K5 take one field and a ctypes launch cannot be
-vmapped, so `ensemble_fd_rollout` steps the members one after another:
-each member's final state is then its own single rollout's, bitwise.
+The FD steps (`chorin_fd.make_step`, `direct_fd.make_step`) are
+batch-polymorphic too, as the JAX package's are under vmap: the kernels
+K1, K2 and K3 run the whole batch in one launch a step (a member on each
+block, or block plane), with each member's own SOR gate, so
+`ensemble_fd_rollout` calls the step once a time step on the whole share.
+Their GEMM stages and the host-gated pressure modes run member by member
+inside the step, and each member's final state is its own single
+rollout's, bitwise. A step that does not say it takes a batch
+(`batch_polymorphic`) steps the members one after another.
 
 With a mesh, each rank takes its contiguous share of the members along
 the 'ensemble' dim (`parallel/mesh.py::member_range`) and the rollouts
@@ -90,16 +96,25 @@ def ensemble_energy(cfg: sp.SpectralPeriodicConfig, w_spec_batch,
 def ensemble_fd_rollout(step_fn, state0_batch, nt: int,
                         mesh: DeviceMesh | None = None,
                         axis: str = "ensemble", device=None):
-    """Run a batch of independent FD rollouts: nt steps of the one-state
-    `step_fn` (e.g. solvers.chorin_fd.make_step(...)) on every member of
-    `state0_batch`, a FlowState whose fields carry a leading member axis
-    (None fields stay None). The members of this rank's share run one
-    after another, each exactly its own single rollout. Returns the final
-    batched FlowState of the share; no collective."""
+    """Run a batch of independent FD rollouts: nt steps of `step_fn` (e.g.
+    solvers.chorin_fd.make_step(...)) on every member of `state0_batch`, a
+    FlowState whose fields carry a leading member axis (None fields stay
+    None). A step whose `batch_polymorphic` attribute is True takes the
+    rank's whole share at once, one call a time step; any other step runs
+    the members one after another. Either way each member is exactly its
+    own single rollout. Returns the final batched FlowState of the share;
+    no collective."""
     fields = [f.name for f in dataclasses.fields(state0_batch)]
     batch = {k: getattr(state0_batch, k) for k in fields}
     batch = {k: (None if a is None else _share(a, mesh, axis, device))
              for k, a in batch.items()}
+    if getattr(step_fn, "batch_polymorphic", False):
+        state = type(state0_batch)(**{
+            k: (None if a is None else a.contiguous())
+            for k, a in batch.items()})
+        for _ in range(nt):
+            state = step_fn(state)
+        return state
     n = next(a for a in batch.values() if a is not None).shape[0]
     out = {k: (None if a is None else torch.empty_like(a))
            for k, a in batch.items()}

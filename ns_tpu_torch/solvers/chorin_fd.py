@@ -52,6 +52,16 @@ Port of `ns_tpu/solvers/chorin_fd.py` (the reference chorin_fd family):
 Axis convention preserved from the reference: axis 0 carries
 x-differences, the opposite of direct_fd.
 
+The step takes one state of (nx, ny) fields or a batch of members, fields
+(B, nx, ny), as the JAX package's FD ensemble runs its step under vmap
+(`parallel/ensemble.py::ensemble_fd_rollout`; the step's
+`batch_polymorphic` attribute says so). Stencils, BC writes and the
+kernels take the whole batch: K1 and K3 one launch a step for all
+members; K4 and K5, which fill the card with one member's tiles, solve the
+members in turn. The GEMM stages (ADI sweeps, dst, helmholtz) and the
+host-gated pressure modes ('gauss_seidel', 'cg') run member by member, so
+each member keeps its single rollout's bits (`ops.gemm.each_member`).
+
 `gemm_precision` in float32 (float64 matmuls are always float64):
 None, 'highest' and 'high' -> full fp32 (TF32 off; the TPU's HIGH is
 bf16x3, which fp32 meets, `ops/gemm.py`); 'default' -> bf16 inputs with
@@ -74,7 +84,7 @@ from ns_tpu_torch.core.device import resolve_device
 from ns_tpu_torch.core.state import FlowState, rollout
 from ns_tpu_torch.ops.fast_poisson import (make_dst_helmholtz,
                                            make_dst_poisson)
-from ns_tpu_torch.ops.gemm import matmul
+from ns_tpu_torch.ops.gemm import each_member, matmul
 from ns_tpu_torch.ops.kernels import (momentum_explicit_fused, smem_fits,
                                       sor_redblack_fused,
                                       sor_redblack_multiblock,
@@ -150,21 +160,26 @@ def _adi_inverses(cfg: ChorinFDConfig, dtype, device):
 def _advect(cfg: ChorinFDConfig, f, g, h):
     """f * dh/dx + g * dh/dy on the interior, centred, axis 0 = x."""
     dx, dy = cfg.dx, cfg.dy
-    return (f[1:-1, 1:-1] * (h[2:, 1:-1] - h[:-2, 1:-1]) / (2.0 * dx)
-            + g[1:-1, 1:-1] * (h[1:-1, 2:] - h[1:-1, :-2]) / (2.0 * dy))
+    return (f[..., 1:-1, 1:-1] * (h[..., 2:, 1:-1] - h[..., :-2, 1:-1])
+            / (2.0 * dx)
+            + g[..., 1:-1, 1:-1] * (h[..., 1:-1, 2:] - h[..., 1:-1, :-2])
+            / (2.0 * dy))
 
 
 def _lap(cfg: ChorinFDConfig, h):
     """5-point Laplacian of h on the interior."""
     dx, dy = cfg.dx, cfg.dy
-    return ((h[2:, 1:-1] - 2 * h[1:-1, 1:-1] + h[:-2, 1:-1]) / dx**2
-            + (h[1:-1, 2:] - 2 * h[1:-1, 1:-1] + h[1:-1, :-2]) / dy**2)
+    return ((h[..., 2:, 1:-1] - 2 * h[..., 1:-1, 1:-1] + h[..., :-2, 1:-1])
+            / dx**2
+            + (h[..., 1:-1, 2:] - 2 * h[..., 1:-1, 1:-1] + h[..., 1:-1, :-2])
+            / dy**2)
 
 
 def _semi_implicit_predictor(cfg: ChorinFDConfig, A_inv, B_inv, un, vn, un1,
                              vn1):
     """AB advection + Crank-Nicolson ADI diffusion, the per-step dense
-    solves replaced by matmuls against precomputed inverses."""
+    solves replaced by matmuls against precomputed inverses (member by
+    member on a batch)."""
     dt, dx, dy, nu = cfg.dt, cfg.dx, cfg.dy, cfg.nu
     mm = lambda a, b: matmul(a, b, cfg.gemm_precision)
 
@@ -175,26 +190,27 @@ def _semi_implicit_predictor(cfg: ChorinFDConfig, A_inv, B_inv, un, vn, un1,
         C1 = sgn * dt / 2.0 * (3.0 * Hn - Hn1)
         C2 = dt * nu * _lap(cfg, hn)
         C = 2.0 / nu * dx**2 * (C1 + C2)
-        ht = mm(A_inv, C)
+        ht = each_member(lambda c: mm(A_inv, c), C)
         # y-sweep: B hi = S
-        S = (2.0 / nu * dy**2 * (ht + hn[1:-1, 1:-1])
-             - dt * (hn[1:-1, 2:] - 2 * hn[1:-1, 1:-1] + hn[1:-1, :-2]))
+        S = (2.0 / nu * dy**2 * (ht + hn[..., 1:-1, 1:-1])
+             - dt * (hn[..., 1:-1, 2:] - 2 * hn[..., 1:-1, 1:-1]
+                     + hn[..., 1:-1, :-2]))
         if cfg.quirk_compat:
             # reference quirk: the y operator applied along the x axis
             # (only meaningful for nx == ny)
-            return mm(B_inv, S)
+            return each_member(lambda s: mm(B_inv, s), S)
         # corrected: lift the wall values onto the y-sweep RHS and apply
         # the y operator along y
         S = S.clone()
-        S[:, 0] += dt * hn[1:-1, 0]
-        S[:, -1] += dt * hn[1:-1, -1]
-        return mm(S, B_inv.T)
+        S[..., :, 0] += dt * hn[..., 1:-1, 0]
+        S[..., :, -1] += dt * hn[..., 1:-1, -1]
+        return each_member(lambda s: mm(s, B_inv.T), S)
 
     uHn, uHn1 = _advect(cfg, un, vn, un), _advect(cfg, un1, vn1, un1)
     vHn, vHn1 = _advect(cfg, un, vn, vn), _advect(cfg, un1, vn1, vn1)
     ui, vi = un.clone(), vn.clone()
-    ui[1:-1, 1:-1] = sweeps(un, un1, uHn, uHn1)
-    vi[1:-1, 1:-1] = sweeps(vn, vn1, vHn, vHn1)
+    ui[..., 1:-1, 1:-1] = sweeps(un, un1, uHn, uHn1)
+    vi[..., 1:-1, 1:-1] = sweeps(vn, vn1, vHn, vHn1)
     return ui, vi
 
 
@@ -207,9 +223,9 @@ def _helmholtz_predictor(cfg: ChorinFDConfig, hsolve, un, vn, un1, vn1):
     a = dt * cfg.nu / 2.0
     uHn, uHn1 = _advect(cfg, un, vn, un), _advect(cfg, un1, vn1, un1)
     vHn, vHn1 = _advect(cfg, un, vn, vn), _advect(cfg, un1, vn1, vn1)
-    rhs_u = (un[1:-1, 1:-1] - dt * (1.5 * uHn - 0.5 * uHn1)
+    rhs_u = (un[..., 1:-1, 1:-1] - dt * (1.5 * uHn - 0.5 * uHn1)
              + a * _lap(cfg, un))
-    rhs_v = (vn[1:-1, 1:-1] - dt * (1.5 * vHn - 0.5 * vHn1)
+    rhs_v = (vn[..., 1:-1, 1:-1] - dt * (1.5 * vHn - 0.5 * vHn1)
              + a * _lap(cfg, vn))
     return hsolve(un, rhs_u), hsolve(vn, rhs_v)
 
@@ -218,9 +234,9 @@ def _pressure_rhs(cfg: ChorinFDConfig, ui, vi):
     """Scaled divergence source of the SOR iteration."""
     dt, dx, dy, rho = cfg.dt, cfg.dx, cfg.dy, cfg.rho
     rhs = torch.zeros_like(ui)
-    rhs[1:-1, 1:-1] = (
-        dx * rho * dy**2 / dt * (ui[1:-1, 1:-1] - ui[:-2, 1:-1])
-        + dy * rho * dx**2 / dt * (vi[1:-1, 1:-1] - vi[1:-1, :-2]))
+    rhs[..., 1:-1, 1:-1] = (
+        dx * rho * dy**2 / dt * (ui[..., 1:-1, 1:-1] - ui[..., :-2, 1:-1])
+        + dy * rho * dx**2 / dt * (vi[..., 1:-1, 1:-1] - vi[..., 1:-1, :-2]))
     return rhs
 
 
@@ -228,15 +244,17 @@ def _correction(cfg: ChorinFDConfig, ui, vi, p):
     """Projection u <- u* - dt/(2h) grad p, central."""
     dt, dx, dy = cfg.dt, cfg.dx, cfg.dy
     u, v = ui.clone(), vi.clone()
-    u[1:-1, 1:-1] = (ui[1:-1, 1:-1]
-                     - dt / (2.0 * dx) * (p[2:, 1:-1] - p[:-2, 1:-1]))
-    v[1:-1, 1:-1] = (vi[1:-1, 1:-1]
-                     - dt / (2.0 * dy) * (p[1:-1, 2:] - p[1:-1, :-2]))
+    u[..., 1:-1, 1:-1] = (ui[..., 1:-1, 1:-1] - dt / (2.0 * dx)
+                          * (p[..., 2:, 1:-1] - p[..., :-2, 1:-1]))
+    v[..., 1:-1, 1:-1] = (vi[..., 1:-1, 1:-1] - dt / (2.0 * dy)
+                          * (p[..., 1:-1, 2:] - p[..., 1:-1, :-2]))
     return u, v
 
 
 def _pressure(cfg: ChorinFDConfig, p, rhs_c, dst_solve=None):
-    # the SOR fixed point is laplace(p) = rhs_c / (dx^2 dy^2)
+    # the SOR fixed point is laplace(p) = rhs_c / (dx^2 dy^2). Every route
+    # takes a (B, nx, ny) batch: the wavefront and CG solve its members in
+    # turn (host gates), the others the whole batch
     if cfg.pressure_mode == "gauss_seidel":
         return sor_wavefront(p, rhs_c, cfg.dx, cfg.dy, cfg.beta, cfg.sor_tol,
                              cfg.nit)
@@ -263,7 +281,8 @@ def _pressure(cfg: ChorinFDConfig, p, rhs_c, dst_solve=None):
 
 def make_step(cfg: ChorinFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
               p_bc: Sequence[BC], dtype=torch.float32, device=None):
-    """Build the one-timestep function."""
+    """Build the one-timestep function. It takes one state or a batch of
+    members (fields (B, nx, ny)); `step.batch_polymorphic` is True."""
     prec = cfg.gemm_precision or "highest"
     if cfg.method == "semi_implicit":
         A_inv, B_inv = _adi_inverses(cfg, dtype, device)
@@ -301,6 +320,7 @@ def make_step(cfg: ChorinFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
             u_next, v_next = _correction(cfg, ui, vi, p)
         return FlowState(u=u_next, v=v_next, p=p, u_prev=un, v_prev=vn)
 
+    step.batch_polymorphic = True
     return step
 
 

@@ -21,6 +21,13 @@ x-differences and axis 0 the y-differences, while the BC edge naming maps
 
 The rollout is a Python loop of `step`s on the state's device, writing each
 frame into preallocated (nt, nx, ny) tensors.
+
+The step takes one state of (nx, ny) fields or a batch of members, fields
+(B, nx, ny), as the JAX package's FD ensemble runs its step under vmap
+(`step.batch_polymorphic`): the stencils and BC writes take the whole
+batch, K2 one launch a step for all members, K2's multi-block form the
+members in turn, and the 'exact' solve its GEMM chain member by member
+(`ops.gemm.each_member`), so each member keeps its single rollout's bits.
 """
 
 from __future__ import annotations
@@ -72,12 +79,12 @@ def build_up_b(cfg: DirectFDConfig, u: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
     """Pressure-Poisson source term."""
     rho, dt, dx, dy = cfg.rho, cfg.dt, cfg.dx, cfg.dy
-    dudx = (u[1:-1, 2:] - u[1:-1, :-2]) / (2.0 * dx)
-    dvdy = (v[2:, 1:-1] - v[:-2, 1:-1]) / (2.0 * dy)
-    dudy = (u[2:, 1:-1] - u[:-2, 1:-1]) / (2.0 * dy)
-    dvdx = (v[1:-1, 2:] - v[1:-1, :-2]) / (2.0 * dx)
+    dudx = (u[..., 1:-1, 2:] - u[..., 1:-1, :-2]) / (2.0 * dx)
+    dvdy = (v[..., 2:, 1:-1] - v[..., :-2, 1:-1]) / (2.0 * dy)
+    dudy = (u[..., 2:, 1:-1] - u[..., :-2, 1:-1]) / (2.0 * dy)
+    dvdx = (v[..., 1:-1, 2:] - v[..., 1:-1, :-2]) / (2.0 * dx)
     b = torch.zeros_like(u)
-    b[1:-1, 1:-1] = (
+    b[..., 1:-1, 1:-1] = (
         rho * (1.0 / dt) * (dudx + dvdy)
         - dudx**2
         - 2.0 * dudy * dvdx
@@ -98,7 +105,8 @@ def pressure_poisson(cfg: DirectFDConfig, p: torch.Tensor, b: torch.Tensor,
 
 def make_step(cfg: DirectFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
               p_bc: Sequence[BC]):
-    """Build the one-timestep function."""
+    """Build the one-timestep function. It takes one state or a batch of
+    members (fields (B, nx, ny)); `step.batch_polymorphic` is True."""
     dt, dx, dy = cfg.dt, cfg.dx, cfg.dy
     rho, nu = cfg.rho, cfg.nu
     if cfg.pressure_mode == "exact":
@@ -113,30 +121,34 @@ def make_step(cfg: DirectFDConfig, u_bc: Sequence[BC], v_bc: Sequence[BC],
         else:
             p = pressure_poisson(cfg, p, b, p_bc)
 
+        # the interior and its neighbours along axis 1 (x) and axis 0 (y),
+        # on the last two axes
+        c = (..., slice(1, -1), slice(1, -1))
+        xm, xp = (..., slice(1, -1), slice(None, -2)), (..., slice(1, -1),
+                                                        slice(2, None))
+        ym, yp = (..., slice(None, -2), slice(1, -1)), (..., slice(2, None),
+                                                        slice(1, -1))
         u = un.clone()
         v = vn.clone()
-        u[1:-1, 1:-1] = (
-            un[1:-1, 1:-1]
-            - un[1:-1, 1:-1] * dt / dx * (un[1:-1, 1:-1] - un[1:-1, :-2])
-            - vn[1:-1, 1:-1] * dt / dy * (un[1:-1, 1:-1] - un[:-2, 1:-1])
-            - dt / (2.0 * rho * dx) * (p[1:-1, 2:] - p[1:-1, :-2])
-            + nu * (dt / dx**2
-                    * (un[1:-1, 2:] - 2.0 * un[1:-1, 1:-1] + un[1:-1, :-2])
-                    + dt / dy**2
-                    * (un[2:, 1:-1] - 2.0 * un[1:-1, 1:-1] + un[:-2, 1:-1]))
+        u[c] = (
+            un[c]
+            - un[c] * dt / dx * (un[c] - un[xm])
+            - vn[c] * dt / dy * (un[c] - un[ym])
+            - dt / (2.0 * rho * dx) * (p[xp] - p[xm])
+            + nu * (dt / dx**2 * (un[xp] - 2.0 * un[c] + un[xm])
+                    + dt / dy**2 * (un[yp] - 2.0 * un[c] + un[ym]))
         )
-        v[1:-1, 1:-1] = (
-            vn[1:-1, 1:-1]
-            - un[1:-1, 1:-1] * dt / dx * (vn[1:-1, 1:-1] - vn[1:-1, :-2])
-            - vn[1:-1, 1:-1] * dt / dy * (vn[1:-1, 1:-1] - vn[:-2, 1:-1])
-            - dt / (2.0 * rho * dy) * (p[2:, 1:-1] - p[:-2, 1:-1])
-            + nu * (dt / dx**2
-                    * (vn[1:-1, 2:] - 2.0 * vn[1:-1, 1:-1] + vn[1:-1, :-2])
-                    + dt / dy**2
-                    * (vn[2:, 1:-1] - 2.0 * vn[1:-1, 1:-1] + vn[:-2, 1:-1]))
+        v[c] = (
+            vn[c]
+            - un[c] * dt / dx * (vn[c] - vn[xm])
+            - vn[c] * dt / dy * (vn[c] - vn[ym])
+            - dt / (2.0 * rho * dy) * (p[yp] - p[ym])
+            + nu * (dt / dx**2 * (vn[xp] - 2.0 * vn[c] + vn[xm])
+                    + dt / dy**2 * (vn[yp] - 2.0 * vn[c] + vn[ym]))
         )
         return FlowState(u=apply_bcs(u, u_bc), v=apply_bcs(v, v_bc), p=p)
 
+    step.batch_polymorphic = True
     return step
 
 

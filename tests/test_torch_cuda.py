@@ -616,6 +616,53 @@ def test_momentum_explicit_fused_is_one_cuda_launch(cuda, shape):
     assert len(names) == 3 and all("momentum" in n for n in names), names
 
 
+@pytest.mark.parametrize("which", ["K1", "K2", "K3"])
+def test_batched_kernel_is_one_cuda_launch(cuda, which):
+    """The profiler sees no more than one CUDA kernel a batched call, and
+    no other kernel (B = 64 at the reference sizes; K1's batch as
+    `sor_batch` makes it, below); the launch counters show one a call.
+    Four calls in one window give 3 or 4 records: on the H100 a window's
+    first launch of a hand-written kernel can be missing from its records
+    (seen for K1 here), and late in this file whole windows came back
+    without a device record, so the test sits early."""
+    B = 64
+    if which == "K1":
+        p, c, h = sor_batch(51, torch.float32, cuda, B)
+        call = lambda: kernels.sor_redblack_fused(  # noqa: E731
+            p, c, h, h, 1.25, 5e-6, 200)
+        tag = "sor_redblack_fused"
+    elif which == "K2":
+        h = 2.0 / 49
+        p = rand((B, 50, 50), torch.float32, cuda, 46)
+        b = rand((B, 50, 50), torch.float32, cuda, 47, 10.0)
+        call = lambda: kernels.jacobi_fused(  # noqa: E731
+            p, b, h, h, 50, p_bcs(h))
+        tag = "jacobi_fused"
+    else:
+        h = 2.0 / 50
+        f = [rand((B, 51, 51), torch.float32, cuda, 48 + i)
+             for i in range(4)]
+        u_bc, v_bc = momentum_bc_lists(h)[0]
+        call = lambda: kernels.momentum_explicit_fused(  # noqa: E731
+            *f, 1e-3, h, h, 0.1, u_bc, v_bc, True)
+        tag = "momentum"
+    call()
+    torch.cuda.synchronize()
+    wrapper = {"K1": kernels.sor_redblack_fused, "K2": kernels.jacobi_fused,
+               "K3": kernels.momentum_explicit_fused}[which]
+    n0 = wrapper.launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert wrapper.launches == n0 + 4
+    assert len(names) in (3, 4) and all(tag in n for n in names), names
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     big = torch.zeros((200, 200), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -1621,3 +1668,181 @@ def test_dp_one_under_a_world_of_one_mesh_is_the_plain_trainer(cuda,
         assert sorted(a.files) == sorted(b.files)
         for k in b.files:
             np.testing.assert_array_equal(a[k], b[k])
+
+
+# --- the batched kernels: K1, K2 and K3 with a member axis --------------------
+#
+# The FD ensemble's form of the kernels (the JAX package's under vmap): one
+# launch for a (B, nx, ny) batch, one block (K1, K2) or one block plane
+# (K3) a member. Odd B puts odd members of a 51^2 float32 batch at 4-byte
+# offsets.
+
+
+def sor_batch(n, dtype, cuda, B=5):
+    """A K1 batch whose members close their gates at different sweeps: one
+    at rest, one started at its own solution, the others random."""
+    h = 2.0 / (n - 1)
+    p = rand((B, n, n), dtype, cuda, 40)
+    c = rand((B, n, n), dtype, cuda, 41, h * h)
+    p[1], c[1] = 0.0, 0.0
+    p[2] = poisson.sor_redblack(p[2], c[2], h, h, 1.25, 5e-6, 200)
+    return p, c, h
+
+
+@pytest.mark.parametrize("dtype,atol,n", [
+    (torch.float64, 1e-10, 51), (torch.float32, 1e-4, 51),
+    (torch.float64, 1e-10, 120), (torch.float32, 1e-4, 170)])
+def test_batched_sor_redblack_fused(cuda, dtype, atol, n):
+    """Batched K1 against its batched twin (each member its own gate), one
+    launch a batch: at a fixed cap (tol 0: the member at rest stops after
+    one sweep, the others run to the cap) and with a converged gate (tol
+    5e-6: members stop at their own sweeps; kernel and twin may stop a
+    sweep apart); at 51^2 and the largest grid one block holds."""
+    p, c, h = sor_batch(n, dtype, cuda)
+    k1 = kernels.sor_redblack_fused
+    for tol, bound in ((0.0, atol),
+                       (5e-6, 1e-4 if dtype == torch.float64 else 1e-3)):
+        n0 = k1.launches
+        got = k1(p, c, h, h, 1.25, tol, 200)
+        assert k1.launches == n0 + 1
+        close(got, poisson.sor_redblack(p, c, h, h, 1.25, tol, 200), dtype,
+              bound)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+def test_batched_jacobi_fused(cuda, dtype, atol):
+    """Batched K2 against its batched twin for each BC list, one launch a
+    batch."""
+    shape = (5, 50, 43)
+    h = 2.0 / 49
+    p0, b = rand(shape, dtype, cuda, 42), rand(shape, dtype, cuda, 43, 10.0)
+    for bcs in k2_bc_lists(h):
+        n0 = kernels.jacobi_fused.launches
+        got = kernels.jacobi_fused(p0, b, h, h, 50, bcs)
+        assert kernels.jacobi_fused.launches == n0 + 1
+        close(got, poisson.jacobi(p0, b, h, h, 50,
+                                  bc_fn=lambda q: apply_bcs(q, bcs)),
+              dtype, atol)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("shape", [(5, 51, 51), (3, 64, 37), (3, 1024, 1024)])
+def test_batched_momentum_explicit_fused(cuda, dtype, atol, shape):
+    """Batched K3 against its batched twin with the cavity lists and lists
+    with Neumann sides, both quirk settings, one launch a batch."""
+    nx, ny = shape[1:]
+    dx, dy = 2.0 / (nx - 1), 2.0 / (ny - 1)
+    f = [rand(shape, dtype, cuda, 44 + i) for i in range(4)]
+    for quirk in (True, False):
+        for u_bc, v_bc in momentum_bc_lists(dx):
+            args = (*f, 1e-3, dx, dy, 0.1, u_bc, v_bc, quirk)
+            n0 = kernels.momentum_explicit_fused.launches
+            got = kernels.momentum_explicit_fused(*args)
+            assert kernels.momentum_explicit_fused.launches == n0 + 1
+            for g, w in zip(got, kernels.momentum_explicit(*args)):
+                close(g, w, dtype, atol)
+
+
+def single_launches(wrapper, batch_args, rest):
+    """The wrapper on each member in turn, each member's fields copied into
+    allocations of their own (as a single rollout's are)."""
+    outs = [wrapper(*(a[m].clone() for a in batch_args), *rest)
+            for m in range(batch_args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [50, 51])
+def test_batched_k1_k2_are_single_launches_bitwise(cuda, dtype, n):
+    """One batched launch of K1 (its members closing their gates at
+    different sweeps) and of K2 gives each member the bits of its own
+    single launch, at 50^2 and 51^2 with B = 5."""
+    p, c, h = sor_batch(n, dtype, cuda)
+    for tol in (0.0, 5e-6):
+        rest = (h, h, 1.25, tol, 200)
+        assert torch.equal(kernels.sor_redblack_fused(p, c, *rest),
+                           single_launches(kernels.sor_redblack_fused,
+                                           (p, c), rest))
+    b = rand(p.shape, dtype, cuda, 45, 10.0)
+    rest = (h, h, 50, p_bcs(h))
+    assert torch.equal(kernels.jacobi_fused(p, b, *rest),
+                       single_launches(kernels.jacobi_fused, (p, b), rest))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(5, 50, 50), (5, 51, 51), (3, 1024, 1024),
+                                   (3, 52, 52)])
+def test_batched_k3_is_single_launches_bitwise(cuda, dtype, shape):
+    """One batched launch of K3 gives each member the bits of its own
+    single launch, at 50^2, 51^2 (odd float32 members 4 bytes off a
+    16-byte boundary) and 1024^2; and a batch whose base sits 4 or 8 bytes
+    off (a member range of a larger buffer: one element a copy) gives the
+    bits of 16-byte vectors at 52^2."""
+    nx = shape[1]
+    h = 2.0 / (nx - 1)
+    f = [rand(shape, dtype, cuda, 50 + i) for i in range(4)]
+    u_bc, v_bc = momentum_bc_lists(h)[1]
+    rest = (1e-3, h, h, 0.1, u_bc, v_bc, True)
+    got = kernels.momentum_explicit_fused(*f, *rest)
+    want = single_launches(kernels.momentum_explicit_fused, f, rest)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if nx == 52:
+        n = f[0].numel()
+        off = []
+        for a in f:
+            buf = torch.empty(n + 1, dtype=dtype, device=cuda)
+            buf[1:] = a.reshape(-1)
+            off.append(buf[1:].view(shape))
+        assert off[0].data_ptr() % 16 != 0
+        for g, w in zip(kernels.momentum_explicit_fused(*off, *rest), want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("family", ["chorin_fd", "direct_fd"])
+def test_fd_ensemble_is_one_launch_a_step(cuda, family):
+    """ensemble_fd_rollout at B = 9 makes one launch of each of its
+    kernels a time step for the whole batch (K1 and K3, or K2), and every
+    member is bitwise its single rollout."""
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.core.state import FlowState
+    from ns_tpu_torch.parallel.ensemble import ensemble_fd_rollout
+    from ns_tpu_torch.solvers import chorin_fd, direct_fd
+
+    B, nt = 9, 6
+    rng = np.random.default_rng(1)
+    if family == "chorin_fd":
+        cfg = chorin_fd.ChorinFDConfig(nt=nt, nit=200, nx=51, ny=51,
+                                       dt=0.001, rho=1.0, nu=0.1,
+                                       method="explicit")
+        bc = cavity_bcs(cfg.dx, cfg.dy)
+        z = np.zeros((51, 51))
+        step = chorin_fd.make_step(cfg, *bc, device=cuda)
+        members = [chorin_fd.init_state(cfg, 0.01 * rng.normal(size=(51, 51)),
+                                        z, z, *bc, device=cuda)
+                   for _ in range(B)]
+        want = {"sor_redblack_fused", "momentum_explicit_fused"}
+    else:
+        cfg = direct_fd.DirectFDConfig(nt=nt, nit=50, nx=50, ny=50)
+        step = direct_fd.make_step(cfg, *cavity_bcs(cfg.dx, cfg.dy))
+        members = [FlowState(*(torch.as_tensor(
+            0.01 * rng.normal(size=(50, 50)), dtype=torch.float32,
+            device=cuda) for _ in range(3))) for _ in range(B)]
+        want = {"jacobi_fused"}
+    fields = [f for f in ("u", "v", "p", "u_prev", "v_prev")
+              if getattr(members[0], f) is not None]
+    batch = FlowState(**{f: torch.stack([getattr(s, f) for s in members])
+                         for f in fields})
+    kernels.reset_launch_counts()
+    got = ensemble_fd_rollout(step, batch, nt)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    calls = {k: v for k, v in kernels.call_counts().items() if v}
+    assert launches == {k: nt for k in want} == calls
+    for i, s in enumerate(members):
+        for _ in range(nt):
+            s = step(s)
+        for f in fields:
+            assert torch.equal(getattr(got, f)[i], getattr(s, f)), (i, f)

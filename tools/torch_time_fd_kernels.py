@@ -127,7 +127,8 @@ def main():
     for n in (51, 170):
         h = 2.0 / (n - 1)
         p, c = rand(n, torch.float32), rand(n, torch.float32, h * h)
-        sweeps = chip_smoke.sor_sweeps(p, c, h, 1.25, 5e-6, 200)
+        sweeps = chip_smoke.sor_sweeps(p[None], c[None], h, 1.25, 5e-6,
+                                       200)[0]
         ms, plain = chip_smoke.paired_ms(
             lambda: kernels.sor_redblack_fused(p, c, h, h, 1.25, 5e-6, 200),
             lambda: poisson.sor_redblack(p, c, h, h, 1.25, 5e-6, 200), 20, 2)

@@ -19,7 +19,9 @@ Phases (any failure exits non-zero, and no result line is printed):
                kernels, K4 also at 4096^2, where it keeps one launch a gate
                group; the 3D transform
                kernels K6-K8 float32 only, each at 'default', its
-               tensor-core kernel, and at 'highest', its fp32 kernel; the
+               tensor-core kernel, and at 'highest', its fp32-class
+               kernel (K6, K7: 3xTF32 on the tensor cores; K8: fp32
+               FMAs); the
                batched routes of K1, K2 and K3, one launch for a batch of
                members, against their batched twins at B = 5, K1's batch
                with members that close their gates at different sweeps,
@@ -27,9 +29,12 @@ Phases (any failure exits non-zero, and no result line is printed):
                its time beside the twin's (measured in turns: twin, kernel,
                kernel, twin; K6-K8 at both precisions), the FD kernels'
                profiler device time too, K6's and K7's beside
-               one cuFFT call of the same function, and the bound each
-               call's bytes and operations set (K6-K8: at the bf16
-               tensor-core peak at 'default', the fp32 peak at 'highest');
+               one cuFFT call of the same function (in the turns of
+               both precisions), and the bound each call's bytes and
+               operations set (K6-K8: at the bf16 tensor-core peak at
+               'default'; at 'highest' K6's and K7's three TF32 products
+               at the TF32 tensor-core peak, K8's at the fp32 peak, the
+               fp32 bound beside each, and each kernel's share of it);
                K1 is timed at 170^2 too, K3 at 51^2 too, K4 (1024^2) and K5
                (1025^2) beside the colour-group kernels
   4. main    — the port's main paths through its CLI entry point: the FD
@@ -57,7 +62,10 @@ Phases (any failure exits non-zero, and no result line is printed):
                residual; the 256^3 Taylor-Green run with the kernels against
                the same run without them (at 'highest', and the 'default'
                main run), the plain run at 'high' against 'highest'; a
-               float64 3D shear flow against exp(-nu t); the 2D periodic
+               float64 3D shear flow against exp(-nu t); the 256^3
+               Taylor-Green rollout at 'high' (the 3D CLI's default) timed
+               fused (K6's 3xTF32 kernel at init, K8's fp32 pair a step)
+               beside plain (steps/s, median of 3 in turns); the 2D periodic
                engines (fft, compact, real_gemm) in float64 on the card
                against the CPU, a float32 1024^2 Taylor-Green run at
                'default' and 'high' against exp(-2 nu t), 'high' against
@@ -269,8 +277,13 @@ library call's time (`library_ms`, null where no one PyTorch call
 computes the function); K1, K2 and K3 their batched route (`batched`:
 launches in each FD ensemble run, errors against the batched twin, times
 and bounds at B = 8, 64 and 512); K6, K7 and K8 add both precisions' times
-(`ms_default`, `ms_highest`), the 'highest' route's twin time and bound,
-and their tensor-core launches; K1, K2, K2mb, K3, K4, K6 and K8 their
+(`ms_default`, `ms_highest`), the 'highest' route's twin time, its bound at
+its arithmetic (`bound_ms_highest`: K6's and K7's 3xTF32 kernels three
+TF32 products a multiply-add at 495 TFLOP/s, K8's fp32 pair fp32 FMAs at
+67), the fp32 FMA bound (`bound_ms_fp32`) and the kernel's share of its
+bound (`share_of_bound_highest`), K6 and K7 the library call timed in the
+'highest' turns (`library_ms_highest`), and all three their bf16
+tensor-core launches on the main path; K1, K2, K2mb, K3, K4, K6 and K8 their
 launches in one replayed call of each runtime engine (`launches_replayed`,
 from the profiler). The last is {"ok": true, "device": {...}}.
 
@@ -281,8 +294,9 @@ sweep apart, so they get 1e-4 abs (float64) and 1e-3 relative (float32).
 K4 and K5 are also held against K5's colour-group kernels (`_color_groups`:
 the same iterate sequence on an independent kernel) on the same input,
 with the same bounds; K2's multi-block form against K2, bitwise. The 3D kernels are held against their twins at
-'highest' (fp32 GEMMs, TF32 off) and at 'default' (bf16 operands and
-intermediates, fp32 sums on both sides; 1e-3 relative).
+'highest' (fp32 GEMMs, TF32 off; K6 and K7 run 3xTF32 there) and at
+'default' (bf16 operands and intermediates, fp32 sums on both sides; 1e-3
+relative).
 """
 
 import contextlib
@@ -394,8 +408,12 @@ def turns_ms(fns, reps: int) -> list:
 
 
 # the card's published peaks (H100 SXM at 700 W): HBM bytes/s, fp32
-# FMA-unit and bf16 tensor-core FLOP/s
+# FMA-unit, bf16 and TF32 tensor-core FLOP/s
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+TF32_FLOPS = 495e12
+# the wrappers whose 'high'/'highest' route is a 3xTF32 kernel: three TF32
+# products a multiply-add (K8's runs on fp32 FMAs)
+TF32X3 = {"fused_zy_forward", "fused_yz_inverse"}
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple:
@@ -898,12 +916,18 @@ def phase_kernels_3d(res: Results, dev):
     non-power-of-two grid, each at 'default' (its tensor-core kernel,
     against the twin at 'default', 1e-3 of max|out|: the fp32 sums run in
     another order, which can flip a rounding of an intermediate to bf16 by
-    one ulp) and at 'highest' (its fp32 kernel, 1e-4). Then each is timed
-    beside its twin at both precisions, in turns, and K6 and K7 beside one
-    PyTorch call of the same function (cuFFT): rfft2 over (y, z) and the
-    gather of the kept rows for K6, irfft2 of the zero-filled spectrum for
-    K7. The main path's precision is 'default': `ms`, `plain_ms` and the
-    bound are its; `ms_highest` and the rest the other route's."""
+    one ulp) and at 'highest' (its 3xTF32 kernel, K8 its fp32 pair, 1e-4).
+    Then each is timed beside its twin at both precisions, in turns, and K6
+    and K7 in both turns beside one PyTorch call of the same function
+    (cuFFT): rfft2 over (y, z) and the gather of the kept rows for K6,
+    irfft2 of the zero-filled spectrum for K7. The main path's precision
+    is 'default': `ms`, `plain_ms`, `library_ms` and the bound are its;
+    `ms_highest`, `plain_ms_highest`, `library_ms_highest` (the library
+    call in the 'highest' turns) and `bound_ms_highest` the other route's,
+    its bound at the route's arithmetic (K6, K7: three TF32 products a
+    multiply-add at the TF32 tensor-core peak; K8: fp32 FMAs) with the
+    fp32 FMA bound beside it (`bound_ms_fp32`) and the kernel's share of
+    its bound (`share_of_bound_highest`)."""
     from ns_tpu_torch.ops import kernels
     from ns_tpu_torch.solvers import spectral3d as s3
 
@@ -985,28 +1009,39 @@ def phase_kernels_3d(res: Results, dev):
         for name, (label, ker, twin) in cases.items():
             nbytes, flops, reps = work[name]
             fns = [lambda: twin("default"), lambda: ker("default")]
+            fns_h = [lambda: twin("highest"), lambda: ker("highest")]
             if name in library:
                 fns.append(library[name][0])
+                fns_h.append(library[name][0])
             ms = turns_ms(fns, reps)
-            ms_th, ms_kh = turns_ms([lambda: twin("highest"),
-                                     lambda: ker("highest")], reps)
+            ms_h = turns_ms(fns_h, reps)
+            ms_th, ms_kh = ms_h[:2]
             res.ms[name], res.plain_ms[name] = ms[1], ms[0]
             res.bound[name] = bound(nbytes, flops, BF16_FLOPS)
-            if name in library:
-                res.library_ms[name] = ms[2]
+            b_fp32 = bound(nbytes, flops, FP32_FLOPS)
+            b_high = (bound(nbytes, 3 * flops, TF32_FLOPS) if name in TF32X3
+                      else b_fp32)
             res.extra[name] = {
                 "ms_default": ms[1], "ms_highest": ms_kh,
-                "plain_ms_highest": ms_th,
-                "bound_ms_highest": bound(nbytes, flops, FP32_FLOPS)[0]}
-            lib = (f"  {library[name][1]} {ms[2]:.4f} ms" if name in library
-                   else "")
+                "plain_ms_highest": ms_th, "bound_ms_highest": b_high[0],
+                "bound_ms_fp32": b_fp32[0],
+                "share_of_bound_highest": b_high[0] / ms_kh}
+            lib = lib_h = ""
+            if name in library:
+                res.library_ms[name] = ms[2]
+                res.extra[name]["library_ms_highest"] = ms_h[2]
+                lib = f"  {library[name][1]} {ms[2]:.4f} ms"
+                lib_h = f"  {library[name][1]} {ms_h[2]:.4f} ms"
+            route = "3xTF32" if name in TF32X3 else "fp32"
             print(f"  {name:26s} {tag} {label}: 'default' kernel "
                   f"{ms[1]:.4f} ms  twin {ms[0]:.4f} ms "
                   f"({ms[0] / ms[1]:.2f}x){lib}; bound "
                   f"{res.bound[name][0]:.4f} ms ({res.bound[name][1]}); "
-                  f"'highest' kernel {ms_kh:.4f} ms  twin {ms_th:.4f} ms "
-                  f"({ms_th / ms_kh:.2f}x), bound "
-                  f"{res.extra[name]['bound_ms_highest']:.4f} ms")
+                  f"'highest' ({route}) kernel {ms_kh:.4f} ms  twin "
+                  f"{ms_th:.4f} ms ({ms_th / ms_kh:.2f}x){lib_h}; bound "
+                  f"{b_high[0]:.4f} ms ({b_high[1]}; "
+                  f"{b_high[0] / ms_kh:.1%} of it), fp32 bound "
+                  f"{b_fp32[0]:.4f} ms")
 
 
 def launched_once(fn, call):
@@ -1387,6 +1422,54 @@ DEFAULT_VS_PLAIN = 8e-3
 HIGH_VS_HIGHEST = 6e-5
 
 
+def tg3d_high_rates() -> dict:
+    """The 256^3 Taylor-Green rollout at 'high' (the 3D CLI's default
+    precision) with the fused kernels on (K6's 3xTF32 kernel in the carry's
+    init, K8's fp32 pair every step) beside off (the plain fp32 GEMM
+    route): steps/s of 8 steps of the built step from the carry (median of
+    3, in turns on, off, ...; the step's constants are built once, as a
+    rollout builds them, outside the timing), and the fused carry's K6
+    route."""
+    from ns_tpu_torch.ops import kernels
+    from ns_tpu_torch.solvers import spectral3d as s3
+
+    runs, times, k6_tf32 = {}, {True: [], False: []}, 0
+    for fused in (True, False):
+        cfg = s3.Spectral3DConfig(nt=8, nx=N3D, ny=N3D, nz=N3D, dt=1e-3,
+                                  nu=6.25e-4, transform="matmul",
+                                  matmul_precision="high",
+                                  use_pallas_transform=fused)
+        t0 = kernels.fused_zy_forward.launches_tf32
+        carry = s3.init_from_velocity(cfg, s3.taylor_green_velocity(cfg),
+                                      DEVICE)
+        if fused:
+            k6_tf32 = kernels.fused_zy_forward.launches_tf32 - t0
+        step, _ = s3.make_step(cfg, carry[0].device)
+        step(carry)  # warm-up
+        runs[fused] = (step, carry)
+    n0 = kernels.fused_lamb.launches
+    for _ in range(3):
+        for fused in (True, False):
+            step, c = runs[fused]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(8):
+                c, _ = step(c)
+            torch.cuda.synchronize()
+            times[fused].append(time.perf_counter() - t0)
+    k8 = kernels.fused_lamb.launches - n0
+    rate = {k: 8 / float(np.median(v)) for k, v in times.items()}
+    label = f"{N3D}^3 TG 8 steps at 'high', steps/s (median of 3)"
+    print(f"  {label:44s} fused "
+          f"{rate[True]:.1f}, plain {rate[False]:.1f}; K6 3xTF32 launches "
+          f"in the fused carry's init {k6_tf32}, K8 launches {k8}")
+    require(k6_tf32 == 1, "the fused 'high' carry did not take K6's 3xTF32 "
+            "kernel once")
+    require(k8 == 3 * 8, f"the fused 'high' rollouts launched K8 {k8} times")
+    return {"fused_steps_per_s": rate[True], "plain_steps_per_s": rate[False],
+            "fused_runs_s": times[True], "plain_runs_s": times[False]}
+
+
 def phase_fidelity_3d(tmp, main_npz):
     from ns_tpu_torch.cli import run_solver
     from ns_tpu_torch.solvers import spectral3d as s3
@@ -1446,6 +1529,7 @@ def phase_fidelity_3d(tmp, main_npz):
     print(f"  {'16^3 f64 shear flow vs exp(-nu t), 50 steps':44s} max_abs "
           f"{err:.3e} (bound 1e-12)")
     require(err <= 1e-12, f"shear flow decay off by {err}")
+    return {"tg3d_high": tg3d_high_rates()}
 
 
 # the float32 1024^2 Taylor-Green run (nu 0.1, dt 1e-3, 100 steps, compact
@@ -4237,8 +4321,8 @@ def main():
         main_path = timed_phase("main", phase_main, tmp, card)
         timed_phase("fidelity", phase_fidelity, tmp)
         timed_phase("fidelity modes", phase_fidelity_modes, tmp)
-        timed_phase("fidelity 3d", phase_fidelity_3d, tmp,
-                    main_path["tg3d_npz"])
+        fid3d = timed_phase("fidelity 3d", phase_fidelity_3d, tmp,
+                            main_path["tg3d_npz"])
         timed_phase("fidelity 2d", phase_fidelity_2d)
         cheb = timed_phase("main chebyshev", phase_main_chebyshev, tmp,
                            card)
@@ -4261,6 +4345,7 @@ def main():
     print(json.dumps({"card": card,
                       "main_path_steps_per_s": main_path["steps_per_s"],
                       "bench_2d": main_path["bench_2d"],
+                      "tg3d_high": fid3d["tg3d_high"],
                       "chebyshev": {
                           "guard_step_51": cheb["guard_step"],
                           "cli_steps_per_s": cheb["rates"],

@@ -2,28 +2,35 @@
 // and K8 of the port. Each has two kernels, by the JAX kernels' precision
 // contract (_prec): at 'default' (the TPU's DEFAULT: bf16 GEMM operands,
 // fp32 accumulation and result) a tensor-core kernel (mma.sync m16n8k16
-// bf16); at 'high' and 'highest' (both HIGHEST there) an fp32 kernel on
+// bf16); at 'high' and 'highest' (both HIGHEST there) an fp32-class
+// kernel: K6 and K7 on the TF32 tensor cores with a 3xTF32 split
+// (mma.sync m16n8k8 tf32, three products each: note further down), K8 on
 // CUDA-core FMAs.
 //
 // K6 fused_zy_forward replaces ns_tpu/ops/pallas/transform3d_kernels.py
 //                     ::fused_zy_forward (body _fwd_kernel): the z-DFT and
 //                     then the y-DFT of the compact forward transform
-//                     (zy_forward_bf16_kernel; zy_forward_kernel).
+//                     (zy_forward_bf16_kernel; zy_forward_tf32_kernel).
 //                     Bound at 256^3, B=3: 201 MB of w read and 90 MB
 //                     written, 0.087 ms at 3.35 TB/s; 40.4 GFLOP, 0.041 ms
-//                     on bf16 tensor cores but 0.60 ms on fp32 FMAs. So the
+//                     on bf16 tensor cores, 0.60 ms on fp32 FMAs, and 0.245
+//                     ms as 3xTF32 (3 x 40.4 GFLOP at 495 TFLOP/s). So the
 //                     bf16 kernel is bound by bytes and is built to stream
 //                     w once per column chunk with the copies overlapped
-//                     (its own note below); the fp32 one is bound by FMAs.
+//                     (its own note below); the 3xTF32 one is bound by its
+//                     tensor-core products and keeps them fed from shared
+//                     memory and registers (its note below).
 // K7 fused_yz_inverse replaces ::fused_yz_inverse (body _inv_kernel): the
 //                     y-inverse and then the z-unfold, real part only
-//                     (yz_inverse_bf16_kernel; yz_inverse_kernel). Bound
-//                     at 256^3, B=1: 30 MB of spectrum read and 67 MB
+//                     (yz_inverse_bf16_kernel; yz_inverse_tf32_kernel).
+//                     Bound at 256^3, B=1: 30 MB of spectrum read and 67 MB
 //                     written, 0.029 ms; 13.5 GFLOP, 0.014 ms on bf16
-//                     tensor cores, 0.20 ms on fp32 FMAs. The bf16 kernel
-//                     reads each slab's spectrum once per 32-row y-tile
-//                     from L2 and writes the physical rows once; both
-//                     GEMMs run on the tensor cores (note further down).
+//                     tensor cores, 0.20 ms on fp32 FMAs, 0.082 ms as
+//                     3xTF32 (bound by operations). The bf16 kernel reads
+//                     each slab's spectrum once per 32-row y-tile from L2,
+//                     the 3xTF32 one once per 128-row y-tile, and both
+//                     write the physical rows once; both GEMMs run on the
+//                     tensor cores (notes further down).
 // K8 fused_lamb       replaces ::fused_lamb (body _lamb_kernel): the whole
 //                     physical leg of the nonlinear term, yz-inverse of six
 //                     fields (u, omega), the cross product u x omega, and
@@ -44,27 +51,15 @@
 //   lamb_tables).
 // The x-stage contracts across x-rows and stays the caller's GEMM.
 //
-// The fp32 kernels. At 256^3 one (ny, nz) float slab is 256 KB, more than
-// a block's 227 KB of shared memory, and one x-row of K8's input (six
-// Ry x Kzc complex fields) is 706 KB. So every fp32 kernel walks an x-row
-// in tiles of kTY = 16 y-rows: a tile's physical rows (16 x nz floats, 16
-// KB) and its z-stage spectrum (16 x Kzc complex, 11 KB) live in shared
-// memory, and the y-stage either needs only the tile's rows (the inverse:
-// y is an output index) or accumulates over tiles (the forward: y is
-// contracted). They are bound by FMA issue, not by bytes: each stage is a
-// register-blocked GEMM on CUDA-core FMAs (a work item is one output
-// column and a block of rows whose sums stay in registers, the shared
-// operand broadcast from shared memory; the rows per item are chosen so
-// that the items of a stage fill the block).
+// K8's fp32 pair. At 256^3 one x-row of K8's input (six Ry x Kzc complex
+// fields) is 706 KB, more than a block's 227 KB of shared memory. So it
+// walks an x-row in tiles of kTY = 16 y-rows: a tile's physical rows and
+// its z-stage spectrum live in shared memory. It is bound by FMA issue,
+// not by bytes: each stage is a register-blocked GEMM on CUDA-core FMAs (a
+// work item is one output column and a block of rows whose sums stay in
+// registers, the shared operand broadcast from shared memory; the rows
+// per item are chosen so that the items of a stage fill the block).
 //
-//   K6 (fp32): one block per (b, x). It loops over the y-tiles: z-stage of
-//       the tile into shared memory, then the tile's share of the y-stage
-//       added into the (Ry, Kzc) output, which stays in shared memory for
-//       the whole row (118 KB at 256^3) and is written once. The z-to-y
-//       intermediate never leaves the chip.
-//   K7 (fp32): one block per (b, x, y-tile). The y-inverse of the tile's
-//       rows contracts all Ry, so no sum crosses blocks; then the z-unfold
-//       Re(t) Bz_re - Im(t) Bz_im writes the tile's physical rows.
 //   K8 (fp32): two launches. The first, one block per (x, y-tile), runs
 //       the y-inverse of the six fields, the z-unfold, the cross product
 //       and the z-forward of the three products, all in shared memory, and
@@ -83,7 +78,7 @@
 namespace ns {
 namespace t3d {
 
-constexpr int kTY = 16;  // y-rows per tile (K6, K7, K8 first launch)
+constexpr int kTY = 16;  // y-rows per tile of K8's first launch
 constexpr int kBT = 16;  // Ry rows per block of K8's y-forward launch
 constexpr int kRB = 4;   // y-rows per register block of K8's z-unfold
 
@@ -171,44 +166,6 @@ __device__ __forceinline__ void z_forward_tile(const float* rows_s, int nc,
     for (int r = 0; r < RPI; ++r)
       if (r0 + r < nrows) o[static_cast<size_t>(r0 + r) * d.kzc] = acc[r];
   }
-}
-
-// ---------------------------------------------------------------------------
-// K6: (B*nx) blocks of 512 threads.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(512)
-zy_forward_kernel(const float* __restrict__ w, const float2* __restrict__ fzt,
-                  const float2* __restrict__ fy, float2* __restrict__ out,
-                  Dims d) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n_out = d.ry * d.kzc;
-  float2* o_s = reinterpret_cast<float2*>(smem);    // [ry][kzc]
-  float2* s_s = o_s + n_out;                         // [kTY][kzc]
-  float* w_s = reinterpret_cast<float*>(s_s + kTY * d.kzc);  // [kTY][nz]
-  const size_t slab = blockIdx.x;
-  const float* wx = w + slab * d.ny * d.nz;
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x)
-    o_s[i] = make_float2(0.f, 0.f);
-  for (int y0 = 0; y0 < d.ny; y0 += kTY) {
-    const int rows = min(kTY, d.ny - y0);
-    // the previous tile's z-stage read w_s before the last barrier
-    for (int i = threadIdx.x; i < kTY * d.nz; i += blockDim.x)
-      w_s[i] = i < rows * d.nz ? wx[static_cast<size_t>(y0) * d.nz + i] : 0.f;
-    __syncthreads();
-    z_forward_tile<4>(w_s, 1, fzt, s_s, 0, kTY, d);
-    __syncthreads();
-    // y-stage share of this tile; each thread owns fixed outputs
-    for (int it = threadIdx.x; it < n_out; it += blockDim.x) {
-      const int b = it / d.kzc, k = it - b * d.kzc;
-      const float2* fyr = fy + static_cast<size_t>(b) * d.ny + y0;
-      float2 acc = o_s[it];
-      for (int r = 0; r < rows; ++r) cmac(acc, __ldg(fyr + r), s_s[r * d.kzc + k]);
-      o_s[it] = acc;
-    }
-  }
-  __syncthreads();
-  float2* ox = out + slab * n_out;
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) ox[i] = o_s[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -525,50 +482,6 @@ zy_forward_bf16_kernel(const float* __restrict__ w,
     if (act) y_stage_mma(acc, F, yb);  // acc += A(j) [t_re; t_im]
   }
   if (act) y_stage_store(acc, out, slab, yr, chunk, d);
-}
-
-// ---------------------------------------------------------------------------
-// K7: grid (B*nx, ceil(ny/kTY)) of 512 threads.
-// ---------------------------------------------------------------------------
-constexpr int kUnfoldRows = 8;  // y-rows per work item of K7's z-unfold
-
-__global__ void __launch_bounds__(512)
-yz_inverse_kernel(const float2* __restrict__ a, const float2* __restrict__ fyi,
-                  const float2* __restrict__ bz, float* __restrict__ out,
-                  Dims d) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* fyi_s = reinterpret_cast<float2*>(smem);  // [kTY][ry]
-  float2* t_s = fyi_s + kTY * d.ry;                 // [kTY][kzc]
-  const size_t slab = blockIdx.x;
-  const int y0 = blockIdx.y * kTY;
-  const int rows = min(kTY, d.ny - y0);
-  load_fyi_tile(fyi, fyi_s, y0, d);
-  __syncthreads();
-  y_inverse_tile<4>(a + slab * d.ry * d.kzc, 0, 1, fyi_s, t_s, d);
-  __syncthreads();
-  float* ox = out + (slab * d.ny + y0) * d.nz;
-  constexpr int G = kTY / kUnfoldRows;
-  for (int it = threadIdx.x; it < G * d.nz; it += blockDim.x) {
-    const int g = it / d.nz, z = it - g * d.nz;
-    const float2* t = t_s + g * kUnfoldRows * d.kzc;
-    float acc[kUnfoldRows];
-#pragma unroll
-    for (int r = 0; r < kUnfoldRows; ++r) acc[r] = 0.f;
-    for (int k = 0; k < d.kzc; ++k) {
-      const float2 b = __ldg(bz + static_cast<size_t>(k) * d.nz + z);
-#pragma unroll
-      for (int r = 0; r < kUnfoldRows; ++r) {
-        const float2 tv = t[r * d.kzc + k];
-        acc[r] = fmaf(tv.x, b.x, acc[r]);
-        acc[r] = fmaf(-tv.y, b.y, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kUnfoldRows; ++r) {
-      const int row = g * kUnfoldRows + r;
-      if (row < rows) ox[static_cast<size_t>(row) * d.nz + z] = acc[r];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1126,18 +1039,561 @@ lamb_yfwd_bf16_kernel(const unsigned short* __restrict__ s,
   if (act) y_stage_store(acc, out, slab, yr, chunk, d);
 }
 
+// ---------------------------------------------------------------------------
+// K6 and K7 at 'high' and 'highest' on the tensor cores: 3xTF32.
+//
+// Each product a b of fp32 operands runs on the TF32 tensor cores (mma.sync
+// m16n8k8 tf32, fp32 accumulator) as three: with x = big + small, big =
+// tf32(x) and small = tf32(x - big) (cvt.rna: to nearest, ties away from
+// zero, at 10 mantissa bits; x - big is exact in fp32), acc += a_small
+// b_big, then a_big b_small, then a_big b_big. The dropped a_small b_small
+// and small's own rounding are ~2^-22 of the product, so the sums stay
+// fp32-class, as the HIGHEST contract wants (one TF32 product, ~3e-4 of
+// max|out|, does not keep it). The DFT tables are split once by the
+// wrappers (ops/kernels/transform3d_kernels.py: tf32_tables,
+// inverse_tf32_tables) into big and small planes in mma fragment order;
+// the data (K6: w, K7: the spectrum) are split in registers after each
+// load from shared memory; the intermediate t is split once, as it is
+// stored to shared memory, into big and small planes that the second GEMM
+// reads as they are.
+//
+// Fragment order: the contraction index k of each 8-deep MMA step is
+// permuted so that a lane's two k values are neighbours: k = tq comes from
+// position 2 tq of the step and k = tq + 4 from 2 tq + 1 (g = lane / 4, tq
+// = lane % 4). So a lane's A values (rows g and g + 8) and B values
+// (column g) of a step are float2 loads from a row-major tile, free of bank
+// conflicts at a row stride of 8 mod 16 floats (2 mod 16 float2). A table
+// entry (step s, tile r, lane) holds A registers (a0, a1, a2, a3) = X[16 r
+// + g + 8 (i % 2)][8 s + 2 tq + i / 2], i = 0..3, big and small in planes
+// of their own, or B registers (b0 big, b1 big, b0 small, b1 small) with
+// b_i = X[8 s + 2 tq + i][8 n + g].
+//
+// Bounds (three TF32 products a multiply-add at 495 TFLOP/s, or bytes at
+// 3.35 TB/s, whichever is larger; the fp32 FMA figure beside it): K6 at
+// 256^3, B=3, 0.245 ms (fp32: 0.60 ms); K7, B=1, 0.082 ms (fp32: 0.20 ms).
+// Both are bound by their products. The designs keep the tensor cores fed:
+// every MMA operand comes from registers, from shared memory in float2 or
+// 16-byte loads free of bank conflicts, or from a fragment-order table
+// (L2-resident) loaded one step ahead; the outputs accumulate in registers
+// and are written once; only w and the spectrum are read from device
+// memory. Each step's products go through a fresh MMA accumulator and are
+// added to the fp32 sums in registers (mma3, mma6): the tensor cores
+// truncate as they accumulate, and chains of 66-384 MMAs into one sum read
+// ~10x the fp32 twin's error against float64 on the H100.
+//
+// K6: grid (nchunks * rparts, B*nx) of kTThreads, one block per (Kzc chunk
+// of kBKC columns, part of the Ry rows, slab), as K6's bf16 kernel. It
+// walks the slab in y-tiles of kTTY rows. A tile's z-stage is the GEMM t
+// (kTTY, 2 kBKC) = w (kTTY, nz) Fz_chunk^T over z-slices of kTKZ: a
+// slice's w rows (fp32, cp.async, zero past ny and nz) and its Fz
+// fragments (cp.async from the table) land in one of kTStages stage
+// buffers, the next kTStages - 1 slices in flight while one is used (a
+// slice is ~0.4 us of products, less than a copy's latency from device
+// memory), one barrier a slice. Warp (zm, zg) computes m-tile zm and n-tiles
+// 4 zg .. 4 zg + 3 of t. After the tile's last slice t is split and stored
+// transposed (planes [big, small][n][y]), and the y-stage adds the tile's
+// share of out = [[Fy_re, -Fy_im], [Fy_im, Fy_re]] [t_re; t_im]: warp w
+// owns row tile yr of Ry (its out_re and out_im m-tiles, 48 fp32 a thread
+// for the whole slab); Fy's fragments come from the table one step ahead
+// (the first over the tile's last z-slice). Shared memory: 194,560 bytes
+// at any grid.
+//
+// K7: grid (B*nx, nyp/kUTY) of kUThreads, one block per (slab, y-tile of
+// kUTY rows). The slab's spectrum lands once in shared memory as fp32
+// (cp.async, interleaved complex, zero past Ry and Kzc), while the first
+// Fyi fragments are in flight. The y-inverse: warp w owns m-tile w (16
+// y-rows) and every Kzc n-tile, t_re and t_im in registers; Fyi's
+// fragments come from the table one step ahead, the spectrum's B values
+// as float2 (re, im) loads split in registers. Then t is split into big
+// and small planes over the spectrum (after a barrier), and the z-unfold
+// [t_re | t_im] [Bz_re; -Bz_im] runs on items of (4 m-tiles, 4 z n-tiles),
+// Bz's fragments one step ahead; the physical rows are written once.
+// ---------------------------------------------------------------------------
+constexpr int kTTY = 64;                            // K6 y-rows per tile
+constexpr int kTKZ = 32;                            // K6 z per slice
+constexpr int kTWS = kTKZ + 8;                      // w slice row stride
+constexpr int kTN1 = 2 * kBKC;                      // z-stage columns
+constexpr int kTTS = kTTY + 8;                      // t plane row stride
+constexpr int kTFz = (kTKZ / 8) * (kTN1 / 8) * 32;  // uint4 of a Fz slice
+constexpr int kTStages = 4;                         // z-slices in flight
+constexpr int kTWarps = 12;
+constexpr int kTThreads = 32 * kTWarps;
+constexpr int kUTY = 128;  // K7 y-rows per block
+constexpr int kUWarps = kUTY / 16;
+constexpr int kUThreads = 32 * kUWarps;
+// K7's instances by Kzc n-tiles (a Kzc of 8 NT or less takes the first NT
+// that holds it, the n-tiles past Kzc zero): the n-loops are unrolled
+// without a branch. Its t planes (2 kUTY (16 NT + 8) floats) fit a block's
+// shared memory up to NT = 13.
+constexpr int kUNTs[] = {3, 6, 11, 13};
+
+struct TfDims {
+  int ny, nz, ry, kzc;
+  int nsl;      // z-slices, ceil(nz / kTKZ)
+  int rt;       // 16-row tiles of Ry
+  int nchunks;  // ceil(kzc / kBKC)
+  int rparts;   // ceil(rt / kTWarps)
+  int nyt;      // ceil(ny / kTTY)
+};
+
+struct TiDims {
+  int ny, nz, ry, kzc;
+  int ntk;  // Kzc n-tiles of the instance (NT), at least ceil(kzc / 8)
+  int nks;  // y-inverse k-steps, ceil(ry / 8)
+  int nzt;  // z n-tiles, nz rounded up to 32, over 8
+  int sa;   // spectrum row stride (float2): 8 ntk rounded up to 16, + 2
+  int st;   // t plane row stride (floats): 16 ntk + 8
+};
+
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// x = big + small as tf32 (low 13 bits zero): big = rna(x), small =
+// rna(x - big)
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  unsigned b, s;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(b) : "f"(x));
+  b &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(s) : "f"(x - __uint_as_float(b)));
+  big = b;
+  small = s & 0xffffe000u;
+}
+
+// A of one step from the lane's float2 loads of rows g (x0) and g + 8 (x1)
+// (k = tq, k = tq + 4), split
+__device__ __forceinline__ void split_a(float2 x0, float2 x1, uint4& big,
+                                        uint4& small) {
+  split_tf32(x0.x, big.x, small.x);
+  split_tf32(x1.x, big.y, small.y);
+  split_tf32(x0.y, big.z, small.z);
+  split_tf32(x1.y, big.w, small.w);
+}
+
+// c += A B for one m16n8k8 tile: tf32 inputs, fp32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint4& a,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// d = A B for one m16n8k8 tile into a fresh accumulator
+__device__ __forceinline__ void mma_tf32_0(float (&d)[4], const uint4& a,
+                                           unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+// The split B values of one step: (b0, b1) big and small
+struct SplitB {
+  unsigned b0, b1, s0, s1;
+};
+
+__device__ __forceinline__ SplitB split_b(float b0, float b1) {
+  SplitB b;
+  split_tf32(b0, b.b0, b.s0);
+  split_tf32(b1, b.b1, b.s1);
+  return b;
+}
+
+// from the big and small planes' float2 loads
+__device__ __forceinline__ SplitB planes_b(float2 big, float2 small) {
+  return {__float_as_uint(big.x), __float_as_uint(big.y),
+          __float_as_uint(small.x), __float_as_uint(small.y)};
+}
+
+// -B
+__device__ __forceinline__ SplitB neg_b(const SplitB& b) {
+  return {b.b0 ^ 0x80000000u, b.b1 ^ 0x80000000u, b.s0 ^ 0x80000000u,
+          b.s1 ^ 0x80000000u};
+}
+
+// The tensor cores add the products of an MMA to its accumulator with
+// truncation, so a chain of MMAs into one sum loses ~one ulp of the sum at
+// every link. So each 8-deep step's products are taken into a fresh
+// accumulator and added to the fp32 sum in registers with rounding to
+// nearest.
+
+// c += A B at 3xTF32 for one step, A = ab + as: the two cross terms, then
+// the big product
+__device__ __forceinline__ void mma3(float (&c)[4], const uint4& ab,
+                                     const uint4& as, const SplitB& b) {
+  float d[4];
+  mma_tf32_0(d, as, b.b0, b.b1);
+  mma_tf32(d, ab, b.s0, b.s1);
+  mma_tf32(d, ab, b.b0, b.b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// c += A1 B1 + A2 B2 at 3xTF32 for one step: the four cross terms, then
+// the two big products
+__device__ __forceinline__ void mma6(float (&c)[4], const uint4& ab1,
+                                     const uint4& as1, const SplitB& b1,
+                                     const uint4& ab2, const uint4& as2,
+                                     const SplitB& b2) {
+  float d[4];
+  mma_tf32_0(d, as1, b1.b0, b1.b1);
+  mma_tf32(d, ab1, b1.s0, b1.s1);
+  mma_tf32(d, as2, b2.b0, b2.b1);
+  mma_tf32(d, ab2, b2.s0, b2.s1);
+  mma_tf32(d, ab1, b1.b0, b1.b1);
+  mma_tf32(d, ab2, b2.b0, b2.b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// fzt (nchunks, nsl * kTKZ / 8, kTN1 / 8, 32) uint4: chunk c's Fz rows (n <
+// kBKC: Re Fz_t[c kBKC + n], then Im) as B fragments of their transpose (k
+// = z, zero past nz and Kzc). fya (nyt * kTTY / 8 + 1, rt, 4, 32) uint4:
+// Fy_t's A fragments, entry (s, r, q, lane) the (16 r .., 8 s ..) tile of
+// Fy_re big (q = 0), Fy_re small, Fy_im big, Fy_im small, zero past Ry and
+// ny (one step past the last tile, which the y-stage prefetches).
+__global__ void __launch_bounds__(kTThreads, 1)
+zy_forward_tf32_kernel(const float* __restrict__ w,
+                       const uint4* __restrict__ fzt,
+                       const uint4* __restrict__ fya,
+                       float* __restrict__ out, TfDims d, int vec16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* fz_s = reinterpret_cast<uint4*>(smem);  // [kTStages][kTFz]
+  float* w_s =
+      reinterpret_cast<float*>(fz_s + kTStages * kTFz);  // [kTStages][kTTY][kTWS]
+  float* t_s = w_s + kTStages * kTTY * kTWS;  // [2 (big, small)][kTN1][kTTS]
+  const int chunk = blockIdx.x % d.nchunks, rpart = blockIdx.x / d.nchunks;
+  const size_t slab = blockIdx.y;
+  const float* wx = w + slab * d.ny * d.nz;
+  const uint4* fzc = fzt + static_cast<size_t>(chunk) * d.nsl * kTFz;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+
+  // stage i = (y-tile i / nsl, z-slice i % nsl) into buffer i % kTStages
+  auto load_stage = [&](int i) {
+    const int j = i / d.nsl, sl = i - j * d.nsl, buf = i % kTStages;
+    const uint4* src = fzc + static_cast<size_t>(sl) * kTFz;
+    uint4* dst = fz_s + buf * kTFz;
+    for (int q = threadIdx.x; q < kTFz; q += kTThreads)
+      cp_async16(smem_u32(dst + q), src + q, 16);
+    float* wb = w_s + buf * kTTY * kTWS;
+    const int y0 = j * kTTY, z0 = sl * kTKZ;
+    if (vec16) {  // nz % 4 == 0 and w 16-byte aligned: whole 16-byte chunks
+      constexpr int cpr = kTKZ / 4;
+      for (int q = threadIdx.x; q < kTTY * cpr; q += kTThreads) {
+        const int r = q / cpr, c = (q - r * cpr) * 4;
+        const int y = y0 + r, z = z0 + c;
+        const bool ok = y < d.ny && z < d.nz;
+        cp_async16(smem_u32(wb + r * kTWS + c),
+                   ok ? wx + static_cast<size_t>(y) * d.nz + z : wx,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int q = threadIdx.x; q < kTTY * kTKZ; q += kTThreads) {
+        const int r = q / kTKZ, c = q - r * kTKZ;
+        const int y = y0 + r, z = z0 + c;
+        const bool ok = y < d.ny && z < d.nz;
+        cp_async4(smem_u32(wb + r * kTWS + c),
+                  ok ? wx + static_cast<size_t>(y) * d.nz + z : wx,
+                  ok ? 4 : 0);
+      }
+    }
+  };
+
+  const int zm = warp & 3, zn0 = (warp >> 2) * 4;  // z-stage tiles
+  const int yr = rpart * kTWarps + warp;           // y-stage row tile
+  const bool act = yr < d.rt;
+  float acc[2][kBKC / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < kBKC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  uint4 F[4], Fn[4];  // Fy fragments of this y-step and the next
+  auto fetch = [&](int s8, uint4(&f)[4]) {
+    const uint4* p =
+        fya + (static_cast<size_t>(s8) * d.rt + yr) * 4 * 32 + lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f[q] = __ldg(p + q * 32);
+  };
+
+  // kTStages - 1 stages in flight ahead of the one computed; one
+  // cp.async group a stage (empty past the last), so that waiting for all
+  // but the newest kTStages - 2 groups waits for stage i
+  const int nst = d.nyt * d.nsl;
+#pragma unroll
+  for (int i = 0; i < kTStages - 1; ++i) {
+    if (i < nst) load_stage(i);
+    cp_async_commit();
+  }
+  for (int j = 0, i = 0; j < d.nyt; ++j) {
+    // z-stage of y-tile j, stage i = (j, sl)
+    float zc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) zc[n][e] = 0.f;
+    for (int sl = 0; sl < d.nsl; ++sl, ++i) {
+      cp_async_wait<kTStages - 2>();
+      // stage i landed for every thread, and every thread is done with
+      // stage i - 1, whose buffer the load below refills
+      __syncthreads();
+      if (i + kTStages - 1 < nst) load_stage(i + kTStages - 1);
+      cp_async_commit();
+      // the y-stage's first fragments, in flight over the last slice
+      if (sl == d.nsl - 1 && act) fetch(j * (kTTY / 8), F);
+      // t += w Fz^T over the slice, w split in registers
+      const int buf = i % kTStages;
+      const float* wr =
+          w_s + buf * kTTY * kTWS + (zm * 16 + g) * kTWS + 2 * tq;
+      const uint4* fb = fz_s + buf * kTFz + zn0 * 32 + lane;
+#pragma unroll
+      for (int ks = 0; ks < kTKZ / 8; ++ks) {
+        uint4 ab, as;
+        split_a(*reinterpret_cast<const float2*>(wr + ks * 8),
+                *reinterpret_cast<const float2*>(wr + 8 * kTWS + ks * 8), ab,
+                as);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const uint4 b = fb[(ks * (kTN1 / 8) + n) * 32];
+          mma3(zc[n], ab, as, SplitB{b.x, b.y, b.z, b.w});
+        }
+      }
+    }
+    // the tile's t, split into the big and small planes, transposed: zc[n]
+    // holds rows zm 16 + g (+ 8), columns (zn0 + n) 8 + 2 tq (+ 1); every
+    // thread finished the previous tile's y-stage before this tile's
+    // slice barriers
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = (zn0 + n) * 8 + 2 * tq + (e & 1);
+        const int row = zm * 16 + g + 8 * (e >> 1);
+        unsigned b, s;
+        split_tf32(zc[n][e], b, s);
+        t_s[col * kTTS + row] = __uint_as_float(b);
+        t_s[(kTN1 + col) * kTTS + row] = __uint_as_float(s);
+      }
+    __syncthreads();  // the tile's t is complete
+    if (act) {
+      // out_re += Fy_re t_re + Fy_im (-t_im), out_im += Fy_im t_re + Fy_re
+      // t_im over the tile's y-steps
+      const float* tb = t_s + g * kTTS + 2 * tq;
+#pragma unroll 1
+      for (int k = 0; k < kTTY / 8; ++k) {
+        // the next step's (the table has one step past the last tile)
+        fetch(j * (kTTY / 8) + k + 1, Fn);
+#pragma unroll
+        for (int n = 0; n < kBKC / 8; ++n) {
+          const float* p = tb + n * 8 * kTTS + k * 8;
+          const float2 rb = *reinterpret_cast<const float2*>(p);
+          const float2 rs = *reinterpret_cast<const float2*>(p + kTN1 * kTTS);
+          const float2 ib = *reinterpret_cast<const float2*>(p + kBKC * kTTS);
+          const float2 is =
+              *reinterpret_cast<const float2*>(p + (kTN1 + kBKC) * kTTS);
+          const SplitB tr = planes_b(rb, rs), ti = planes_b(ib, is);
+          mma6(acc[0][n], F[0], F[1], tr, F[2], F[3], neg_b(ti));
+          mma6(acc[1][n], F[2], F[3], tr, F[0], F[1], ti);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) F[q] = Fn[q];
+      }
+    }
+  }
+  if (act) {
+    BfDims bd;
+    bd.ry = d.ry;
+    bd.kzc = d.kzc;
+    y_stage_store(acc, out, slab, yr, chunk, bd);
+  }
+}
+
+// fia (nyp/16, nks, 4, 32) uint4: Fyi_t's A fragments, entry (m, s, q,
+// lane) the (16 m .., 8 s ..) tile of Fyi_re big (q = 0), Fyi_re small,
+// Fyi_im big, Fyi_im small, zero past ny and Ry (nyp: ny rounded up to
+// kUTY). bzt (2 ntk, nzt, 32) uint4: [Bz_re; -Bz_im] (16 ntk rows, re rows
+// from 0 and im rows from 8 ntk, zero past Kzc and nz) as B fragments.
+template <int NT>
+__global__ void __launch_bounds__(kUThreads, 1)
+yz_inverse_tf32_kernel(const float2* __restrict__ a,
+                       const uint4* __restrict__ fia,
+                       const uint4* __restrict__ bzt, float* __restrict__ out,
+                       TiDims d, int vec16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* a_s = reinterpret_cast<float2*>(smem);  // [8 nks][sa]
+  float* t_s = reinterpret_cast<float*>(smem);  // [2][kUTY][st], after a_s
+  const size_t slab = blockIdx.x;
+  const int ytile = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  constexpr int cols = NT * 8;
+  {  // the slab's spectrum, zero past Ry and Kzc
+    const float2* src = a + slab * d.ry * d.kzc;
+    const int rows = d.nks * 8;
+    if (vec16) {  // Kzc even and a 16-byte aligned: two complex a copy
+      const int ppr = cols / 2;
+      for (int q = threadIdx.x; q < rows * ppr; q += kUThreads) {
+        const int r = q / ppr, c = (q - r * ppr) * 2;
+        const bool ok = r < d.ry && c < d.kzc;
+        cp_async16(smem_u32(a_s + r * d.sa + c),
+                   ok ? src + static_cast<size_t>(r) * d.kzc + c : src,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int q = threadIdx.x; q < rows * cols; q += kUThreads) {
+        const int r = q / cols, c = q - r * cols;
+        const bool ok = r < d.ry && c < d.kzc;
+        cp_async8(smem_u32(a_s + r * d.sa + c),
+                  ok ? src + static_cast<size_t>(r) * d.kzc + c : src,
+                  ok ? 8 : 0);
+      }
+    }
+    cp_async_commit();
+  }
+  const uint4* fp =
+      fia + static_cast<size_t>(ytile * kUWarps + warp) * d.nks * 4 * 32 +
+      lane;
+  uint4 F[4], Fn[4];  // Fyi fragments of this k-step and the next
+#pragma unroll
+  for (int q = 0; q < 4; ++q) F[q] = __ldg(fp + q * 32);
+  cp_async_wait<0>();
+  __syncthreads();  // the spectrum landed
+
+  // y-inverse: t_re += Fyi_re a_re + Fyi_im (-a_im), t_im += Fyi_re a_im
+  // + Fyi_im a_re; m-tile warp, n-tiles 0 .. NT-1
+  float acc[2][NT][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][n][e] = 0.f;
+  for (int s = 0; s < d.nks; ++s) {
+    if (s + 1 < d.nks) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) Fn[q] = __ldg(fp + ((s + 1) * 4 + q) * 32);
+    }
+    // rows 8 s + 2 tq (b0) and + 1 (b1) of column 8 n + g
+    const float2* ar = a_s + (s * 8 + 2 * tq) * d.sa + g;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 v0 = ar[n * 8], v1 = ar[d.sa + n * 8];
+      const SplitB re = split_b(v0.x, v1.x), im = split_b(v0.y, v1.y);
+      mma6(acc[0][n], F[0], F[1], re, F[2], F[3], neg_b(im));
+      mma6(acc[1][n], F[0], F[1], im, F[2], F[3], re);
+    }
+    if (s + 1 < d.nks) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) F[q] = Fn[q];
+    }
+  }
+  __syncthreads();  // every warp is done with the spectrum
+
+  // t split into big and small planes over it: re at column c, im at
+  // cols + c
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned b0, s0, b1, s1;
+        split_tf32(acc[p][n][2 * h], b0, s0);
+        split_tf32(acc[p][n][2 * h + 1], b1, s1);
+        float* t0 =
+            t_s + (warp * 16 + g + 8 * h) * d.st + p * cols + n * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(t0) =
+            make_float2(__uint_as_float(b0), __uint_as_float(b1));
+        *reinterpret_cast<float2*>(t0 + kUTY * d.st) =
+            make_float2(__uint_as_float(s0), __uint_as_float(s1));
+      }
+  __syncthreads();  // t is complete
+
+  // z-unfold: out = [t_re | t_im] [Bz_re; -Bz_im]; item (mh, zg): m-tiles
+  // 4 mh .. 4 mh + 3, z n-tiles 4 zg .. 4 zg + 3
+  constexpr int nk2 = 2 * NT;
+  for (int item = warp; item < 2 * (d.nzt / 4); item += kUWarps) {
+    const int mh = item & 1, zg = item >> 1;
+    float c[4][4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[m][n][e] = 0.f;
+    const uint4* bp = bzt + static_cast<size_t>(zg) * 4 * 32 + lane;
+    uint4 Bc[4], Bn[4];  // Bz fragments of this k-step and the next
+#pragma unroll
+    for (int n = 0; n < 4; ++n) Bc[n] = __ldg(bp + n * 32);
+    const float* tr = t_s + (mh * 64 + g) * d.st + 2 * tq;
+    for (int s = 0; s < nk2; ++s) {
+      if (s + 1 < nk2) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          Bn[n] = __ldg(bp + (static_cast<size_t>(s + 1) * d.nzt + n) * 32);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float* p = tr + m * 16 * d.st + s * 8;
+        const float2 x0 = *reinterpret_cast<const float2*>(p);
+        const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * d.st);
+        const float2 y0 =
+            *reinterpret_cast<const float2*>(p + kUTY * d.st);
+        const float2 y1 =
+            *reinterpret_cast<const float2*>(p + (kUTY + 8) * d.st);
+        const uint4 ab =
+            make_uint4(__float_as_uint(x0.x), __float_as_uint(x1.x),
+                       __float_as_uint(x0.y), __float_as_uint(x1.y));
+        const uint4 as =
+            make_uint4(__float_as_uint(y0.x), __float_as_uint(y1.x),
+                       __float_as_uint(y0.y), __float_as_uint(y1.y));
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          mma3(c[m][n], ab, as, SplitB{Bc[n].x, Bc[n].y, Bc[n].z, Bc[n].w});
+      }
+      if (s + 1 < nk2) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) Bc[n] = Bn[n];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int y = ytile * kUTY + mh * 64 + m * 16 + g + 8 * h;
+        if (y >= d.ny) continue;
+        float* o = out + (slab * d.ny + y) * d.nz;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int z = (zg * 4 + n) * 8 + 2 * tq;
+          if (z < d.nz) o[z] = c[m][n][2 * h];
+          if (z + 1 < d.nz) o[z + 1] = c[m][n][2 * h + 1];
+        }
+      }
+  }
+}
+
 // Shared-memory bytes of each kernel; the wrappers' fit check
 // (ops/kernels/transform3d_kernels.py::smem_bytes) mirrors these.
-inline size_t smem_zy_forward(const Dims& d) {
-  return (static_cast<size_t>(d.ry) * d.kzc + kTY * d.kzc) * sizeof(float2) +
-         static_cast<size_t>(kTY) * d.nz * sizeof(float);
+inline size_t smem_zy_forward_tf32() {
+  return kTStages * kTFz * sizeof(uint4) +
+         (kTStages * kTTY * kTWS + 2 * kTN1 * kTTS) * sizeof(float);
 }
 inline size_t smem_zy_forward_bf16(const BfDims& d) {
   const size_t nzs = d.nzp + 8;
   return 2 * kBTY * nzs * sizeof(float) + kBN1 * nzs * 2 + kBTY * kBTS * 2;
 }
-inline size_t smem_yz_inverse(const Dims& d) {
-  return static_cast<size_t>(kTY) * (d.ry + d.kzc) * sizeof(float2);
+inline size_t smem_yz_inverse_tf32(const TiDims& d) {
+  return std::max(static_cast<size_t>(d.nks) * 8 * d.sa * sizeof(float2),
+                  static_cast<size_t>(2) * kUTY * d.st * sizeof(float));
 }
 inline size_t smem_lamb_phys(const Dims& d) {
   return static_cast<size_t>(kTY) * (d.ry + 6 * d.kzc) * sizeof(float2) +
@@ -1168,6 +1624,35 @@ inline VDims make_vdims(int nx, int ny, int nz, int ry, int kzc) {
   return d;
 }
 
+inline TfDims make_tfdims(int ny, int nz, int ry, int kzc) {
+  TfDims d;
+  d.ny = ny;
+  d.nz = nz;
+  d.ry = ry;
+  d.kzc = kzc;
+  d.nsl = (nz + kTKZ - 1) / kTKZ;
+  d.rt = (ry + 15) / 16;
+  d.nchunks = (kzc + kBKC - 1) / kBKC;
+  d.rparts = (d.rt + kTWarps - 1) / kTWarps;
+  d.nyt = (ny + kTTY - 1) / kTTY;
+  return d;
+}
+
+// K7's dims for its instance of nt n-tiles
+inline TiDims make_tidims(int ny, int nz, int ry, int kzc, int nt) {
+  TiDims d;
+  d.ny = ny;
+  d.nz = nz;
+  d.ry = ry;
+  d.kzc = kzc;
+  d.ntk = nt;
+  d.nks = (ry + 7) / 8;
+  d.nzt = round_up(nz, 32) / 8;
+  d.sa = round_up(8 * d.ntk, 16) + 2;
+  d.st = 16 * d.ntk + 8;
+  return d;
+}
+
 inline BfDims make_bfdims(int ny, int nz, int ry, int kzc) {
   BfDims d;
   d.ny = ny;
@@ -1193,17 +1678,21 @@ inline int block_threads(int items, int lo, int hi) {
 
 extern "C" {
 
-int ns_fused_zy_forward_f32(const void* w, const void* fzt, const void* fy,
+int ns_fused_zy_forward_f32(const void* w, const void* fzt, const void* fya,
                             void* out, int B, int nx, int ny, int nz, int ry,
                             int kzc, void* stream) {
   using namespace ns::t3d;
-  const Dims d{nx, ny, nz, ry, kzc};
-  const size_t smem = smem_zy_forward(d);
-  cudaError_t e = ns::allow_smem(zy_forward_kernel, smem);
+  const TfDims d = make_tfdims(ny, nz, ry, kzc);
+  const int vec16 =
+      nz % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const size_t smem = smem_zy_forward_tf32();
+  cudaError_t e = ns::allow_smem(zy_forward_tf32_kernel, smem);
   if (e != cudaSuccess) return e;
-  zy_forward_kernel<<<B * nx, 512, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), static_cast<const float2*>(fzt),
-      static_cast<const float2*>(fy), static_cast<float2*>(out), d);
+  const dim3 grid(d.nchunks * d.rparts, B * nx);
+  zy_forward_tf32_kernel<<<grid, kTThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), static_cast<const uint4*>(fzt),
+      static_cast<const uint4*>(fya), static_cast<float*>(out), d, vec16);
   return cudaGetLastError();
 }
 
@@ -1226,19 +1715,33 @@ int ns_fused_zy_forward_bf16_f32(const void* w, const void* fzb,
   return cudaGetLastError();
 }
 
-int ns_fused_yz_inverse_f32(const void* a, const void* fyi, const void* bz,
+int ns_fused_yz_inverse_f32(const void* a, const void* fia, const void* bzt,
                             void* out, int B, int nx, int ny, int nz, int ry,
                             int kzc, void* stream) {
   using namespace ns::t3d;
-  const Dims d{nx, ny, nz, ry, kzc};
-  const size_t smem = smem_yz_inverse(d);
-  cudaError_t e = ns::allow_smem(yz_inverse_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(B * nx, (ny + kTY - 1) / kTY);
-  yz_inverse_kernel<<<grid, 512, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(a), static_cast<const float2*>(fyi),
-      static_cast<const float2*>(bz), static_cast<float*>(out), d);
-  return cudaGetLastError();
+  int nt = 0;
+  for (int n : kUNTs)
+    if (!nt && 8 * n >= kzc) nt = n;
+  if (!nt) return cudaErrorInvalidValue;
+  const TiDims d = make_tidims(ny, nz, ry, kzc, nt);
+  const int vec16 =
+      kzc % 2 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const size_t smem = smem_yz_inverse_tf32(d);
+  const dim3 grid(B * nx, (ny + kUTY - 1) / kUTY);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = ns::allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kUThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(a), static_cast<const uint4*>(fia),
+        static_cast<const uint4*>(bzt), static_cast<float*>(out), d, vec16);
+    return cudaGetLastError();
+  };
+  switch (nt) {
+    case 3: return launch(yz_inverse_tf32_kernel<3>);
+    case 6: return launch(yz_inverse_tf32_kernel<6>);
+    case 11: return launch(yz_inverse_tf32_kernel<11>);
+    default: return launch(yz_inverse_tf32_kernel<13>);
+  }
 }
 
 int ns_fused_lamb_f32(const void* a6, const void* fyi, const void* bz,

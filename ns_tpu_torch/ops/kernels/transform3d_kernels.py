@@ -19,15 +19,17 @@ with the TPU DEFAULT's rounding points (every GEMM operand rounded to
 bf16, fp32 accumulation and result; K6: w, Fz_t, t and Fy_t; K7: a,
 Fyi_t, t and Bz; K8: K7's on the six fields, then K6's on the three
 products), which are also the twins' at 'default'; at 'high' and
-'highest' (both HIGHEST on the TPU) their fp32 kernels.
+'highest' (both HIGHEST on the TPU) an fp32-class kernel: K6 and K7 on
+the TF32 tensor cores with every product split in three (3xTF32:
+`tf32_split`; fp32 accumulation), K8 on CUDA-core fp32 FMAs.
 
 The DFT tables (`Fz_t`, `Fy_t`, `Fyi_t`, `Bz`) may be host numpy arrays, as
 the JAX wrappers take them, or complex torch tensors; the solver passes
 tensors already on the device. Dispatch is by the input's device: a CPU
 tensor takes the twin, a CUDA tensor launches the kernel or raises. Each
 wrapper counts its calls that launched in `launches` (K8 is two CUDA
-launches per call and counts one), and its tensor-core calls also in
-`launches_bf16`.
+launches per call and counts one), its bf16 tensor-core calls also in
+`launches_bf16`, and K6's and K7's 3xTF32 calls in `launches_tf32`.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from ns_tpu_torch.ops.gemm import cmatmul
 from ns_tpu_torch.ops.kernels import _build
 from ns_tpu_torch.ops.kernels.poisson_kernels import SMEM_BUDGET
 
-# tile sizes of csrc/transform3d_kernels.cu (kTY, kBT)
+# tile sizes of csrc/transform3d_kernels.cu: K8's fp32 pair (kTY, kBT)
 TILE_Y = 16
 TILE_RY = 16
 # K6's tensor-core kernel (kBTY, kBKC): y-rows per tile, output columns
@@ -51,17 +53,39 @@ BF16_TY = 32
 BF16_KC = 48
 # K7's and K8's tensor-core kernels (kVTY): y-rows per block
 INV_TY = 32
+# K6's 3xTF32 kernel (kTTY, kTKZ, kTStages): y-rows per tile, z per
+# slice, slices in flight; its shared memory (the stages of a w slice and
+# an Fz slice, and t's big and small planes) does not depend on the grid
+TF32_TY = 64
+TF32_KZ = 32
+TF32_STAGES = 4
+TF32_SMEM = (TF32_STAGES * (TF32_KZ // 8) * (2 * BF16_KC // 8) * 32 * 16
+             + 4 * (TF32_STAGES * TF32_TY * (TF32_KZ + 8)
+                    + 2 * 2 * BF16_KC * (TF32_TY + 8)))
+# K7's 3xTF32 kernel (kUTY, kUNTs): y-rows per block; its instances by
+# Kzc n-tiles (a Kzc takes the first that holds it)
+TF32_INV_TY = 128
+TF32_INV_NTS = (3, 6, 11, 13)
 
 
 def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _inv_nt(kzc: int) -> int:
+    """The Kzc n-tiles of K7's 3xTF32 instance for kzc: the first of
+    TF32_INV_NTS that holds it, else (no instance) ceil(kzc / 8)."""
+    return next((n for n in TF32_INV_NTS if 8 * n >= kzc), -(-kzc // 8))
+
+
 def smem_bytes(nx: int, ny: int, nz: int, ry: int, kzc: int,
                precision: str = "high") -> dict:
     """Shared memory (bytes) each kernel's block needs at this grid and
-    precision, as the CUDA entries request it (at 'default' the
-    tensor-core kernels; K8's the larger of its two launches)."""
+    precision, as the CUDA entries request it (at 'default' the bf16
+    tensor-core kernels, else K6's and K7's 3xTF32 kernels and K8's fp32
+    pair; K8's the larger of its two launches). K7's 3xTF32 kernel takes
+    the first of its instances (TF32_INV_NTS) that holds Kzc's n-tiles;
+    past 13 n-tiles its t planes would not fit, and it has none."""
     c, f, h = 8, 4, 2  # complex64, float32, bf16
     if precision == "default":
         nzs = _up(nz, 16) + 8  # the w and Fz tiles' row stride
@@ -76,9 +100,14 @@ def smem_bytes(nx: int, ny: int, nz: int, ry: int, kzc: int,
             "fused_lamb": max(max(a_s, l_s) + 6 * INV_TY * ks * h,
                               2 * tile),
         }
+    # K7: its instance's Kzc n-tiles, the slab's spectrum, then t's planes
+    # over it
+    nt = _inv_nt(kzc)
+    inv = max(_up(ry, 8) * (_up(8 * nt, 16) + 2) * c,
+              2 * TF32_INV_TY * (16 * nt + 8) * f)
     return {
-        "fused_zy_forward": (ry * kzc + TILE_Y * kzc) * c + TILE_Y * nz * f,
-        "fused_yz_inverse": TILE_Y * (ry + kzc) * c,
+        "fused_zy_forward": TF32_SMEM,
+        "fused_yz_inverse": inv,
         "fused_lamb": max(TILE_Y * (ry + 6 * kzc) * c + 3 * TILE_Y * nz * f,
                           TILE_RY * ny * c),
     }
@@ -88,10 +117,11 @@ def fused_fits(nx: int, ny: int, nz: int, ry: int, kzc: int,
                precision: str = "high") -> bool:
     """Whether every fused kernel's block fits one Hopper block's shared
     memory at this grid and precision (the counterpart of the TPU's
-    `lamb_block_x` VMEM check). At 'high'/'highest' K6 keeps a whole
-    (Ry, Kzc) output row on chip and is the first to stop fitting (352^3
-    does not); at 'default' K8's tensor-core kernel binds: it holds one
-    slab's spectrum and the six fields' y-inverse of its y-tile in bf16
+    `lamb_block_x` VMEM check). At 'high'/'highest' K7's 3xTF32 kernel
+    binds: it holds one slab's spectrum in fp32, then t's big and small
+    planes of its 128-row y-tile over it (188,416 bytes at 256^3; 352^3
+    does not fit); at 'default' K8's tensor-core kernel binds: it holds
+    one slab's spectrum and the six fields' y-inverse of its y-tile in bf16
     (147,200 bytes at 256^3; 352^3 fits, 384^3 does not)."""
     return (max(smem_bytes(nx, ny, nz, ry, kzc, precision).values())
             <= SMEM_BUDGET)
@@ -259,6 +289,109 @@ def lamb_tables(fyi: torch.Tensor, bz: torch.Tensor, fz: torch.Tensor,
     return afi, bzf, fzf, bf16_tables(fz, fy)[1]
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to tf32 as `cvt.rna.tf32.f32` rounds it: to
+    nearest at 10 mantissa bits (13 dropped), ties away from zero; float32
+    with the low 13 bits zero."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 x as tf32 (big, small): big = tf32(x), small = tf32(x -
+    big) (x - big is exact in float32). big + small is within one
+    float32 ulp of x: the 3xTF32 products keep fp32's accuracy."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def _lane_gt(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    lane = torch.arange(32, device=device)
+    return lane // 4, lane % 4
+
+
+def _tf32_a_frags(x: torch.Tensor) -> torch.Tensor:
+    """x (..., R, C) float32, R a multiple of 16 and C of 8, cut into
+    16x8 A tiles of mma.m16n8k8 in the 3xTF32 kernels' fragment order:
+    (..., C/8, R/16, 32, 4), entry (s, r, lane, i) = x[16 r + g + 8 (i %
+    2), 8 s + 2 tq + i // 2] (g = lane // 4, tq = lane % 4): the lane's
+    registers a0..a3, its k = tq taken from column 2 tq of the step and
+    k = tq + 4 from 2 tq + 1."""
+    *lead, R, C = x.shape
+    t = x.reshape(*lead, R // 16, 16, C // 8, 8).movedim(-2, -4)
+    g, tq = _lane_gt(x.device)
+    i = torch.arange(4, device=x.device)
+    return t[..., g[:, None] + 8 * (i % 2), 2 * tq[:, None] + i // 2]
+
+
+def _tf32_b_frags(x: torch.Tensor) -> torch.Tensor:
+    """x (..., K, N) float32, K and N multiples of 8, cut into 8x8 B tiles
+    of mma.m16n8k8, split: (..., K/8, N/8, 32, 4), entry (s, n, lane) =
+    (b0 big, b1 big, b0 small, b1 small) with b_i = x[8 s + 2 tq + i, 8 n +
+    g] (the A side's permutation of k)."""
+    *lead, K, N = x.shape
+    t = x.reshape(*lead, K // 8, 8, N // 8, 8).movedim(-2, -3)
+    g, tq = _lane_gt(x.device)
+    i = torch.arange(2, device=x.device)
+    big, small = tf32_split(t[..., 2 * tq[:, None] + i, g[:, None]])
+    return torch.cat([big, small], -1)
+
+
+def _tf32_a_planes(m: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The complex table m zero-padded to (rows, cols) as A fragments
+    (`_tf32_a_frags`), its planes stacked on axis 2: (cols/8, rows/16, 4,
+    32, 4), plane q = re big, re small, im big, im small."""
+    parts = _parts(m, rows, cols)
+    return torch.stack([p for part in parts
+                        for p in tf32_split(_tf32_a_frags(part))], 2)
+
+
+def tf32_tables(fz: torch.Tensor, fy: torch.Tensor):
+    """K6's 3xTF32 operands from the complex64 tables Fz_t (Kzc, nz) and
+    Fy_t (Ry, ny), split into tf32 big and small on their device (the
+    layouts of csrc/transform3d_kernels.cu::zy_forward_tf32_kernel; nzp:
+    nz rounded up to TF32_KZ, nyp: ny to TF32_TY, Kzc to BF16_KC, Ry to
+    16, all zero-padded):
+
+      fzt (nchunks, nzp/8, 2 BF16_KC/8, 32, 4): chunk c's z-stage B
+          operand, rows n < BF16_KC of Re Fz_t[c BF16_KC + n, :], then Im,
+          transposed (k = z), in fragment order (`_tf32_b_frags`);
+      fya (nyp/8 + 1, rt, 4, 32, 4): Fy_t's re and im parts as A
+          fragments (`_tf32_a_planes`), entry (s, r, q, lane) the tile at
+          rows 16 r .., y = 8 s .. (one zero step past nyp, which the
+          kernel prefetches).
+    """
+    kzc, nz = fz.shape
+    ry, ny = fy.shape
+    re, im = _parts(fz, _up(kzc, BF16_KC), _up(nz, TF32_KZ))
+    chunks = torch.cat([re.unflatten(0, (-1, BF16_KC)),
+                        im.unflatten(0, (-1, BF16_KC))], 1)
+    fzt = _tf32_b_frags(chunks.transpose(1, 2))
+    fya = _tf32_a_planes(fy, _up(ry, 16), _up(ny, TF32_TY) + 8)
+    return fzt.contiguous(), fya.contiguous()
+
+
+def inverse_tf32_tables(fyi: torch.Tensor, bz: torch.Tensor):
+    """K7's 3xTF32 operands from the complex64 tables Fyi_t (ny, Ry) and
+    Bz (Kzc, nz), split into tf32 big and small on their device (the
+    layouts of csrc/transform3d_kernels.cu::yz_inverse_tf32_kernel; nyp:
+    ny rounded up to TF32_INV_TY, Ry up to 8, Kzc up to the instance's
+    8 NT (kpn, `_inv_nt`), nz up to 32, all zero-padded):
+
+      fia (nyp/16, Ry/8, 4, 32, 4): Fyi_t's re and im parts as A
+          fragments (`_tf32_a_planes`), by row tile first: entry (m, s, q,
+          lane) the tile at rows y = 16 m .., columns 8 s ..;
+      bzt (2 kpn/8, nzp/8, 32, 4): [Bz_re; -Bz_im] (2 kpn, nzp) as B
+          fragments (`_tf32_b_frags`).
+    """
+    ny, ry = fyi.shape
+    kzc, nz = bz.shape
+    kpn = 8 * _inv_nt(kzc)
+    fia = _tf32_a_planes(fyi, _up(ny, TF32_INV_TY), _up(ry, 8)).transpose(0, 1)
+    re, im = _parts(bz, kpn, _up(nz, 32))
+    return fia.contiguous(), _tf32_b_frags(torch.cat([re, -im])).contiguous()
+
+
 _TABLES: dict = {}
 
 
@@ -281,7 +414,8 @@ def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
     stages of the compact forward transform in one launch, with the
     z-to-y intermediate kept on chip (K6). The x-stage is the caller's.
     At 'default' it runs on the tensor cores (bf16 operands, counted in
-    `launches_bf16` too), at 'high'/'highest' on fp32 FMAs."""
+    `launches_bf16` too), at 'high'/'highest' on them as 3xTF32 (counted
+    in `launches_tf32` too)."""
     if w.device.type == "cpu":
         return zy_forward(w, Fz_t, Fy_t, precision)
     _build.check_fields("fused_zy_forward", w, torch.float32, (3, 4, 5))
@@ -301,7 +435,7 @@ def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
         a, b = _cached(bf16_tables, fz, fy)
         fn = _build.entry("ns_fused_zy_forward_bf16", torch.float32)
     else:
-        a, b = _real_view(fz.transpose(0, 1)), _real_view(fy)
+        a, b = _cached(tf32_tables, fz, fy)
         fn = _build.entry("ns_fused_zy_forward", torch.float32)
     with torch.cuda.device(w.device):
         code = fn(w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -310,12 +444,14 @@ def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
     fused_zy_forward.launches += 1
     fused_zy_forward.calls += 1
     fused_zy_forward.launches_bf16 += bf16
+    fused_zy_forward.launches_tf32 += not bf16
     return out
 
 
 fused_zy_forward.launches = 0
 fused_zy_forward.calls = 0
 fused_zy_forward.launches_bf16 = 0
+fused_zy_forward.launches_tf32 = 0
 
 
 def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,
@@ -323,8 +459,8 @@ def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,
     """(..., nx, Ry, Kzc) complex -> (..., nx, ny, nz) real: the y-inverse
     and the z-unfold (real part only) in one launch (K7). The caller has
     run the x-inverse. At 'default' it runs on the tensor cores (bf16
-    operands, counted in `launches_bf16` too), at 'high'/'highest' on fp32
-    FMAs."""
+    operands, counted in `launches_bf16` too), at 'high'/'highest' on them
+    as 3xTF32 (counted in `launches_tf32` too)."""
     if a.device.type == "cpu":
         return yz_inverse(a, Fyi_t, Bz, nz, precision)
     _build.check_fields("fused_yz_inverse", a, torch.complex64, (3, 4, 5))
@@ -345,7 +481,7 @@ def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,
         tables = _cached(inverse_tables, fyi, bz)
         fn = _build.entry("ns_fused_yz_inverse_bf16", torch.float32)
     else:
-        tables = (_real_view(fyi), _real_view(bz))
+        tables = _cached(inverse_tf32_tables, fyi, bz)
         fn = _build.entry("ns_fused_yz_inverse", torch.float32)
     with torch.cuda.device(a.device):
         code = fn(_real_view(a).data_ptr(), *(t.data_ptr() for t in tables),
@@ -355,12 +491,14 @@ def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,
     fused_yz_inverse.launches += 1
     fused_yz_inverse.calls += 1
     fused_yz_inverse.launches_bf16 += bf16
+    fused_yz_inverse.launches_tf32 += not bf16
     return out
 
 
 fused_yz_inverse.launches = 0
 fused_yz_inverse.calls = 0
 fused_yz_inverse.launches_bf16 = 0
+fused_yz_inverse.launches_tf32 = 0
 
 
 def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,

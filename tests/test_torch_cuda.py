@@ -9,7 +9,9 @@ it runs without the suite's conftest:
 Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so kernel and twin are not bitwise equal); float32 <= 1e-4 relative to
 the field's max. The 3D transform kernels (float32 only) are held against
-their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative; the
+their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative, and
+K6's and K7's 3xTF32 kernels (at 'high' and 'highest') also against a
+float64 twin, within 4x the fp32 twin's own error there; the
 tensor-core kernels of K6, K7 and K8 against their twins at 'default'
 (bf16 operands and intermediates, fp32 sums on both sides), <= 1e-3 of
 max|out|: the sums run in another order, and that can flip a rounding of
@@ -21,6 +23,7 @@ decay within chip_smoke.py's bounds.
 """
 
 import contextlib
+import importlib.util
 import os
 
 import numpy as np
@@ -208,8 +211,39 @@ def close_rel(got, want):
 SHAPES_3D = [(64, 64, 64), (40, 36, 30)]
 
 
+def tables64(M):
+    """The complex64 tables (the kernels' operands) in complex128."""
+    return {k: v.astype(np.complex64).astype(np.complex128)
+            for k, v in M.items()}
+
+
+def tf32_route(label, wrapper, call, twin, twin64):
+    """The 3xTF32 kernel at 'high' and 'highest': one launch a call, of
+    that kernel; within close_rel of the fp32 twin at the precision; and
+    against the float64 twin (the same complex64 tables in float64)
+    within 4x the fp32 twin's own error there. Returns the last output."""
+    want64 = twin64()
+    for p in ("high", "highest"):
+        n0, t0 = wrapper.launches, wrapper.launches_tf32
+        b0 = wrapper.launches_bf16
+        got = call(p)
+        torch.cuda.synchronize()
+        assert (wrapper.launches - n0, wrapper.launches_tf32 - t0,
+                wrapper.launches_bf16 - b0) == (1, 1, 0)
+        want = twin(p)
+        close_rel(got, want)
+        err = rel_to_twin(got.to(want64.dtype), want64)
+        ref = rel_to_twin(want.to(want64.dtype), want64)
+        print(f"{label} '{p}': 3xTF32 {err:.3e} of max|out| from float64, "
+              f"fp32 twin {ref:.3e}")
+        assert err <= 4 * ref
+    return got
+
+
 @pytest.mark.parametrize("shape", SHAPES_3D)
 def test_fused_zy_forward(cuda, shape):
+    """K6 at its default precision ('high') and at 'highest' launches its
+    3xTF32 kernel and matches its twin; fp32-class against float64."""
     M, ry, kzc = tables(shape)
     w = rand((3, *shape), torch.float32, cuda, 10)
     n0 = kernels.fused_zy_forward.launches
@@ -217,15 +251,22 @@ def test_fused_zy_forward(cuda, shape):
     assert kernels.fused_zy_forward.launches == n0 + 1
     assert got.shape == (3, shape[0], ry, kzc)
     close_rel(got, kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], "highest"))
+    M64 = tables64(M)
+    tf32_route(f"K6 {shape}", kernels.fused_zy_forward,
+               lambda p: kernels.fused_zy_forward(w, M["Fz_t"], M["Fy_t"], p),
+               lambda p: kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], p),
+               lambda: kernels.zy_forward(w.double(), M64["Fz_t"],
+                                          M64["Fy_t"], "highest"))
 
 
 @pytest.mark.parametrize("shape", [(256, 256, 256), (40, 36, 30),
                                    (8, 300, 30)])
 def test_fused_zy_forward_default(cuda, shape):
     """K6 at 'default' launches its tensor-core kernel and matches its
-    twin at 'default'; at 'highest' the fp32 kernel matches its twin
-    (256^3 B=3 is the main path's shape; 8x300x30 has Ry = 199, so its
-    block-matrix rows take two blocks, and nz % 4 != 0)."""
+    twin at 'default'; at 'high' and 'highest' the 3xTF32 kernel matches
+    its twin and is fp32-class against float64 (256^3 B=3 is the main
+    path's shape; 8x300x30 has Ry = 199, so its block-matrix rows take two
+    blocks, and nz % 4 != 0)."""
     M, ry, kzc = tables(shape)
     w = rand((3, *shape), torch.float32, cuda, 13)
     n0 = kernels.fused_zy_forward.launches_bf16
@@ -239,6 +280,12 @@ def test_fused_zy_forward_default(cuda, shape):
     got = kernels.fused_zy_forward(w, M["Fz_t"], M["Fy_t"], "highest")
     assert kernels.fused_zy_forward.launches_bf16 == n0 + 1
     close_rel(got, kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], "highest"))
+    M64 = tables64(M)
+    tf32_route(f"K6 {shape}", kernels.fused_zy_forward,
+               lambda p: kernels.fused_zy_forward(w, M["Fz_t"], M["Fy_t"], p),
+               lambda p: kernels.zy_forward(w, M["Fz_t"], M["Fy_t"], p),
+               lambda: kernels.zy_forward(w.double(), M64["Fz_t"],
+                                          M64["Fy_t"], "highest"))
 
 
 def test_gemm_default_on_the_card(cuda):
@@ -267,8 +314,13 @@ def test_gemm_default_on_the_card(cuda):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("shape", SHAPES_3D)
+@pytest.mark.parametrize("shape", SHAPES_3D + [(8, 300, 30),
+                                               (256, 256, 256)])
 def test_fused_yz_inverse(cuda, shape):
+    """K7 at its default precision ('high') and at 'highest' launches its
+    3xTF32 kernel and matches its twin; fp32-class against float64
+    (8x300x30: three 128-row y-tiles, the last ragged; 256^3 the main
+    path's grid)."""
     M, ry, kzc = tables(shape)
     a = crand((2, shape[0], ry, kzc), cuda, 11)
     n0 = kernels.fused_yz_inverse.launches
@@ -277,6 +329,15 @@ def test_fused_yz_inverse(cuda, shape):
     assert got.shape == (2, *shape) and got.dtype == torch.float32
     close_rel(got, kernels.yz_inverse(a, M["Fyi_t"], M["Bz"], shape[2],
                                       "highest"))
+    M64 = tables64(M)
+    nz = shape[2]
+    tf32_route(f"K7 {shape}", kernels.fused_yz_inverse,
+               lambda p: kernels.fused_yz_inverse(a, M["Fyi_t"], M["Bz"], nz,
+                                                  p),
+               lambda p: kernels.yz_inverse(a, M["Fyi_t"], M["Bz"], nz, p),
+               lambda: kernels.yz_inverse(a.to(torch.complex128),
+                                          M64["Fyi_t"], M64["Bz"], nz,
+                                          "highest"))
 
 
 @pytest.mark.parametrize("shape", SHAPES_3D)
@@ -394,10 +455,15 @@ def test_transform_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="fused_lamb wants"):
         kernels.fused_lamb(crand((3, 64, ry, kzc), cuda, 0), M["Fyi_t"],
                            M["Bz"], M["Fz_t"], M["Fy_t"], 64)
-    M5, _, _ = tables((512, 512, 512))
+    # 512^3: K6's tensor-core kernel and K7's 3xTF32 kernel refuse it
+    # (K6's 3xTF32 kernel needs the same shared memory at any grid)
+    M5, ry5, kzc5 = tables((512, 512, 512))
     with pytest.raises(ValueError, match="shared memory"):
         kernels.fused_zy_forward(torch.zeros((1, 512, 512, 512), device=cuda),
-                                 M5["Fz_t"], M5["Fy_t"])
+                                 M5["Fz_t"], M5["Fy_t"], "default")
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_yz_inverse(crand((1, 512, ry5, kzc5), cuda, 0),
+                                 M5["Fyi_t"], M5["Bz"], 512)
 
 
 # K1's grids: the reference 51^2, an odd-by-even one, and the largest one
@@ -1846,3 +1912,47 @@ def test_fd_ensemble_is_one_launch_a_step(cuda, family):
             s = step(s)
         for f in fields:
             assert torch.equal(getattr(got, f)[i], getattr(s, f)), (i, f)
+
+
+# sha256 of the outputs of K8's fp32 pair and of the 'default' kernels of
+# K6, K7 and K8 on tools/torch_kernel_digests.py's inputs, from the parent
+# tree's build (before the 3xTF32 kernels) on an NVIDIA H100 80GB HBM3:
+# the redesign of K6's and K7's fp32 routes leaves them their bits. A
+# digest is the build's: another nvcc may schedule the sums otherwise.
+PARENT_DIGESTS = {
+    "fused_zy_forward default 256 256 256":
+        "8fe71a780db5445c0d46313a5fe249a068ca76441e9f072734ff80ec837c1b91",
+    "fused_zy_forward default 40 36 30":
+        "eeae5a8cd82775467d1e9a66ec1c21d15d1e0d49e47e6c5d97251aa1ccf0a658",
+    "fused_zy_forward default 8 300 30":
+        "27e7c9ca0cdeba381813580d15ba3d1c281e6e45727b980175f733dba9f1a0d3",
+    "fused_yz_inverse default 256 256 256":
+        "07b2f287e8328d2c452bf00b7a12c497392727d37f13bfd28969b4d8db76c62c",
+    "fused_yz_inverse default 40 36 30":
+        "d292fd49120e05709c4f3dde97936e960dae93ec6a1b6af71bbad1d664270dcf",
+    "fused_yz_inverse default 24 70 20":
+        "1f05951dda6cd56c743cf093bc207df8e4ba41a9c8d464bf6903123734246cae",
+    "fused_lamb default 256 256 256":
+        "e7750d8b029040cd5ae8ecfdc63a57de90c37bfbd3c1fc503ab3799965c2952b",
+    "fused_lamb default 40 36 30":
+        "48fa77de1723461f12e0cfaea25b84da463f51c653fd515a351adf87630511da",
+    "fused_lamb default 24 70 20":
+        "06f330f487b3c2118bcdb0b62383b2c12520020e0e9c49171049e443bec1b314",
+    "fused_lamb highest 256 256 256":
+        "053ad368f31c04d122a4e21ac20adb3b1598304a3a547c0b1301442f0ca9b581",
+    "fused_lamb highest 40 36 30":
+        "6bb97a9398dbab45eefc16bf684a0a131d58534faec0e2831ba2b4ff6140a0de",
+    "fused_lamb highest 24 70 20":
+        "00f5c5cf9b34c15fd92b8fca0aa77ea332d5fbcc7c37687b8e4dc0fd8a242565",
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARENT_DIGESTS))
+def test_k8_fp32_and_default_kernels_keep_their_bits(cuda, case):
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "torch_kernel_digests.py")
+    spec = importlib.util.spec_from_file_location("torch_kernel_digests",
+                                                  path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.digest(case, cuda) == PARENT_DIGESTS[case]

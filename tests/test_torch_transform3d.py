@@ -203,11 +203,15 @@ def test_fused_auto_gate_matches_jax_policy():
                                 use_pallas_transform=True, **kw)
     with pytest.raises(ValueError, match="use_pallas_transform"):
         t3.Spectral3DConfig(transform="matmul", use_pallas_transform="yes")
-    # the kernels' own fit: 256^3 needs 145,040 bytes in the fp32 K6's
-    # block, 124,928 in the tensor-core K6's, 83,200 in K7's and 147,200
-    # in K8's; 352^3 fits only at 'default' (K8: 228,096 bytes), 384^3
-    # (K8: 236,544) does not
-    assert tk.smem_bytes(256, 256, 256, 171, 86)["fused_zy_forward"] == 145040
+    # the kernels' own fit: 256^3 needs 194,560 bytes in the 3xTF32 K6's
+    # block (at any grid) and 188,416 in the 3xTF32 K7's, which binds at
+    # 'high'/'highest'; 124,928 in the tensor-core K6's, 83,200 in K7's
+    # and 147,200 in K8's; 352^3 fits only at 'default' (K8: 228,096
+    # bytes; the 3xTF32 K7 needs 253,952), 384^3 (K8: 236,544) does not
+    k = tk.smem_bytes(256, 256, 256, 171, 86)
+    assert (k["fused_zy_forward"], k["fused_yz_inverse"]) == (194560, 188416)
+    assert tk.smem_bytes(352, 352, 352, 235, 118,
+                         "highest")["fused_yz_inverse"] == 253952
     assert tk.smem_bytes(256, 256, 256, 171, 86,
                          "default")["fused_zy_forward"] == 124928
     k = tk.smem_bytes(256, 256, 256, 171, 86, "default")
@@ -524,3 +528,275 @@ def test_k7_k8_bf16_tables_feed_the_kernels_their_spec(shape):
     tables = tk.lamb_tables(T["Fyi_t"], T["Bz"], T["Fz_t"], T["Fy_t"])
     got = k8_from_tables(a6, tables, ny, nz, ry, kzc)
     assert rel_err(got, k8_default_emulation(a6, M)) <= 1e-6
+
+
+# --- K6 and K7 at 'high'/'highest': the 3xTF32 kernels' spec ----------------
+
+def rna(x):
+    """float32 x rounded to tf32 as cvt.rna.tf32.f32 rounds it: to nearest
+    at 10 mantissa bits (13 dropped), ties away from zero."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split3(x):
+    """float32 x as its tf32 (big, small) = (rna(x), rna(x - big)), in
+    float64."""
+    x = np.ascontiguousarray(x, np.float32)
+    big = rna(x)
+    return big.astype(np.float64), rna(x - big).astype(np.float64)
+
+
+def x3(a, b):
+    """a @ b at 3xTF32 on split operands (big, small), in float64: the two
+    cross terms and the big product (small @ small dropped)."""
+    return a[1] @ b[0] + a[0] @ b[1] + a[0] @ b[0]
+
+
+def neg(a):
+    return -a[0], -a[1]
+
+
+def tf32_a_unpack(frags):
+    """(..., C/8, R/16, 32, 4) A fragments of the 3xTF32 kernels -> (...,
+    R, C): register i of lane holds (16 r + g + 8 (i % 2), 8 s + 2 tq +
+    i // 2), g = lane // 4, tq = lane % 4."""
+    *lead, S, Rt, _, _ = frags.shape
+    out = np.zeros((*lead, Rt * 16, S * 8))
+    for lane in range(32):
+        g, tq = divmod(lane, 4)
+        for i in range(4):
+            out[..., g + 8 * (i % 2)::16, 2 * tq + i // 2::8] = np.swapaxes(
+                frags[..., lane, i], -1, -2)
+    return out
+
+
+def tf32_b_unpack(frags):
+    """(..., K/8, N/8, 32, 4) B fragments (b0 big, b1 big, b0 small, b1
+    small) -> (big, small), each (..., K, N): b_i of lane is (8 s + 2 tq +
+    i, 8 n + g)."""
+    *lead, S, Nt, _, _ = frags.shape
+    big = np.zeros((*lead, S * 8, Nt * 8))
+    small = np.zeros_like(big)
+    for lane in range(32):
+        g, tq = divmod(lane, 4)
+        for i in range(2):
+            big[..., 2 * tq + i::8, g::8] = frags[..., lane, i]
+            small[..., 2 * tq + i::8, g::8] = frags[..., lane, 2 + i]
+    return big, small
+
+
+def k6_tf32_from_tables(w, fzt, fya, ny, ry, kzc):
+    """K6's 3xTF32 kernel step by step on the operands it is given
+    (tf32_tables), in float64: per Kzc chunk, the z-stage against the
+    chunk's Fz planes read from their B fragments (w split as the kernel
+    splits it after each load), t rounded to float32 (its fp32
+    accumulator) and split into its planes, then the y-stage on the block
+    matrix [[Fy_re, -Fy_im], [Fy_im, Fy_re]] of the Fy planes read from
+    their A fragments (-Fy_im: both planes' signs flipped)."""
+    fzt, fya = fzt.numpy(), fya.numpy()
+    Bb, Bs = tf32_b_unpack(fzt)  # (nchunks, nzp, 2 kc)
+    F = [tf32_a_unpack(fya[:, :, q]) for q in range(4)]  # (ryp, nyp)
+    fr, fi = (F[0], F[1]), (F[2], F[3])
+    nzp, nyp, kc = Bb.shape[1], F[0].shape[1], Bb.shape[2] // 2
+    wp = np.zeros(w.shape[:-2] + (nyp, nzp), np.float32)
+    wp[..., :ny, :w.shape[-1]] = w
+    ws = split3(wp)
+    out = np.zeros(w.shape[:-2] + (ry, kzc), np.complex128)
+    for c in range(Bb.shape[0]):
+        t = split3(x3(ws, (Bb[c], Bs[c])).astype(np.float32))
+        tr = (t[0][..., :kc], t[1][..., :kc])
+        ti = (t[0][..., kc:], t[1][..., kc:])
+        re = x3(fr, tr) + x3(neg(fi), ti)
+        im = x3(fi, tr) + x3(fr, ti)
+        k1 = min(kzc, (c + 1) * kc)
+        out[..., c * kc:k1] = (re + 1j * im)[..., :ry, :k1 - c * kc]
+    return out
+
+
+def k6_tf32_direct(w, Fz_t, Fy_t):
+    """The same arithmetic straight from the float32 tables: x3 of the
+    split w and Fz_t's parts, t rounded to float32 and split, x3 with the
+    split parts of Fy_t."""
+    ws = split3(w)
+    tr = split3(x3(ws, split3(Fz_t.real.T)).astype(np.float32))
+    ti = split3(x3(ws, split3(Fz_t.imag.T)).astype(np.float32))
+    fr, fi = split3(Fy_t.real), split3(Fy_t.imag)
+    return (x3(fr, tr) + x3(neg(fi), ti)) + 1j * (x3(fi, tr) + x3(fr, ti))
+
+
+def k7_tf32_from_tables(a, fia, bzt, ny, nz):
+    """K7's 3xTF32 kernel step by step on the operands it is given
+    (inverse_tf32_tables), in float64: the Fyi planes from their A
+    fragments (by row tile, then k-step), the slab's spectrum zero-padded
+    and split as loaded, the block-form y-inverse, t rounded to float32 and
+    split into its [t_re | t_im] planes, and the z-unfold against [Bz_re;
+    -Bz_im] read from its B fragments."""
+    fia = fia.numpy()
+    F = [tf32_a_unpack(np.swapaxes(fia[:, :, q], 0, 1)) for q in range(4)]
+    fr, fi = (F[0], F[1]), (F[2], F[3])
+    Bb, Bs = tf32_b_unpack(bzt.numpy())  # (2 kpn, nzp)
+    ryp, kpn = F[0].shape[1], Bb.shape[0] // 2
+    ar = np.zeros(a.shape[:-2] + (ryp, kpn), np.float32)
+    ai = np.zeros_like(ar)
+    ar[..., :a.shape[-2], :a.shape[-1]] = a.real
+    ai[..., :a.shape[-2], :a.shape[-1]] = a.imag
+    A_r, A_i = split3(ar), split3(ai)
+    tr = x3(fr, A_r) + x3(neg(fi), A_i)
+    ti = x3(fr, A_i) + x3(fi, A_r)
+    T = split3(np.concatenate([tr, ti], -1).astype(np.float32))
+    return x3(T, (Bb, Bs))[..., :ny, :nz]
+
+
+def k7_tf32_direct(a, Fyi_t, Bz):
+    """The same arithmetic straight from the float32 tables."""
+    A_r, A_i = split3(a.real), split3(a.imag)
+    fr, fi = split3(Fyi_t.real), split3(Fyi_t.imag)
+    tr = split3((x3(fr, A_r) + x3(neg(fi), A_i)).astype(np.float32))
+    ti = split3((x3(fr, A_i) + x3(fi, A_r)).astype(np.float32))
+    return x3(tr, split3(Bz.real)) + x3(ti, split3(-Bz.imag))
+
+
+TF32_SHAPES = [(16, 16, 16), (40, 36, 30), (24, 70, 20), (8, 300, 30)]
+
+
+def test_tf32_round_is_cvt_rna():
+    """tf32_round (the wrappers' table split) and the tests' rna round as
+    cvt.rna.tf32.f32: to nearest at 10 mantissa bits, ties away from zero
+    (on both signs), exact tf32 values kept, and the low 13 bits zero."""
+    one_ulp = 2.0 ** -10
+    x = np.array([1.0, 1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
+                  1.0 + one_ulp / 2 - 2.0 ** -23, 1.0 + 1.5 * one_ulp,
+                  3.0e-3, -7.25, 0.0], np.float32)
+    want = np.array([1.0, 1.0 + one_ulp, -(1.0 + one_ulp), 1.0,
+                     1.0 + 2 * one_ulp], np.float32)
+    got = tk.tf32_round(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got, rna(x))
+    np.testing.assert_array_equal(got[:5], want)
+    np.testing.assert_array_equal(got[6:], x[6:])
+    assert not (got.view(np.uint32) & 0x1FFF).any()
+    big, small = (v.numpy() for v in tk.tf32_split(torch.as_tensor(x)))
+    np.testing.assert_array_equal(big, got)
+    # 1 + 2^-11 - 2^-23 has 23 significant bits: its small part keeps 11
+    assert (np.abs(big + small - x) <= np.spacing(np.abs(x))).all()
+    assert big[3] + small[3] != x[3]
+
+
+def fp32_tables(shape):
+    _, M = k6_case(shape)
+    return M, {k: torch.as_tensor(M[k]) for k in M}
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_tf32_tables_round_trip(shape):
+    """The 3xTF32 tables (tf32_tables, inverse_tf32_tables) read back from
+    their fragment order give the float32 tables, zero-padded: big + small
+    within one float32 ulp of each entry (the split keeps 22 of its 24
+    bits), big and small tf32 values (low 13 bits zero), |small| <= 2^-11
+    |x|."""
+    M, T = fp32_tables(shape)
+    fzt, fya = tk.tf32_tables(T["Fz_t"], T["Fy_t"])
+    fia, bzt = tk.inverse_tf32_tables(T["Fyi_t"], T["Bz"])
+    for t in (fzt, fya, fia, bzt):
+        assert t.dtype == torch.float32 and t.is_contiguous()
+        assert not (t.numpy().view(np.uint32) & 0x1FFF).any()
+    kzc, nz = M["Fz_t"].shape
+    ry, ny = M["Fy_t"].shape
+    Bb, Bs = tf32_b_unpack(fzt.numpy())
+    kc = Bb.shape[-1] // 2
+    F = [tf32_a_unpack(fya.numpy()[:, :, q]) for q in range(4)]
+    Fi = [tf32_a_unpack(np.swapaxes(fia.numpy()[:, :, q], 0, 1))
+          for q in range(4)]
+    Zb, Zs = tf32_b_unpack(bzt.numpy())
+    kpn = Zb.shape[0] // 2
+    fz = M["Fz_t"]
+    cases = [  # (big, small, the float32 table it holds at its origin)
+        (np.concatenate([Bb[c, :, :kc] for c in range(len(Bb))], 1),
+         np.concatenate([Bs[c, :, :kc] for c in range(len(Bs))], 1),
+         fz.real.T),
+        (np.concatenate([Bb[c, :, kc:] for c in range(len(Bb))], 1),
+         np.concatenate([Bs[c, :, kc:] for c in range(len(Bs))], 1),
+         fz.imag.T),
+        (F[0], F[1], M["Fy_t"].real), (F[2], F[3], M["Fy_t"].imag),
+        (Fi[0], Fi[1], M["Fyi_t"].real), (Fi[2], Fi[3], M["Fyi_t"].imag),
+        (Zb[:kpn], Zs[:kpn], M["Bz"].real),
+        (Zb[kpn:], Zs[kpn:], -M["Bz"].imag)]
+    for big, small, x in cases:
+        r, c = x.shape
+        x = x.astype(np.float32)
+        np.testing.assert_array_equal(big[r:], 0)
+        np.testing.assert_array_equal(big[:, c:], 0)
+        big, small = big[:r, :c], small[:r, :c]
+        assert (np.abs(big + small - x) <= np.spacing(np.abs(x))).all()
+        assert (np.abs(small) <= 2.0 ** -11 * np.abs(x)).all()
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_k6_tf32_tables_feed_the_kernel_its_spec(shape):
+    """The operands the wrapper lays out for K6's 3xTF32 kernel
+    (tf32_tables: Fz's planes by chunk as B fragments, Fy's as A
+    fragments), read as the kernel reads them, give the direct 3xTF32
+    arithmetic on the float32 tables: <= 1e-6 of max|out| (the same tf32
+    values, summed in float64 in another order). Batch 3; 24x70x20 has
+    several y-tiles, a ragged last one and Kzc = 7; 8x300x30 Ry = 199, two
+    row parts."""
+    w, M = k6_case(shape, seed=7)
+    _, T = fp32_tables(shape)
+    fzt, fya = tk.tf32_tables(T["Fz_t"], T["Fy_t"])
+    ry, kzc = M["Fy_t"].shape[0], M["Fz_t"].shape[0]
+    got = k6_tf32_from_tables(w, fzt, fya, shape[1], ry, kzc)
+    want = k6_tf32_direct(w, M["Fz_t"], M["Fy_t"])
+    assert rel_err(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_k6_tf32_spec_is_fp32_class(shape):
+    """K6's 3xTF32 arithmetic (the emulation on the wrapper's tables)
+    against float64 on the same float32 tables: within 4x the error of the
+    fp32 twin (zy_forward at 'highest') against float64, so the split keeps
+    the HIGHEST contract."""
+    w, M = k6_case(shape, seed=8)
+    _, T = fp32_tables(shape)
+    fzt, fya = tk.tf32_tables(T["Fz_t"], T["Fy_t"])
+    ry, kzc = M["Fy_t"].shape[0], M["Fz_t"].shape[0]
+    exact = M["Fy_t"].astype(np.complex128) @ (
+        w.astype(np.float64) @ M["Fz_t"].astype(np.complex128).T)
+    emu = rel_err(k6_tf32_from_tables(w, fzt, fya, shape[1], ry, kzc), exact)
+    twin = rel_err(tk.zy_forward(torch.as_tensor(w), M["Fz_t"], M["Fy_t"],
+                                 "highest").numpy(), exact)
+    print(f"K6 3xTF32 {shape}: {emu:.3e} of max|out|, fp32 twin {twin:.3e}")
+    assert emu <= 4 * twin
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_k7_tf32_tables_feed_the_kernel_its_spec(shape):
+    """The operands the wrapper lays out for K7's 3xTF32 kernel
+    (inverse_tf32_tables: Fyi's planes as A fragments by row tile, [Bz_re;
+    -Bz_im] as B fragments), read as the kernel reads them, give the
+    direct 3xTF32 arithmetic on the float32 tables: <= 1e-6 of max|out|.
+    Three x-slabs; 24x70x20 has Ry = 47 (ragged k-steps) and Kzc = 7;
+    8x300x30 three 128-row y-tiles."""
+    a6, M = spectra(shape, 9, 1)
+    a = a6[0, :3]
+    got = k7_tf32_from_tables(a, *tk.inverse_tf32_tables(
+        torch.as_tensor(M["Fyi_t"]), torch.as_tensor(M["Bz"])), *shape[1:])
+    want = k7_tf32_direct(a, M["Fyi_t"], M["Bz"])
+    assert rel_err(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_k7_tf32_spec_is_fp32_class(shape):
+    """K7's 3xTF32 arithmetic against float64 on the same float32 tables:
+    within 4x the error of the fp32 twin (yz_inverse at 'highest')."""
+    a6, M = spectra(shape, 10, 1)
+    a = a6[0, :3]
+    tables = tk.inverse_tf32_tables(torch.as_tensor(M["Fyi_t"]),
+                                    torch.as_tensor(M["Bz"]))
+    t = M["Fyi_t"].astype(np.complex128) @ a.astype(np.complex128)
+    bz = M["Bz"].astype(np.complex128)
+    exact = t.real @ bz.real - t.imag @ bz.imag
+    emu = rel_err(k7_tf32_from_tables(a, *tables, *shape[1:]), exact)
+    twin = rel_err(tk.yz_inverse(torch.as_tensor(a), M["Fyi_t"], M["Bz"],
+                                 shape[2], "highest").numpy(), exact)
+    print(f"K7 3xTF32 {shape}: {emu:.3e} of max|out|, fp32 twin {twin:.3e}")
+    assert emu <= 4 * twin

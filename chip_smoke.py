@@ -20,8 +20,7 @@ Phases (any failure exits non-zero, and no result line is printed):
                group; the 3D transform
                kernels K6-K8 float32 only, each at 'default', its
                tensor-core kernel, and at 'highest', its fp32-class
-               kernel (K6, K7: 3xTF32 on the tensor cores; K8: fp32
-               FMAs); the
+               kernel (3xTF32 on the tensor cores); the
                batched routes of K1, K2 and K3, one launch for a batch of
                members, against their batched twins at B = 5, K1's batch
                with members that close their gates at different sweeps,
@@ -30,11 +29,12 @@ Phases (any failure exits non-zero, and no result line is printed):
                kernel, twin; K6-K8 at both precisions), the FD kernels'
                profiler device time too, K6's and K7's beside
                one cuFFT call of the same function (in the turns of
-               both precisions), and the bound each call's bytes and
-               operations set (K6-K8: at the bf16 tensor-core peak at
-               'default'; at 'highest' K6's and K7's three TF32 products
-               at the TF32 tensor-core peak, K8's at the fp32 peak, the
-               fp32 bound beside each, and each kernel's share of it);
+               both precisions), K8's at 'highest' beside a composite of
+               cuFFT calls (six irfft2, u x omega, three rfft2), and the
+               bound each call's bytes and operations set (K6-K8: at the
+               bf16 tensor-core peak at 'default'; at 'highest' their
+               three TF32 products at the TF32 tensor-core peak, the fp32
+               bound beside each, and each kernel's share of it);
                K1 is timed at 170^2 too, K3 at 51^2 too, K4 (1024^2) and K5
                (1025^2) beside the colour-group kernels
   4. main    — the port's main paths through its CLI entry point: the FD
@@ -64,7 +64,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                main run), the plain run at 'high' against 'highest'; a
                float64 3D shear flow against exp(-nu t); the 256^3
                Taylor-Green rollout at 'high' (the 3D CLI's default) timed
-               fused (K6's 3xTF32 kernel at init, K8's fp32 pair a step)
+               fused (K6's 3xTF32 kernel at init, K8's 3xTF32 pair a
+               step)
                beside plain (steps/s, median of 3 in turns); the 2D periodic
                engines (fft, compact, real_gemm) in float64 on the card
                against the CPU, a float32 1024^2 Taylor-Green run at
@@ -278,11 +279,13 @@ computes the function); K1, K2 and K3 their batched route (`batched`:
 launches in each FD ensemble run, errors against the batched twin, times
 and bounds at B = 8, 64 and 512); K6, K7 and K8 add both precisions' times
 (`ms_default`, `ms_highest`), the 'highest' route's twin time, its bound at
-its arithmetic (`bound_ms_highest`: K6's and K7's 3xTF32 kernels three
-TF32 products a multiply-add at 495 TFLOP/s, K8's fp32 pair fp32 FMAs at
-67), the fp32 FMA bound (`bound_ms_fp32`) and the kernel's share of its
-bound (`share_of_bound_highest`), K6 and K7 the library call timed in the
-'highest' turns (`library_ms_highest`), and all three their bf16
+its arithmetic (`bound_ms_highest`: the 3xTF32 kernels' three TF32
+products a multiply-add at 495 TFLOP/s), the fp32 FMA bound
+(`bound_ms_fp32`) and the kernel's share of its bound
+(`share_of_bound_highest`), K6 and K7 the library call timed in the
+'highest' turns (`library_ms_highest`), K8 there a composite of library
+calls (`composite_ms_highest`: six irfft2, u x omega, three rfft2 and the
+gather; not one call, so not `library_ms`), and all three their bf16
 tensor-core launches on the main path; K1, K2, K2mb, K3, K4, K6 and K8 their
 launches in one replayed call of each runtime engine (`launches_replayed`,
 from the profiler). The last is {"ok": true, "device": {...}}.
@@ -411,9 +414,6 @@ def turns_ms(fns, reps: int) -> list:
 # FMA-unit, bf16 and TF32 tensor-core FLOP/s
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 TF32_FLOPS = 495e12
-# the wrappers whose 'high'/'highest' route is a 3xTF32 kernel: three TF32
-# products a multiply-add (K8's runs on fp32 FMAs)
-TF32X3 = {"fused_zy_forward", "fused_yz_inverse"}
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple:
@@ -916,19 +916,23 @@ def phase_kernels_3d(res: Results, dev):
     non-power-of-two grid, each at 'default' (its tensor-core kernel,
     against the twin at 'default', 1e-3 of max|out|: the fp32 sums run in
     another order, which can flip a rounding of an intermediate to bf16 by
-    one ulp) and at 'highest' (its 3xTF32 kernel, K8 its fp32 pair, 1e-4).
-    Then each is timed beside its twin at both precisions, in turns, and K6
-    and K7 in both turns beside one PyTorch call of the same function
-    (cuFFT): rfft2 over (y, z) and the gather of the kept rows for K6,
-    irfft2 of the zero-filled spectrum for K7. The main path's precision
-    is 'default': `ms`, `plain_ms`, `library_ms` and the bound are its;
-    `ms_highest`, `plain_ms_highest`, `library_ms_highest` (the library
-    call in the 'highest' turns) and `bound_ms_highest` the other route's,
-    its bound at the route's arithmetic (K6, K7: three TF32 products a
-    multiply-add at the TF32 tensor-core peak; K8: fp32 FMAs) with the
-    fp32 FMA bound beside it (`bound_ms_fp32`) and the kernel's share of
-    its bound (`share_of_bound_highest`)."""
+    one ulp) and at 'highest' (its 3xTF32 kernel, one `launches_tf32` a
+    call, 1e-4). Then each is timed beside its twin at both precisions, in
+    turns, and K6 and K7 in both turns beside one PyTorch call of the same
+    function (cuFFT): rfft2 over (y, z) and the gather of the kept rows for
+    K6, irfft2 of the zero-filled spectrum for K7; K8 in the 'highest'
+    turns beside a composite of those calls (no one call computes it): six
+    irfft2 of the zero-filled spectra of real fields, u x omega, three
+    rfft2 and the gather, held against the kernel first. The main path's
+    precision is 'default': `ms`, `plain_ms`, `library_ms` and the bound
+    are its; `ms_highest`, `plain_ms_highest`, `library_ms_highest` (the
+    library call in the 'highest' turns), `composite_ms_highest` (K8) and
+    `bound_ms_highest` the other route's, its bound at the route's
+    arithmetic (three TF32 products a multiply-add at the TF32 tensor-core
+    peak) with the fp32 FMA bound beside it (`bound_ms_fp32`) and the
+    kernel's share of its bound (`share_of_bound_highest`)."""
     from ns_tpu_torch.ops import kernels
+    from ns_tpu_torch.ops.kernels import transform3d_kernels as t3k
     from ns_tpu_torch.solvers import spectral3d as s3
 
     gen = torch.Generator().manual_seed(99)
@@ -971,13 +975,16 @@ def phase_kernels_3d(res: Results, dev):
         for name, (label, ker, twin) in cases.items():
             fn = getattr(kernels, name)
             for p in precs:
-                n0 = fn.launches_bf16
+                n0, t0 = fn.launches_bf16, fn.launches_tf32
                 res.compare(name, f"{tag} {label} vs twin '{p}'",
                             [launched_once(fn, lambda: ker(p))], [twin(p)],
                             f32, rel_bound=1e-3 if p == "default" else None)
                 require(fn.launches_bf16 == n0 + (p == "default"),
                         f"{name} '{p}': the tensor-core kernel ran "
                         f"{fn.launches_bf16 - n0} times")
+                require(fn.launches_tf32 == t0 + (p != "default"),
+                        f"{name} '{p}': the 3xTF32 kernel ran "
+                        f"{fn.launches_tf32 - t0} times")
         if shape[0] != N3D:
             continue
         # one PyTorch call of each function, held against the kernel
@@ -988,13 +995,26 @@ def phase_kernels_3d(res: Results, dev):
         lib7 = lambda: torch.fft.irfft2(full, s=(ny, nz), dim=(-2, -1))
         library = {"fused_zy_forward": (lib6, "rfft2+gather"),
                    "fused_yz_inverse": (lib7, "irfft2")}
-        for name, (lib, _) in library.items():
-            want = cases[name][1]("highest")
+        # K8's composite, on the kept spectra of six real fields (irfft2
+        # reads their k_z = 0 planes as Hermitian)
+        a6h = torch.fft.rfft2(torch.randn((6, *shape), generator=gen).to(dev),
+                              dim=(-2, -1))[..., ry_t, :kzc].contiguous()
+        full6 = torch.zeros((6, nx, ny, nz // 2 + 1), dtype=torch.complex64,
+                            device=dev)
+        full6[..., ry_t, :kzc] = a6h
+        comp8 = lambda: torch.fft.rfft2(t3k.cross(torch.fft.irfft2(
+            full6, s=(ny, nz), dim=(-2, -1))), dim=(-2, -1))[..., ry_t, :kzc]
+        checks = [(name, lib, cases[name][1], "library call")
+                  for name, (lib, _) in library.items()]
+        checks.append(("fused_lamb", comp8, lambda p: kernels.fused_lamb(
+            a6h, *lam[1:], p), "cuFFT composite"))
+        for name, lib, ker, what in checks:
+            want = ker("highest")
             rel = float((lib() - want).abs().max() / want.abs().max())
-            print(f"  {name:26s} {tag} library call vs kernel 'highest': "
+            print(f"  {name:26s} {tag} {what} vs kernel 'highest': "
                   f"max_rel {rel:.3e} (bound 1e-4)")
-            require(rel <= 1e-4, f"{name}: the library call computes "
-                    "another function")
+            require(rel <= 1e-4, f"{name}: the {what} computes another "
+                    "function")
         # times at the main path's grid, in turns; bounds from the shapes
         # at each precision's peak (52.7 MFLOP of matmul-DFT per (b, x)
         # slab and stage pair at 256^3; K8 runs K7's pair on six fields and
@@ -1013,14 +1033,15 @@ def phase_kernels_3d(res: Results, dev):
             if name in library:
                 fns.append(library[name][0])
                 fns_h.append(library[name][0])
+            elif name == "fused_lamb":
+                fns_h.append(comp8)
             ms = turns_ms(fns, reps)
             ms_h = turns_ms(fns_h, reps)
             ms_th, ms_kh = ms_h[:2]
             res.ms[name], res.plain_ms[name] = ms[1], ms[0]
             res.bound[name] = bound(nbytes, flops, BF16_FLOPS)
             b_fp32 = bound(nbytes, flops, FP32_FLOPS)
-            b_high = (bound(nbytes, 3 * flops, TF32_FLOPS) if name in TF32X3
-                      else b_fp32)
+            b_high = bound(nbytes, 3 * flops, TF32_FLOPS)
             res.extra[name] = {
                 "ms_default": ms[1], "ms_highest": ms_kh,
                 "plain_ms_highest": ms_th, "bound_ms_highest": b_high[0],
@@ -1032,12 +1053,14 @@ def phase_kernels_3d(res: Results, dev):
                 res.extra[name]["library_ms_highest"] = ms_h[2]
                 lib = f"  {library[name][1]} {ms[2]:.4f} ms"
                 lib_h = f"  {library[name][1]} {ms_h[2]:.4f} ms"
-            route = "3xTF32" if name in TF32X3 else "fp32"
+            elif name == "fused_lamb":
+                res.extra[name]["composite_ms_highest"] = ms_h[2]
+                lib_h = f"  cuFFT composite {ms_h[2]:.4f} ms"
             print(f"  {name:26s} {tag} {label}: 'default' kernel "
                   f"{ms[1]:.4f} ms  twin {ms[0]:.4f} ms "
                   f"({ms[0] / ms[1]:.2f}x){lib}; bound "
                   f"{res.bound[name][0]:.4f} ms ({res.bound[name][1]}); "
-                  f"'highest' ({route}) kernel {ms_kh:.4f} ms  twin "
+                  f"'highest' (3xTF32) kernel {ms_kh:.4f} ms  twin "
                   f"{ms_th:.4f} ms ({ms_th / ms_kh:.2f}x){lib_h}; bound "
                   f"{b_high[0]:.4f} ms ({b_high[1]}; "
                   f"{b_high[0] / ms_kh:.1%} of it), fp32 bound "
@@ -1425,7 +1448,7 @@ HIGH_VS_HIGHEST = 6e-5
 def tg3d_high_rates() -> dict:
     """The 256^3 Taylor-Green rollout at 'high' (the 3D CLI's default
     precision) with the fused kernels on (K6's 3xTF32 kernel in the carry's
-    init, K8's fp32 pair every step) beside off (the plain fp32 GEMM
+    init, K8's 3xTF32 pair every step) beside off (the plain fp32 GEMM
     route): steps/s of 8 steps of the built step from the carry (median of
     3, in turns on, off, ...; the step's constants are built once, as a
     rollout builds them, outside the timing), and the fused carry's K6
@@ -1448,6 +1471,7 @@ def tg3d_high_rates() -> dict:
         step(carry)  # warm-up
         runs[fused] = (step, carry)
     n0 = kernels.fused_lamb.launches
+    n0_tf32 = kernels.fused_lamb.launches_tf32
     for _ in range(3):
         for fused in (True, False):
             step, c = runs[fused]
@@ -1458,14 +1482,17 @@ def tg3d_high_rates() -> dict:
             torch.cuda.synchronize()
             times[fused].append(time.perf_counter() - t0)
     k8 = kernels.fused_lamb.launches - n0
+    k8_tf32 = kernels.fused_lamb.launches_tf32 - n0_tf32
     rate = {k: 8 / float(np.median(v)) for k, v in times.items()}
     label = f"{N3D}^3 TG 8 steps at 'high', steps/s (median of 3)"
     print(f"  {label:44s} fused "
           f"{rate[True]:.1f}, plain {rate[False]:.1f}; K6 3xTF32 launches "
-          f"in the fused carry's init {k6_tf32}, K8 launches {k8}")
+          f"in the fused carry's init {k6_tf32}, K8 launches {k8} (3xTF32 "
+          f"{k8_tf32})")
     require(k6_tf32 == 1, "the fused 'high' carry did not take K6's 3xTF32 "
             "kernel once")
-    require(k8 == 3 * 8, f"the fused 'high' rollouts launched K8 {k8} times")
+    require(k8 == k8_tf32 == 3 * 8, f"the fused 'high' rollouts launched K8 "
+            f"{k8} times, its 3xTF32 pair {k8_tf32} times")
     return {"fused_steps_per_s": rate[True], "plain_steps_per_s": rate[False],
             "fused_runs_s": times[True], "plain_runs_s": times[False]}
 

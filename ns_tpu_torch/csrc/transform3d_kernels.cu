@@ -1,11 +1,10 @@
 // Fused 3D compact-transform kernels for Hopper (sm_90a), float32: K6, K7
-// and K8 of the port. Each has two kernels, by the JAX kernels' precision
+// and K8 of the port. Each has two routes, by the JAX kernels' precision
 // contract (_prec): at 'default' (the TPU's DEFAULT: bf16 GEMM operands,
-// fp32 accumulation and result) a tensor-core kernel (mma.sync m16n8k16
-// bf16); at 'high' and 'highest' (both HIGHEST there) an fp32-class
-// kernel: K6 and K7 on the TF32 tensor cores with a 3xTF32 split
-// (mma.sync m16n8k8 tf32, three products each: note further down), K8 on
-// CUDA-core FMAs.
+// fp32 accumulation and result) tensor-core kernels (mma.sync m16n8k16
+// bf16); at 'high' and 'highest' (both HIGHEST there) fp32-class kernels
+// on the TF32 tensor cores with a 3xTF32 split (mma.sync m16n8k8 tf32,
+// three products each: note further down).
 //
 // K6 fused_zy_forward replaces ns_tpu/ops/pallas/transform3d_kernels.py
 //                     ::fused_zy_forward (body _fwd_kernel): the z-DFT and
@@ -35,39 +34,23 @@
 //                     physical leg of the nonlinear term, yz-inverse of six
 //                     fields (u, omega), the cross product u x omega, and
 //                     the zy-forward of the three products (lamb_phys_bf16
-//                     + lamb_yfwd_bf16; lamb_phys + lamb_yfwd). Bound at
-//                     256^3: 271 MB in and out, 0.081 ms; 121 GFLOP, 0.12
-//                     ms on bf16 tensor cores (so bound by operations),
-//                     1.81 ms on fp32 FMAs. The bf16 pair runs all four
-//                     stages on the tensor cores; no physical field and no
-//                     fp32 intermediate reaches device memory, only the
-//                     z-reduced products in bf16 (68 MB at 256^3).
+//                     + lamb_yfwd_bf16; lamb_phys_tf32 + lamb_yfwd_tf32).
+//                     Bound at 256^3: 271 MB in and out, 0.081 ms; 121
+//                     GFLOP, 0.12 ms on bf16 tensor cores, 0.735 ms as
+//                     3xTF32, 1.81 ms on fp32 FMAs (so bound by operations).
+//                     Both pairs run all four stages on the tensor cores; no
+//                     physical field reaches device memory, only the
+//                     z-reduced products (68 MB in bf16, 302 MB as 3xTF32
+//                     planes at 256^3).
 //
 // Layouts (row-major, complex as interleaved float2 = torch complex64):
 //   physical w (B, nx, ny, nz) float; spectral a (B, nx, Ry, Kzc) float2;
 //   Fy (Ry, ny), Fyi (ny, Ry), Bz (Kzc, nz), FzT (nz, Kzc) = Fz_t^T. The
-//   tensor-core kernels take their tables in bf16 as the wrappers lay them
-//   out (ops/kernels/transform3d_kernels.py: bf16_tables, inverse_tables,
-//   lamb_tables).
+//   kernels take their tables as the wrappers lay them out
+//   (ops/kernels/transform3d_kernels.py: bf16_tables, inverse_tables and
+//   lamb_tables in bf16; tf32_tables and inverse_tf32_tables split into
+//   tf32 planes).
 // The x-stage contracts across x-rows and stays the caller's GEMM.
-//
-// K8's fp32 pair. At 256^3 one x-row of K8's input (six Ry x Kzc complex
-// fields) is 706 KB, more than a block's 227 KB of shared memory. So it
-// walks an x-row in tiles of kTY = 16 y-rows: a tile's physical rows and
-// its z-stage spectrum live in shared memory. It is bound by FMA issue,
-// not by bytes: each stage is a register-blocked GEMM on CUDA-core FMAs (a
-// work item is one output column and a block of rows whose sums stay in
-// registers, the shared operand broadcast from shared memory; the rows
-// per item are chosen so that the items of a stage fill the block).
-//
-//   K8 (fp32): two launches. The first, one block per (x, y-tile), runs
-//       the y-inverse of the six fields, the z-unfold, the cross product
-//       and the z-forward of the three products, all in shared memory, and
-//       writes only the z-reduced products S (3, nx, ny, Kzc) complex. The
-//       second, one block per (component, x, 16 Ry rows), is the y-forward
-//       GEMM Fy @ S. No physical field (B, nx, ny, nz) is ever written to
-//       global memory, and every sum is taken inside one thread in a fixed
-//       order: no atomics, the result is deterministic.
 
 #include <cuda_bf16.h>
 
@@ -77,96 +60,6 @@
 
 namespace ns {
 namespace t3d {
-
-constexpr int kTY = 16;  // y-rows per tile of K8's first launch
-constexpr int kBT = 16;  // Ry rows per block of K8's y-forward launch
-constexpr int kRB = 4;   // y-rows per register block of K8's z-unfold
-
-struct Dims {
-  int nx, ny, nz, ry, kzc;
-};
-
-__device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
-  acc.x = fmaf(a.x, b.x, acc.x);
-  acc.x = fmaf(-a.y, b.y, acc.x);
-  acc.y = fmaf(a.x, b.y, acc.y);
-  acc.y = fmaf(a.y, b.x, acc.y);
-}
-
-// Fyi rows y0 .. y0+kTY-1 into shared memory as [kTY][ry]; rows past ny are
-// zero, so every later stage may run all kTY rows.
-__device__ __forceinline__ void load_fyi_tile(const float2* __restrict__ fyi,
-                                              float2* fyi_s, int y0,
-                                              const Dims& d) {
-  for (int i = threadIdx.x; i < kTY * d.ry; i += blockDim.x) {
-    const int r = i / d.ry, b = i - r * d.ry;
-    const int y = y0 + r;
-    fyi_s[i] = y < d.ny ? fyi[static_cast<size_t>(y) * d.ry + b]
-                        : make_float2(0.f, 0.f);
-  }
-}
-
-// y-inverse of nf fields for one tile: T[f][r][k] = sum_b Fyi[y0+r][b] a_f[b][k]
-// with a_f = a + f * fstride, an (ry, kzc) complex row. One work item is
-// one (f, k) column and RPI rows, whose sums stay in registers; RPI sets
-// how many items there are to spread over the block.
-template <int RPI>
-__device__ __forceinline__ void y_inverse_tile(const float2* __restrict__ a,
-                                               size_t fstride, int nf,
-                                               const float2* fyi_s,
-                                               float2* t_s, const Dims& d) {
-  constexpr int G = kTY / RPI;
-  for (int it = threadIdx.x; it < nf * G * d.kzc; it += blockDim.x) {
-    const int fg = it / d.kzc, k = it - fg * d.kzc;
-    const int f = fg / G, r0 = (fg - f * G) * RPI;
-    const float2* col = a + f * fstride + k;
-    const float2* fy = fyi_s + r0 * d.ry;
-    float2 acc[RPI];
-#pragma unroll
-    for (int r = 0; r < RPI; ++r) acc[r] = make_float2(0.f, 0.f);
-    for (int b = 0; b < d.ry; ++b) {
-      const float2 v = __ldg(col + static_cast<size_t>(b) * d.kzc);
-#pragma unroll
-      for (int r = 0; r < RPI; ++r) cmac(acc[r], fy[r * d.ry + b], v);
-    }
-#pragma unroll
-    for (int r = 0; r < RPI; ++r)
-      t_s[(f * kTY + r0 + r) * d.kzc + k] = acc[r];
-  }
-}
-
-// z-forward of nc real row sets: out[c][r][k] = sum_z rows[c][r][z] FzT[z][k]
-// for rows [nc][kTY][nz] in shared memory; out row r of component c at
-// out + c * cstride + r * kzc, rows r < nrows stored. Work items as in
-// y_inverse_tile: one (c, k) column and RPI rows.
-template <int RPI>
-__device__ __forceinline__ void z_forward_tile(const float* rows_s, int nc,
-                                               const float2* __restrict__ fzt,
-                                               float2* out, size_t cstride,
-                                               int nrows, const Dims& d) {
-  constexpr int G = kTY / RPI;
-  for (int it = threadIdx.x; it < nc * G * d.kzc; it += blockDim.x) {
-    const int cg = it / d.kzc, k = it - cg * d.kzc;
-    const int c = cg / G, r0 = (cg - c * G) * RPI;
-    const float* rows = rows_s + (c * kTY + r0) * d.nz;
-    float2 acc[RPI];
-#pragma unroll
-    for (int r = 0; r < RPI; ++r) acc[r] = make_float2(0.f, 0.f);
-    for (int z = 0; z < d.nz; ++z) {
-      const float2 f = __ldg(fzt + static_cast<size_t>(z) * d.kzc + k);
-#pragma unroll
-      for (int r = 0; r < RPI; ++r) {
-        const float l = rows[r * d.nz + z];
-        acc[r].x = fmaf(l, f.x, acc[r].x);
-        acc[r].y = fmaf(l, f.y, acc[r].y);
-      }
-    }
-    float2* o = out + c * cstride + k;
-#pragma unroll
-    for (int r = 0; r < RPI; ++r)
-      if (r0 + r < nrows) o[static_cast<size_t>(r0 + r) * d.kzc] = acc[r];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K6 at 'default' on the tensor cores: grid (nchunks * rparts, B*nx) of
@@ -482,101 +375,6 @@ zy_forward_bf16_kernel(const float* __restrict__ w,
     if (act) y_stage_mma(acc, F, yb);  // acc += A(j) [t_re; t_im]
   }
   if (act) y_stage_store(acc, out, slab, yr, chunk, d);
-}
-
-// ---------------------------------------------------------------------------
-// K8, first launch: grid (nx, ceil(ny/kTY)), one thread per (field, Kzc
-// column) of the y-inverse up to kPhysThreads. Writes the z-forward of the
-// tile's three products into s (3, nx, ny, kzc).
-// ---------------------------------------------------------------------------
-constexpr int kPhysThreads = 576;
-
-__global__ void __launch_bounds__(kPhysThreads)
-lamb_phys_kernel(const float2* __restrict__ a6, const float2* __restrict__ fyi,
-                 const float2* __restrict__ bz, const float2* __restrict__ fzt,
-                 float2* __restrict__ s, Dims d) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* fyi_s = reinterpret_cast<float2*>(smem);       // [kTY][ry]
-  float2* t_s = fyi_s + kTY * d.ry;                      // [6][kTY][kzc]
-  float* l_s = reinterpret_cast<float*>(t_s + 6 * kTY * d.kzc);  // [3][kTY][nz]
-  const int x = blockIdx.x;
-  const int y0 = blockIdx.y * kTY;
-  const int rows = min(kTY, d.ny - y0);
-  const size_t spec = static_cast<size_t>(d.ry) * d.kzc;
-  load_fyi_tile(fyi, fyi_s, y0, d);
-  __syncthreads();
-  y_inverse_tile<kTY>(a6 + x * spec, d.nx * spec, 6, fyi_s, t_s, d);
-  __syncthreads();
-  // z-unfold of the six fields and the cross product; a work item is one
-  // z column and kRB rows
-  for (int it = threadIdx.x; it < (kTY / kRB) * d.nz; it += blockDim.x) {
-    const int g = it / d.nz, z = it - g * d.nz, r0 = g * kRB;
-    float acc[6][kRB];
-#pragma unroll
-    for (int f = 0; f < 6; ++f)
-#pragma unroll
-      for (int r = 0; r < kRB; ++r) acc[f][r] = 0.f;
-    for (int k = 0; k < d.kzc; ++k) {
-      const float2 b = __ldg(bz + static_cast<size_t>(k) * d.nz + z);
-#pragma unroll
-      for (int f = 0; f < 6; ++f)
-#pragma unroll
-        for (int r = 0; r < kRB; ++r) {
-          const float2 t = t_s[(f * kTY + r0 + r) * d.kzc + k];
-          acc[f][r] = fmaf(t.x, b.x, acc[f][r]);
-          acc[f][r] = fmaf(-t.y, b.y, acc[f][r]);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < kRB; ++r) {
-      const float u1 = acc[0][r], u2 = acc[1][r], u3 = acc[2][r];
-      const float w1 = acc[3][r], w2 = acc[4][r], w3 = acc[5][r];
-      const int row = (r0 + r) * d.nz + z;
-      l_s[row] = u2 * w3 - u3 * w2;
-      l_s[kTY * d.nz + row] = u3 * w1 - u1 * w3;
-      l_s[2 * kTY * d.nz + row] = u1 * w2 - u2 * w1;
-    }
-  }
-  __syncthreads();
-  const size_t plane = static_cast<size_t>(d.ny) * d.kzc;
-  z_forward_tile<kTY / 2>(l_s, 3, fzt,
-                          s + x * plane + static_cast<size_t>(y0) * d.kzc,
-                          d.nx * plane, rows, d);
-}
-
-// ---------------------------------------------------------------------------
-// K8, second launch: grid (3*nx, ceil(ry/kBT)), one Kzc column per thread:
-// out[c][x][b][k] = sum_y Fy[b][y] s[c][x][y][k].
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
-lamb_yfwd_kernel(const float2* __restrict__ s, const float2* __restrict__ fy,
-                 float2* __restrict__ out, Dims d) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* fy_s = reinterpret_cast<float2*>(smem);  // [kBT][ny]
-  const size_t row = blockIdx.x;                   // c * nx + x
-  const int b0 = blockIdx.y * kBT;
-  const int brows = min(kBT, d.ry - b0);
-  for (int i = threadIdx.x; i < kBT * d.ny; i += blockDim.x) {
-    const int r = i / d.ny;
-    fy_s[i] = r < brows ? fy[static_cast<size_t>(b0) * d.ny + i]
-                        : make_float2(0.f, 0.f);
-  }
-  __syncthreads();
-  const float2* sx = s + row * d.ny * d.kzc;
-  float2* ox = out + (row * d.ry + b0) * d.kzc;
-  for (int k = threadIdx.x; k < d.kzc; k += blockDim.x) {
-    float2 acc[kBT];
-#pragma unroll
-    for (int r = 0; r < kBT; ++r) acc[r] = make_float2(0.f, 0.f);
-    for (int y = 0; y < d.ny; ++y) {
-      const float2 v = __ldg(sx + static_cast<size_t>(y) * d.kzc + k);
-#pragma unroll
-      for (int r = 0; r < kBT; ++r) cmac(acc[r], fy_s[r * d.ny + y], v);
-    }
-#pragma unroll
-    for (int r = 0; r < kBT; ++r)
-      if (r < brows) ox[static_cast<size_t>(r) * d.kzc + k] = acc[r];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1040,7 +838,7 @@ lamb_yfwd_bf16_kernel(const unsigned short* __restrict__ s,
 }
 
 // ---------------------------------------------------------------------------
-// K6 and K7 at 'high' and 'highest' on the tensor cores: 3xTF32.
+// K6, K7 and K8 at 'high' and 'highest' on the tensor cores: 3xTF32.
 //
 // Each product a b of fp32 operands runs on the TF32 tensor cores (mma.sync
 // m16n8k8 tf32, fp32 accumulator) as three: with x = big + small, big =
@@ -1052,10 +850,10 @@ lamb_yfwd_bf16_kernel(const unsigned short* __restrict__ s,
 // max|out|, does not keep it). The DFT tables are split once by the
 // wrappers (ops/kernels/transform3d_kernels.py: tf32_tables,
 // inverse_tf32_tables) into big and small planes in mma fragment order;
-// the data (K6: w, K7: the spectrum) are split in registers after each
-// load from shared memory; the intermediate t is split once, as it is
-// stored to shared memory, into big and small planes that the second GEMM
-// reads as they are.
+// the data (K6: w, K7 and K8: the spectrum) are split in registers after
+// each load from shared memory; K6's and K7's intermediate t is split
+// once, as it is stored to shared memory, into big and small planes that
+// the second GEMM reads as they are (K8's intermediates: its own note).
 //
 // Fragment order: the contraction index k of each 8-deep MMA step is
 // permuted so that a lane's two k values are neighbours: k = tq comes from
@@ -1108,6 +906,33 @@ lamb_yfwd_bf16_kernel(const unsigned short* __restrict__ s,
 // and small planes over the spectrum (after a barrier), and the z-unfold
 // [t_re | t_im] [Bz_re; -Bz_im] runs on items of (4 m-tiles, 4 z n-tiles),
 // Bz's fragments one step ahead; the physical rows are written once.
+//
+// K8: two launches, on K7's tables (inverse_tf32_tables: Fyi, Bz) and K6's
+// (tf32_tables: Fz by Kzc chunk, Fy); bound at 256^3 by its 3xTF32
+// products, 0.735 ms. The TPU kernel holds an x-slab's six fields, their
+// physical rows and the products in VMEM; here one slab's spectrum in fp32
+// (138 KB at 256^3) and the six fields' y-inverse of a y-tile do not both
+// fit a block's 227 KB. So the first launch, one block per (y-tile of kLTY
+// = 16 rows, slab x), never holds the spectrum: it streams it through a
+// ring of kLStages k-steps (8 Ry rows of all six fields, with the step's
+// Fyi fragments; cp.async, zero past Ry and Kzc) while the y-inverse of
+// the six fields accumulates in registers: warp (f, h) owns field f and
+// half h of the Kzc n-tiles, t_re and t_im (K7's arithmetic). Over the
+// dead ring, t is stored unsplit ([6][16][st]: the z-unfold splits its A
+// fragments as it loads them) and the products' planes after it. The
+// z-unfold [t_re | t_im] [Bz_re; -Bz_im] gives each warp up to kLZW z
+// n-tiles of all six fields, so u x omega is taken lane by lane in fp32
+// and split into big and small planes ([3][2][16][ls]). The z-forward t1 =
+// products @ Fz_chunk^T takes items of (component, Kzc chunk, re or im
+// half: six n-tiles), Fz's fragments from K6's table one step ahead, and
+// writes t1, split, into S: (3 nx, nchunks, 2 planes, kTN1, nyp) floats,
+// y contiguous, which is the transposed t tile of K6's y-stage. The
+// second launch is K6's y-stage on S (grid and warps as K6's), its tiles
+// arriving by cp.async, two in flight. Shared memory: the larger of the
+// ring and t with the product planes, 172,032 bytes at 256^3, and 110,592
+// for the second launch; less than K7's 3xTF32 kernel wherever that fits
+// (smem_bytes). Rows past ny are zero in Fyi's table, so S is zero there
+// and the second launch reads it as it reads real rows.
 // ---------------------------------------------------------------------------
 constexpr int kTTY = 64;                            // K6 y-rows per tile
 constexpr int kTKZ = 32;                            // K6 z per slice
@@ -1126,6 +951,12 @@ constexpr int kUThreads = 32 * kUWarps;
 // without a branch. Its t planes (2 kUTY (16 NT + 8) floats) fit a block's
 // shared memory up to NT = 13.
 constexpr int kUNTs[] = {3, 6, 11, 13};
+constexpr int kLTY = 16;        // K8 y-rows per block of its first launch
+constexpr int kLWarps = 12;
+constexpr int kLThreads = 32 * kLWarps;
+constexpr int kLStages = 4;     // y-inverse k-steps in flight
+constexpr int kLZW = 3;         // z n-tiles per warp and round of the z-unfold
+constexpr int kLFyi = 4 * 32;   // uint4 of one k-step's Fyi fragments
 
 struct TfDims {
   int ny, nz, ry, kzc;
@@ -1143,6 +974,15 @@ struct TiDims {
   int nzt;  // z n-tiles, nz rounded up to 32, over 8
   int sa;   // spectrum row stride (float2): 8 ntk rounded up to 16, + 2
   int st;   // t plane row stride (floats): 16 ntk + 8
+};
+
+// K8's first launch: K7's dims for its instance, and
+struct LmDims {
+  TiDims t;
+  int nx;
+  int ls;       // product plane row stride (floats): 8 nzt + 8
+  int nchunks;  // Kzc chunks of kBKC columns (K6's Fz table)
+  int nyp;      // S's y extent: ny rounded up to kTTY
 };
 
 __device__ __forceinline__ void cp_async8(unsigned dst, const void* src,
@@ -1250,6 +1090,28 @@ __device__ __forceinline__ void mma6(float (&c)[4], const uint4& ab1,
   mma_tf32(d, ab2, b2.b0, b2.b1);
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// acc += one y-step of K6's y-stage: out_re += Fy_re t_re + Fy_im (-t_im),
+// out_im += Fy_im t_re + Fy_re t_im for the step's Fy fragments F (Fy_re
+// big, small, Fy_im big, small) and the lane's position tb in a t tile of
+// planes [big, small][kTN1][kTTS] (columns n < kBKC t_re, then t_im; y
+// along the rows), at the step's first y.
+__device__ __forceinline__ void y_step_tf32(float (&acc)[2][kBKC / 8][4],
+                                            const uint4 (&F)[4],
+                                            const float* tb) {
+#pragma unroll
+  for (int n = 0; n < kBKC / 8; ++n) {
+    const float* p = tb + n * 8 * kTTS;
+    const float2 rb = *reinterpret_cast<const float2*>(p);
+    const float2 rs = *reinterpret_cast<const float2*>(p + kTN1 * kTTS);
+    const float2 ib = *reinterpret_cast<const float2*>(p + kBKC * kTTS);
+    const float2 is =
+        *reinterpret_cast<const float2*>(p + (kTN1 + kBKC) * kTTS);
+    const SplitB tr = planes_b(rb, rs), ti = planes_b(ib, is);
+    mma6(acc[0][n], F[0], F[1], tr, F[2], F[3], neg_b(ti));
+    mma6(acc[1][n], F[2], F[3], tr, F[0], F[1], ti);
+  }
 }
 
 // fzt (nchunks, nsl * kTKZ / 8, kTN1 / 8, 32) uint4: chunk c's Fz rows (n <
@@ -1383,26 +1245,13 @@ zy_forward_tf32_kernel(const float* __restrict__ w,
         t_s[(kTN1 + col) * kTTS + row] = __uint_as_float(s);
       }
     __syncthreads();  // the tile's t is complete
-    if (act) {
-      // out_re += Fy_re t_re + Fy_im (-t_im), out_im += Fy_im t_re + Fy_re
-      // t_im over the tile's y-steps
+    if (act) {  // the y-stage over the tile's y-steps
       const float* tb = t_s + g * kTTS + 2 * tq;
 #pragma unroll 1
       for (int k = 0; k < kTTY / 8; ++k) {
         // the next step's (the table has one step past the last tile)
         fetch(j * (kTTY / 8) + k + 1, Fn);
-#pragma unroll
-        for (int n = 0; n < kBKC / 8; ++n) {
-          const float* p = tb + n * 8 * kTTS + k * 8;
-          const float2 rb = *reinterpret_cast<const float2*>(p);
-          const float2 rs = *reinterpret_cast<const float2*>(p + kTN1 * kTTS);
-          const float2 ib = *reinterpret_cast<const float2*>(p + kBKC * kTTS);
-          const float2 is =
-              *reinterpret_cast<const float2*>(p + (kTN1 + kBKC) * kTTS);
-          const SplitB tr = planes_b(rb, rs), ti = planes_b(ib, is);
-          mma6(acc[0][n], F[0], F[1], tr, F[2], F[3], neg_b(ti));
-          mma6(acc[1][n], F[2], F[3], tr, F[0], F[1], ti);
-        }
+        y_step_tf32(acc, F, tb + k * 8);
 #pragma unroll
         for (int q = 0; q < 4; ++q) F[q] = Fn[q];
       }
@@ -1581,6 +1430,340 @@ yz_inverse_tf32_kernel(const float2* __restrict__ a,
   }
 }
 
+// K8's first launch: grid (ny rounded up to kLTY, over kLTY; nx) of
+// kLThreads, one block per (y-tile, slab x): the y-inverse of the six
+// fields, the z-unfold, u x omega and the z-forward, S written split.
+// fia, bzt: K7's tables (inverse_tf32_tables) for the instance NT; fzt:
+// K6's Fz table (tf32_tables). s: S (3 nx, nchunks, 2, kTN1, nyp) floats.
+template <int NT>
+__global__ void __launch_bounds__(kLThreads, 1)
+lamb_phys_tf32_kernel(const float2* __restrict__ a6,
+                      const uint4* __restrict__ fia,
+                      const uint4* __restrict__ bzt,
+                      const uint4* __restrict__ fzt, float* __restrict__ s,
+                      LmDims d, int vec16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NH = (NT + 1) / 2;  // Kzc n-tiles of a warp's half
+  constexpr int cols = NT * 8;
+  const TiDims& e = d.t;
+  // the ring: kLStages k-steps of [Fyi fragments][6][8][sa] spectrum rows;
+  // after the y-inverse, over it, t [6][kLTY][st], then the products'
+  // planes [3][big, small][kLTY][ls]
+  const int stage = kLFyi * sizeof(uint4) + 6 * 8 * e.sa * sizeof(float2);
+  float* t_s = reinterpret_cast<float*>(smem);
+  float* l_s = t_s + 6 * kLTY * e.st;
+  const int ytile = blockIdx.x, x = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const size_t spec = static_cast<size_t>(e.ry) * e.kzc;
+  const uint4* fim = fia + static_cast<size_t>(ytile) * e.nks * kLFyi;
+
+  // k-step k (Ry rows 8 k .. 8 k + 7) into buffer k % kLStages
+  auto load_stage = [&](int k) {
+    unsigned char* base = smem + (k % kLStages) * stage;
+    uint4* fs = reinterpret_cast<uint4*>(base);
+    for (int q = threadIdx.x; q < kLFyi; q += kLThreads)
+      cp_async16(smem_u32(fs + q), fim + static_cast<size_t>(k) * kLFyi + q,
+                 16);
+    float2* as = reinterpret_cast<float2*>(fs + kLFyi);
+    if (vec16) {  // Kzc even and a6 16-byte aligned: two complex a copy
+      constexpr int ppr = cols / 2;
+      for (int q = threadIdx.x; q < 6 * 8 * ppr; q += kLThreads) {
+        const int row = q / ppr, c = (q - row * ppr) * 2;  // row = f 8 + i
+        const int r = k * 8 + (row & 7);
+        const bool ok = r < e.ry && c < e.kzc;
+        cp_async16(smem_u32(as + row * e.sa + c),
+                   ok ? a6 + ((row >> 3) * d.nx + x) * spec +
+                            static_cast<size_t>(r) * e.kzc + c
+                      : a6,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int q = threadIdx.x; q < 6 * 8 * cols; q += kLThreads) {
+        const int row = q / cols, c = q - row * cols;
+        const int r = k * 8 + (row & 7);
+        const bool ok = r < e.ry && c < e.kzc;
+        cp_async8(smem_u32(as + row * e.sa + c),
+                  ok ? a6 + ((row >> 3) * d.nx + x) * spec +
+                           static_cast<size_t>(r) * e.kzc + c
+                     : a6,
+                  ok ? 8 : 0);
+      }
+    }
+  };
+
+  // y-inverse: t_re += Fyi_re a_re + Fyi_im (-a_im), t_im += Fyi_re a_im
+  // + Fyi_im a_re; warp (f, h): field f, n-tiles h NH .. h NH + NH - 1
+  const int f = warp >> 1, h = warp & 1;
+  float acc[2][NH][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < NH; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][i][q] = 0.f;
+  // kLStages - 1 k-steps in flight ahead of the one computed, one cp.async
+  // group a step (empty past the last), as K6's z-slices
+#pragma unroll
+  for (int i = 0; i < kLStages - 1; ++i) {
+    if (i < e.nks) load_stage(i);
+    cp_async_commit();
+  }
+  for (int k = 0; k < e.nks; ++k) {
+    cp_async_wait<kLStages - 2>();
+    // step k landed for every thread, and every thread is done with step
+    // k - 1, whose buffer the load below refills
+    __syncthreads();
+    if (k + kLStages - 1 < e.nks) load_stage(k + kLStages - 1);
+    cp_async_commit();
+    const uint4* fs =
+        reinterpret_cast<const uint4*>(smem + (k % kLStages) * stage);
+    uint4 F[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) F[q] = fs[q * 32 + lane];
+    // rows 2 tq (b0) and 2 tq + 1 (b1) of the step, column 8 n + g
+    const float2* ar = reinterpret_cast<const float2*>(fs + kLFyi) +
+                       (f * 8 + 2 * tq) * e.sa + g;
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      const int n = h * NH + i;
+      if (n < NT) {
+        const float2 v0 = ar[n * 8], v1 = ar[e.sa + n * 8];
+        const SplitB re = split_b(v0.x, v1.x), im = split_b(v0.y, v1.y);
+        mma6(acc[0][i], F[0], F[1], re, F[2], F[3], neg_b(im));
+        mma6(acc[1][i], F[0], F[1], im, F[2], F[3], re);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring, which t overwrites
+
+  // t, unsplit: re at column c, im at cols + c
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    const int n = h * NH + i;
+    if (n < NT) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(t_s + (f * kLTY + g + 8 * r) * e.st +
+                                     p * cols + n * 8 + 2 * tq) =
+              make_float2(acc[p][i][2 * r], acc[p][i][2 * r + 1]);
+    }
+  }
+  __syncthreads();  // t is complete
+
+  // z-unfold of the six fields, [t_re | t_im] [Bz_re; -Bz_im], and u x
+  // omega: in rounds, warp w takes z n-tiles w, w + kLWarps, ... (kLZW of
+  // them), their Bz fragments one step ahead; A split as it is loaded
+  for (int z0 = 0; z0 < e.nzt; z0 += kLWarps * kLZW) {
+    int zt[kLZW];
+#pragma unroll
+    for (int j = 0; j < kLZW; ++j) zt[j] = z0 + warp + kLWarps * j;
+    if (zt[0] >= e.nzt) break;
+    float c[6][kLZW][4];
+#pragma unroll
+    for (int fl = 0; fl < 6; ++fl)
+#pragma unroll
+      for (int j = 0; j < kLZW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) c[fl][j][q] = 0.f;
+    const uint4* bp = bzt + lane;
+    uint4 Bc[kLZW], Bn[kLZW];
+#pragma unroll
+    for (int j = 0; j < kLZW; ++j)
+      if (zt[j] < e.nzt) Bc[j] = __ldg(bp + zt[j] * 32);
+    for (int k = 0; k < 2 * NT; ++k) {
+      if (k + 1 < 2 * NT) {
+#pragma unroll
+        for (int j = 0; j < kLZW; ++j)
+          if (zt[j] < e.nzt)
+            Bn[j] = __ldg(
+                bp + (static_cast<size_t>(k + 1) * e.nzt + zt[j]) * 32);
+      }
+#pragma unroll
+      for (int fl = 0; fl < 6; ++fl) {
+        const float* p = t_s + (fl * kLTY + g) * e.st + k * 8 + 2 * tq;
+        uint4 ab, as;
+        split_a(*reinterpret_cast<const float2*>(p),
+                *reinterpret_cast<const float2*>(p + 8 * e.st), ab, as);
+#pragma unroll
+        for (int j = 0; j < kLZW; ++j)
+          if (zt[j] < e.nzt)
+            mma3(c[fl][j], ab, as, SplitB{Bc[j].x, Bc[j].y, Bc[j].z, Bc[j].w});
+      }
+      if (k + 1 < 2 * NT) {
+#pragma unroll
+        for (int j = 0; j < kLZW; ++j) Bc[j] = Bn[j];
+      }
+    }
+    // u x omega in fp32, split into the products' planes
+#pragma unroll
+    for (int j = 0; j < kLZW; ++j) {
+      if (zt[j] >= e.nzt) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        unsigned b[3][2], sm[3][2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = 2 * r + q;
+          const float u1 = c[0][j][i], u2 = c[1][j][i], u3 = c[2][j][i];
+          const float w1 = c[3][j][i], w2 = c[4][j][i], w3 = c[5][j][i];
+          split_tf32(u2 * w3 - u3 * w2, b[0][q], sm[0][q]);
+          split_tf32(u3 * w1 - u1 * w3, b[1][q], sm[1][q]);
+          split_tf32(u1 * w2 - u2 * w1, b[2][q], sm[2][q]);
+        }
+#pragma unroll
+        for (int cc = 0; cc < 3; ++cc) {
+          float* l0 = l_s + (cc * 2 * kLTY + g + 8 * r) * d.ls + zt[j] * 8 +
+                      2 * tq;
+          *reinterpret_cast<float2*>(l0) = make_float2(
+              __uint_as_float(b[cc][0]), __uint_as_float(b[cc][1]));
+          *reinterpret_cast<float2*>(l0 + kLTY * d.ls) = make_float2(
+              __uint_as_float(sm[cc][0]), __uint_as_float(sm[cc][1]));
+        }
+      }
+    }
+  }
+  __syncthreads();  // the products are complete
+
+  // z-forward t1 = products @ Fz_chunk^T: item (component, chunk, half):
+  // n-tiles 6 half .. 6 half + 5 of the chunk's kTN1 columns (re, then
+  // im), Fz's fragments one step ahead; t1 split into S
+  for (int it = warp; it < 6 * d.nchunks; it += kLWarps) {
+    const int half = it & 1, cc = (it >> 1) % 3, ch = (it >> 1) / 3;
+    float o[kBKC / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBKC / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) o[n][q] = 0.f;
+    const uint4* fp = fzt +
+                      (static_cast<size_t>(ch) * e.nzt * (kTN1 / 8) +
+                       half * (kBKC / 8)) * 32 + lane;
+    uint4 Bc[kBKC / 8], Bn[kBKC / 8];
+#pragma unroll
+    for (int n = 0; n < kBKC / 8; ++n) Bc[n] = __ldg(fp + n * 32);
+    const float* lb = l_s + (cc * 2 * kLTY + g) * d.ls + 2 * tq;
+    for (int k = 0; k < e.nzt; ++k) {
+      if (k + 1 < e.nzt) {
+#pragma unroll
+        for (int n = 0; n < kBKC / 8; ++n)
+          Bn[n] = __ldg(
+              fp + (static_cast<size_t>(k + 1) * (kTN1 / 8) + n) * 32);
+      }
+      const float* p = lb + k * 8;
+      const float2 x0 = *reinterpret_cast<const float2*>(p);
+      const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * d.ls);
+      const float2 y0 = *reinterpret_cast<const float2*>(p + kLTY * d.ls);
+      const float2 y1 =
+          *reinterpret_cast<const float2*>(p + (kLTY + 8) * d.ls);
+      const uint4 ab = make_uint4(__float_as_uint(x0.x), __float_as_uint(x1.x),
+                                  __float_as_uint(x0.y), __float_as_uint(x1.y));
+      const uint4 as = make_uint4(__float_as_uint(y0.x), __float_as_uint(y1.x),
+                                  __float_as_uint(y0.y), __float_as_uint(y1.y));
+#pragma unroll
+      for (int n = 0; n < kBKC / 8; ++n)
+        mma3(o[n], ab, as, SplitB{Bc[n].x, Bc[n].y, Bc[n].z, Bc[n].w});
+      if (k + 1 < e.nzt) {
+#pragma unroll
+        for (int n = 0; n < kBKC / 8; ++n) Bc[n] = Bn[n];
+      }
+    }
+    float* so = s + ((static_cast<size_t>(cc) * d.nx + x) * d.nchunks + ch) *
+                        2 * kTN1 * d.nyp;
+#pragma unroll
+    for (int n = 0; n < kBKC / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = half * kBKC + n * 8 + 2 * tq + (q & 1);
+        const int y = ytile * kLTY + g + 8 * (q >> 1);
+        unsigned b, sm;
+        split_tf32(o[n][q], b, sm);
+        so[static_cast<size_t>(col) * d.nyp + y] = __uint_as_float(b);
+        so[static_cast<size_t>(kTN1 + col) * d.nyp + y] = __uint_as_float(sm);
+      }
+  }
+}
+
+// K8's second launch: K6's y-stage on S. Grid (nchunks * rparts, 3*nx) of
+// kTThreads, one block per (Kzc chunk, part of the Ry rows, component and
+// slab), warp w owning row tile rpart kTWarps + w as in K6; each y-tile's
+// S planes (kTTY rows of the chunk's kTN1 columns, big and small) arrive
+// by cp.async into one of two buffers while the other is used, zero past
+// the rows the first launch wrote (ny16).
+__global__ void __launch_bounds__(kTThreads, 1)
+lamb_yfwd_tf32_kernel(const float* __restrict__ s,
+                      const uint4* __restrict__ fya, float* __restrict__ out,
+                      TfDims d, int ny16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* t_s = reinterpret_cast<float*>(smem);  // [2][2][kTN1][kTTS]
+  const int chunk = blockIdx.x % d.nchunks, rpart = blockIdx.x / d.nchunks;
+  const size_t slab = blockIdx.y;  // c * nx + x
+  const int nyp = d.nyt * kTTY;
+  const float* src = s + (slab * d.nchunks + chunk) * 2 * kTN1 * nyp;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  constexpr int cpr = kTTY / 4;  // 16-byte copies a row of a tile
+  auto load = [&](int j, int buf) {
+    float* dst = t_s + buf * 2 * kTN1 * kTTS;
+    for (int q = threadIdx.x; q < 2 * kTN1 * cpr; q += kTThreads) {
+      const int row = q / cpr, y = (q - row * cpr) * 4;
+      const int yy = j * kTTY + y;
+      const bool ok = yy < ny16;
+      cp_async16(smem_u32(dst + row * kTTS + y),
+                 ok ? src + static_cast<size_t>(row) * nyp + yy : src,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  const int yr = rpart * kTWarps + warp;
+  const bool act = yr < d.rt;
+  float acc[2][kBKC / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < kBKC / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][n][q] = 0.f;
+  uint4 F[4], Fn[4];  // Fy fragments of this y-step and the next
+  auto fetch = [&](int s8, uint4(&fr)[4]) {
+    const uint4* p =
+        fya + (static_cast<size_t>(s8) * d.rt + yr) * 4 * 32 + lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) fr[q] = __ldg(p + q * 32);
+  };
+  load(0, 0);
+  for (int j = 0; j < d.nyt; ++j) {
+    if (act) fetch(j * (kTTY / 8), F);
+    __syncthreads();  // tile j-1's y-stage is done with the other buffer
+    if (j + 1 < d.nyt) {
+      load(j + 1, (j + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j landed
+    if (act) {
+      const float* tb =
+          t_s + (j & 1) * 2 * kTN1 * kTTS + g * kTTS + 2 * tq;
+#pragma unroll 1
+      for (int k = 0; k < kTTY / 8; ++k) {
+        fetch(j * (kTTY / 8) + k + 1, Fn);
+        y_step_tf32(acc, F, tb + k * 8);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) F[q] = Fn[q];
+      }
+    }
+  }
+  if (act) {
+    BfDims bd;
+    bd.ry = d.ry;
+    bd.kzc = d.kzc;
+    y_stage_store(acc, out, slab, yr, chunk, bd);
+  }
+}
+
 // Shared-memory bytes of each kernel; the wrappers' fit check
 // (ops/kernels/transform3d_kernels.py::smem_bytes) mirrors these.
 inline size_t smem_zy_forward_tf32() {
@@ -1595,12 +1778,17 @@ inline size_t smem_yz_inverse_tf32(const TiDims& d) {
   return std::max(static_cast<size_t>(d.nks) * 8 * d.sa * sizeof(float2),
                   static_cast<size_t>(2) * kUTY * d.st * sizeof(float));
 }
-inline size_t smem_lamb_phys(const Dims& d) {
-  return static_cast<size_t>(kTY) * (d.ry + 6 * d.kzc) * sizeof(float2) +
-         static_cast<size_t>(3) * kTY * d.nz * sizeof(float);
+inline size_t smem_lamb_phys_tf32(const LmDims& d) {
+  const size_t ring = kLStages * (kLFyi * sizeof(uint4) +
+                                  static_cast<size_t>(6) * 8 * d.t.sa *
+                                      sizeof(float2));
+  const size_t body =
+      (static_cast<size_t>(6) * d.t.st + static_cast<size_t>(6) * d.ls) *
+      kLTY * sizeof(float);
+  return std::max(ring, body);
 }
-inline size_t smem_lamb_yfwd(const Dims& d) {
-  return static_cast<size_t>(kBT) * d.ny * sizeof(float2);
+inline size_t smem_lamb_yfwd_tf32() {
+  return 2 * 2 * kTN1 * kTTS * sizeof(float);
 }
 inline size_t smem_yz_inverse_bf16(const VDims& d) {
   return static_cast<size_t>(d.ryp + kVTY) * d.ks * 2;
@@ -1653,6 +1841,16 @@ inline TiDims make_tidims(int ny, int nz, int ry, int kzc, int nt) {
   return d;
 }
 
+inline LmDims make_lmdims(int nx, int ny, int nz, int ry, int kzc, int nt) {
+  LmDims d;
+  d.t = make_tidims(ny, nz, ry, kzc, nt);
+  d.nx = nx;
+  d.ls = 8 * d.t.nzt + 8;
+  d.nchunks = (kzc + kBKC - 1) / kBKC;
+  d.nyp = round_up(ny, kTTY);
+  return d;
+}
+
 inline BfDims make_bfdims(int ny, int nz, int ry, int kzc) {
   BfDims d;
   d.ny = ny;
@@ -1665,12 +1863,6 @@ inline BfDims make_bfdims(int ny, int nz, int ry, int kzc) {
   d.rparts = (d.rt + kBWarps - 1) / kBWarps;
   d.nyt = (ny + kBTY - 1) / kBTY;
   return d;
-}
-
-// the warp multiple covering `items`, within [lo, hi]
-inline int block_threads(int items, int lo, int hi) {
-  const int t = (items + 31) / 32 * 32;
-  return t < lo ? lo : (t > hi ? hi : t);
 }
 
 }  // namespace t3d
@@ -1744,29 +1936,47 @@ int ns_fused_yz_inverse_f32(const void* a, const void* fia, const void* bzt,
   }
 }
 
-int ns_fused_lamb_f32(const void* a6, const void* fyi, const void* bz,
-                      const void* fzt, const void* fy, void* scratch,
+// fia, bzt: inverse_tf32_tables; fzt, fya: tf32_tables; scratch: S (3 nx,
+// nchunks, 2, kTN1, ny rounded up to kTTY) floats
+int ns_fused_lamb_f32(const void* a6, const void* fia, const void* bzt,
+                      const void* fzt, const void* fya, void* scratch,
                       void* out, int nx, int ny, int nz, int ry, int kzc,
                       void* stream) {
   using namespace ns::t3d;
-  const Dims d{nx, ny, nz, ry, kzc};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem1 = smem_lamb_phys(d), smem2 = smem_lamb_yfwd(d);
-  cudaError_t e = ns::allow_smem(lamb_phys_kernel, smem1);
+  int nt = 0;
+  for (int n : kUNTs)
+    if (!nt && 8 * n >= kzc) nt = n;
+  if (!nt) return cudaErrorInvalidValue;
+  const LmDims d = make_lmdims(nx, ny, nz, ry, kzc, nt);
+  const TfDims f = make_tfdims(ny, nz, ry, kzc);
+  const int ny16 = round_up(ny, kLTY);
+  const int vec16 =
+      kzc % 2 == 0 && reinterpret_cast<uintptr_t>(a6) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem1 = smem_lamb_phys_tf32(d), smem2 = smem_lamb_yfwd_tf32();
+  auto launch = [&](auto kernel) {
+    cudaError_t e = ns::allow_smem(kernel, smem1);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(ny16 / kLTY, nx), kLThreads, smem1, st>>>(
+        static_cast<const float2*>(a6), static_cast<const uint4*>(fia),
+        static_cast<const uint4*>(bzt), static_cast<const uint4*>(fzt),
+        static_cast<float*>(scratch), d, vec16);
+    return cudaGetLastError();
+  };
+  cudaError_t e;
+  switch (nt) {
+    case 3: e = launch(lamb_phys_tf32_kernel<3>); break;
+    case 6: e = launch(lamb_phys_tf32_kernel<6>); break;
+    case 11: e = launch(lamb_phys_tf32_kernel<11>); break;
+    default: e = launch(lamb_phys_tf32_kernel<13>); break;
+  }
   if (e != cudaSuccess) return e;
-  e = ns::allow_smem(lamb_yfwd_kernel, smem2);
+  e = ns::allow_smem(lamb_yfwd_tf32_kernel, smem2);
   if (e != cudaSuccess) return e;
-  lamb_phys_kernel<<<dim3(nx, (ny + kTY - 1) / kTY),
-                     block_threads(6 * kzc, 256, kPhysThreads), smem1, s>>>(
-      static_cast<const float2*>(a6), static_cast<const float2*>(fyi),
-      static_cast<const float2*>(bz), static_cast<const float2*>(fzt),
-      static_cast<float2*>(scratch), d);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  lamb_yfwd_kernel<<<dim3(3 * nx, (ry + kBT - 1) / kBT),
-                     block_threads(kzc, 32, 256), smem2, s>>>(
-      static_cast<const float2*>(scratch), static_cast<const float2*>(fy),
-      static_cast<float2*>(out), d);
+  lamb_yfwd_tf32_kernel<<<dim3(f.nchunks * f.rparts, 3 * nx), kTThreads,
+                          smem2, st>>>(
+      static_cast<const float*>(scratch), static_cast<const uint4*>(fya),
+      static_cast<float*>(out), f, ny16);
   return cudaGetLastError();
 }
 

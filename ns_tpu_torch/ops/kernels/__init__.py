@@ -50,5 +50,4 @@ def reset_launch_counts() -> None:
         w.launches_resident = 0
     for w in (fused_zy_forward, fused_yz_inverse, fused_lamb):
         w.launches_bf16 = 0
-    for w in (fused_zy_forward, fused_yz_inverse):
         w.launches_tf32 = 0

@@ -19,9 +19,9 @@ with the TPU DEFAULT's rounding points (every GEMM operand rounded to
 bf16, fp32 accumulation and result; K6: w, Fz_t, t and Fy_t; K7: a,
 Fyi_t, t and Bz; K8: K7's on the six fields, then K6's on the three
 products), which are also the twins' at 'default'; at 'high' and
-'highest' (both HIGHEST on the TPU) an fp32-class kernel: K6 and K7 on
-the TF32 tensor cores with every product split in three (3xTF32:
-`tf32_split`; fp32 accumulation), K8 on CUDA-core fp32 FMAs.
+'highest' (both HIGHEST on the TPU) an fp32-class kernel on the TF32
+tensor cores with every product split in three (3xTF32: `tf32_split`;
+fp32 accumulation).
 
 The DFT tables (`Fz_t`, `Fy_t`, `Fyi_t`, `Bz`) may be host numpy arrays, as
 the JAX wrappers take them, or complex torch tensors; the solver passes
@@ -29,7 +29,7 @@ tensors already on the device. Dispatch is by the input's device: a CPU
 tensor takes the twin, a CUDA tensor launches the kernel or raises. Each
 wrapper counts its calls that launched in `launches` (K8 is two CUDA
 launches per call and counts one), its bf16 tensor-core calls also in
-`launches_bf16`, and K6's and K7's 3xTF32 calls in `launches_tf32`.
+`launches_bf16`, and its 3xTF32 calls in `launches_tf32`.
 """
 
 from __future__ import annotations
@@ -44,11 +44,8 @@ from ns_tpu_torch.ops.gemm import cmatmul
 from ns_tpu_torch.ops.kernels import _build
 from ns_tpu_torch.ops.kernels.poisson_kernels import SMEM_BUDGET
 
-# tile sizes of csrc/transform3d_kernels.cu: K8's fp32 pair (kTY, kBT)
-TILE_Y = 16
-TILE_RY = 16
-# K6's tensor-core kernel (kBTY, kBKC): y-rows per tile, output columns
-# per block
+# tile sizes of csrc/transform3d_kernels.cu: K6's tensor-core kernel
+# (kBTY, kBKC): y-rows per tile, output columns per block
 BF16_TY = 32
 BF16_KC = 48
 # K7's and K8's tensor-core kernels (kVTY): y-rows per block
@@ -66,6 +63,12 @@ TF32_SMEM = (TF32_STAGES * (TF32_KZ // 8) * (2 * BF16_KC // 8) * 32 * 16
 # Kzc n-tiles (a Kzc takes the first that holds it)
 TF32_INV_TY = 128
 TF32_INV_NTS = (3, 6, 11, 13)
+# K8's 3xTF32 pair (kLTY, kLStages): y-rows per block of its first launch,
+# y-inverse k-steps in flight; its second launch (K6's y-stage) holds two
+# tiles of S's big and small planes
+LAMB_TY = 16
+LAMB_STAGES = 4
+LAMB_YFWD_SMEM = 2 * 2 * (2 * BF16_KC) * (TF32_TY + 8) * 4
 
 
 def _up(n: int, m: int) -> int:
@@ -82,10 +85,10 @@ def smem_bytes(nx: int, ny: int, nz: int, ry: int, kzc: int,
                precision: str = "high") -> dict:
     """Shared memory (bytes) each kernel's block needs at this grid and
     precision, as the CUDA entries request it (at 'default' the bf16
-    tensor-core kernels, else K6's and K7's 3xTF32 kernels and K8's fp32
-    pair; K8's the larger of its two launches). K7's 3xTF32 kernel takes
-    the first of its instances (TF32_INV_NTS) that holds Kzc's n-tiles;
-    past 13 n-tiles its t planes would not fit, and it has none."""
+    tensor-core kernels, else the 3xTF32 kernels; K8's the larger of its
+    two launches). K7's and K8's 3xTF32 kernels take the first of their
+    instances (TF32_INV_NTS) that holds Kzc's n-tiles; past 13 n-tiles
+    K7's t planes would not fit, and neither has one."""
     c, f, h = 8, 4, 2  # complex64, float32, bf16
     if precision == "default":
         nzs = _up(nz, 16) + 8  # the w and Fz tiles' row stride
@@ -103,13 +106,17 @@ def smem_bytes(nx: int, ny: int, nz: int, ry: int, kzc: int,
     # K7: its instance's Kzc n-tiles, the slab's spectrum, then t's planes
     # over it
     nt = _inv_nt(kzc)
-    inv = max(_up(ry, 8) * (_up(8 * nt, 16) + 2) * c,
-              2 * TF32_INV_TY * (16 * nt + 8) * f)
+    sa, st = _up(8 * nt, 16) + 2, 16 * nt + 8  # spectrum and t row strides
+    inv = max(_up(ry, 8) * sa * c, 2 * TF32_INV_TY * st * f)
+    # K8's first launch: its ring of k-steps (Fyi's fragments, 8 spectrum
+    # rows of six fields), then, over it, t of six fields and the three
+    # products' big and small planes (row stride nz rounded up to 32, + 8)
+    ring = LAMB_STAGES * (4 * 32 * 16 + 6 * 8 * sa * c)
+    body = 6 * LAMB_TY * (st + _up(nz, 32) + 8) * f
     return {
         "fused_zy_forward": TF32_SMEM,
         "fused_yz_inverse": inv,
-        "fused_lamb": max(TILE_Y * (ry + 6 * kzc) * c + 3 * TILE_Y * nz * f,
-                          TILE_RY * ny * c),
+        "fused_lamb": max(ring, body, LAMB_YFWD_SMEM),
     }
 
 
@@ -120,9 +127,11 @@ def fused_fits(nx: int, ny: int, nz: int, ry: int, kzc: int,
     `lamb_block_x` VMEM check). At 'high'/'highest' K7's 3xTF32 kernel
     binds: it holds one slab's spectrum in fp32, then t's big and small
     planes of its 128-row y-tile over it (188,416 bytes at 256^3; 352^3
-    does not fit); at 'default' K8's tensor-core kernel binds: it holds
-    one slab's spectrum and the six fields' y-inverse of its y-tile in bf16
-    (147,200 bytes at 256^3; 352^3 fits, 384^3 does not)."""
+    does not fit), and K8's 3xTF32 pair, which streams the spectrum,
+    needs less wherever K7's fits (172,032 bytes at 256^3); at 'default'
+    K8's tensor-core kernel binds: it holds one slab's spectrum and the
+    six fields' y-inverse of its y-tile in bf16 (147,200 bytes at 256^3;
+    352^3 fits, 384^3 does not)."""
     return (max(smem_bytes(nx, ny, nz, ry, kzc, precision).values())
             <= SMEM_BUDGET)
 
@@ -506,10 +515,11 @@ def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
     """(6, nx, Ry, Kzc) complex (u, omega) after the x-inverse ->
     (3, nx, Ry, Kzc) complex u x omega before the x-forward: the whole
     physical leg of the nonlinear term (K8). Its two CUDA launches pass
-    only the z-reduced products between them, (3, nx, ny, Kzc) complex at
-    'high'/'highest' (fp32 FMAs) and bf16 at 'default' (tensor cores,
-    counted in `launches_bf16` too); no physical field is written to
-    device memory."""
+    only the z-reduced products between them: in bf16 at 'default'
+    (tensor cores, counted in `launches_bf16` too), as fp32 big and small
+    tf32 planes at 'high'/'highest' (3xTF32 on the tensor cores, counted
+    in `launches_tf32` too); no physical field is written to device
+    memory."""
     if a6.device.type == "cpu":
         return lamb(a6, Fyi_t, Bz, Fz_t, Fy_t, nz, precision)
     _build.check_fields("fused_lamb", a6, torch.complex64, (4,))
@@ -535,8 +545,12 @@ def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
                               dtype=torch.bfloat16, device=a6.device)
         fn = _build.entry("ns_fused_lamb_bf16", torch.float32)
     else:
-        tables = [_real_view(t) for t in (fyi, bz, fz.transpose(0, 1), fy)]
-        scratch = torch.empty((3, nx, ny, kzc), dtype=torch.complex64,
+        tables = (*_cached(inverse_tf32_tables, fyi, bz),
+                  *_cached(tf32_tables, fz, fy))
+        # S: t1 of each (component, slab), by Kzc chunk, big and small
+        # planes of 2 BF16_KC columns, y along the rows
+        scratch = torch.empty((3, nx, -(-kzc // BF16_KC), 2, 2 * BF16_KC,
+                               _up(ny, TF32_TY)), dtype=torch.float32,
                               device=a6.device)
         fn = _build.entry("ns_fused_lamb", torch.float32)
     with torch.cuda.device(a6.device):
@@ -547,9 +561,11 @@ def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
     fused_lamb.launches += 1
     fused_lamb.calls += 1
     fused_lamb.launches_bf16 += bf16
+    fused_lamb.launches_tf32 += not bf16
     return out
 
 
 fused_lamb.launches = 0
 fused_lamb.calls = 0
 fused_lamb.launches_bf16 = 0
+fused_lamb.launches_tf32 = 0

@@ -10,8 +10,8 @@ Tolerances: float64 at a fixed sweep count <= 1e-10 abs (nvcc contracts to
 FMA, so kernel and twin are not bitwise equal); float32 <= 1e-4 relative to
 the field's max. The 3D transform kernels (float32 only) are held against
 their twins at 'highest' (fp32 GEMMs, TF32 off), <= 1e-4 relative, and
-K6's and K7's 3xTF32 kernels (at 'high' and 'highest') also against a
-float64 twin, within 4x the fp32 twin's own error there; the
+their 3xTF32 kernels (at 'high' and 'highest') also against a float64
+twin, within 4x the fp32 twin's own error there; the
 tensor-core kernels of K6, K7 and K8 against their twins at 'default'
 (bf16 operands and intermediates, fp32 sums on both sides), <= 1e-3 of
 max|out|: the sums run in another order, and that can flip a rounding of
@@ -340,15 +340,27 @@ def test_fused_yz_inverse(cuda, shape):
                                           "highest"))
 
 
-@pytest.mark.parametrize("shape", SHAPES_3D)
+@pytest.mark.parametrize("shape", SHAPES_3D + [(24, 70, 20),
+                                               (256, 256, 256)])
 def test_fused_lamb(cuda, shape):
+    """K8 at 'high' and 'highest' launches its 3xTF32 pair (counted once a
+    call) and matches its twin; fp32-class against float64 (24x70x20:
+    ragged k-steps, y-tiles and n-tiles, Kzc = 7; 256^3 the main path's
+    grid)."""
     M, ry, kzc = tables(shape)
     a6 = crand((6, shape[0], ry, kzc), cuda, 12)
-    args = (a6, M["Fyi_t"], M["Bz"], M["Fz_t"], M["Fy_t"], shape[2])
-    n0 = kernels.fused_lamb.launches
-    got = kernels.fused_lamb(*args, precision="highest")
-    assert kernels.fused_lamb.launches == n0 + 1
-    close_rel(got, kernels.lamb(*args, precision="highest"))
+    nz = shape[2]
+    args = (a6, M["Fyi_t"], M["Bz"], M["Fz_t"], M["Fy_t"], nz)
+    M64 = tables64(M)
+    got = tf32_route(f"K8 {shape}", kernels.fused_lamb,
+                     lambda p: kernels.fused_lamb(*args, precision=p),
+                     lambda p: kernels.lamb(*args, precision=p),
+                     lambda: kernels.lamb(a6.to(torch.complex128),
+                                          M64["Fyi_t"], M64["Bz"],
+                                          M64["Fz_t"], M64["Fy_t"], nz,
+                                          "highest"))
+    assert got.shape == (3, shape[0], ry, kzc)
+    assert bool(torch.isfinite(got).all())
 
 
 SHAPES_DEFAULT = [(256, 256, 256), (40, 36, 30), (24, 70, 20)]
@@ -384,7 +396,7 @@ def test_fused_yz_inverse_default(cuda, shape):
 @pytest.mark.parametrize("shape", SHAPES_DEFAULT)
 def test_fused_lamb_default(cuda, shape):
     """K8 at 'default' launches its tensor-core pair and matches its twin
-    at 'default' within 1e-3 of max|out|; at 'highest' the fp32 pair
+    at 'default' within 1e-3 of max|out|; at 'highest' the 3xTF32 pair
     matches its twin."""
     M, ry, kzc = tables(shape)
     a6 = crand((6, shape[0], ry, kzc), cuda, 18)
@@ -444,6 +456,34 @@ def test_fused_step_matches_plain_step(cuda):
         assert ran == ({"fused_zy_forward", "fused_lamb"} if fused else set())
         out[fused] = s3.fields_from_hat(cfg, carry[0])
     close_rel(out[True], out[False])
+
+
+def test_fused_high_step_graph_replays_bitwise(cuda):
+    """A CUDA graph of the fused 'high' step at 64^3 (K8's 3xTF32 pair, one
+    call a step) replays bitwise equal to the eager step: the route makes
+    no host-to-device copy and no host sync a call."""
+    cfg = s3.Spectral3DConfig(nx=64, ny=64, nz=64, transform="matmul",
+                              matmul_precision="high",
+                              use_pallas_transform=True)
+    carry = s3.init_from_velocity(cfg, s3.random_solenoidal_velocity(
+        cfg, seed=2, k_peak=3.0), cuda)
+    step, _ = s3.make_step(cfg, cuda)
+    eager, _ = step(carry)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(carry)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    t0 = kernels.fused_lamb.launches_tf32
+    with torch.cuda.graph(graph):
+        replayed, _ = step(carry)
+    assert kernels.fused_lamb.launches_tf32 == t0 + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(replayed, eager):
+            assert torch.equal(got, want)
 
 
 def test_transform_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -1914,11 +1954,13 @@ def test_fd_ensemble_is_one_launch_a_step(cuda, family):
             assert torch.equal(getattr(got, f)[i], getattr(s, f)), (i, f)
 
 
-# sha256 of the outputs of K8's fp32 pair and of the 'default' kernels of
-# K6, K7 and K8 on tools/torch_kernel_digests.py's inputs, from the parent
-# tree's build (before the 3xTF32 kernels) on an NVIDIA H100 80GB HBM3:
-# the redesign of K6's and K7's fp32 routes leaves them their bits. A
-# digest is the build's: another nvcc may schedule the sums otherwise.
+# sha256 of the outputs of the 3D transform kernels on
+# tools/torch_kernel_digests.py's inputs on an NVIDIA H100 80GB HBM3 (nvcc
+# 12.9): of the 'default' kernels of K6, K7 and K8 and the 3xTF32 kernels
+# of K6 and K7 from the tree before K8's 3xTF32 pair, which leaves them
+# their bits, and of K8's 3xTF32 pair ('highest') from the tree that added
+# it. A digest is the build's: another nvcc may schedule the sums
+# otherwise.
 PARENT_DIGESTS = {
     "fused_zy_forward default 256 256 256":
         "8fe71a780db5445c0d46313a5fe249a068ca76441e9f072734ff80ec837c1b91",
@@ -1926,12 +1968,24 @@ PARENT_DIGESTS = {
         "eeae5a8cd82775467d1e9a66ec1c21d15d1e0d49e47e6c5d97251aa1ccf0a658",
     "fused_zy_forward default 8 300 30":
         "27e7c9ca0cdeba381813580d15ba3d1c281e6e45727b980175f733dba9f1a0d3",
+    "fused_zy_forward highest 256 256 256":
+        "7773740d4aaa708e301b37688d98ff15bb3d7cf41588badb3d4698d647eabc66",
+    "fused_zy_forward highest 40 36 30":
+        "d79a7376debeb033d6c74b1c614c706adc56f88dfff38b9d9ea9bf950d856189",
+    "fused_zy_forward highest 8 300 30":
+        "7c83bab986b6d90ed03dc8294dd2cc2ebca9f6533ac7e8ae8f3a3db94880417a",
     "fused_yz_inverse default 256 256 256":
         "07b2f287e8328d2c452bf00b7a12c497392727d37f13bfd28969b4d8db76c62c",
     "fused_yz_inverse default 40 36 30":
         "d292fd49120e05709c4f3dde97936e960dae93ec6a1b6af71bbad1d664270dcf",
     "fused_yz_inverse default 24 70 20":
         "1f05951dda6cd56c743cf093bc207df8e4ba41a9c8d464bf6903123734246cae",
+    "fused_yz_inverse highest 256 256 256":
+        "8635de48e31d4060811e6306136ff94ae59f1d1967b9430759a2c64d47842d95",
+    "fused_yz_inverse highest 40 36 30":
+        "9218b1cc2ffb6757ad6b92600240c8bb301cd1b39d6e044046a01f7592a70a71",
+    "fused_yz_inverse highest 24 70 20":
+        "71e505b41115c6a54c417e710f9f3de06b2e17226363e21bbd42865e4ff00ad2",
     "fused_lamb default 256 256 256":
         "e7750d8b029040cd5ae8ecfdc63a57de90c37bfbd3c1fc503ab3799965c2952b",
     "fused_lamb default 40 36 30":
@@ -1939,16 +1993,16 @@ PARENT_DIGESTS = {
     "fused_lamb default 24 70 20":
         "06f330f487b3c2118bcdb0b62383b2c12520020e0e9c49171049e443bec1b314",
     "fused_lamb highest 256 256 256":
-        "053ad368f31c04d122a4e21ac20adb3b1598304a3a547c0b1301442f0ca9b581",
+        "88f53c15faf408c1930114e81468347f1eeb0e7b5956d1852e2fe56fcb9d3218",
     "fused_lamb highest 40 36 30":
-        "6bb97a9398dbab45eefc16bf684a0a131d58534faec0e2831ba2b4ff6140a0de",
+        "04cb0f67974ca869f7816125f0246806a14d3896e47346010e12eb588951efbd",
     "fused_lamb highest 24 70 20":
-        "00f5c5cf9b34c15fd92b8fca0aa77ea332d5fbcc7c37687b8e4dc0fd8a242565",
+        "08797a3c03e32c6022089d9478d2ba4971374a30176af1da47d6a3ca61ffc529",
 }
 
 
 @pytest.mark.parametrize("case", sorted(PARENT_DIGESTS))
-def test_k8_fp32_and_default_kernels_keep_their_bits(cuda, case):
+def test_transform_kernels_keep_their_bits(cuda, case):
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "tools", "torch_kernel_digests.py")
     spec = importlib.util.spec_from_file_location("torch_kernel_digests",

@@ -205,13 +205,15 @@ def test_fused_auto_gate_matches_jax_policy():
         t3.Spectral3DConfig(transform="matmul", use_pallas_transform="yes")
     # the kernels' own fit: 256^3 needs 194,560 bytes in the 3xTF32 K6's
     # block (at any grid) and 188,416 in the 3xTF32 K7's, which binds at
-    # 'high'/'highest'; 124,928 in the tensor-core K6's, 83,200 in K7's
-    # and 147,200 in K8's; 352^3 fits only at 'default' (K8: 228,096
-    # bytes; the 3xTF32 K7 needs 253,952), 384^3 (K8: 236,544) does not
+    # 'high'/'highest' (the 3xTF32 K8's first launch needs 172,032);
+    # 124,928 in the tensor-core K6's, 83,200 in K7's and 147,200 in K8's;
+    # 352^3 fits only at 'default' (K8: 228,096 bytes; the 3xTF32 K7 needs
+    # 253,952, the 3xTF32 K8 233,472), 384^3 (K8: 236,544) does not
     k = tk.smem_bytes(256, 256, 256, 171, 86)
-    assert (k["fused_zy_forward"], k["fused_yz_inverse"]) == (194560, 188416)
-    assert tk.smem_bytes(352, 352, 352, 235, 118,
-                         "highest")["fused_yz_inverse"] == 253952
+    assert (k["fused_zy_forward"], k["fused_yz_inverse"],
+            k["fused_lamb"]) == (194560, 188416, 172032)
+    k = tk.smem_bytes(352, 352, 352, 235, 118, "highest")
+    assert (k["fused_yz_inverse"], k["fused_lamb"]) == (253952, 233472)
     assert tk.smem_bytes(256, 256, 256, 171, 86,
                          "default")["fused_zy_forward"] == 124928
     k = tk.smem_bytes(256, 256, 256, 171, 86, "default")
@@ -228,6 +230,33 @@ def test_fused_auto_gate_matches_jax_policy():
         t3.Spectral3DConfig(nx=352, ny=352, nz=352, transform="matmul",
                             matmul_precision="highest",
                             use_pallas_transform=True)
+
+
+def test_k8_tf32_fits_wherever_k7_does():
+    """The 3xTF32 K8 streams the spectrum instead of holding it, so its
+    block fits wherever the 3xTF32 K7's does and needs less wherever K7's
+    needs more than K8's second launch (K6's y-stage on two S tiles):
+    fused_fits at 'high' is K7's check, on cubic grids 8^3 .. 400^3 and
+    on slabs whose y or z extent alone grows (Ry, Kzc by the 2/3 rule)."""
+    def dims(nx, ny, nz):
+        cfg = t3.Spectral3DConfig(nx=nx, ny=ny, nz=nz, transform="matmul")
+        _, rows_y, kzc = t3._compact_meta(cfg)
+        return nx, ny, nz, len(rows_y), kzc
+
+    grids = ([(n, n, n) for n in range(8, 401, 8)]
+             + [(64, n, 64) for n in range(16, 1201, 48)]
+             + [(64, 64, n) for n in range(16, 401, 12)])
+    fits = 0
+    for grid in grids:
+        d = dims(*grid)
+        k = tk.smem_bytes(*d, "high")
+        k7_fits = k["fused_yz_inverse"] <= tk.SMEM_BUDGET
+        assert tk.fused_fits(*d, "high") == k7_fits, grid
+        if k7_fits:
+            fits += 1
+            assert k["fused_lamb"] <= max(k["fused_yz_inverse"],
+                                          tk.LAMB_YFWD_SMEM), grid
+    assert 0 < fits < len(grids)
 
 
 # --- K6 at 'default': the tensor-core kernel's spec -------------------------
@@ -799,4 +828,50 @@ def test_k7_tf32_spec_is_fp32_class(shape):
     twin = rel_err(tk.yz_inverse(torch.as_tensor(a), M["Fyi_t"], M["Bz"],
                                  shape[2], "highest").numpy(), exact)
     print(f"K7 3xTF32 {shape}: {emu:.3e} of max|out|, fp32 twin {twin:.3e}")
+    assert emu <= 4 * twin
+
+
+# --- K8 at 'high'/'highest': the 3xTF32 pair's spec --------------------------
+
+def k8_tf32_from_tables(a6, fia, bzt, fzt, fya, ny, nz, ry, kzc):
+    """K8's 3xTF32 pair step by step on the operands it is given (K7's
+    tables from inverse_tf32_tables, K6's from tf32_tables), in float64
+    with the kernels' splits and fp32 roundings: the spectrum split as
+    loaded, t rounded to float32 and split (K7's model) for each of the six
+    fields, each physical field rounded to float32 (its fp32 sums), u x
+    omega in float32, then K6's model on the three products: each split
+    as loaded, t1 rounded to float32 and split (S), and the y-stage."""
+    phys = np.stack([k7_tf32_from_tables(f, fia, bzt, ny, nz)
+                     for f in a6]).astype(np.float32)
+    u1, u2, u3, w1, w2, w3 = phys
+    lam = np.stack([u2 * w3 - u3 * w2, u3 * w1 - u1 * w3, u1 * w2 - u2 * w1])
+    return k6_tf32_from_tables(lam, fzt, fya, ny, ry, kzc)
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_k8_tf32_spec_is_fp32_class(shape):
+    """K8's 3xTF32 arithmetic (the emulation on the wrapper's tables, with
+    the splits where the kernels split: the spectrum, t, the products and
+    S) against the JAX fused_lamb on the same input in float64 (interpret
+    mode, the complex64 tables in float64): within 4x the error of the fp32
+    twin (lamb at 'highest') against it, so the split keeps the HIGHEST
+    contract. Three x-slabs; 24x70x20 has Ry = 47, ny = 70, Kzc = 7 and nz
+    = 20 (ragged k-steps, y-tiles and n-tiles); 8x300x30 Ry = 199, two row
+    parts in the y-stage."""
+    a6, M = spectra(shape, 11, 6)
+    a6 = a6[:, :3]
+    ny, nz = shape[1:]
+    ry, kzc = M["Fy_t"].shape[0], M["Fz_t"].shape[0]
+    T = {k: torch.as_tensor(M[k]) for k in ("Fyi_t", "Bz", "Fz_t", "Fy_t")}
+    exact = np.asarray(jk.fused_lamb(jnp.asarray(a6.astype(np.complex128)),
+                                     M["Fyi_t"], M["Bz"], M["Fz_t"],
+                                     M["Fy_t"], nz, precision="highest",
+                                     interpret=True))
+    emu = rel_err(k8_tf32_from_tables(
+        a6, *tk.inverse_tf32_tables(T["Fyi_t"], T["Bz"]),
+        *tk.tf32_tables(T["Fz_t"], T["Fy_t"]), ny, nz, ry, kzc), exact)
+    twin = rel_err(tk.lamb(torch.as_tensor(a6), M["Fyi_t"], M["Bz"],
+                           M["Fz_t"], M["Fy_t"], nz, "highest").numpy(),
+                   exact)
+    print(f"K8 3xTF32 {shape}: {emu:.3e} of max|out|, fp32 twin {twin:.3e}")
     assert emu <= 4 * twin

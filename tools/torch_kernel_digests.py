@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """sha256 digests of the 3D transform kernels' outputs on fixed inputs, on
 the card: K6, K7 and K8 at 'default' (their bf16 tensor-core kernels) and
-K8 at 'highest' (its fp32 pair), at the main path's 256^3 and at ragged
-grids. Two trees built and run on one card give equal digests where a
-kernel kept its bits. `tests/test_torch_cuda.py` holds a parent tree's
+at 'highest' (their 3xTF32 kernels), at the main path's 256^3 and at
+ragged grids. Two trees built and run on one card give equal digests
+where a kernel kept its bits. `tests/test_torch_cuda.py` holds a parent tree's
 digests.
 
     python tools/torch_kernel_digests.py    # one JSON line: case -> digest
@@ -30,8 +30,7 @@ GRIDS = {"fused_zy_forward": [(256, 256, 256), (40, 36, 30), (8, 300, 30)],
 # (wrapper, precision, grid) -> "name precision nx ny nz"
 CASES = [f"{name} {p} {' '.join(map(str, grid))}"
          for name, grids in GRIDS.items()
-         for p in (("default", "highest") if name == "fused_lamb"
-                   else ("default",))
+         for p in ("default", "highest")
          for grid in grids]
 
 

@@ -173,9 +173,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                50-step request on the lock path, reduce=members and
                =spread; python -m ns_tpu_torch.cli.serve --port 0
                --warmup-steps 8 as a subprocess (its "serving ... on
-               http://" line, /health, one request; while it starts, the
-               export round trips run: <= 1e-6 of max, and a kernel
-               configuration refused); the solver oracles over HTTP:
+               http://" line, /health, one request); the solver oracles
+               over HTTP:
                SolverEngine 128^2 (fno_w's data physics, 100 steps a
                frame) and SolverEngine3D 64^3 (fno3d_a's, 10 steps a
                frame), 10 frames each, held to a plain step loop of the
@@ -195,6 +194,23 @@ Phases (any failure exits non-zero, and no result line is printed):
                files bitwise equal, the native writer, a lower device
                peak, streamed and npz steps/s; its "[... s]" line says
                whether it kept its 75 s budget
+  4/5, export, last: the port's torch.export artifacts (export_*,
+               load_*_artifact) of the main runs' configurations, the
+               kernels inside them as operators of torch.ops.ns_tpu:
+               chorin_fd explicit 51^2 nt 200 (K1, K3), 1024^2 nt 50 (K4,
+               K3) and 1025^2 nt 10 (K5, K3), direct_fd jacobi 50^2 nt 200
+               (K2) and 1024^2 nt 20 (K2mb), chorin_fd semi_implicit 51^2
+               with cg nt 20 and gauss_seidel (while_loops), the
+               1024^2 dst export and the 256^2 2D export, Taylor-Green
+               256^3 fused at 'default' nt 8 (K6, K8) (gauss_seidel cut
+               to nt 4: ~1 s a step): each loaded and run
+               from its eager engine's inputs, bitwise the eager loop or
+               within 1e-6 of max (the line says which), its kernels
+               launched as often as the eager run launches them, steps/s
+               of the artifact beside the eager and replayed loops (twice
+               each, in turns), each engine captured but the gated loops',
+               the fused 3D artifact's size beside the plain route's; its
+               "[... s]" line says whether it kept its 60 s budget
   4/5, scale-out (ns_tpu_torch/parallel, launch.py; no kernel of its own
                but the FD ensembles' K1, K2, K3), last: ensemble_init +
                ensemble_rollout_final at B = 64 on bench.py's 1024^2
@@ -263,9 +279,9 @@ runs' and bench.py rollout's rates, the Chebyshev step loop, the
 surrogate phase's rates, profiles and check values, the training
 phase's rates, memory, losses and check values, the 3D surrogate
 phase's (`surrogate3d`), the serving and runtime phase's
-(`serve_runtime`), the scale-out phase's (`scale_out`) and the sharded
-phase's (`sharded`). The line before the last is {"kernels": [...]}
-with each kernel's route,
+(`serve_runtime`), the export phase's (`export`), the scale-out
+phase's (`scale_out`) and the sharded phase's (`sharded`). The line
+before the last is {"kernels": [...]} with each kernel's route,
 source, the TPU kernel it replaces, its launches on the main path, its
 calls there and launches per call (K2mb, K4 and K5 also their resident
 launches; K4 and K5 the colour-group kernels' time on the same input), its
@@ -3044,11 +3060,9 @@ def phase_surrogate3d(tmp, card: str) -> dict:
 
 SERVE = dict(clients=8, steps=200, bursts=3, oracle_frames=10,
              oracle_n=128, oracle_stride=100, oracle3d_n=64,
-             oracle3d_stride=10, stream_nt=100, export_n=256,
-             export_fd_n=1024)
+             oracle3d_stride=10, stream_nt=100)
 SERVE_BUDGET_S = 75
 ORACLE_VS_PLAIN = 1e-4   # float32 oracle frames vs a plain loop, of max|u|
-EXPORT_VS_ENGINE = 1e-6  # an exported program vs the engine, of max
 # (label, engine, configuration, nt): every runtime configuration the phase
 # replays, at the main path's shapes
 RUNTIME_RUNS = [
@@ -3104,14 +3118,13 @@ def profiled_records(fn) -> list:
     return [name for name, _ in _device_records(fn, torch.device(DEVICE))]
 
 
-def serve_http(tmp, card: str, untimed) -> dict:
+def serve_http(tmp, card: str) -> dict:
     """fno_w (SURROGATE) behind make_server(coalesce=8): SERVE["clients"]
     concurrent ServeClients with 200-step requests, each reply held to the
     serialized engine.predict reply; a client-batched request on the lock
     path; the single-model reduce contract; cli.serve as a subprocess
     (started first: it loads the checkpoint while this process loads its
-    engine and runs `untimed`, work that times nothing, and it is stopped
-    before the timed requests)."""
+    engine, and it is stopped before the timed requests)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ns_tpu_torch.serve import InferenceEngine, ServeClient
@@ -3136,7 +3149,6 @@ def serve_http(tmp, card: str, untimed) -> dict:
         engine.warmup(SURROGATE["chunk"], batch=k)
         want = [engine.predict(x, steps) for x in xs]  # serialized replies
         umax = max(float(np.abs(w[:, :2]).max()) for w in want)
-        untimed()
         line = ""
         for line in proc.stdout:
             if line.startswith("serving"):
@@ -3382,55 +3394,6 @@ def runtime_replays(card: str) -> dict:
     return out
 
 
-def export_checks(tmp) -> dict:
-    """Export round trips on the card (<= EXPORT_VS_ENGINE of max) and a
-    kernel configuration refused."""
-    from ns_tpu_torch.cli.run_solver import cavity_bcs
-    from ns_tpu_torch.runtime import (FDRolloutEngine, RolloutEngine,
-                                      export_fd_rollout, export_rollout,
-                                      load_fd_rollout_artifact,
-                                      load_rollout_artifact)
-    from ns_tpu_torch.solvers import chorin_fd
-    from ns_tpu_torch.solvers import spectral_periodic as sp
-
-    out = {}
-    ne = SERVE["export_n"]
-    c2 = sp.SpectralPeriodicConfig(nt=20, nx=ne, ny=ne)
-    w0 = sp.taylor_green_vorticity(c2)
-    art = export_rollout(c2, os.path.join(tmp, "rollout.pt2z"), DEVICE)
-    want = RolloutEngine(c2, device=DEVICE)(w0)
-    got = load_rollout_artifact(art)(torch.as_tensor(w0, device=DEVICE))
-    out["export_2d_vs_engine"] = float((got - want).abs().max()
-                                       / want.abs().max())
-    n = SERVE["export_fd_n"]
-    bcs = cavity_bcs(2.0 / (n - 1), 2.0 / (n - 1))
-    cf = chorin_fd.ChorinFDConfig(nt=10, nx=n, ny=n, dt=1e-5, nu=0.01,
-                                  method="semi_implicit", pressure_mode="dst")
-    art = export_fd_rollout("chorin_fd", cf, *bcs,
-                            os.path.join(tmp, "fd.pt2z"), device=DEVICE)
-    z = torch.zeros((n, n), device=DEVICE)
-    want = FDRolloutEngine("chorin_fd", cf, *bcs, device=DEVICE)(z, z, z)
-    got = load_fd_rollout_artifact(art)(z, z.clone(), z.clone())
-    out["export_fd_vs_engine"] = max(float((g - w).abs().max())
-                                     / max(float(w.abs().max()), 1e-30)
-                                     for g, w in zip(got, want))
-    for key in ("export_2d_vs_engine", "export_fd_vs_engine"):
-        require(out[key] <= EXPORT_VS_ENGINE,
-                f"{key} {out[key]:.3e} (bound {EXPORT_VS_ENGINE})")
-    try:
-        export_fd_rollout("chorin_fd", chorin_fd.ChorinFDConfig(
-            nt=1, nx=51, ny=51, method="explicit"), *cavity_bcs(0.04, 0.04),
-            os.path.join(tmp, "k.pt2z"), device=DEVICE)
-        fail("export took a configuration that runs a kernel")
-    except ValueError as e:
-        out["export_refused"] = str(e)
-    print(f"  export round trips on the card: 2D "
-          f"{out['export_2d_vs_engine']:.2e}, chorin_fd dst "
-          f"{out['export_fd_vs_engine']:.2e} of max; explicit chorin_fd "
-          "refused")
-    return out
-
-
 STREAM_RUNS = [
     ("chorin_fd explicit 1024^2", ["chorin_fd", "--method", "explicit",
                                    "--nx", "1024", "--dt", "1e-5", "--nu",
@@ -3509,11 +3472,8 @@ def phase_serve_runtime(tmp, card: str) -> dict:
           "engines as CUDA graphs, --stream-dir")
     out, seconds = {}, {}
 
-    def exports():  # run while cli.serve starts (serve_http)
-        out["exports"] = export_checks(tmp)
-
     for key, fn in (
-            ("http", lambda: serve_http(tmp, card, exports)),
+            ("http", lambda: serve_http(tmp, card)),
             ("oracles", lambda: serve_oracles(card)),
             ("runtime", lambda: runtime_replays(card)),
             ("stream", lambda: stream_runs(tmp, card))):
@@ -3522,6 +3482,191 @@ def phase_serve_runtime(tmp, card: str) -> dict:
         seconds[key] = time.perf_counter() - t0
     out["seconds"] = seconds
     print(f"  part seconds: {seconds}")
+    return out
+
+
+# --- phase 4/5: export ------------------------------------------------------
+#
+# The port's export (runtime/engine.py's export_* and load_*_artifact) of
+# the main runs' configurations on the card: the hand-written kernels are
+# operators of torch.ops.ns_tpu inside the exported programs, and the cg
+# and gauss_seidel loops are while_loops there. Each artifact is run from
+# the inputs of its eager engine and held to it.
+
+EXPORT_BUDGET_S = 60
+EXPORT_VS_ENGINE = 1e-6  # an exported program vs the engine, of max
+_LARGE = dict(dt=1e-5, nu=0.01)
+# (label, kind, configuration, nt, the kernels its rollout launches): the
+# main runs' configurations (PERF.md section 4) and the two gated pressure
+# modes at the reference size (the config's default nit, 50); the
+# wavefront SOR, ~1 s a step of ~5,000 small launches a sweep, is cut to
+# 4 steps
+EXPORT_RUNS = [
+    ("chorin_fd explicit 51^2", "chorin_fd",
+     dict(nx=51, method="explicit", nit=200), 200,
+     {"sor_redblack_fused", "momentum_explicit_fused"}),
+    ("chorin_fd explicit 1024^2", "chorin_fd",
+     dict(nx=1024, method="explicit", nit=200, **_LARGE), 50,
+     {"sor_redblack_packed_multiblock", "momentum_explicit_fused"}),
+    ("chorin_fd explicit 1025^2", "chorin_fd",
+     dict(nx=1025, method="explicit", nit=200, **_LARGE), 10,
+     {"sor_redblack_multiblock", "momentum_explicit_fused"}),
+    ("direct_fd jacobi 50^2", "direct_fd", dict(nx=50, nit=50), 200,
+     {"jacobi_fused"}),
+    ("direct_fd jacobi 1024^2", "direct_fd", dict(nx=1024, nit=50, **_LARGE),
+     20, {"jacobi_multiblock"}),
+    ("chorin_fd semi_implicit cg 51^2", "chorin_fd",
+     dict(nx=51, method="semi_implicit", pressure_mode="cg"), 20, set()),
+    ("chorin_fd semi_implicit gauss_seidel 51^2", "chorin_fd",
+     dict(nx=51, method="semi_implicit", pressure_mode="gauss_seidel"), 4,
+     set()),
+    ("chorin_fd semi_implicit dst 1024^2", "chorin_fd",
+     dict(nx=1024, method="semi_implicit", pressure_mode="dst", **_LARGE),
+     10, set()),
+    ("taylor_green_3d 256^3 fused", "3d", dict(nx=N3D), 8,
+     {"fused_zy_forward", "fused_lamb"}),
+    ("taylor_green 256^2", "2d", dict(nx=256), 20, set()),
+]
+
+
+def export_case(kind: str, cfg_kw: dict, nt: int, path: str):
+    """(engine, inputs, export) of one EXPORT_RUNS configuration; export()
+    writes its artifact to path and returns its loaded rollout."""
+    from ns_tpu_torch import runtime
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.solvers import chorin_fd, direct_fd
+    from ns_tpu_torch.solvers import spectral3d as s3
+    from ns_tpu_torch.solvers import spectral_periodic as sp
+
+    n = cfg_kw.pop("nx")
+    if kind == "3d":
+        cfg = s3.Spectral3DConfig(nt=nt, nx=n, ny=n, nz=n,
+                                  transform="matmul",
+                                  matmul_precision="default",
+                                  use_pallas_transform="auto")
+        require(cfg.use_pallas_transform is True, "3D auto gate resolved off")
+        return (runtime.Rollout3DEngine(cfg, device=DEVICE),
+                (s3.taylor_green_velocity(cfg),),
+                lambda: runtime.load_rollout3d_artifact(
+                    runtime.export_rollout3d(cfg, path, DEVICE)))
+    if kind == "2d":
+        cfg = sp.SpectralPeriodicConfig(nt=nt, nx=n, ny=n)
+        return (runtime.RolloutEngine(cfg, device=DEVICE),
+                (sp.taylor_green_vorticity(cfg),),
+                lambda: runtime.load_rollout_artifact(
+                    runtime.export_rollout(cfg, path, DEVICE)))
+    cfg = (chorin_fd.ChorinFDConfig if kind == "chorin_fd"
+           else direct_fd.DirectFDConfig)(nt=nt, nx=n, ny=n, **{
+               "dt": 1e-3, "nu": 0.1, **cfg_kw})
+    bcs = cavity_bcs(2.0 / (n - 1), 2.0 / (n - 1))
+    z = np.zeros((n, n), np.float32)
+    return (runtime.FDRolloutEngine(kind, cfg, *bcs, device=DEVICE),
+            (z, z, z),
+            lambda: runtime.load_fd_rollout_artifact(
+                runtime.export_fd_rollout(kind, cfg, *bcs, path,
+                                          device=DEVICE)))
+
+
+def counted_run(fn, nt: int) -> tuple:
+    """(outputs, kernel launches, steps/s) of one call of fn, the counts
+    set to 0 just before it and read just after."""
+    from ns_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rate = nt / (time.perf_counter() - t0)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    return (out if isinstance(out, tuple) else (out,)), launches, rate
+
+
+def phase_export(tmp, card: str) -> dict:
+    """Each EXPORT_RUNS configuration exported on the card, loaded and run
+    from its eager engine's inputs: its fields bitwise the engine's eager
+    loop (else within EXPORT_VS_ENGINE of max, and the line says so), its
+    kernels launched by the artifact's run as often as by the eager run
+    (the counts set to 0 just before each run: the operators launched the
+    kernels, not the twins), the artifact's steps/s beside the eager
+    loop's and, where the engine captured its step, the replay's (then
+    each run twice, in turns: eager, artifact, replay, replay, artifact,
+    eager);
+    every engine captures its step but those of the host-gated cg and
+    gauss_seidel loops. The fused 3D artifact's size beside the plain
+    route's at the same grid."""
+    from ns_tpu_torch import runtime
+    from ns_tpu_torch.solvers import spectral3d as s3
+
+    print("phase 4/5: export: the main runs' configurations exported "
+          "with their kernels and gated loops, loaded and run on the card")
+    out = {"device": card}
+    for label, kind, cfg_kw, nt, expect in EXPORT_RUNS:
+        path = os.path.join(tmp, label.replace(" ", "_").replace("^", "")
+                            + ".pt2z")
+        t_run = time.perf_counter()
+        eng, ics, export = export_case(kind, dict(cfg_kw), nt, path)
+        inputs = eng._inputs(*ics)
+        t0 = time.perf_counter()
+        run = export()
+        export_s = time.perf_counter() - t0
+        want, eager_k, e1 = counted_run(lambda: eng.eager(*inputs), nt)
+        got, art_k, a1 = counted_run(lambda: run(*inputs), nt)
+        rates = {"eager": [e1], "artifact": [a1], "replayed": []}
+        # the second turn where a replay exists (a host-gated step is not
+        # captured, and its eager runs take seconds)
+        turns = ("replay", "replay", "artifact", "eager") if eng.captured \
+            else ()
+        for mode in turns:
+            fn = {"replay": lambda: eng(*inputs),
+                  "eager": lambda: eng.eager(*inputs),
+                  "artifact": lambda: run(*inputs)}[mode]
+            rates["replayed" if mode == "replay" else mode].append(
+                steps_per_s(fn, nt))
+        require(len(got) == len(want) and all(
+            bool(torch.isfinite(g).all()) for g in got),
+            f"{label}: the artifact's fields are not finite")
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(float((g - w).abs().max())
+                  / max(float(w.abs().max()), 1e-30)
+                  for g, w in zip(got, want))
+        require(bitwise or err <= EXPORT_VS_ENGINE,
+                f"{label}: artifact vs engine {err:.3e} of max (bound "
+                f"{EXPORT_VS_ENGINE})")
+        require(art_k == eager_k, f"{label}: the artifact launched {art_k}, "
+                f"the eager engine {eager_k}")
+        require(expect <= set(art_k), f"{label}: the artifact launched "
+                f"{sorted(art_k)}, not every kernel of {sorted(expect)}")
+        gated = cfg_kw.get("pressure_mode") in ("cg", "gauss_seidel")
+        require(eng.captured != gated, f"{label}: captured {eng.captured} "
+                f"({eng.eager_reason}); only a host-gated loop runs eagerly")
+        mean = lambda r: sum(r) / len(r) if r else None  # noqa: E731
+        out[label] = {
+            "nt": nt, "bitwise": bitwise, "max_err_of_max": err,
+            "launches": art_k, "captured": eng.captured,
+            "export_s": export_s, "artifact_bytes": os.path.getsize(path),
+            "steps_per_s": {k: mean(r) for k, r in rates.items()},
+            "runs": rates, "seconds": time.perf_counter() - t_run}
+        print(f"  {label}: "
+              + ("bitwise the engine" if bitwise
+                 else f"{err:.2e} of max from the engine (not bitwise)")
+              + f"; launches {art_k} (eager the same); steps/s artifact "
+              f"{mean(rates['artifact']):.1f}, eager "
+              f"{mean(rates['eager']):.1f}, replayed "
+              + (f"{mean(rates['replayed']):.1f}" if rates["replayed"]
+                 else f"- ({eng.eager_reason})")
+              + f"; export {export_s:.1f} s, {os.path.getsize(path)} "
+              f"bytes; {out[label]['seconds']:.1f} s in all; {card}")
+    # the plain route's artifact at the fused run's grid and precision
+    cfg = s3.Spectral3DConfig(nt=8, nx=N3D, ny=N3D, nz=N3D,
+                              transform="matmul", matmul_precision="default",
+                              use_pallas_transform=False)
+    path = os.path.join(tmp, "tg3d_plain.pt2z")
+    runtime.export_rollout3d(cfg, path, DEVICE)
+    out["tg3d_plain_artifact_bytes"] = os.path.getsize(path)
+    print(f"  the 3D artifact: fused "
+          f"{out['taylor_green_3d 256^3 fused']['artifact_bytes']} bytes, "
+          f"plain {out['tg3d_plain_artifact_bytes']} bytes")
     return out
 
 
@@ -4361,6 +4506,8 @@ def main():
                                   card, budget_s=SURR3D_BUDGET_S)
         serving = timed_phase("serve and runtime", phase_serve_runtime, tmp,
                               card, budget_s=SERVE_BUDGET_S)
+        exports = timed_phase("export", phase_export, tmp, card,
+                              budget_s=EXPORT_BUDGET_S)
         scale_out = timed_phase("scale-out", phase_scale_out, tmp, card,
                                 budget_s=SCALE_BUDGET_S)
         sharded = timed_phase("sharded solvers and dp training",
@@ -4386,6 +4533,7 @@ def main():
                               for prec, r in cheb["profile"].items()}},
                       "surrogate": surrogate, "train": training,
                       "surrogate3d": surrogate3d, "serve_runtime": serving,
+                      "export": exports,
                       "scale_out": scale_out, "sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 It sits beside the JAX package `ns_tpu`, which stays the reference, and
 mirrors its module names. Plain tensor code is PyTorch; every Pallas TPU
 kernel on a ported path is a hand-written CUDA kernel for sm_90a under
-`csrc/`, built with nvcc at first use (`ops/kernels/_build.py`). A kernel
-wrapper takes its plain torch twin only for a CPU tensor; on a CUDA tensor
-it launches the kernel or raises.
+`csrc/`, built with nvcc at first use (`ops/kernels/_build.py`) and bound
+as an operator of `torch.ops.ns_tpu` (`ops/kernels/library.py`): a kernel
+wrapper's operator runs its plain torch twin only on a CPU tensor; on a
+CUDA tensor it launches the kernel or raises.
 
 Ported so far: the FD cavity pipeline (core BCs and state, the pressure
 solvers, the direct_fd and chorin_fd solvers), the 2D periodic solver and

@@ -1,7 +1,10 @@
 """Hand-written Hopper kernels of the port, with their wrappers and twins.
 
-Importing this package builds nothing and needs no GPU: the library is
-compiled (`_build.library`) at the first launch on a CUDA tensor.
+Each wrapper calls its operator in `torch.ops.ns_tpu` (`library.py`),
+whose CUDA implementation launches the kernel and whose CPU
+implementation runs the twin. Importing this package registers the
+operators, builds nothing and needs no GPU: the library is compiled
+(`_build.library`) at the first launch on a CUDA tensor.
 """
 
 from ns_tpu_torch.ops.kernels.momentum_kernels import (
@@ -14,6 +17,7 @@ from ns_tpu_torch.ops.kernels.poisson_kernels import (
 from ns_tpu_torch.ops.kernels.transform3d_kernels import (
     fused_fits, fused_lamb, fused_yz_inverse, fused_zy_forward, lamb,
     yz_inverse, zy_forward)
+from ns_tpu_torch.ops.kernels import library  # noqa: F401 (registers)
 
 # every kernel wrapper of the port, by the TPU kernel id it replaces
 WRAPPERS = {

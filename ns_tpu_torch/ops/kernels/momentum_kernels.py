@@ -15,8 +15,10 @@ shared memory, 16 bytes a copy where the rows allow it, and writes 16-byte
 vectors of u* and v*; the BC lists come as their edge plans
 (`poisson_kernels.k2_edge_plan`), so the thread that owns an edge or corner
 cell writes what the list leaves there, recomputing the interior cell a
-Neumann edge reads (details in the CUDA source). A CPU tensor takes the
-twin; a CUDA tensor launches the kernel or raises.
+Neumann edge reads (details in the CUDA source). The wrapper calls the
+operator `torch.ops.ns_tpu.momentum_explicit_fused` (`library.py`) with
+the two lists' edge plans: on a CPU tensor it runs the twin, on a CUDA
+tensor it launches the kernel or raises.
 
 Both take one (nx, ny) field of each or (B, nx, ny) batches of members
 (the JAX package's FD ensemble gives the TPU kernel a member axis under
@@ -26,14 +28,12 @@ third axis (one launch per K3_MAX_MEMBERS members).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ns_tpu_torch.core.bc import apply_bcs
 from ns_tpu_torch.ops.kernels import _build
-from ns_tpu_torch.ops.kernels.poisson_kernels import k2_edge_plan
+from ns_tpu_torch.ops.kernels.poisson_kernels import (edge_plan, plan_bcs,
+                                                      plan_spec)
 
 # members one launch takes: the grid's third axis holds at most 65535 blocks
 K3_MAX_MEMBERS = 65535
@@ -84,16 +84,6 @@ def momentum_explicit(un, vn, un1, vn1, dt: float, dx: float, dy: float,
     return apply_bcs(ui, u_bc), apply_bcs(vi, v_bc)
 
 
-@functools.lru_cache(maxsize=64)
-def _k3_spec(u_bc: tuple, v_bc: tuple) -> ctypes.Array:
-    """The edge plans of u_bc and v_bc in the C entry's layout (12 doubles
-    each, as K2's), built once per pair of lists: the solvers pass the same
-    lists every step, and a 51^2 step is host-bound. The C entry only reads
-    the array."""
-    flat = [x for bcs in (u_bc, v_bc) for x in k2_edge_plan(bcs).spec()]
-    return (ctypes.c_double * len(flat))(*flat)
-
-
 def momentum_explicit_fused(un, vn, un1, vn1, dt: float, dx: float,
                             dy: float, nu: float, u_bc, v_bc,
                             quirk_compat: bool = True):
@@ -101,13 +91,25 @@ def momentum_explicit_fused(un, vn, un1, vn1, dt: float, dx: float,
     launch, any grid shape, the BC lists applied as their edge plans. A
     (B, nx, ny) batch is one launch, the members on the grid's third
     axis."""
-    if un.device.type == "cpu":
-        return momentum_explicit(un, vn, un1, vn1, dt, dx, dy, nu, u_bc, v_bc,
-                                 quirk_compat)
+    return torch.ops.ns_tpu.momentum_explicit_fused.default(
+        un, vn, un1, vn1, float(dt), float(dx), float(dy), float(nu),
+        edge_plan(tuple(u_bc)), edge_plan(tuple(v_bc)), bool(quirk_compat))
+
+
+def _momentum_cpu(un, vn, un1, vn1, dt, dx, dy, nu, u_plan, v_plan,
+                  quirk_compat):
+    return momentum_explicit(un, vn, un1, vn1, dt, dx, dy, nu,
+                             plan_bcs(tuple(u_plan)),
+                             plan_bcs(tuple(v_plan)), quirk_compat)
+
+
+def _momentum_cuda(un, vn, un1, vn1, dt, dx, dy, nu, u_plan, v_plan,
+                   quirk_compat):
     n, nx, ny = _build.check_inputs("momentum_explicit_fused", un, vn, un1,
                                     vn1, members=True)
     uo, vo = torch.empty_like(un), torch.empty_like(vn)
-    spec = _k3_spec(tuple(u_bc), tuple(v_bc))
+    # the C entry reads u's 12 doubles, then v's
+    spec = plan_spec((*u_plan, *v_plan))
     fn = _build.entry("ns_momentum_explicit", un.dtype)
     with torch.cuda.device(un.device):
         code = fn(un.data_ptr(), vn.data_ptr(), un1.data_ptr(),

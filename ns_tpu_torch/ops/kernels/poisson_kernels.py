@@ -20,12 +20,15 @@ and keeps a plain twin:
                                   entry `sor_redblack_tiled_any`;
                                   twin `sor_redblack_tiled` (here)
 
-Dispatch is by the tensor's device: a CPU tensor takes the plain twin, a
-CUDA tensor launches the kernel or raises; nothing falls back. Each wrapper
-counts its kernel launches in a `launches` attribute and its calls that
-launched in `calls` (the group routes of K2mb, K4 and K5 launch once per
-group; their resident routes count their solves in `launches_resident`
-too).
+Each wrapper calls its operator in `torch.ops.ns_tpu` (`library.py`), and
+the dispatcher picks the implementation by the tensors' device: on a CPU
+tensor the plain twin (`_*_cpu` here), on a CUDA tensor the kernel
+(`_*_cuda`), which launches or raises; nothing falls back. A BC list
+enters the operators as its edge plan (`edge_plan`, 12 numbers). Each
+wrapper counts its kernel launches in a `launches` attribute and its calls
+that launched in `calls` (the group routes of K2mb, K4 and K5 launch once
+per group; their resident routes count their solves in
+`launches_resident` too).
 
 Every wrapper takes one (nx, ny) field or a (B, nx, ny) batch of members,
 as the JAX package's FD ensemble gives its kernels under vmap. K1 and K2
@@ -62,12 +65,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 from typing import NamedTuple
 
 import torch
 
-from ns_tpu_torch.core.bc import apply_bcs
+from ns_tpu_torch.core.bc import BC, apply_bcs
 from ns_tpu_torch.ops import poisson
 from ns_tpu_torch.ops.kernels import _build
 
@@ -113,10 +117,10 @@ class K2EdgePlan(NamedTuple):
     corner: tuple[int, ...]    # per corner: the side (index in SIDES) whose
     #                            BC writes it last, or -1
 
-    def spec(self) -> ctypes.Array:
-        """The 12 doubles K2's C entry unpacks: kind, corner, term."""
-        flat = [*self.kind, *self.corner, *self.term]
-        return (ctypes.c_double * len(flat))(*flat)
+    def flat(self) -> tuple[float, ...]:
+        """The 12 numbers K2's C entry unpacks: kind, corner, term."""
+        return tuple(float(x) for x in (*self.kind, *self.corner,
+                                        *self.term))
 
 
 def k2_edge_plan(bcs) -> K2EdgePlan:
@@ -134,12 +138,52 @@ def k2_edge_plan(bcs) -> K2EdgePlan:
 
 
 @functools.lru_cache(maxsize=64)
-def _k2_spec(bcs: tuple) -> ctypes.Array:
-    """The edge plan in the C entry's layout, built once per BC list: the
-    solvers pass the same list every step, and a 50^2 step is host-bound,
-    so the plan is not rebuilt on every call. The C entry only reads the
-    array."""
-    return k2_edge_plan(bcs).spec()
+def edge_plan(bcs: tuple) -> tuple[float, ...]:
+    """The edge plan of a BC list as the operators take it (`float[]`),
+    built once per list: the solvers pass the same list every step, and a
+    50^2 step is host-bound, so the plan is not rebuilt on every call."""
+    return k2_edge_plan(bcs).flat()
+
+
+@functools.lru_cache(maxsize=64)
+def plan_spec(plan: tuple) -> ctypes.Array:
+    """An edge plan (or K3's two) in the C entry's layout, built once per
+    plan. The C entry only reads the array."""
+    return (ctypes.c_double * len(plan))(*plan)
+
+
+def _plan_bc(kind: float, side: str, term: float) -> BC:
+    """A BC whose `edge_term()` is `term` exactly: a Dirichlet value, or a
+    Neumann gradient over a spacing of 1 (signed as `edge_term` signs it)."""
+    if kind == 0:
+        return BC("dirichlet", term, side)
+    return BC("neumann", term if side in ("right", "top") else -term, side,
+              1.0, 1.0)
+
+
+@functools.lru_cache(maxsize=64)
+def plan_bcs(plan: tuple) -> tuple[BC, ...]:
+    """A BC list with the edge plan `plan`: one BC a side the plan writes,
+    with the plan's kind and edge term, in an order where each corner's
+    writer comes after the other side of that corner. `apply_bcs` of it
+    is `apply_bcs` of any list with this plan, bitwise (the plan is all
+    that the list leaves on the edges, `test_torch_kernel_ops.py`); the
+    operators' CPU twins apply it."""
+    kind, corner, term = plan[:4], plan[4:8], plan[8:]
+    sides = [s for s in range(4) if kind[s] >= 0]
+    after = [(int(w), SIDES.index(o)) for c, w in enumerate(corner)
+             if w >= 0 for o in CORNERS[c] if o != SIDES[int(w)]]
+    for order in itertools.permutations(sides):
+        pos = {s: n for n, s in enumerate(order)}
+        if all(w in pos and pos[w] > pos.get(o, -1) for w, o in after):
+            return tuple(_plan_bc(kind[s], SIDES[s], term[s]) for s in order)
+    raise ValueError(f"no BC list has the edge plan {plan}")
+
+
+def _new(out: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """out, or a copy of it where a twin returned its input as it was (no
+    sweep ran): an operator's output never aliases an input."""
+    return out.clone() if out is p else out
 
 
 def jacobi_fused(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
@@ -148,16 +192,26 @@ def jacobi_fused(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
     order (direct_fd's pressure), in one launch of one block (K2), which
     applies the list as its edge plan (`k2_edge_plan`). A (B, nx, ny)
     batch is one launch, one block a member."""
-    if p.device.type == "cpu":
-        return poisson.jacobi(p, b, dx, dy, n_iter,
-                              bc_fn=lambda q: apply_bcs(q, p_bc))
+    return torch.ops.ns_tpu.jacobi_fused.default(
+        p, b, float(dx), float(dy), int(n_iter), edge_plan(tuple(p_bc)))
+
+
+def _jacobi_cpu(p, b, dx, dy, n_iter, p_plan) -> torch.Tensor:
+    """The twin of K2 and K2mb: `poisson.jacobi` with the BC list of the
+    edge plan applied after each sweep."""
+    bcs = plan_bcs(tuple(p_plan))
+    return _new(poisson.jacobi(p, b, dx, dy, n_iter,
+                               bc_fn=lambda q: apply_bcs(q, bcs)), p)
+
+
+def _jacobi_fused_cuda(p, b, dx, dy, n_iter, p_plan) -> torch.Tensor:
     n, nx, ny = _build.check_inputs("jacobi_fused", p, b, members=True)
     if not smem_fits(nx, ny, 2, p.element_size()):
         raise ValueError(f"jacobi_fused: a {nx}x{ny} {p.dtype} grid does not "
                          "fit one block's shared memory")
     dx2, dy2, denom = _consts(dx, dy)
     out = torch.empty_like(p)
-    spec = _k2_spec(tuple(p_bc))
+    spec = plan_spec(tuple(p_plan))
     fn = _build.entry("ns_jacobi_fused", p.dtype)
     with torch.cuda.device(p.device):
         code = fn(p.data_ptr(), b.data_ptr(), out.data_ptr(), nx, ny,
@@ -324,19 +378,21 @@ def jacobi_multiblock(p: torch.Tensor, b: torch.Tensor, dx: float, dy: float,
     buffers. Neither route syncs with the host: nit is fixed.
 
     A (B, nx, ny) batch: the members in turn, one call."""
-    if p.device.type == "cpu":
-        return poisson.jacobi(p, b, dx, dy, n_iter,
-                              bc_fn=lambda q: apply_bcs(q, p_bc))
+    return torch.ops.ns_tpu.jacobi_multiblock.default(
+        p, b, float(dx), float(dy), int(n_iter), edge_plan(tuple(p_bc)))
+
+
+def _jacobi_multiblock_cuda(p, b, dx, dy, n_iter, p_plan) -> torch.Tensor:
     _build.check_inputs("jacobi_multiblock", p, b, members=True)
     if n_iter < 0:
         raise ValueError(f"jacobi_multiblock: n_iter={n_iter}")
     out = poisson.solve_members(_jacobi_multiblock, p, b, dx, dy, n_iter,
-                                p_bc)
+                                tuple(p_plan))
     jacobi_multiblock.calls += 1
     return out
 
 
-def _jacobi_multiblock(p, b, dx, dy, n_iter, p_bc) -> torch.Tensor:
+def _jacobi_multiblock(p, b, dx, dy, n_iter, p_plan) -> torch.Tensor:
     """One member's K2mb solve; counts its launches."""
     nx, ny = p.shape
     plan = _jacobi_card_plan(p.device, nx, ny, p.dtype)
@@ -355,7 +411,7 @@ def _jacobi_multiblock(p, b, dx, dy, n_iter, p_bc) -> torch.Tensor:
                   ptr(xch), ptr(arrived), nx, ny, plan.tile_rows,
                   plan.tile_cols, plan.k, int(plan.c_in_smem),
                   int(plan.resident), int(n_iter), dx2, dy2, denom,
-                  dx2 * dy2 / denom, _k2_spec(tuple(p_bc)),
+                  dx2 * dy2 / denom, plan_spec(p_plan),
                   _build.stream(p.device))
     _build.check(code, "jacobi_multiblock")
     if plan.resident:
@@ -432,8 +488,17 @@ def sor_redblack_fused(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
     colour planes in shared memory, each thread on fixed cells of each
     colour (`k1_layout`). A (B, nx, ny) batch is one launch, one block a
     member, each member stopped by its own gate."""
-    if p.device.type == "cpu":
-        return poisson.sor_redblack(p, rhs_c, dx, dy, beta, tol, max_iter)
+    return torch.ops.ns_tpu.sor_redblack_fused.default(
+        p, rhs_c, float(dx), float(dy), float(beta), float(tol),
+        int(max_iter))
+
+
+def _sor_redblack_fused_cpu(p, rhs_c, dx, dy, beta, tol, max_iter):
+    return _new(poisson.sor_redblack(p, rhs_c, dx, dy, beta, tol, max_iter),
+                p)
+
+
+def _sor_redblack_fused_cuda(p, rhs_c, dx, dy, beta, tol, max_iter):
     n, nx, ny = _build.check_inputs("sor_redblack_fused", p, rhs_c,
                                     members=True)
     if not smem_fits(nx, ny, 2, p.element_size()):
@@ -495,8 +560,18 @@ def sor_redblack_multiblock(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
     group and the gate read on the host.
 
     A (B, nx, ny) batch: the members in turn, one call."""
-    if p.device.type == "cpu":
-        return sor_redblack_tiled(p, rhs_c, dx, dy, beta, tol, max_iter, k)
+    return torch.ops.ns_tpu.sor_redblack_multiblock.default(
+        p, rhs_c, float(dx), float(dy), float(beta), float(tol),
+        int(max_iter), int(k))
+
+
+def _sor_redblack_multiblock_cpu(p, rhs_c, dx, dy, beta, tol, max_iter, k):
+    return _new(sor_redblack_tiled(p, rhs_c, dx, dy, beta, tol, max_iter, k),
+                p)
+
+
+def _sor_redblack_multiblock_cuda(p, rhs_c, dx, dy, beta, tol, max_iter,
+                                  k):
     _build.check_inputs("sor_redblack_multiblock", p, rhs_c, members=True)
     if k < 1:
         raise ValueError(f"sor_redblack_multiblock: k={k}")
@@ -777,9 +852,19 @@ def sor_redblack_packed_multiblock(p: torch.Tensor, rhs_c: torch.Tensor,
     the host reads the gate once per group.
 
     A (B, nx, ny) batch: the members in turn, one call."""
-    if p.device.type == "cpu":
-        return sor_redblack_packed_tiled(p, rhs_c, dx, dy, beta, tol,
-                                         max_iter, k)
+    return torch.ops.ns_tpu.sor_redblack_packed_multiblock.default(
+        p, rhs_c, float(dx), float(dy), float(beta), float(tol),
+        int(max_iter), int(k))
+
+
+def _sor_redblack_packed_multiblock_cpu(p, rhs_c, dx, dy, beta, tol,
+                                        max_iter, k):
+    return sor_redblack_packed_tiled(p, rhs_c, dx, dy, beta, tol, max_iter,
+                                     k)
+
+
+def _sor_redblack_packed_multiblock_cuda(p, rhs_c, dx, dy, beta, tol,
+                                         max_iter, k):
     _, _, ny = _build.check_inputs("sor_redblack_packed_multiblock", p, rhs_c,
                                    members=True)
     if ny % 2:

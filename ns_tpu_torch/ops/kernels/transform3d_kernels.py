@@ -25,11 +25,13 @@ fp32 accumulation).
 
 The DFT tables (`Fz_t`, `Fy_t`, `Fyi_t`, `Bz`) may be host numpy arrays, as
 the JAX wrappers take them, or complex torch tensors; the solver passes
-tensors already on the device. Dispatch is by the input's device: a CPU
-tensor takes the twin, a CUDA tensor launches the kernel or raises. Each
-wrapper counts its calls that launched in `launches` (K8 is two CUDA
-launches per call and counts one), its bf16 tensor-core calls also in
-`launches_bf16`, and its 3xTF32 calls in `launches_tf32`.
+tensors already on the device. Each wrapper turns them into complex
+tensors on the input's device and calls its operator in `torch.ops.ns_tpu`
+(`library.py`), the precision as a string: on a CPU tensor it runs the
+twin, on a CUDA tensor it launches the kernel or raises. Each wrapper
+counts its calls that launched in `launches` (K8 is two CUDA launches per
+call and counts one), its bf16 tensor-core calls also in `launches_bf16`,
+and its 3xTF32 calls in `launches_tf32`.
 """
 
 from __future__ import annotations
@@ -425,8 +427,11 @@ def fused_zy_forward(w: torch.Tensor, Fz_t, Fy_t,
     At 'default' it runs on the tensor cores (bf16 operands, counted in
     `launches_bf16` too), at 'high'/'highest' on them as 3xTF32 (counted
     in `launches_tf32` too)."""
-    if w.device.type == "cpu":
-        return zy_forward(w, Fz_t, Fy_t, precision)
+    return torch.ops.ns_tpu.fused_zy_forward.default(
+        w, _table(Fz_t, w), _table(Fy_t, w), precision)
+
+
+def _zy_forward_cuda(w, Fz_t, Fy_t, precision):
     _build.check_fields("fused_zy_forward", w, torch.float32, (3, 4, 5))
     fz, fy = _table(Fz_t, w), _table(Fy_t, w)
     lead, (nx, ny, nz) = w.shape[:-3], w.shape[-3:]
@@ -470,8 +475,11 @@ def fused_yz_inverse(a: torch.Tensor, Fyi_t, Bz, nz: int,
     run the x-inverse. At 'default' it runs on the tensor cores (bf16
     operands, counted in `launches_bf16` too), at 'high'/'highest' on them
     as 3xTF32 (counted in `launches_tf32` too)."""
-    if a.device.type == "cpu":
-        return yz_inverse(a, Fyi_t, Bz, nz, precision)
+    return torch.ops.ns_tpu.fused_yz_inverse.default(
+        a, _table(Fyi_t, a), _table(Bz, a), int(nz), precision)
+
+
+def _yz_inverse_cuda(a, Fyi_t, Bz, nz, precision):
     _build.check_fields("fused_yz_inverse", a, torch.complex64, (3, 4, 5))
     fyi, bz = _table(Fyi_t, a), _table(Bz, a)
     lead, (nx, ry, kzc) = a.shape[:-3], a.shape[-3:]
@@ -520,8 +528,12 @@ def fused_lamb(a6: torch.Tensor, Fyi_t, Bz, Fz_t, Fy_t, nz: int,
     tf32 planes at 'high'/'highest' (3xTF32 on the tensor cores, counted
     in `launches_tf32` too); no physical field is written to device
     memory."""
-    if a6.device.type == "cpu":
-        return lamb(a6, Fyi_t, Bz, Fz_t, Fy_t, nz, precision)
+    return torch.ops.ns_tpu.fused_lamb.default(
+        a6, _table(Fyi_t, a6), _table(Bz, a6), _table(Fz_t, a6),
+        _table(Fy_t, a6), int(nz), precision)
+
+
+def _lamb_cuda(a6, Fyi_t, Bz, Fz_t, Fy_t, nz, precision):
     _build.check_fields("fused_lamb", a6, torch.complex64, (4,))
     if a6.shape[0] != 6:
         raise ValueError(f"fused_lamb wants (6, nx, Ry, Kzc); got "

@@ -5,10 +5,15 @@ are the plain twins of the hand-written kernels in `ops/kernels/`
 (`sor_redblack` of K1, `jacobi` of K2) and the solvers' path for the modes
 with no kernel (`sor_wavefront`, `cg_poisson`).
 
-The convergence gates are Python loops, so every tolerance check reads one
-scalar back to the host; K1 keeps that gate on the device instead. Gate
-semantics follow the reference: err=1, it=1, loop while err > tol and
-it < max_iter, with the comparison made in the field's dtype.
+The convergence gates of `sor_wavefront` and `cg_poisson` are
+`while_loop`s (torch's higher-order op, the counterpart of the JAX
+package's `lax.while_loop`): `torch.export` records each as one loop of
+its graph, and run eagerly each reads its gate back to the host once a
+turn, as the Python loops it replaced did. `sor_redblack`, K1's twin,
+keeps a Python loop: it runs inside K1's operator, which a trace does not
+enter. K1 keeps that gate on the device instead. Gate semantics follow
+the reference: err=1, it=1, loop while err > tol and it < max_iter, with
+the comparison made in the field's dtype.
 
 The grid is the last two axes, so a (B, nx, ny) batch of members is one
 call, as the JAX package's FD ensemble runs these under vmap: `jacobi`
@@ -21,6 +26,7 @@ it was). `sor_wavefront` and `cg_poisson` solve a batch's members in turn.
 from __future__ import annotations
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 
 def dtype_float(x: float, dtype: torch.dtype) -> float:
@@ -120,10 +126,12 @@ def sor_wavefront(p: torch.Tensor, rhs_c: torch.Tensor, dx: float, dy: float,
     flat = (ii * ny + jj).flatten()
     diag = (ii + jj).flatten()
     stages = [flat[diag == d] for d in range(2, nx + ny - 3)]
-    c = rhs_c.flatten()
     tol = dtype_float(tol, p.dtype)
-    err, it = 1.0, 1
-    while err > tol and it < max_iter:
+
+    def gate(p, err, it, *_):
+        return (err > tol) & (it < max_iter)
+
+    def sweep(p, err, it, c, *stages):
         q = p.flatten().clone()
         for idx in stages:
             up, down = q[idx + ny], q[idx - ny]
@@ -131,9 +139,14 @@ def sor_wavefront(p: torch.Tensor, rhs_c: torch.Tensor, dx: float, dy: float,
             q[idx] = beta * (dy2 * (up + down) + dx2 * (right + left)
                              - c[idx]) / denom + (1.0 - beta) * q[idx]
         p_new = q.view(nx, ny)
-        err = float((p_new - p).abs().max())
-        p, it = p_new, it + 1
-    return p
+        return p_new, (p_new - p).abs().max(), it + 1
+
+    err = torch.ones((), dtype=p.dtype, device=p.device)
+    it = torch.ones((), dtype=torch.int64, device=p.device)
+    # the tensors the body reads besides the carry are the loop's inputs
+    # (consts), so a traced loop holds them as such
+    return while_loop_op(gate, sweep, (p, err, it),
+                         (rhs_c.flatten(), *stages))[0]
 
 
 def jacobi(p: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
@@ -175,23 +188,23 @@ def cg_poisson(p0: torch.Tensor, rhs: torch.Tensor, dx: float, dy: float,
     boundary = torch.ones_like(p0, dtype=torch.bool)
     boundary[1:-1, 1:-1] = False
     zero = torch.zeros((), dtype=p0.dtype, device=p0.device)
-
-    def laplace(x):
-        return torch.where(boundary, zero, laplace_full(x, dx2, dy2))
-
-    # interior correction e with homogeneous boundary: A e = r0
-    r = torch.where(boundary, zero, rhs - laplace_full(p0, dx2, dy2))
-    d = r
-    rs = torch.sum(r * r)
-    e = torch.zeros_like(p0)
     tol = dtype_float(tol, p0.dtype)
-    it = 0
-    while float(torch.sqrt(torch.abs(rs))) > tol and it < max_iter:
-        Ad = laplace(d)
+
+    def gate(e, r, d, rs, it, *_):
+        return (torch.sqrt(torch.abs(rs)) > tol) & (it < max_iter)
+
+    def iterate(e, r, d, rs, it, boundary, zero):
+        Ad = torch.where(boundary, zero, laplace_full(d, dx2, dy2))
         alpha = rs / torch.sum(d * Ad)
         e = e + alpha * d
         r = r - alpha * Ad
         rs_new = torch.sum(r * r)
         d = r + (rs_new / rs) * d
-        rs, it = rs_new, it + 1
+        return e, r, d, rs_new, it + 1
+
+    # interior correction e with homogeneous boundary: A e = r0
+    r = torch.where(boundary, zero, rhs - laplace_full(p0, dx2, dy2))
+    carry = (torch.zeros_like(p0), r, r.clone(), torch.sum(r * r),
+             torch.zeros((), dtype=torch.int64, device=p0.device))
+    e = while_loop_op(gate, iterate, carry, (boundary, zero))[0]
     return p0 + e

@@ -28,10 +28,13 @@ and keep the compiled executable (`RolloutEngine`, `FDRolloutEngine`,
   `torch.export` programs with nt in one artifact file (a zip);
   `load_*_artifact` loads them (no module of `ns_tpu_torch.solvers` is
   imported) and loops the step nt times. A program runs on the device it
-  was exported on. The hand-written kernels are ctypes calls, which no
-  exported program can carry, so a configuration that runs one is refused
-  with a ValueError that names the configuration to export instead (as
-  the JAX package refuses Pallas configurations for StableHLO).
+  was exported on. Every configuration that an engine runs exports: the
+  hand-written kernels are operators of `torch.ops.ns_tpu`
+  (`ops/kernels/library.py`), which a program holds as nodes that launch
+  the kernel on the card and run the twin on the CPU, and the host-gated
+  cg and gauss_seidel loops are `while_loop`s (`ops/poisson.py`), which a
+  program holds as loops. The loader registers the operators before it
+  reads the programs.
 """
 
 from __future__ import annotations
@@ -460,7 +463,9 @@ def _write_artifact(path: str, kind: str, nt: int, parts, example: tuple,
 def _load_artifact(path: str, kinds: tuple) -> Callable:
     """The rollout of an artifact of one of `kinds`: init, nt steps,
     read-out, each an exported program (no module of the solvers is
-    imported)."""
+    imported; the kernels' operators are registered first)."""
+    import ns_tpu_torch.ops.kernels.library  # noqa: F401
+
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read("meta.json"))
         if meta["kind"] not in kinds:
@@ -498,44 +503,13 @@ def load_rollout_artifact(path: str) -> Callable:
     return _load_artifact(path, ("rollout",))
 
 
-def _fd_kernel_config(family: str, cfg) -> str | None:
-    """Why an FD configuration cannot be exported (it runs a hand-written
-    kernel or a host-gated loop on the card), else None."""
-    if family == "chorin_fd":
-        if cfg.method == "explicit":
-            return ("method='explicit' runs K3 (the fused momentum kernel); "
-                    "its plain twin is the 'semi_implicit' or 'helmholtz' "
-                    "predictor of the same solver")
-        if cfg.pressure_mode == "redblack":
-            return ("pressure_mode='redblack' runs K1/K4/K5 (red-black SOR "
-                    "kernels); export the direct twin of their converged "
-                    "solve, pressure_mode='dst' (or 'multigrid')")
-        if cfg.pressure_mode in ("cg", "gauss_seidel"):
-            return (f"pressure_mode={cfg.pressure_mode!r} stops on a "
-                    "tolerance read on the host, a loop an exported "
-                    "program cannot hold; export pressure_mode='dst' (or "
-                    "'multigrid')")
-    elif family == "direct_fd" and cfg.pressure_mode == "jacobi":
-        return ("pressure_mode='jacobi' runs K2/K2mb (the Jacobi kernels); "
-                "export the direct twin of their converged solve, "
-                "pressure_mode='exact'")
-    return None
-
-
 def export_fd_rollout(family: str, cfg, u_bc, v_bc, p_bc, path: str,
                       dtype=torch.float32, device=None) -> str:
-    """Write an FD-family nt-step rollout as an artifact.
-
-    Configurations that run a hand-written kernel are refused: the kernels
-    are ctypes calls, which an exported program cannot carry. The
-    ValueError names a configuration of the same solver that runs none."""
+    """Write an FD-family nt-step rollout as an artifact (any method and
+    pressure mode; the kernels and the gated loops are in the programs)."""
     if family not in _FD:
         raise ValueError(f"family must be chorin_fd|direct_fd, got "
                          f"{family!r}")
-    why = _fd_kernel_config(family, cfg)
-    if why is not None:
-        raise ValueError(f"torch.export cannot carry the hand-written CUDA "
-                         f"kernels (ctypes calls): {family} with {why}")
     device = resolve_device(device)
     z = torch.zeros((cfg.nx, cfg.ny), dtype=dtype, device=device)
     parts = _fd_parts(family, cfg, u_bc, v_bc, p_bc, dtype, device)
@@ -548,14 +522,8 @@ def load_fd_rollout_artifact(path: str) -> Callable:
 
 
 def export_rollout3d(cfg, path: str, device=None) -> str:
-    """Write the nt-step 3D rollout as an artifact. The fused transform
-    kernels (use_pallas_transform) are refused, as for the FD kernels."""
-    if cfg.use_pallas_transform:
-        raise ValueError(
-            "torch.export cannot carry the hand-written CUDA kernels "
-            "(ctypes calls): use_pallas_transform=True runs K6-K8 (the "
-            "fused transform kernels); export their twin, the plain chain "
-            "of the same engine, use_pallas_transform=False")
+    """Write the nt-step 3D rollout as an artifact, on either engine and
+    either route (the fused route's K6 and K8 are in the programs)."""
     device = resolve_device(device)
     example = (torch.zeros((3, cfg.nx, cfg.ny, cfg.nz),
                            dtype=cfg.real_dtype, device=device),)

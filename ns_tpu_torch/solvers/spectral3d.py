@@ -157,7 +157,7 @@ class Spectral3DConfig:
     def _fused_fits_smem(self) -> bool:
         """Whether the fused kernels' blocks fit shared memory at this
         matmul_precision (each kernel has its own at 'default': bf16; and
-        at 'high'/'highest': 3xTF32 for K6 and K7, fp32 for K8)."""
+        at 'high'/'highest': 3xTF32 for K6, K7 and K8)."""
         _, rows_y, kzc = _compact_meta(self)
         return t3k.fused_fits(self.nx, self.ny, self.nz, len(rows_y), kzc,
                               self.matmul_precision)

@@ -19,7 +19,10 @@ an intermediate to bf16 by one ulp. The direct solves (plain torch, cuBLAS on th
 solve on the CPU: float64 <= 1e-10 and float32 <= 1e-4 of the scale. The 2D
 periodic solver (cuFFT, cuBLAS) likewise: each engine in float64 <= 1e-10,
 diffable's gradient <= 1e-9; float32 Taylor-Green runs against the exact
-decay within chip_smoke.py's bounds.
+decay within chip_smoke.py's bounds. Each kernel's operator
+(`torch.ops.ns_tpu`) passes `torch.library.opcheck` on CUDA tensors, and
+an artifact of a kernel configuration exported on the card is its eager
+engine bitwise, with the same kernel launches.
 """
 
 import contextlib
@@ -1462,6 +1465,119 @@ def test_periodic_engines_replay_equals_eager(cuda):
     assert e3.captured and torch.equal(e3(u0), e3.eager(u0))
     names = [n for n, _ in e3.replay_records("rest")]
     assert any("lamb_phys_bf16_kernel" in n for n in names)
+
+
+# --- the kernels' operators and the exports that carry them -----------------
+
+
+def _op_args(name, device):
+    """Operator arguments of one route on the card, float32 at main-path
+    widths that opcheck's repeated calls keep short: K1 51^2, K2 50^2,
+    K2mb and K4 256^2 (resident), K5 257x255, K3 51^2, K6-K8 32^3."""
+    from ns_tpu_torch.ops.kernels import poisson_kernels as pk
+
+    f32 = torch.float32
+    h = 0.04
+    plan = pk.edge_plan(tuple(p_bcs(h)))
+    if name in ("jacobi_fused", "jacobi_multiblock"):
+        n = 50 if name == "jacobi_fused" else 256
+        return (rand((2, n, n) if n == 50 else (n, n), f32, device, 0),
+                rand((n, n) if n == 256 else (2, n, n), f32, device, 1),
+                h, h, 20, plan)
+    if name == "momentum_explicit_fused":
+        f = [rand((51, 51), f32, device, i) for i in range(4)]
+        return (*f, 1e-3, h, h, 0.1, plan, pk.edge_plan(tuple(
+            p_bcs(h)[::-1])), True)
+    if name.startswith("sor"):
+        shape = {"sor_redblack_fused": (2, 51, 51),
+                 "sor_redblack_packed_multiblock": (256, 256),
+                 "sor_redblack_multiblock": (257, 255)}[name]
+        args = (rand(shape, f32, device, 2), rand(shape, f32, device, 3, 1e-3),
+                h, h, 1.25, 5e-6, 40)
+        return args if name == "sor_redblack_fused" else args + (8,)
+    cfg = s3.Spectral3DConfig(nx=32, ny=32, nz=32, transform="matmul")
+    M = s3._dft_tables(cfg, device)
+    ry, kzc = M["Fy_t"].shape[0], M["Fz_t"].shape[0]
+    if name == "fused_zy_forward":
+        return (rand((3, 32, 32, 32), f32, device, 4), M["Fz_t"], M["Fy_t"],
+                "default")
+    a = torch.complex(rand((6, 32, ry, kzc), f32, device, 5),
+                      rand((6, 32, ry, kzc), f32, device, 6))
+    if name == "fused_yz_inverse":
+        return (a[:3].contiguous(), M["Fyi_t"], M["Bz"], 32, "highest")
+    return (a, M["Fyi_t"], M["Bz"], M["Fz_t"], M["Fy_t"], 32, "default")
+
+
+@pytest.mark.parametrize("name", [w.__name__
+                                  for w in kernels.WRAPPERS.values()])
+def test_opcheck_on_the_card(cuda, name):
+    """torch.library.opcheck on CUDA tensors (schema, fake against real
+    outputs, AOT dispatch): each call launches the kernel."""
+    wrapper = getattr(kernels, name)
+    n0 = wrapper.launches
+    torch.library.opcheck(getattr(torch.ops.ns_tpu, name).default,
+                          _op_args(name, cuda))
+    assert wrapper.launches > n0
+
+
+def _export_case(case, tmp_path):
+    """(engine, inputs, loaded artifact, kernels) of a configuration that
+    runs hand-written kernels, exported on the card."""
+    from ns_tpu_torch import runtime
+    from ns_tpu_torch.cli.run_solver import cavity_bcs
+    from ns_tpu_torch.solvers import chorin_fd, direct_fd
+
+    path = str(tmp_path / f"{case}.pt2z")
+    if case == "fused 64^3":
+        cfg = s3.Spectral3DConfig(nt=6, nx=64, ny=64, nz=64,
+                                  transform="matmul",
+                                  matmul_precision="default",
+                                  use_pallas_transform=True)
+        eng = runtime.Rollout3DEngine(cfg)
+        run = runtime.load_rollout3d_artifact(
+            runtime.export_rollout3d(cfg, path))
+        return (eng, eng._inputs(s3.taylor_green_velocity(cfg)), run,
+                {"fused_zy_forward", "fused_lamb"})
+    n = 51 if case == "chorin_fd explicit 51^2" else 50
+    bcs = cavity_bcs(2.0 / (n - 1), 2.0 / (n - 1))
+    if n == 51:
+        family, want = "chorin_fd", {"sor_redblack_fused",
+                                     "momentum_explicit_fused"}
+        cfg = chorin_fd.ChorinFDConfig(nt=60, nx=n, ny=n, nit=200, nu=0.1,
+                                       method="explicit")
+    else:
+        family, want = "direct_fd", {"jacobi_fused"}
+        cfg = direct_fd.DirectFDConfig(nt=60, nx=n, ny=n, nu=0.1)
+    eng = runtime.FDRolloutEngine(family, cfg, *bcs)
+    run = runtime.load_fd_rollout_artifact(
+        runtime.export_fd_rollout(family, cfg, *bcs, path))
+    z = np.zeros((n, n), np.float32)
+    return eng, eng._inputs(z, z, z), run, want
+
+
+@pytest.mark.parametrize("case", ["chorin_fd explicit 51^2",
+                                  "direct_fd 50^2", "fused 64^3"])
+def test_kernel_artifact_matches_its_engine(cuda, tmp_path, case):
+    """An artifact of a kernel configuration, exported on the card, is its
+    engine's eager loop bitwise and launches the same kernels as often
+    (the operators launch them, not the twins); the engine still captures
+    its step, and the replay is the eager loop bitwise."""
+    eng, inputs, run, want_kernels = _export_case(case, tmp_path)
+    as_tuple = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
+    counts = []
+    outs = []
+    for fn in (lambda: eng.eager(*inputs), lambda: run(*inputs)):
+        kernels.reset_launch_counts()
+        outs.append(as_tuple(fn()))
+        torch.cuda.synchronize()
+        counts.append({k: v for k, v in kernels.launch_counts().items()
+                       if v})
+    assert counts[0] == counts[1] and want_kernels <= set(counts[1])
+    for g, w in zip(*outs):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+    assert eng.captured, eng.eager_reason
+    for g, w in zip(as_tuple(eng(*inputs)), outs[0]):
+        assert torch.equal(g, w)
 
 
 def test_server_round_trip_on_the_card(cuda):

@@ -181,10 +181,11 @@ def test_edge_plan_layout():
     assert plan.term == (4.0, 0.0, -0.75, 3.0)
     # (0,0): bottom after left; (0,ny-1): left after top; right has no BC
     assert plan.corner == (2, 0, 2, 3)
-    assert list(plan.spec()) == [0, -1, 1, 0, 2, 0, 2, 3, 4.0, 0.0, -0.75,
+    assert list(plan.flat()) == [0, -1, 1, 0, 2, 0, 2, 3, 4.0, 0.0, -0.75,
                                  3.0]
-    # the wrapper's cached spec is the same array
-    assert list(pk._k2_spec(tuple(bcs))) == list(plan.spec())
+    # the wrappers' cached plan is the same, and so is the C entry's array
+    assert pk.edge_plan(tuple(bcs)) == plan.flat()
+    assert list(pk.plan_spec(plan.flat())) == list(plan.flat())
 
 
 @pytest.mark.parametrize("sides", [

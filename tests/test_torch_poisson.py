@@ -264,8 +264,8 @@ def test_kernel_input_validation_rejects_cpu_and_bad_bcs():
     with pytest.raises(ValueError, match="side"):
         BC("dirichlet", 0.0, "front")
     bcs = bcs_from_reference(j_p_bcs(0.5, 0.25))
-    spec = list(poisson_kernels._k2_spec(tuple(bcs)))
-    assert list(poisson_kernels._k2_spec(tuple(bcs * 3))) == spec
+    spec = list(poisson_kernels.edge_plan(tuple(bcs)))
+    assert list(poisson_kernels.edge_plan(tuple(bcs * 3))) == spec
     # kind[4], corner[4], term[4] by side (left, right, bottom, top): top
     # Dirichlet 0, the others Neumann with 0 offsets; left writes the
     # corners of row 0 last, right those of row nx-1

@@ -10,8 +10,12 @@ CPU has no CUDA graph, so the engines run their eager loop here
 (`captured` False); the replay is held against that loop bitwise on the
 card (tests/test_torch_cuda.py, chip_smoke.py). Exported artifacts equal
 the engine (CPU programs: bitwise here), also when loaded in a process
-that has not imported `ns_tpu_torch.solvers`; configurations that run a
-hand-written kernel refuse to export in both packages.
+that has not imported `ns_tpu_torch.solvers`. Every FD configuration that
+ns_tpu exports (its default `use_pallas*` = False) exports in the port
+too, the kernels' operators and the gated loops inside the programs:
+each artifact is the port's engine bitwise and within 1e-10 of ns_tpu's
+engine; the fused 3D route likewise against the port's eager run and
+ns_tpu's plain route.
 """
 
 import dataclasses
@@ -237,10 +241,10 @@ _LOAD = """
 import json, sys
 import numpy as np, torch
 from ns_tpu_torch.runtime import load_fd_rollout_artifact
-run = load_fd_rollout_artifact(sys.argv[1])
-ics = [torch.as_tensor(a) for a in np.load(sys.argv[2]).values()]
-u, v, p = run(*ics)
-np.save(sys.argv[3], torch.stack([u, v, p]).numpy())
+ics = [torch.as_tensor(a) for a in np.load(sys.argv[1]).values()]
+for art in sys.argv[2:]:
+    u, v, p = load_fd_rollout_artifact(art)(*ics)
+    np.save(art + ".npy", torch.stack([u, v, p]).numpy())
 print(json.dumps(sorted(m for m in sys.modules
                         if m.startswith("ns_tpu_torch.solvers")
                         or m.split(".")[0] in ("jax", "ns_tpu"))))
@@ -248,63 +252,89 @@ print(json.dumps(sorted(m for m in sys.modules
 
 
 def test_artifact_runs_without_the_solvers(tmp_path):
-    """An FD artifact (direct_fd exact: mixed-BC eigenbasis GEMMs) loaded
-    in a fresh process: no module of ns_tpu_torch.solvers (nor jax) is
-    imported there, and it gives the engine's fields bitwise."""
+    """FD artifacts (direct_fd exact: mixed-BC eigenbasis GEMMs; chorin_fd
+    explicit + redblack: the operators of K3 and K1) loaded in a fresh
+    process: no module of ns_tpu_torch.solvers (nor jax) is imported
+    there, and each gives its engine's fields bitwise."""
     nx = 16
-    _, cfg = _fd_configs("direct_fd", dict(pressure_mode="exact"), nx)
     bcs = _bcs("torch", nx)
     ics = _lid_ics(nx)
-    art = runtime.export_fd_rollout("direct_fd", cfg, *bcs,
-                                    str(tmp_path / "d.pt2z"),
-                                    dtype=torch.float64, device="cpu")
+    runs = []
+    for family, mode in (("direct_fd", dict(pressure_mode="exact")),
+                         FD_EXPORTS[0]):
+        _, cfg = _fd_configs(family, mode, nx)
+        art = runtime.export_fd_rollout(family, cfg, *bcs,
+                                        str(tmp_path / f"{family}.pt2z"),
+                                        dtype=torch.float64, device="cpu")
+        runs.append((family, cfg, art))
     np.savez(tmp_path / "ics.npz", *ics)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run(
-        [sys.executable, "-c", _LOAD, art, str(tmp_path / "ics.npz"),
-         str(tmp_path / "out.npy")], capture_output=True, text=True,
+        [sys.executable, "-c", _LOAD, str(tmp_path / "ics.npz"),
+         *(art for *_, art in runs)], capture_output=True, text=True,
         env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
-    want = runtime.FDRolloutEngine("direct_fd", cfg, *bcs,
-                                   dtype=torch.float64, device="cpu")(*ics)
-    np.testing.assert_array_equal(np.load(tmp_path / "out.npy"),
-                                  torch.stack(want).numpy())
+    for family, cfg, art in runs:
+        want = runtime.FDRolloutEngine(family, cfg, *bcs,
+                                       dtype=torch.float64,
+                                       device="cpu")(*ics)
+        np.testing.assert_array_equal(np.load(art + ".npy"),
+                                      torch.stack(want).numpy())
 
 
-@pytest.mark.parametrize("family,mode,flag", [
-    ("chorin_fd", dict(method="explicit", pressure_mode="dst"),
-     "use_pallas_momentum"),
-    ("chorin_fd", dict(method="semi_implicit", pressure_mode="redblack"),
-     "use_pallas"),
-    ("direct_fd", dict(pressure_mode="jacobi"), None),
-])
-def test_kernel_configs_refuse_to_export(tmp_path, family, mode, flag):
-    """A configuration that runs a hand-written kernel on the card is
-    refused up front in the port (its kernels are ctypes calls), with the
-    configuration to export instead named; the JAX package refuses its
-    Pallas flags the same way."""
+# every FD configuration ns_tpu exports, by what the port runs for it on
+# the card: (family, mode)
+FD_EXPORTS = [
+    ("chorin_fd", dict(method="explicit", pressure_mode="redblack")),  # K1+K3
+    ("chorin_fd", dict(method="semi_implicit", pressure_mode="redblack")),
+    ("chorin_fd", dict(method="semi_implicit", pressure_mode="cg")),
+    ("chorin_fd", dict(method="semi_implicit",
+                       pressure_mode="gauss_seidel")),
+    ("chorin_fd", dict(method="explicit", pressure_mode="cg")),
+    ("direct_fd", dict(pressure_mode="jacobi")),                       # K2
+]
+
+
+@pytest.mark.parametrize("family,mode", FD_EXPORTS)
+def test_fd_exports_match_both_engines(tmp_path, family, mode):
+    """An FD configuration that runs a kernel or a gated loop exports: the
+    artifact is the port's engine bitwise and within 1e-10 of ns_tpu's
+    engine, which ns_tpu also exports."""
     nx = 17
     jcfg, cfg = _fd_configs(family, mode, nx)
-    with pytest.raises(ValueError, match="hand-written CUDA kernels") as e:
-        runtime.export_fd_rollout(family, cfg, *_bcs("torch", nx),
-                                  str(tmp_path / "x"), device="cpu")
-    assert ("'dst'" in str(e.value) or "'exact'" in str(e.value)
-            or "'semi_implicit'" in str(e.value))
-    assert not (tmp_path / "x").exists()
-    if flag is not None:
-        import dataclasses
-        with pytest.raises(ValueError, match="Pallas"):
-            jrt.export_fd_rollout(family, dataclasses.replace(
-                jcfg, **{flag: True}), *_bcs("jax", nx), str(tmp_path / "j"))
+    ics = _lid_ics(nx)
+    art = runtime.export_fd_rollout(family, cfg, *_bcs("torch", nx),
+                                    str(tmp_path / "fd.pt2z"),
+                                    dtype=torch.float64, device="cpu")
+    got = runtime.load_fd_rollout_artifact(art)(
+        *(torch.as_tensor(a) for a in ics))
+    eng = runtime.FDRolloutEngine(family, cfg, *_bcs("torch", nx),
+                                  dtype=torch.float64, device="cpu")
+    want = jrt.FDRolloutEngine(family, jcfg, *_bcs("jax", nx),
+                               dtype=jnp.float64)(*ics)
+    for g, e, w in zip(got, eng(*ics), want):
+        assert g.dtype == torch.float64 and torch.equal(g, e)
+        close(g, w)
 
 
-def test_3d_fused_config_refuses_to_export(tmp_path):
-    cfg = s3.Spectral3DConfig(nt=1, nx=16, ny=16, nz=16, transform="matmul",
-                              use_pallas_transform=True)
-    with pytest.raises(ValueError, match="use_pallas_transform=False"):
-        runtime.export_rollout3d(cfg, str(tmp_path / "x"), device="cpu")
+def test_fused_3d_export_matches_both_engines(tmp_path):
+    """The fused route (K6 at the init, K8 every step; their twins here)
+    exports: bitwise the port's eager run, and within float32 rounding
+    (2e-6 of max|u|) of ns_tpu's plain route at 'highest'."""
+    kw = dict(nt=3, nx=16, ny=16, nz=16, dt=1e-3, nu=1e-2,
+              transform="matmul", matmul_precision="highest")
+    cfg = s3.Spectral3DConfig(use_pallas_transform=True, **kw)
+    u0 = s3.taylor_green_velocity(cfg)
+    art = runtime.export_rollout3d(cfg, str(tmp_path / "f3.pt2z"),
+                                   device="cpu")
+    got = runtime.load_rollout3d_artifact(art)(torch.as_tensor(u0))
+    assert got.dtype == torch.float32 and got.shape == (3, 16, 16, 16)
+    assert torch.equal(got, runtime.Rollout3DEngine(cfg,
+                                                    device="cpu").eager(u0))
+    want = np.asarray(jrt.Rollout3DEngine(js3.Spectral3DConfig(**kw))(u0))
+    close(got, want, bound=2e-6)
 
 
 def test_runtime_exports_the_jax_names():

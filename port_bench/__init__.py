@@ -1,0 +1,1 @@
+"""Benchmark of ns_tpu_torch on one NVIDIA H100 (see README.md)."""

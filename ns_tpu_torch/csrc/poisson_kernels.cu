@@ -230,7 +230,10 @@ jacobi_fused_kernel(const T* __restrict__ p_in, const T* __restrict__ b,
 // with one atomicMax; the slot alternates with the sweep's parity, so the
 // barrier that ends the black half-sweep also publishes the error. Two
 // barriers a sweep. Gate: err=1, it=1, loop while err > tol and
-// it < max_iter.
+// it < max_iter. At exit thread 0 adds the member's sweeps (it - 1) and its
+// solve to the wrapper's counts (`counts`, an int64 pair; null: no count):
+// one atomic pair a member, no extra launch, no host read. The add comes
+// after the output loop: the same add before it made the kernel 1 % slower.
 // ---------------------------------------------------------------------------
 
 // The n-th interior cell (row-major) of colour c on an (nx, ny) grid, as
@@ -270,7 +273,8 @@ __global__ void __launch_bounds__(1024)
 sor_redblack_fused_kernel(const T* __restrict__ p_in,
                           const T* __restrict__ rhs, T* __restrict__ p_out,
                           int nx, int ny, T dx2, T dy2, T denom, T beta, T tol,
-                          int max_iter, long long stride) {
+                          int max_iter, long long stride,
+                          unsigned long long* __restrict__ counts) {
   using U = typename Bits<T>::U;
   constexpr int NT = 1024;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -362,6 +366,10 @@ sor_redblack_fused_kernel(const T* __restrict__ p_in,
   for (int k = tid; k < n; k += NT) {
     const int i = k / ny, j = k - i * ny;
     p_out[k] = planes[((i + j) & 1) * plane + i * W + (j >> 1)];
+  }
+  if (tid == 0 && counts != nullptr) {
+    atomicAdd(counts, static_cast<unsigned long long>(it - 1));
+    atomicAdd(counts + 1, 1ull);
   }
 }
 
@@ -593,7 +601,9 @@ __device__ __forceinline__ void grid_barrier(unsigned* arrived,
 // on reloads only its halo ring from the exchange planes (through L2:
 // another SM wrote them). The exchange planes ping-pong, so a block that
 // writes group g+1's cells never overwrites what a slower block is still
-// reading of group g. At exit the own cells go out unpacked. ODD: an odd
+// reading of group g. At exit block (0, 0)'s thread 0 adds the solve's
+// sweeps (it - 1) and the solve to `counts` (an int64 pair; null: no count),
+// and the own cells go out unpacked. ODD: an odd
 // ny, whose loads and stores skip j = ny (an instance of its own, so that
 // K4's even grids run the code without those guards).
 template <typename T, bool C_SMEM, bool ODD>
@@ -604,7 +614,8 @@ sor_packed_resident_kernel(const T* __restrict__ p_in,
                            typename Bits<T>::U* __restrict__ errs,
                            unsigned* __restrict__ arrived, int nx, int ny,
                            int tile_rows, int tile_cols, int k, T dx2, T dy2,
-                           T denom, T beta, T tol, int max_iter) {
+                           T denom, T beta, T tol, int max_iter,
+                           unsigned long long* __restrict__ counts) {
   using U = typename Bits<T>::U;
   extern __shared__ __align__(16) unsigned char smem[];
   const int W = ODD ? (ny + 1) / 2 : ny / 2;  // packed columns
@@ -694,6 +705,11 @@ sor_packed_resident_kernel(const T* __restrict__ p_in,
       }
       __syncthreads();
     }
+  }
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
+      counts != nullptr) {
+    atomicAdd(counts, static_cast<unsigned long long>(it - 1));
+    atomicAdd(counts + 1, 1ull);
   }
 
   for (int r = t.hr + ty; r < t.hr + tile_rows; r += nwarps) {
@@ -1050,7 +1066,7 @@ template <typename T, int MAXC>
 cudaError_t launch_sor_fused(const T* p, const T* rhs, T* out, int nx, int ny,
                              T dx2, T dy2, T denom, T beta, T tol,
                              int max_iter, int batch, long long stride,
-                             cudaStream_t s) {
+                             unsigned long long* counts, cudaStream_t s) {
   // rhs_c in registers while a thread's share of both colours is at most
   // 16 words (64 registers a thread at 1024 threads); else in shared memory
   constexpr bool kRhsReg = 2 * MAXC * sizeof(T) <= 64;
@@ -1061,19 +1077,19 @@ cudaError_t launch_sor_fused(const T* p, const T* rhs, T* out, int nx, int ny,
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<batch, 1024, smem, s>>>(p, rhs, out, nx, ny, dx2, dy2, denom,
-                                   beta, tol, max_iter, stride);
+                                   beta, tol, max_iter, stride, counts);
   return cudaGetLastError();
 }
 
 // K1's entry: batch members, one block each, `stride` elements apart
 // (batch 1: the single solve); picks the instance whose MAXC covers this
 // grid's cells per thread (poisson_kernels.py::k1_layout mirrors the
-// choice).
+// choice). counts: the wrapper's (sweeps, solves) int64 pair, or null.
 template <typename T>
 int sor_redblack_fused(const void* p, const void* rhs, void* out, int nx,
                        int ny, double dx2, double dy2, double denom,
                        double beta, double tol, int max_iter, int batch,
-                       long long stride, void* stream) {
+                       long long stride, void* counts, void* stream) {
   if (nx < 3 || ny < 3 || 2 * nx * ((ny + 1) / 2) > 65535 || batch < 1 ||
       (batch > 1 && stride < static_cast<long long>(nx) * ny))
     return cudaErrorInvalidValue;
@@ -1082,12 +1098,13 @@ int sor_redblack_fused(const void* p, const void* rhs, void* out, int nx,
   const T* pp = static_cast<const T*>(p);
   const T* cc = static_cast<const T*>(rhs);
   T* o = static_cast<T*>(out);
+  auto* n = static_cast<unsigned long long*>(counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NS_K1(M)                                                             \
   if (per_thread <= M)                                                       \
     return launch_sor_fused<T, M>(pp, cc, o, nx, ny, T(dx2), T(dy2),         \
                                   T(denom), T(beta), T(tol), max_iter,      \
-                                  batch, stride, s);
+                                  batch, stride, n, s);
   NS_K1(1)
   NS_K1(2)
   NS_K1(4)
@@ -1181,6 +1198,7 @@ int sor_packed_resident_occupancy(int tile_rows, int tile_cols, int k,
 // A whole K4 or K5 solve in one cooperative launch (the resident route).
 // xch: 4 (nx, (ny+1)/2) planes; errs: n_slots gate slots, one per group; arrived:
 // the grid barrier's counter. The slots and the counter are zeroed here.
+// counts: the wrapper's (sweeps, solves) int64 pair, or null.
 template <typename T>
 int sor_redblack_packed_resident(const void* p, const void* rhs, void* out,
                                  void* xch, void* errs, void* arrived,
@@ -1188,7 +1206,7 @@ int sor_redblack_packed_resident(const void* p, const void* rhs, void* out,
                                  int tile_cols, int c_smem, double dx2,
                                  double dy2, double denom, double beta,
                                  double tol, int max_iter, int k,
-                                 void* stream) {
+                                 void* counts, void* stream) {
   using U = typename Bits<T>::U;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int groups = max_iter > 1 ? (max_iter - 1 + k - 1) / k : 0;
@@ -1211,12 +1229,13 @@ int sor_redblack_packed_resident(const void* p, const void* rhs, void* out,
   T* a_xch = static_cast<T*>(xch);
   U* a_errs = static_cast<U*>(errs);
   unsigned* a_arrived = static_cast<unsigned*>(arrived);
+  auto* a_counts = static_cast<unsigned long long*>(counts);
   T a_dx2 = T(dx2), a_dy2 = T(dy2), a_denom = T(denom), a_beta = T(beta),
     a_tol = T(tol);
   void* args[] = {&a_p,   &a_rhs,     &a_out,     &a_xch,  &a_errs,
                   &a_arrived, &nx,    &ny,        &tile_rows, &tile_cols,
                   &k,     &a_dx2,     &a_dy2,     &a_denom, &a_beta,
-                  &a_tol, &max_iter};
+                  &a_tol, &max_iter, &a_counts};
   return cudaLaunchCooperativeKernel(kernel, grid, dim3(1024), args, smem, s);
 }
 
@@ -1265,10 +1284,11 @@ NS_JACOBI_MB(f64, double)
                                      void* out, int nx, int ny, double dx2,  \
                                      double dy2, double denom, double beta,  \
                                      double tol, int max_iter, int batch,    \
-                                     long long stride, void* stream) {       \
+                                     long long stride, void* counts,         \
+                                     void* stream) {                         \
     return ns::sor_redblack_fused<T>(p, rhs, out, nx, ny, dx2, dy2, denom,   \
                                      beta, tol, max_iter, batch, stride,     \
-                                     stream);                                \
+                                     counts, stream);                        \
   }
 NS_SOR_FUSED(f32, float)
 NS_SOR_FUSED(f64, double)
@@ -1296,10 +1316,12 @@ NS_SOR_TILED(f64, double)
       const void* p, const void* rhs, void* out, void* xch, void* errs,      \
       void* arrived, int n_slots, int nx, int ny, int tile_rows,             \
       int tile_cols, int c_smem, double dx2, double dy2, double denom,       \
-      double beta, double tol, int max_iter, int k, void* stream) {          \
+      double beta, double tol, int max_iter, int k, void* counts,            \
+      void* stream) {                                                        \
     return ns::sor_redblack_packed_resident<T>(                              \
         p, rhs, out, xch, errs, arrived, n_slots, nx, ny, tile_rows,         \
-        tile_cols, c_smem, dx2, dy2, denom, beta, tol, max_iter, k, stream); \
+        tile_cols, c_smem, dx2, dy2, denom, beta, tol, max_iter, k, counts,  \
+        stream);                                                             \
   }                                                                          \
   int ns_sor_packed_resident_occupancy_##SUFFIX(                             \
       int tile_rows, int tile_cols, int k, int c_smem, int odd,              \

@@ -10,10 +10,10 @@ operators, builds nothing and needs no GPU: the library is compiled
 from ns_tpu_torch.ops.kernels.momentum_kernels import (
     momentum_explicit, momentum_explicit_fused)
 from ns_tpu_torch.ops.kernels.poisson_kernels import (
-    jacobi_fused, jacobi_multiblock, pack_redblack, smem_fits,
-    sor_redblack_fused, sor_redblack_multiblock,
+    jacobi_fused, jacobi_multiblock, pack_redblack, reset_sweep_counts,
+    smem_fits, sor_redblack_fused, sor_redblack_multiblock,
     sor_redblack_packed_multiblock, sor_redblack_packed_tiled,
-    sor_redblack_tiled, unpack_redblack)
+    sor_redblack_tiled, sweep_counts, unpack_redblack)
 from ns_tpu_torch.ops.kernels.transform3d_kernels import (
     fused_fits, fused_lamb, fused_yz_inverse, fused_zy_forward, lamb,
     yz_inverse, zy_forward)
@@ -46,6 +46,9 @@ def call_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch and call counters, and the SOR wrappers' sweep
+    counts (`sweep_counts`: {wrapper: (sweeps, member-solves)})."""
+    reset_sweep_counts()
     for w in WRAPPERS.values():
         w.launches = 0
         w.calls = 0

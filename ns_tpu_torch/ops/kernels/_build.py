@@ -51,14 +51,14 @@ _ENTRIES = {
     "ns_jacobi_resident_occupancy": ([_I, _I, _I, _I, ctypes.POINTER(_I)],
                                      _BOTH),
     "ns_sor_redblack_fused": ([_P, _P, _P, _I, _I, _D, _D, _D, _D, _D, _I,
-                               _I, _L, _P], _BOTH),
+                               _I, _L, _P, _P], _BOTH),
     "ns_sor_redblack_tiled_group": ([_P, _P, _P, _I, _I, _D, _D, _D, _D, _I,
                                      _P], _BOTH),
     "ns_sor_redblack_packed_group": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _D, _D, _D, _D, _I, _P], _BOTH),
     "ns_sor_redblack_packed_resident": ([_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _I, _D, _D, _D, _D, _D, _I,
-                                         _I, _P], _BOTH),
+                                         _I, _P, _P], _BOTH),
     "ns_sor_packed_resident_occupancy": ([_I, _I, _I, _I, _I,
                                           ctypes.POINTER(_I)], _BOTH),
     "ns_momentum_explicit": ([_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D,

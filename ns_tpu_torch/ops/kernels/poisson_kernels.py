@@ -28,7 +28,8 @@ enters the operators as its edge plan (`edge_plan`, 12 numbers). Each
 wrapper counts its kernel launches in a `launches` attribute and its calls
 that launched in `calls` (the group routes of K2mb, K4 and K5 launch once
 per group; their resident routes count their solves in
-`launches_resident` too).
+`launches_resident` too). The SOR wrappers (K1, K4, K5) also count the
+sweeps their solves ran and their member-solves (`sweep_counts`, below).
 
 Every wrapper takes one (nx, ny) field or a (B, nx, ny) batch of members,
 as the JAX package's FD ensemble gives its kernels under vmap. K1 and K2
@@ -494,8 +495,11 @@ def sor_redblack_fused(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
 
 
 def _sor_redblack_fused_cpu(p, rhs_c, dx, dy, beta, tol, max_iter):
-    return _new(poisson.sor_redblack(p, rhs_c, dx, dy, beta, tol, max_iter),
-                p)
+    out, swept = poisson.sor_redblack_counted(p, rhs_c, dx, dy, beta, tol,
+                                              max_iter)
+    sor_redblack_fused.sweeps += int(swept.sum())
+    sor_redblack_fused.solves += swept.numel()
+    return _new(out, p)
 
 
 def _sor_redblack_fused_cuda(p, rhs_c, dx, dy, beta, tol, max_iter):
@@ -511,7 +515,8 @@ def _sor_redblack_fused_cuda(p, rhs_c, dx, dy, beta, tol, max_iter):
     with torch.cuda.device(p.device):
         code = fn(p.data_ptr(), rhs_c.data_ptr(), out.data_ptr(), nx, ny,
                   dx2, dy2, denom, float(beta), float(tol), int(max_iter), n,
-                  nx * ny, _build.stream(p.device))
+                  nx * ny, _sweep_counter(p.device, sor_redblack_fused),
+                  _build.stream(p.device))
     _build.check(code, "sor_redblack_fused")
     sor_redblack_fused.launches += 1
     sor_redblack_fused.calls += 1
@@ -530,6 +535,7 @@ def sor_redblack_tiled(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
     the last sweep's max|dp|; err starts at inf and it at 1 and goes up by
     k, so the solve may run up to k-1 sweeps past `sor_redblack`'s stop.
     A (B, nx, ny) batch: the members in turn."""
+    global _twin_swept
     if p.dim() == 3:
         return poisson.solve_members(sor_redblack_tiled, p, rhs_c, dx, dy,
                                      beta, tol, max_iter, k)
@@ -542,6 +548,7 @@ def sor_redblack_tiled(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
         p_new = poisson.redblack_sweep(p, rhs_c, dx, dy, beta, masks)
         err = float((p_new - p).abs().max())
         p, it = p_new, it + k
+    _twin_swept += it - 1
     return p
 
 
@@ -566,8 +573,8 @@ def sor_redblack_multiblock(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
 
 
 def _sor_redblack_multiblock_cpu(p, rhs_c, dx, dy, beta, tol, max_iter, k):
-    return _new(sor_redblack_tiled(p, rhs_c, dx, dy, beta, tol, max_iter, k),
-                p)
+    return _new(_count_twin(sor_redblack_multiblock, sor_redblack_tiled, p,
+                            rhs_c, dx, dy, beta, tol, max_iter, k), p)
 
 
 def _sor_redblack_multiblock_cuda(p, rhs_c, dx, dy, beta, tol, max_iter,
@@ -587,7 +594,8 @@ def _sor_multiblock(p, rhs_c, dx, dy, beta, tol, max_iter, k):
     plan = _card_plan(p.device, nx, ny, p.dtype, k)
     if plan is None:
         return _color_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k)
-    out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter)
+    out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter,
+                           sor_redblack_multiblock)
     sor_redblack_multiblock.launches += 1
     sor_redblack_multiblock.launches_resident += 1
     return out
@@ -598,7 +606,8 @@ def _color_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k) -> torch.Tensor:
     runs one group of k sweeps (2k colour half-sweep grids over the whole
     field) and leaves the last sweep's max|dp| in a device scalar; the host
     reads it once per group and applies `sor_redblack_tiled`'s gate. Each
-    group counts in `sor_redblack_multiblock.launches`."""
+    group counts in `sor_redblack_multiblock.launches`, the solve and its
+    sweeps in its `solves` and `sweeps`."""
     nx, ny = _build.check_inputs("sor_redblack_multiblock", p, rhs_c)
     dx2, dy2, denom = _consts(dx, dy)
     q = p.clone()  # updated in place by the kernel
@@ -617,6 +626,8 @@ def _color_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k) -> torch.Tensor:
             # non-negative value reads back as the value itself
             err = float(err_buf.item())
             it += k
+    sor_redblack_multiblock.sweeps += it - 1
+    sor_redblack_multiblock.solves += 1
     return q
 
 
@@ -697,6 +708,7 @@ def sor_redblack_packed_tiled(p: torch.Tensor, rhs_c: torch.Tensor,
     1; each group runs k sweeps, it += k; the gate reads the last sweep's
     max|dp|). The iterate sequence is `sor_redblack_tiled`'s; ny must be
     even. A (B, nx, ny) batch: the members in turn."""
+    global _twin_swept
     if p.dim() == 3:
         return poisson.solve_members(sor_redblack_packed_tiled, p, rhs_c,
                                      dx, dy, beta, tol, max_iter, k)
@@ -722,6 +734,7 @@ def sor_redblack_packed_tiled(p: torch.Tensor, rhs_c: torch.Tensor,
         Rn, Bn = sweep(R, B)
         err = float(torch.maximum((Rn - R).abs().max(), (Bn - B).abs().max()))
         R, B, it = Rn, Bn, it + k
+    _twin_swept += it - 1
     return unpack_redblack(R, B)
 
 
@@ -859,8 +872,9 @@ def sor_redblack_packed_multiblock(p: torch.Tensor, rhs_c: torch.Tensor,
 
 def _sor_redblack_packed_multiblock_cpu(p, rhs_c, dx, dy, beta, tol,
                                         max_iter, k):
-    return sor_redblack_packed_tiled(p, rhs_c, dx, dy, beta, tol, max_iter,
-                                     k)
+    return _count_twin(sor_redblack_packed_multiblock,
+                       sor_redblack_packed_tiled, p, rhs_c, dx, dy, beta, tol,
+                       max_iter, k)
 
 
 def _sor_redblack_packed_multiblock_cuda(p, rhs_c, dx, dy, beta, tol,
@@ -883,16 +897,18 @@ def _packed_multiblock(p, rhs_c, dx, dy, beta, tol, max_iter, k):
     plan = _card_plan(p.device, nx, ny, p.dtype, k)
     if plan is None:
         return _packed_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k)
-    out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter)
+    out = _packed_resident(plan, p, rhs_c, dx, dy, beta, tol, max_iter,
+                           sor_redblack_packed_multiblock)
     sor_redblack_packed_multiblock.launches += 1
     sor_redblack_packed_multiblock.launches_resident += 1
     return out
 
 
 def _packed_resident(plan: ResidentPlan, p, rhs_c, dx, dy, beta, tol,
-                     max_iter) -> torch.Tensor:
+                     max_iter, wrapper) -> torch.Tensor:
     """One launch of the resident kernel (K4's, and K5's where its plan
-    exists); the caller counts it."""
+    exists); the caller counts the launch, the kernel the solve's sweeps
+    (into `wrapper`'s pair)."""
     nx, ny = p.shape
     dx2, dy2, denom = _consts(dx, dy)
     out = torch.empty_like(p)
@@ -906,7 +922,8 @@ def _packed_resident(plan: ResidentPlan, p, rhs_c, dx, dy, beta, tol,
                   xch.data_ptr(), errs.data_ptr(), arrived.data_ptr(),
                   n_slots, nx, ny, plan.tile_rows, plan.tile_cols,
                   int(plan.c_in_smem), dx2, dy2, denom, float(beta),
-                  float(tol), int(max_iter), plan.k, _build.stream(p.device))
+                  float(tol), int(max_iter), plan.k,
+                  _sweep_counter(p.device, wrapper), _build.stream(p.device))
     _build.check(code, "resident SOR")
     return out
 
@@ -937,9 +954,72 @@ def _packed_groups(p, rhs_c, dx, dy, beta, tol, max_iter, k) -> torch.Tensor:
             # max-reduced on the bit pattern, as in K5
             err = float(err_buf.item())
             it += k
+    sor_redblack_packed_multiblock.sweeps += it - 1
+    sor_redblack_packed_multiblock.solves += 1
     return unpack_redblack(R, B)
 
 
 sor_redblack_packed_multiblock.launches = 0
 sor_redblack_packed_multiblock.launches_resident = 0
 sor_redblack_packed_multiblock.calls = 0
+
+
+# --- the sweeps the SOR solves ran -------------------------------------------
+#
+# Each SOR wrapper counts, beside its launches, the sweeps its solves ran
+# and its member-solves. On the card the one-block and resident kernels
+# add a solve's sweeps (it - 1) and 1 into an int64 pair of the wrapper,
+# one pair a wrapper in a persistent tensor a device, from one thread after
+# the gate loop: no extra launch, no host read, and a CUDA-graph replay
+# counts as the eager call did. The host-gated group routes and the CPU
+# twins add theirs to the wrapper's `sweeps` and `solves` (the tiled twins
+# through `_twin_swept`, so that their operators call them by name).
+
+SWEPT = (sor_redblack_fused, sor_redblack_packed_multiblock,
+         sor_redblack_multiblock)
+_CARD_SWEEPS: dict[torch.device, torch.Tensor] = {}
+_twin_swept = 0  # sweeps the tiled twins have run
+
+
+def _sweep_counter(device: torch.device, wrapper) -> int:
+    """The address of `wrapper`'s (sweeps, solves) pair on `device`, the
+    device's pairs made at first use; 0 (nothing counted) where that use
+    falls inside a CUDA-graph capture, which cannot allocate them."""
+    acc = _CARD_SWEEPS.get(device)
+    if acc is None:
+        if torch.cuda.is_current_stream_capturing():
+            return 0
+        acc = _CARD_SWEEPS[device] = torch.zeros(
+            (len(SWEPT), 2), dtype=torch.int64, device=device)
+    return acc.data_ptr() + SWEPT.index(wrapper) * 2 * acc.element_size()
+
+
+def _count_twin(wrapper, twin, p, *args) -> torch.Tensor:
+    """`twin(p, *args)`, a tiled twin on a field or a batch, its sweeps and
+    member-solves added to `wrapper`'s counts as its kernel counts them."""
+    before = _twin_swept
+    out = twin(p, *args)
+    wrapper.sweeps += _twin_swept - before
+    wrapper.solves += p.shape[0] if p.dim() == 3 else 1
+    return out
+
+
+def sweep_counts() -> dict[str, tuple[int, int]]:
+    """(sweeps, member-solves) of each SOR wrapper since the last reset,
+    the card's pairs read in one copy a device."""
+    counts = {w.__name__: (w.sweeps, w.solves) for w in SWEPT}
+    for acc in _CARD_SWEEPS.values():
+        for w, (sweeps, solves) in zip(SWEPT, acc.tolist()):
+            s, n = counts[w.__name__]
+            counts[w.__name__] = (s + sweeps, n + solves)
+    return counts
+
+
+def reset_sweep_counts() -> None:
+    for w in SWEPT:
+        w.sweeps = w.solves = 0
+    for acc in _CARD_SWEEPS.values():
+        acc.zero_()
+
+
+reset_sweep_counts()

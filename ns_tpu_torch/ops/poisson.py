@@ -90,9 +90,17 @@ def sor_redblack(p: torch.Tensor, rhs_c: torch.Tensor, dx: float, dy: float,
     gate has closed keeps its p (and err), so it stops at its own sweep
     count with its single solve's bits.
     """
+    return sor_redblack_counted(p, rhs_c, dx, dy, beta, tol, max_iter)[0]
+
+
+def sor_redblack_counted(p: torch.Tensor, rhs_c: torch.Tensor, dx: float,
+                         dy: float, beta: float, tol: float, max_iter: int):
+    """`sor_redblack`, and the sweeps each member ran: (p, an int64 tensor
+    of the batch's shape, 0-dim for one field)."""
     masks = checkerboard(*p.shape[-2:], device=p.device)
     tol = dtype_float(tol, p.dtype)
     err = torch.ones(p.shape[:-2], dtype=p.dtype, device=p.device)
+    swept = torch.zeros(p.shape[:-2], dtype=torch.int64, device=p.device)
     it = 1
     while it < max_iter:
         open_ = err > tol
@@ -101,7 +109,8 @@ def sor_redblack(p: torch.Tensor, rhs_c: torch.Tensor, dx: float, dy: float,
         p_new = redblack_sweep(p, rhs_c, dx, dy, beta, masks)
         err = torch.where(open_, (p_new - p).abs().amax(dim=(-2, -1)), err)
         p, it = torch.where(open_[..., None, None], p_new, p), it + 1
-    return p
+        swept += open_
+    return p, swept
 
 
 def sor_wavefront(p: torch.Tensor, rhs_c: torch.Tensor, dx: float, dy: float,

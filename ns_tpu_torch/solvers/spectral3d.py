@@ -31,6 +31,11 @@ The host-side layout helpers, DFT constants and initial conditions are
 numpy copies of the JAX module's (that module imports jax), so the same
 seed gives bitwise-equal inputs in both packages. Rollouts are Python loops
 of `step` on the carry's device.
+
+Trace spans (`utils/profiling.py::named_scope`, free when no profiler
+runs): `spectral3d.constants` around each host-side constant build made at
+call time (`make_ops`, `_dft_tables`, `_hermitian_weights`; none nests in
+another) and `spectral3d.nonlinear` around `nonlinear_term`.
 """
 
 from __future__ import annotations
@@ -45,6 +50,10 @@ from ns_tpu_torch.core.device import resolve_device
 from ns_tpu_torch.ops.gemm import cmatmul
 from ns_tpu_torch.ops.kernels import transform3d_kernels as t3k
 from ns_tpu_torch.solvers.spectral_periodic import _c2r_keep
+from ns_tpu_torch.utils.profiling import named_scope
+
+CONSTANTS_SPAN = "spectral3d.constants"
+NONLINEAR_SPAN = "spectral3d.nonlinear"
 
 
 def _ik_mul(k: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -253,22 +262,24 @@ def make_ops(cfg: Spectral3DConfig, device=None):
     """Spectral constants for the active layout on `device`: real
     wavenumber arrays, the dealias mask (fft engine) and the forcing
     spectrum as real/imaginary parts (keys as in the JAX package)."""
-    kx, ky, kz = _wavenumbers_np(cfg)
-    k2 = kx * kx + ky * ky + kz * kz
-    inv_k2 = np.where(k2 == 0.0, 0.0, 1.0 / np.where(k2 == 0.0, 1.0, k2))
-    visc = np.exp(-cfg.nu * k2 * cfg.dt)
-    as_t = lambda a: torch.as_tensor(a, dtype=cfg.real_dtype, device=device)
-    ops = dict(kx=as_t(kx), ky=as_t(ky), kz=as_t(kz), k2=as_t(k2),
-               inv_k2=as_t(inv_k2), visc=as_t(visc))
-    if not cfg.compact:
-        mask = _dealias_mask_np(cfg) if cfg.dealias else np.ones(
-            k2.shape[-3:], bool)
-        ops["mask"] = torch.as_tensor(mask, device=device)
-    f_hat = _forcing_hat_np(cfg)
-    if f_hat is not None:
-        ops["f_re"] = as_t(f_hat.real)
-        ops["f_im"] = as_t(f_hat.imag)
-    return ops
+    with named_scope(CONSTANTS_SPAN):
+        kx, ky, kz = _wavenumbers_np(cfg)
+        k2 = kx * kx + ky * ky + kz * kz
+        inv_k2 = np.where(k2 == 0.0, 0.0, 1.0 / np.where(k2 == 0.0, 1.0, k2))
+        visc = np.exp(-cfg.nu * k2 * cfg.dt)
+        as_t = lambda a: torch.as_tensor(a, dtype=cfg.real_dtype,
+                                         device=device)
+        ops = dict(kx=as_t(kx), ky=as_t(ky), kz=as_t(kz), k2=as_t(k2),
+                   inv_k2=as_t(inv_k2), visc=as_t(visc))
+        if not cfg.compact:
+            mask = _dealias_mask_np(cfg) if cfg.dealias else np.ones(
+                k2.shape[-3:], bool)
+            ops["mask"] = torch.as_tensor(mask, device=device)
+        f_hat = _forcing_hat_np(cfg)
+        if f_hat is not None:
+            ops["f_re"] = as_t(f_hat.real)
+            ops["f_im"] = as_t(f_hat.imag)
+        return ops
 
 
 # ---------------------------------------------------------------------------
@@ -311,8 +322,9 @@ def _dft_constants_np(cfg: Spectral3DConfig):
 
 def _dft_tables(cfg: Spectral3DConfig, device) -> dict:
     """The DFT constants as complex tensors on `device`."""
-    return {k: torch.as_tensor(v, dtype=cfg.complex_dtype, device=device)
-            for k, v in _dft_constants_np(cfg).items()}
+    with named_scope(CONSTANTS_SPAN):
+        return {k: torch.as_tensor(v, dtype=cfg.complex_dtype, device=device)
+                for k, v in _dft_constants_np(cfg).items()}
 
 
 def _x_stage(M: torch.Tensor, t: torch.Tensor, precision) -> torch.Tensor:
@@ -423,20 +435,21 @@ def nonlinear_term(cfg: Spectral3DConfig, ops, transforms,
                    u_hat: torch.Tensor) -> torch.Tensor:
     """N_hat = P[FFT(u x omega)] (+ f_hat), dealiased, with the mean mode
     pinned to zero (<u x omega> = 0 in a periodic box)."""
-    fwd, inv = transforms
-    w_hat = vorticity_from_velocity_hat(ops, u_hat)
-    if cfg.use_pallas_transform:
-        # the whole physical leg in one fused call (K8)
-        N = _fused_lamb_op(cfg, u_hat.device)(torch.cat([u_hat, w_hat]))
-    else:
-        N = fwd(t3k.cross(inv(torch.cat([u_hat, w_hat]))))
-    if not cfg.compact and cfg.dealias:
-        N = torch.where(ops["mask"], N, 0.0)
-    N = leray_project(ops, N)
-    N[:, 0, 0, 0] = 0.0
-    if "f_re" in ops:  # constant body forcing rides the projected RHS
-        N = N + torch.complex(ops["f_re"], ops["f_im"])
-    return N
+    with named_scope(NONLINEAR_SPAN):
+        fwd, inv = transforms
+        w_hat = vorticity_from_velocity_hat(ops, u_hat)
+        if cfg.use_pallas_transform:
+            # the whole physical leg in one fused call (K8)
+            N = _fused_lamb_op(cfg, u_hat.device)(torch.cat([u_hat, w_hat]))
+        else:
+            N = fwd(t3k.cross(inv(torch.cat([u_hat, w_hat]))))
+        if not cfg.compact and cfg.dealias:
+            N = torch.where(ops["mask"], N, 0.0)
+        N = leray_project(ops, N)
+        N[:, 0, 0, 0] = 0.0
+        if "f_re" in ops:  # constant body forcing rides the projected RHS
+            N = N + torch.complex(ops["f_re"], ops["f_im"])
+        return N
 
 
 def make_step(cfg: Spectral3DConfig, device=None):
@@ -664,15 +677,16 @@ def _np_dtype(cfg: Spectral3DConfig):
 def _hermitian_weights(cfg: Spectral3DConfig, device) -> torch.Tensor:
     """Conjugate-pair weights of the rfft z-half-spectrum in the active
     layout: interior kz modes represent two full-spectrum modes."""
-    nzh = cfg.nz // 2 + 1
-    w = np.full(nzh, 2.0)
-    w[0] = 1.0
-    if cfg.nz % 2 == 0:
-        w[-1] = 1.0
-    if cfg.compact:
-        w = w[:_compact_meta(cfg)[2]]
-    return torch.as_tensor(w[None, None, :], dtype=cfg.real_dtype,
-                           device=device)
+    with named_scope(CONSTANTS_SPAN):
+        nzh = cfg.nz // 2 + 1
+        w = np.full(nzh, 2.0)
+        w[0] = 1.0
+        if cfg.nz % 2 == 0:
+            w[-1] = 1.0
+        if cfg.compact:
+            w = w[:_compact_meta(cfg)[2]]
+        return torch.as_tensor(w[None, None, :], dtype=cfg.real_dtype,
+                               device=device)
 
 
 def _norm(cfg: Spectral3DConfig) -> float:

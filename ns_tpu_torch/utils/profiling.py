@@ -16,13 +16,23 @@ for queued device work before it reads the clock.
     is written under log_dir. The context yields the profiler.
   - `timed(fn, *args, iters, warmup, **kw)`: (mean seconds, last result),
     synchronizing after the warm-up and after the timed loop.
+  - `chrome_events(prof)`, `device_window(events, name)`, `union_us`: a
+    profile's device records (kernels, copies, memsets) inside one CPU
+    range and the union of their intervals, so that records that overlap
+    count once (`cli/profile_run.py`'s idle share).
+
+The port's spans: `chorin_fd.predictor`, `.pressure`, `.correction`
+(`solvers/chorin_fd.py`), `spectral3d.constants` (each host-side constant
+build), `spectral3d.nonlinear` (`solvers/spectral3d.py`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import json
 import os
+import tempfile
 import time
 from typing import Callable
 
@@ -94,3 +104,48 @@ def _wait(result) -> None:
     sync(result)
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def union_us(intervals, lo: float, hi: float) -> float:
+    """Length of the union of [a, b) intervals clipped to [lo, hi]."""
+    total, end = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            total += b - a
+            end = b
+    return total
+
+
+def chrome_events(prof) -> list:
+    """The events of a finished `torch.profiler.profile`, as its Chrome
+    trace holds them (the trace file is written and deleted)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+
+
+def device_window(events: list, name: str) -> dict:
+    """The device's work inside the one CPU range `name` of a Chrome
+    trace: the range's `t0` and `t1`, the device records (kernels, copies,
+    memsets; `(name, ts, dur)`) that start inside it, and `busy_us`, the
+    union of their intervals clipped to it (trace clock, us)."""
+    rng = [e for e in events if e.get("name") == name
+           and e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+    if len(rng) != 1:
+        raise ValueError(f"the trace holds {len(rng)} '{name}' ranges")
+    t0 = float(rng[0]["ts"])
+    t1 = t0 + float(rng[0]["dur"])
+    records = [(e["name"], float(e["ts"]), float(e.get("dur", 0)))
+               for e in events if e.get("ph") == "X"
+               and e.get("cat") in DEVICE_CATS and t0 <= float(e["ts"]) < t1]
+    busy = union_us([(ts, ts + dur) for _, ts, dur in records], t0, t1)
+    return {"t0": t0, "t1": t1, "records": records, "busy_us": busy}

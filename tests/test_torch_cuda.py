@@ -641,6 +641,78 @@ def test_resident_k5_solve_never_syncs(cuda, dtype):
           dtype, 1e-4 if dtype == torch.float64 else 1e-3)
 
 
+def _counted(wrapper, *args):
+    """The (sweeps, member-solves) one call of `wrapper` counts."""
+    kernels.reset_launch_counts()
+    wrapper(*args)
+    return kernels.sweep_counts()[wrapper.__name__]
+
+
+def _gate_tol(p, c, h, g, k=8):
+    """A tol halfway (in log) between the errors that gate g and gate g - 1
+    read (the red-black sweeps on the card, a gate every k sweeps)."""
+    masks = poisson.checkerboard(*p.shape, device=p.device)
+    errs = []
+    for _ in range(k * g):
+        q = poisson.redblack_sweep(p, c, h, h, 1.25, masks)
+        errs.append(float((q - p).abs().max()))
+        p = q
+    return (errs[k * g - 1] * errs[k * (g - 1) - 1]) ** 0.5
+
+
+@pytest.mark.parametrize("which", ["K1", "K4", "K5"])
+def test_sweep_counts_match_the_twins(cuda, which):
+    """The sweeps and member-solves that K1 (B = 8, members stopping at
+    their own sweeps, one at the cap), K4 (1024^2) and K5 (1025^2) count on
+    the card equal their twins' on the same float64 inputs, in an eager
+    call and in one replay of a CUDA graph of the call."""
+    dt = torch.float64
+    if which == "K1":
+        n, fn = 51, kernels.sor_redblack_fused
+        h = 2.0 / (n - 1)
+        scales = torch.logspace(-5, -3, 8, dtype=dt)[:, None, None]
+        p0 = torch.zeros((8, n, n), dtype=dt, device=cuda)
+        c = rand((8, n, n), dt, "cpu", 20, h * h).mul(scales).to(cuda)
+        args = (h, h, 1.25, 5e-6, 200)
+        swept = poisson.sor_redblack_counted(p0.cpu(), c.cpu(), *args)[1]
+        assert len(set(swept.tolist())) >= 4 and int(swept.max()) == 199
+    else:
+        n = 1024 if which == "K4" else 1025
+        fn = (kernels.sor_redblack_packed_multiblock if which == "K4"
+              else kernels.sor_redblack_multiblock)
+        h = 2.0 / (n - 1)
+        p0, c = rand((n, n), dt, cuda, 21), rand((n, n), dt, cuda, 22, h * h)
+        args = (h, h, 1.25, _gate_tol(p0, c, h, 10), 200)
+    want = _counted(fn, p0.cpu(), c.cpu(), *args)
+    if which != "K1":
+        assert want == (80, 1)
+    assert _counted(fn, p0, c, *args) == want
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(p0, c, *args)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(p0, c, *args)
+    kernels.reset_launch_counts()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kernels.sweep_counts()[fn.__name__] == want
+
+
+def test_profile_run_on_the_card(cuda):
+    """profile_run's idle share is 1 - the union of the profiled rollout's
+    device records over its range, and it reports K1's sweeps a solve."""
+    from ns_tpu_torch.cli import profile_run
+
+    r = profile_run.profile(["chorin_fd", "--method", "explicit", "--nt",
+                             "10"])
+    assert 0.0 <= r["device_idle_share"] < 1.0
+    assert r["device_busy_ms"] <= r["profiled_range_ms"]
+    assert 1 <= r["sor_sweeps_per_solve"]["sor_redblack_fused"] <= 199
+
+
 def test_packed_wrapper_rejects_odd_ny(cuda):
     odd = torch.zeros((256, 255), device=cuda)
     with pytest.raises(ValueError, match="even ny"):

@@ -32,21 +32,30 @@ numpy copies of the JAX module's (that module imports jax), so the same
 seed gives bitwise-equal inputs in both packages. Rollouts are Python loops
 of `step` on the carry's device.
 
+The host-side constants (`make_ops`, `_dft_tables`, `_hermitian_weights`:
+float64 numpy, then pageable copies to the device, which wait for the
+stream) are built once per (config with nt = 0, device) and shared by every
+caller through `ops/cache.py::device_table`, as the 2D family's engines
+are; `constants_cache_info()` reports their hits and misses. Callers get
+the cached tensors themselves (the CUDA graphs of
+`runtime/engine.py::Rollout3DEngine` capture them) and never write into
+them.
+
 Trace spans (`utils/profiling.py::named_scope`, free when no profiler
-runs): `spectral3d.constants` around each host-side constant build made at
-call time (`make_ops`, `_dft_tables`, `_hermitian_weights`; none nests in
-another) and `spectral3d.nonlinear` around `nonlinear_term`.
+runs): `spectral3d.constants` around each host-side constant build, so it
+opens on a cache miss only (none nests in another), and
+`spectral3d.nonlinear` around `nonlinear_term`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
 
 import numpy as np
 import torch
 
 from ns_tpu_torch.core.device import resolve_device
+from ns_tpu_torch.ops.cache import device_table
 from ns_tpu_torch.ops.gemm import cmatmul
 from ns_tpu_torch.ops.kernels import transform3d_kernels as t3k
 from ns_tpu_torch.solvers.spectral_periodic import _c2r_keep
@@ -258,10 +267,26 @@ def _forcing_hat_np(cfg: Spectral3DConfig):
     return f_hat
 
 
+def _constants_key(cfg: Spectral3DConfig, device):
+    """The cache key of cfg's constants on `device`: nt dropped (no
+    constant depends on it) and the device as a tensor made there reports
+    it, so "cuda" and cuda:0 share an entry and None stays the default
+    device."""
+    return (dataclasses.replace(cfg, nt=0),
+            torch.empty(0, device=device).device)
+
+
 def make_ops(cfg: Spectral3DConfig, device=None):
     """Spectral constants for the active layout on `device`: real
     wavenumber arrays, the dealias mask (fft engine) and the forcing
-    spectrum as real/imaginary parts (keys as in the JAX package)."""
+    spectrum as real/imaginary parts (keys as in the JAX package). A new
+    dict over the cached tensors (`_constants_key`), which callers must not
+    write into."""
+    return dict(_ops_cached(*_constants_key(cfg, device)))
+
+
+@device_table(maxsize=4)
+def _ops_cached(cfg: Spectral3DConfig, device):
     with named_scope(CONSTANTS_SPAN):
         kx, ky, kz = _wavenumbers_np(cfg)
         k2 = kx * kx + ky * ky + kz * kz
@@ -321,7 +346,13 @@ def _dft_constants_np(cfg: Spectral3DConfig):
 
 
 def _dft_tables(cfg: Spectral3DConfig, device) -> dict:
-    """The DFT constants as complex tensors on `device`."""
+    """The DFT constants as complex tensors on `device`: a new dict over
+    the cached tensors, as `make_ops`."""
+    return dict(_dft_tables_cached(*_constants_key(cfg, device)))
+
+
+@device_table(maxsize=4)
+def _dft_tables_cached(cfg: Spectral3DConfig, device) -> dict:
     with named_scope(CONSTANTS_SPAN):
         return {k: torch.as_tensor(v, dtype=cfg.complex_dtype, device=device)
                 for k, v in _dft_constants_np(cfg).items()}
@@ -413,12 +444,12 @@ def leray_project(ops, v_hat: torch.Tensor) -> torch.Tensor:
                         v_hat[2] - ops["kz"] * corr])
 
 
-@lru_cache(maxsize=16)
+@device_table(maxsize=4)
 def _fused_lamb_op(cfg: Spectral3DConfig, device: torch.device):
     """The nonlinear term's physical leg under the fused route: x-inverse
     GEMM -> K8 (yz-inverse of (u, omega), u x omega, zy-forward; no
     physical field in device memory) -> x-forward GEMM. One closure per
-    (config, device), holding the DFT tables on that device."""
+    (config, device), holding the cached DFT tables on that device."""
     M = _dft_tables(cfg, device)
     prec = cfg.matmul_precision
 
@@ -676,7 +707,13 @@ def _np_dtype(cfg: Spectral3DConfig):
 
 def _hermitian_weights(cfg: Spectral3DConfig, device) -> torch.Tensor:
     """Conjugate-pair weights of the rfft z-half-spectrum in the active
-    layout: interior kz modes represent two full-spectrum modes."""
+    layout: interior kz modes represent two full-spectrum modes. The cached
+    tensor (`_constants_key`)."""
+    return _hermitian_weights_cached(*_constants_key(cfg, device))
+
+
+@device_table(maxsize=4)
+def _hermitian_weights_cached(cfg: Spectral3DConfig, device) -> torch.Tensor:
     with named_scope(CONSTANTS_SPAN):
         nzh = cfg.nz // 2 + 1
         w = np.full(nzh, 2.0)
@@ -687,6 +724,17 @@ def _hermitian_weights(cfg: Spectral3DConfig, device) -> torch.Tensor:
             w = w[:_compact_meta(cfg)[2]]
         return torch.as_tensor(w[None, None, :], dtype=cfg.real_dtype,
                                device=device)
+
+
+_CONSTANT_CACHES = {"make_ops": _ops_cached,
+                    "dft_tables": _dft_tables_cached,
+                    "hermitian_weights": _hermitian_weights_cached}
+
+
+def constants_cache_info() -> dict:
+    """Each cached constant builder's `cache_info()` (hits, misses,
+    maxsize, currsize), by the name of the function that reads it."""
+    return {name: f.cache_info() for name, f in _CONSTANT_CACHES.items()}
 
 
 def _norm(cfg: Spectral3DConfig) -> float:

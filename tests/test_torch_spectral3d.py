@@ -6,6 +6,8 @@ DFT sums, taken in another order; after 5 steps the two differ at ~1e-15).
 The initial conditions are the same numpy code and are compared bitwise.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -135,3 +137,137 @@ def test_shear_flow_exact_viscous_decay():
     fin = t3.rollout_final(tc, t3.init_from_velocity(tc, u0, "cpu"))
     close(t3.fields_from_hat(tc, fin[0]), u0 * np.exp(-0.1 * 50 * 1e-3),
           1e-12)
+
+
+# --- the host-side constants, cached per (config with nt = 0, device) --------
+
+PUBLIC = {"make_ops": t3.make_ops, "dft_tables": t3._dft_tables,
+          "hermitian_weights": t3._hermitian_weights}
+
+
+def _clear_constants():
+    for f in t3._CONSTANT_CACHES.values():
+        f.cache_clear()
+    t3._fused_lamb_op.cache_clear()
+
+
+def _fresh(name, cfg, device="cpu"):
+    """The builder's result made anew, past its cache."""
+    return t3._CONSTANT_CACHES[name].__wrapped__(
+        dataclasses.replace(cfg, nt=0), torch.device(device))
+
+
+def _same(got, want):
+    """Bitwise equal tensors, or dicts of them with the same keys."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _same(got[k], want[k])
+        return
+    assert got.dtype == want.dtype and got.device == want.device
+    assert torch.equal(got, want)
+
+
+def _cfg16(**kw):
+    return t3.Spectral3DConfig(**dict(dict(nt=3, nx=16, ny=16, nz=16), **kw))
+
+
+@pytest.mark.parametrize("forcing", ["none", "kolmogorov"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("engine", ["fft", "matmul"])
+def test_cached_constants_are_bitwise_a_fresh_build(engine, dtype, forcing):
+    cfg = _cfg16(transform=engine, dtype=dtype, forcing=forcing,
+                 forcing_k=2)
+    _clear_constants()
+    names = ["make_ops", "hermitian_weights"] + (
+        ["dft_tables"] if engine == "matmul" else [])
+    for name in names:
+        public = PUBLIC[name]
+        first = public(cfg, "cpu")
+        _same(first, _fresh(name, cfg))
+        _same(public(cfg, "cpu"), first)  # the hit
+        assert t3.constants_cache_info()[name].hits == 1
+
+
+def test_configs_differing_only_in_nt_share_one_entry():
+    """nt is dropped from the key, and None, "cpu" and torch.device("cpu")
+    name one device; another nu or dt is its own entry with its own visc.
+    Each caller gets its own dict over the shared tensors."""
+    cfg = _cfg16(transform="matmul")
+    _clear_constants()
+    ops = t3.make_ops(cfg, "cpu")
+    for other in (dataclasses.replace(cfg, nt=7),
+                  dataclasses.replace(cfg, nt=1)):
+        for dev in (None, "cpu", torch.device("cpu")):
+            again = t3.make_ops(other, dev)
+            assert again is not ops
+            assert all(again[k] is ops[k] for k in ops)
+    info = t3.constants_cache_info()["make_ops"]
+    assert (info.misses, info.hits, info.currsize) == (1, 6, 1)
+    ops["extra"] = ops["k2"]
+    assert "extra" not in t3.make_ops(cfg, "cpu")
+    for other in (dataclasses.replace(cfg, nu=2 * cfg.nu),
+                  dataclasses.replace(cfg, dt=2 * cfg.dt)):
+        own = t3.make_ops(other, "cpu")
+        _same(own, _fresh("make_ops", other))
+        assert not torch.equal(own["visc"], ops["visc"])
+    assert t3.constants_cache_info()["make_ops"].misses == 3
+
+
+JOB_ROUTES = [dict(transform="fft"),
+              dict(transform="matmul", matmul_precision="high"),
+              dict(transform="matmul", matmul_precision="default",
+                   use_pallas_transform=True)]
+
+
+def _job(cfg, step, u0):
+    """The benchmark's 3D job: init, nt steps, the three diagnostics."""
+    carry0 = t3.init_from_velocity(cfg, u0, "cpu")
+    carry = carry0
+    for _ in range(cfg.nt):
+        carry, _ = step(carry)
+    u_hat = carry[0]
+    return [*carry0, *carry, t3.energy(cfg, u_hat), t3.enstrophy(cfg, u_hat),
+            t3.divergence_max(cfg, u_hat)]
+
+
+@pytest.mark.parametrize("route", JOB_ROUTES, ids=["fft", "matmul", "fused"])
+def test_a_job_writes_into_no_cached_constant(route):
+    cfg = _cfg16(**route)
+    _clear_constants()
+    step, _ = t3.make_step(cfg, "cpu")
+    _job(cfg, step, t3.random_solenoidal_velocity(cfg, seed=5))
+    names = ["make_ops", "hermitian_weights"] + (
+        ["dft_tables"] if cfg.compact else [])
+    for name in names:
+        _same(PUBLIC[name](cfg, "cpu"), _fresh(name, cfg))
+
+
+def test_constants_first_built_in_inference_mode_serve_autograd():
+    """Built by a call under torch.inference_mode, the cached tensors are
+    still saved for a later backward (ops/cache.py::device_table)."""
+    cfg = _cfg16(transform="matmul", dtype="float64")
+    _clear_constants()
+    u0 = t3.random_solenoidal_velocity(cfg, seed=6)
+    with torch.inference_mode():
+        u_hat = t3.init_from_velocity(cfg, u0, "cpu")[0]
+        t3.enstrophy(cfg, u_hat)
+        t3.divergence_max(cfg, u_hat)
+    u_hat = u_hat.clone().requires_grad_(True)
+    (t3.enstrophy(cfg, u_hat) + t3.divergence_max(cfg, u_hat)).backward()
+    assert torch.isfinite(torch.view_as_real(u_hat.grad)).all()
+    assert t3.constants_cache_info()["make_ops"].hits >= 2
+
+
+@pytest.mark.parametrize("route", JOB_ROUTES, ids=["fft", "matmul", "fused"])
+def test_two_jobs_match_jobs_with_the_caches_cleared(route):
+    cfg = _cfg16(**route)
+    inputs = [t3.random_solenoidal_velocity(cfg, seed=s) for s in (7, 8)]
+    _clear_constants()
+    step, _ = t3.make_step(cfg, "cpu")
+    warm = [_job(cfg, step, u0) for u0 in inputs]
+    for u0, want in zip(inputs, warm):
+        _clear_constants()
+        cold_step, _ = t3.make_step(cfg, "cpu")
+        for g, w in zip(_job(cfg, cold_step, u0), want):
+            _same(g, w)
